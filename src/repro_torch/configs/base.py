@@ -1,0 +1,109 @@
+"""Architecture configuration dataclasses (torch counterpart of
+``repro.configs.base``).
+
+``ArchConfig`` keeps every field of the JAX package's dataclass, so a config
+can be converted field by field between the two; only ``pdtype``/``adtype``
+differ, returning torch dtypes.  ``reduced()`` derives the smoke-test scale
+variant of the same family.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    d_ff_shared: int = 0          # total shared-expert hidden width
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64
+    chunk: int = 256
+    conv_width: int = 4
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None      # default: d_model // n_heads
+    act: str = "silu_gated"             # silu_gated | relu2 | gelu
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_window: Optional[int] = None
+    n_global_layers: int = 0
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
+    n_patch_tokens: int = 0
+    param_dtype: str = "bfloat16"
+    act_dtype: str = "bfloat16"
+    subquadratic: bool = False
+    max_seq: int = 32_768
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return _DTYPES[self.act_dtype]
+
+    def n_params(self) -> int:
+        """Total parameter count (embedding included) of a dense config."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"n_params for family {self.family!r} is not ported")
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.qk_norm:
+            attn += 2 * hd
+        mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
+        total = self.n_layers * (attn + mlp + 2 * d)
+        total += self.vocab * d                      # embed
+        if not self.tie_embeddings:
+            total += self.vocab * d                  # lm head
+        return int(total + d)                        # + final norm
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test scale config of the same (dense) family."""
+        return dataclasses.replace(
+            self, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+            vocab=256, head_dim=16, max_seq=128)

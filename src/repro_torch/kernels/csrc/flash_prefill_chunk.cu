@@ -1,0 +1,82 @@
+// flash_prefill_chunk: C chunk queries x G heads against the KV arena, with
+// the chunk's own K/V already written at rows [prefix, prefix + C).
+//
+// Replaces the TPU kernel src/repro/kernels/flash_prefill_chunk.py:97
+// (flash_prefill_chunk / _fpc_kernel, pallas_call at :137).
+//
+// What bounds it on the H100: operations once C is large (at C = 512 and
+// prefix 512, G = 3: ~2.4 GFLOP per layer call against ~2 MB of K/V), bytes
+// for small chunks.  This first version computes on the CUDA cores in f32
+// (register micro-tiles over shared-memory strips), not on the tensor
+// cores; wgmma/TMA is later work.  Grid = (ceil(G * C / 32), B * KVH):
+// 32 folded query rows (row r = g * C + i) per CTA, which gives enough CTAs
+// without splitting the KV axis.  `prefix` is runtime data; strips past the
+// tile's last query position are skipped.
+//
+// Bit-identity pin: the CTA walks the keys in the same SPLIT-key splits as
+// flash_decode, each split from a fresh online-softmax state, and merges
+// the splits in order with the same formula as flash_decode's combine pass
+// (flash_common.cuh).  So row j equals flash_decode at pos = prefix + j bit
+// for bit, which speculative verify relies on (transformer.py:703-713 in
+// the reference).
+#include "flash_common.cuh"
+
+using namespace fk;
+
+constexpr int FPC_ROWS = 32;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) fpc_kernel(Problem p) {
+  extern __shared__ __align__(16) char smem[];
+  using TT = Tile<T, D, FPC_ROWS>;
+  TT t;
+  t.init(smem);
+  const int r0 = blockIdx.x * FPC_ROWS, bkv = blockIdx.y;
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  t.load_q(p, b, kvh, r0);
+  float A[TT::RPV][TT::DPT];
+#pragma unroll
+  for (int v = 0; v < TT::RPV; ++v)
+#pragma unroll
+    for (int w = 0; w < TT::DPT; ++w) A[v][w] = 0.f;
+  for (int k0 = 0; k0 < p.Sk; k0 += SPLIT) {
+    if (k0 > t.qlim[1]) break;      // causal: no row of the tile sees it
+    t.run_keys(p, b, kvh, k0, min(k0 + SPLIT, p.Sk));
+    t.merge_into(A);
+  }
+  t.store(p, b, kvh, r0, A, t.GL);
+}
+
+template <typename T, int D>
+static int fpc_run(const Problem& p, int B, cudaStream_t st) {
+  const size_t smem = Smem<D, FPC_ROWS>::bytes;
+  cudaError_t e = allow_smem(fpc_kernel<T, D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (p.G * p.C + FPC_ROWS - 1) / FPC_ROWS;
+  fpc_kernel<T, D><<<dim3(tiles, B * p.KVH), NT, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// q (B, C, H, D), k/v (B, Sk, KVH, D), o (B, C, H, D) by strides;
+// prefix (B,) int32 rows live before the chunk.
+extern "C" int fpc_launch(int dtype, int hd, const void* q, const void* k,
+                          const void* v, void* o,
+                          long long sqb, long long sqs, long long sqh,
+                          long long skb, long long sks, long long skh,
+                          long long svb, long long svs, long long svh,
+                          long long sob, long long sos, long long soh,
+                          int B, int KVH, int G, int C, int Sk,
+                          const int* prefix, int window, float scale,
+                          int vec, void* stream) {
+  Problem p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
+  p.skb = skb; p.sks = sks; p.skh = skh;
+  p.svb = svb; p.svs = svs; p.svh = svh;
+  p.sob = sob; p.sos = sos; p.soh = soh;
+  p.KVH = KVH; p.G = G; p.C = C; p.Sk = Sk;
+  p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0;
+  p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return FK_DISPATCH(dtype, hd, fpc_run, p, B, st);
+}

@@ -1,0 +1,117 @@
+"""Flash-decode: one-token attention over a length-masked KV arena.
+
+Port of ``repro/kernels/flash_decode.py`` (``flash_decode``, the Pallas
+kernel at :96).  Two versions of one function live here:
+
+  * :func:`flash_decode_plain` — the blockwise online-softmax loop of the
+    reference's ``ops._flash_decode_ref`` in plain PyTorch (the CPU path
+    and the oracle the CUDA kernel is held against);
+  * :func:`launch` — the hand-written CUDA kernel
+    (``csrc/flash_decode.cu``): split-KV CTAs + an in-order combine pass,
+    reading the (B, S, KVH, D) arena in place through strides.
+
+``ops.flash_decode`` picks between them by the tensors' device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ops import NEG_INF, _pad_to
+
+NAME = "flash_decode"
+SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+REPLACES = "src/repro/kernels/flash_decode.py:96"
+SPLIT = 128          # keys per split CTA; must match fk::SPLIT
+MAX_GROUP = 16
+
+#: kernel launches through :func:`launch` (reset by the caller)
+launches = 0
+
+
+def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
+                       bk: int = 512):
+    """q: (B, KVH, G, hd); k/v: (B, S, KVH, hd); lengths: (B,) live rows.
+    Strip-mined online softmax over ``bk``-row KV strips with the per-slot
+    tail mask ``kpos < min(lengths, S)`` (and ``kpos >= lengths - window``)."""
+    b, s, kvh, hd = k.shape
+    g = q.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    bk = min(bk, s)
+    kp = _pad_to(k, bk, 1)
+    vp = _pad_to(v, bk, 1)
+    nkb = kp.shape[1] // bk
+    dev = q.device
+    q32 = q.float() * scale
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    m = torch.full((b, kvh, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, hd), dtype=torch.float32, device=dev)
+    ar = torch.arange(bk, device=dev)
+    for jb in range(nkb):
+        kb = kp[:, jb * bk:(jb + 1) * bk].float()
+        vb = vp[:, jb * bk:(jb + 1) * bk].float()
+        kpos = jb * bk + ar[None, :]
+        # kpos < s: a length past the arena (a parked slot) attends the
+        # arena only, never the strip padding (the reference's ref path
+        # attends the zero pad rows there; its output is discarded)
+        mask = (kpos < lengths[:, None]) & (kpos < s)        # (B, bk)
+        if window is not None:
+            mask &= kpos >= (lengths - window)[:, None]
+        mk = mask[:, None, None, :]
+        sc = torch.einsum("bkgh,bskh->bkgs", q32, kb)
+        sc = torch.where(mk, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgs,bskh->bkgh", p, vb)
+        m = m_new
+    safe = torch.where(l > 0, l, 1.0)
+    return (acc / safe[..., None]).to(q.dtype)
+
+
+_ARGS = ([_build.I, _build.I] + [_build.P] * 5 + [_build.LL] * 10
+         + [_build.I] * 4 + [_build.P, _build.I, _build.F, _build.I,
+                             _build.I, _build.P])
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           lengths: Optional[torch.Tensor], *, window: Optional[int] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """CUDA kernel.  q: (B, H, D); k/v: (B, S, KVH, D) (any strides with a
+    unit last axis — an arena layer view is read in place); lengths: (B,)
+    live rows per slot or None (all S).  Returns (B, H, D) in q's dtype."""
+    global launches
+    _build.require_cuda(NAME, q, k, v, lengths)
+    b, h, d = q.shape
+    _, s, kvh, _ = k.shape
+    if h % kvh:
+        raise ValueError(f"n_heads={h} not divisible by kv_heads={kvh}")
+    g = h // kvh
+    if g > MAX_GROUP:
+        raise ValueError(f"GQA group {g} > {MAX_GROUP} not instantiated")
+    dt = _build.dtype_code(q, k, v)
+    _build.head_dim_ok(d)
+    q, k, v = (_build.inner_contiguous(t) for t in (q, k, v))
+    if lengths is not None:
+        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    nsplit = -(-s // SPLIT)
+    part = torch.empty(b * kvh * nsplit * g * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    fn = _build.bind(NAME, "fd_launch", _ARGS)
+    code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+              _build.ptr(o), _build.ptr(part),
+              q.stride(0), q.stride(1),
+              k.stride(0), k.stride(1), k.stride(2),
+              v.stride(0), v.stride(1), v.stride(2),
+              o.stride(0), o.stride(1),
+              b, kvh, g, s, _build.ptr(lengths), int(window or 0),
+              float(scale), nsplit, _build.vec_ok(k, v), _build.stream_of(q))
+    launches += 1
+    _build.check(code, NAME)
+    return o

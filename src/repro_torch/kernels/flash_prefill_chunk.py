@@ -1,0 +1,106 @@
+"""Chunk-append prefill attention: one prompt chunk against the KV arena.
+
+Port of ``repro/kernels/flash_prefill_chunk.py`` (``flash_prefill_chunk``,
+the Pallas kernel at :97).  The chunk's own K/V rows are already written at
+rows [prefix, prefix + C) of the arena; chunk query i sits at position
+prefix + i and sees ``kpos <= prefix + i``.  ``prefix`` is runtime data.
+
+  * :func:`flash_prefill_chunk_plain` — the reference's
+    ``ops._flash_prefill_chunk_ref`` in plain PyTorch;
+  * :func:`launch` — the CUDA kernel (``csrc/flash_prefill_chunk.cu``),
+    which walks the keys in flash_decode's splits and merge order so chunk
+    row j equals flash_decode at pos = prefix + j bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ops import NEG_INF, _pad_to
+
+NAME = "flash_prefill_chunk"
+SOURCE = "src/repro_torch/kernels/csrc/flash_prefill_chunk.cu"
+REPLACES = "src/repro/kernels/flash_prefill_chunk.py:97"
+
+#: kernel launches through :func:`launch` (reset by the caller)
+launches = 0
+
+
+def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
+                              bk: int = 512):
+    """q: (B, KVH, G, C, hd); k/v: (B, S, KVH, hd); prefix: (B,) rows live
+    before the chunk.  Strip-mined online softmax; chunk row i attends
+    ``kpos <= prefix + i`` (and ``> prefix + i - window``)."""
+    b, s, kvh, hd = k.shape
+    g, c = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else hd ** -0.5
+    bk = min(bk, s)
+    kp = _pad_to(k, bk, 1)
+    vp = _pad_to(v, bk, 1)
+    nkb = kp.shape[1] // bk
+    dev = q.device
+    q32 = q.float() * scale
+    prefix = prefix.to(device=dev, dtype=torch.int64)
+    qpos = prefix[:, None] + torch.arange(c, device=dev)[None, :]   # (B, C)
+    m = torch.full((b, kvh, g, c), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g, c), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, c, hd), dtype=torch.float32, device=dev)
+    ar = torch.arange(bk, device=dev)
+    for jb in range(nkb):
+        kb = kp[:, jb * bk:(jb + 1) * bk].float()
+        vb = vp[:, jb * bk:(jb + 1) * bk].float()
+        kpos = (jb * bk + ar)[None, None, :]                  # (1, 1, bk)
+        mask = (kpos <= qpos[..., None]) & (kpos < s)        # (B, C, bk)
+        if window is not None:
+            mask &= kpos > (qpos[..., None] - window)
+        mk = mask[:, None, None]
+        sc = torch.einsum("bkgch,bskh->bkgcs", q32, kb)
+        sc = torch.where(mk, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgcs,bskh->bkgch",
+                                                    p, vb)
+        m = m_new
+    safe = torch.where(l > 0, l, 1.0)
+    return (acc / safe[..., None]).to(q.dtype)
+
+
+_ARGS = ([_build.I, _build.I] + [_build.P] * 4 + [_build.LL] * 12
+         + [_build.I] * 5 + [_build.P, _build.I, _build.F, _build.I,
+                             _build.P])
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           prefix: torch.Tensor, *, window: Optional[int] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """CUDA kernel.  q: (B, C, H, D); k/v: (B, S, KVH, D) read in place by
+    strides; prefix: (B,) int rows live before the chunk.  Returns
+    (B, C, H, D) in q's dtype."""
+    global launches
+    _build.require_cuda(NAME, q, k, v, prefix)
+    b, c, h, d = q.shape
+    _, s, kvh, _ = k.shape
+    if h % kvh:
+        raise ValueError(f"n_heads={h} not divisible by kv_heads={kvh}")
+    dt = _build.dtype_code(q, k, v)
+    _build.head_dim_ok(d)
+    q, k, v = (_build.inner_contiguous(t) for t in (q, k, v))
+    prefix = prefix.to(device=q.device, dtype=torch.int32).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
+    fn = _build.bind(NAME, "fpc_launch", _ARGS)
+    code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+              _build.ptr(o),
+              q.stride(0), q.stride(1), q.stride(2),
+              k.stride(0), k.stride(1), k.stride(2),
+              v.stride(0), v.stride(1), v.stride(2),
+              o.stride(0), o.stride(1), o.stride(2),
+              b, kvh, h // kvh, c, s, _build.ptr(prefix), int(window or 0),
+              float(scale), _build.vec_ok(k, v), _build.stream_of(q))
+    launches += 1
+    _build.check(code, NAME)
+    return o

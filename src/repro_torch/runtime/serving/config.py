@@ -1,0 +1,62 @@
+"""EngineConfig: the serving engine's construction surface (the subset of
+``repro/runtime/serving/config.py`` that this port serves).
+
+Fields not listed here (prefix sharing, speculative decoding, faults,
+health, admission caps, donation) belong to later slices: passing one
+raises ``TypeError``, and a KV format other than ``fp32`` raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.runtime.serving.chunking import validate_buckets
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """``max_slots``       decode-batch width (concurrent sequences)
+    ``max_seq``         per-slot arena depth (cache rows)
+    ``depth``           in-flight decode steps (0 = blocking dispatch)
+    ``page_size``       cache-page granularity (rows) for admission control
+    ``num_pages``       page-pool size; None = cover the full arena
+    ``prefill_chunks``  bucket sizes for chunked prefill; None = monolithic
+    ``prefill_budget``  prompt tokens ingested per engine step; None =
+                        largest bucket
+    ``kv_format``       KV-arena storage format; only "fp32" (stores at the
+                        activation dtype) is ported
+    ``base_seed``       run-level seed (weights of ``launch.serve``)
+    """
+    max_slots: int = 8
+    max_seq: int = 256
+    depth: int = 2
+    page_size: int = 16
+    num_pages: Optional[int] = None
+    prefill_chunks: Optional[tuple[int, ...]] = None
+    prefill_budget: Optional[int] = None
+    kv_format: str = "fp32"
+    base_seed: int = 0
+
+    def __post_init__(self):
+        if self.kv_format != "fp32":
+            raise NotImplementedError(
+                f"kv_format={self.kv_format!r} is not ported yet (ROADMAP "
+                f"Open items 1.7.4); only 'fp32' is")
+        for name in ("max_slots", "max_seq", "page_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"EngineConfig.{name} must be >= 1, "
+                                 f"got {getattr(self, name)}")
+        if self.depth < 0:
+            raise ValueError(f"EngineConfig.depth must be >= 0, "
+                             f"got {self.depth}")
+        if self.num_pages is not None and self.num_pages < 1:
+            raise ValueError(f"EngineConfig.num_pages must be >= 1 or None, "
+                             f"got {self.num_pages}")
+        if self.prefill_chunks is not None:
+            object.__setattr__(self, "prefill_chunks",
+                               validate_buckets(self.prefill_chunks))
+        if self.prefill_budget is not None and self.prefill_budget < 1:
+            raise ValueError(
+                f"EngineConfig.prefill_budget must be >= 1 or None, "
+                f"got {self.prefill_budget}")

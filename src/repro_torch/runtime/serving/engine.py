@@ -1,0 +1,311 @@
+"""Continuous-batching serving engine (port of ``repro/runtime/serving/
+engine.py``'s ``ServingEngine`` for greedy decode over the fp32 KV format).
+
+The host runs scheduling and admission; the device runs one decode step
+over the whole slot batch.  As in the reference:
+
+  1. **One step over every slot.**  Dead slots keep decoding (masked): the
+     new token is kept only where ``active``, and ``pos += active``
+     freezes a dead slot's position (reference engine.py:199-216).
+  2. **Steps flow through a DispatchQueue.**  ``depth`` steps stay in
+     flight; the host reads step *i - depth*'s tokens (copied into pinned
+     memory behind a CUDA event) while the device runs step *i*.  A
+     finished slot decodes a few extra masked tokens that the host drops
+     through the slot-generation guard.
+  3. **One resident arena, written in place.**  Monolithic prefill writes
+     the slot's rows of the arena directly (no batch=1 cache + splice),
+     chunked prefill writes each chunk's rows, decode writes one row per
+     slot per layer; the reference gets the same effect from buffer
+     donation.
+
+Prefill comes in two modes: monolithic (``prefill_chunks=None``; one call
+per prompt) and chunked (bucket-sized chunks interleaved with decode under
+a per-step token budget).  A slot being chunk-prefilled parks its position
+at ``PARKED_POS``: in-flight decode steps then leave its rows untouched
+(the row write is masked to ``pos < max_seq``).
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.dispatch import DispatchQueue, Readback
+from repro_torch.models.layers import PARKED_POS
+from repro_torch.runtime.serving import chunking
+from repro_torch.runtime.serving.cache import PagedKVCacheManager
+from repro_torch.runtime.serving.config import EngineConfig
+from repro_torch.runtime.serving.request import Request, RequestState, Status
+from repro_torch.runtime.serving.scheduler import Scheduler
+
+
+class ServingEngine:
+    """Continuous-batching greedy generation over a dense LM.
+
+    ``model`` exposes ``init_cache`` / ``prefill`` / ``prefill_chunk`` /
+    ``decode_step`` (``models.transformer.LM``); ``params`` live on the
+    model's device, which is where the engine keeps its state.
+    """
+
+    def __init__(self, model, cfg, params, *,
+                 config: Optional[EngineConfig] = None, clock=None):
+        self._clock = clock if clock is not None else time.perf_counter
+        config = config if config is not None else EngineConfig()
+        self.config = config
+        self.model = model
+        self.cfg = cfg
+        self.params = params
+        self.device = model.device
+        max_slots = self.max_slots = config.max_slots
+        max_seq = self.max_seq = config.max_seq
+        self.depth = config.depth
+        self.prefill_chunks = config.prefill_chunks
+        self.prefill_budget = (config.prefill_budget
+                               if config.prefill_budget is not None
+                               else (max(self.prefill_chunks)
+                                     if self.prefill_chunks else 0))
+        self.kv_format = config.kv_format
+        self.base_seed = int(config.base_seed)
+        num_pages = config.num_pages
+        if num_pages is None:
+            num_pages = max_slots * -(-max_seq // config.page_size)
+        self.cache_mgr = PagedKVCacheManager(num_pages, config.page_size)
+        self.scheduler = Scheduler(max_slots, self.cache_mgr,
+                                   max_len=max_seq,
+                                   chunked=self.prefill_chunks is not None)
+        dev = self.device
+        self._tokens = torch.zeros(max_slots, dtype=torch.int64, device=dev)
+        self._pos = torch.zeros(max_slots, dtype=torch.int64, device=dev)
+        self._active = torch.zeros(max_slots, dtype=torch.int64, device=dev)
+        self._cache = model.init_cache(max_slots, max_seq,
+                                       kv_format=self.kv_format)
+        self.arena_bytes = sum(t.numel() * t.element_size()
+                               for t in self._cache.values())
+        self.kv_row_bytes = self.arena_bytes // (max_slots * max_seq)
+        self._queue = DispatchQueue(self._decode_step, depth=self.depth)
+        # readbacks of in-flight steps with the slot -> (state, generation)
+        # map seen at submit: a token is credited only if its slot still
+        # holds the same admission generation
+        self._pending: collections.deque = collections.deque()
+        self._slot_gen = [0] * max_slots
+        self._results: dict[Any, RequestState] = {}
+        self._prefill_shapes: set = set()
+        self._prefill_tick = 0
+        self.stats = {"decode_steps": 0, "prefills": 0, "prefill_chunks": 0,
+                      "prefill_shapes": 0, "prefill_rows": 0,
+                      "tokens_out": 0, "requests": 0,
+                      "host_blocked_s": 0.0, "ttft_s": {},
+                      "kv_format": self.kv_format,
+                      "kv_row_bytes": self.kv_row_bytes,
+                      "arena_bytes": self.arena_bytes}
+
+    # -- the device step -------------------------------------------------------
+    def _decode_step(self) -> torch.Tensor:
+        """One greedy decode step over every slot (in place on the slot
+        vectors and the arena); returns the raw argmax vector the host
+        reads back ``depth`` steps later."""
+        logits = self.model.decode_step(self.params, self._tokens,
+                                        self._cache, self._pos)
+        sampled = torch.argmax(logits, dim=-1)
+        self._tokens.copy_(torch.where(self._active == 1, sampled,
+                                       self._tokens))
+        self._pos.add_(self._active)
+        return sampled
+
+    def _read_now(self, value: torch.Tensor) -> np.ndarray:
+        t0 = time.perf_counter()
+        host = Readback(value).wait()
+        self.stats["host_blocked_s"] += time.perf_counter() - t0
+        return host
+
+    def _note_prefill_shape(self, key) -> None:
+        self._prefill_shapes.add(key)
+        self.stats["prefill_shapes"] = len(self._prefill_shapes)
+
+    def _first_token(self, st: RequestState) -> None:
+        if st.ttft_s is not None:
+            return      # preemption recompute: keep the first first-token
+        st.ttft_s = self._clock() - st.submitted_at
+        self.stats["ttft_s"][st.request.uid] = st.ttft_s
+
+    # -- intake --------------------------------------------------------------
+    def submit(self, request: Request) -> RequestState:
+        if not request.sampling.is_greedy:
+            raise NotImplementedError(
+                "sampled decode is not ported yet (ROADMAP Open items "
+                "1.5); submit greedy requests (temperature 0)")
+        need = request.prompt.shape[0] + 1
+        if need > self.max_seq:
+            raise ValueError(
+                f"request {request.uid!r}: prompt needs {need} rows "
+                f"but a slot holds max_seq={self.max_seq}")
+        plan = None
+        if self.prefill_chunks is not None:
+            plan = chunking.chunk_plan(request.prompt.shape[0],
+                                       self.prefill_chunks)
+            if sum(plan) > self.max_seq:
+                raise ValueError(
+                    f"request {request.uid!r}: padded chunk plan {plan} "
+                    f"needs {sum(plan)} rows but a slot holds "
+                    f"max_seq={self.max_seq}")
+        st = self.scheduler.submit(request, chunk_plan=plan)
+        st.submitted_at = self._clock()
+        self.stats["requests"] += 1
+        self._results[request.uid] = st
+        return st
+
+    # -- admission (prefill into the slot's arena rows) -------------------------
+    def _admit(self) -> None:
+        for st in self.scheduler.schedule():
+            if st.slot is None:
+                continue
+            if st.status == Status.PREFILLING:
+                # chunked: park the slot so in-flight decode steps leave
+                # its rows alone (their row write is masked off)
+                self._pos[st.slot] = PARKED_POS
+                continue
+            if st.status != Status.RUNNING:
+                continue
+            self._slot_gen[st.slot] += 1
+            prompt = torch.as_tensor(st.request.prompt, dtype=torch.int64,
+                                     device=self.device)[None, :]
+            view = {key: leaf[:, st.slot:st.slot + 1]
+                    for key, leaf in self._cache.items()}
+            logits = self.model.prefill(self.params, prompt, view)
+            self.stats["prefills"] += 1
+            self._note_prefill_shape(("prefill", int(prompt.shape[1])))
+            self._activate_slot(st, logits)
+
+    def _activate_slot(self, st: RequestState, logits) -> None:
+        """Take the prompt's first token (argmax of ``logits`` (1, V) at
+        pos0 = prompt_len) and put the slot into the decode batch — shared
+        by monolithic admission and the chunked path's final chunk."""
+        slot = st.slot
+        pos0 = st.prompt_len
+        tok = int(self._read_now(torch.argmax(logits[0]).reshape(1))[0])
+        self._first_token(st)
+        self._tokens[slot] = tok
+        self._pos[slot] = pos0
+        self._active[slot] = 1
+        self.stats["tokens_out"] += 1
+        for dslot, _ in self.scheduler.on_token(slot, tok):
+            self._active[dslot] = 0
+
+    # -- chunked prefill -------------------------------------------------------
+    def _advance_prefill(self) -> None:
+        """Ingest prompt chunks for PREFILLING slots, up to
+        ``prefill_budget`` tokens this step (always at least one chunk):
+        least-ingested-first, and every other step the FIFO-oldest
+        PREFILLING slot first (reference engine.py:980)."""
+        if self.prefill_chunks is None:
+            return
+        self._prefill_tick += 1
+        spent = 0
+        budget = self.prefill_budget
+
+        def prefilling():
+            return [st for st in self.scheduler.running.values()
+                    if st.status == Status.PREFILLING
+                    and st.slot is not None]
+
+        if self._prefill_tick % 2:
+            states = prefilling()
+            if not states:
+                return
+            oldest = min(states, key=lambda s: s.seq)
+            size = oldest.chunk_plan[oldest.chunk_idx]
+            self._prefill_one_chunk(oldest, size)
+            spent += size
+        while True:
+            states = sorted(prefilling(),
+                            key=lambda s: (s.prefill_pos, s.seq))
+            if not states:
+                return
+            for st in states:
+                if st.status != Status.PREFILLING or st.slot is None:
+                    continue        # departed via an earlier activation
+                size = st.chunk_plan[st.chunk_idx]
+                if spent and spent + size > budget:
+                    return
+                self._prefill_one_chunk(st, size)
+                spent += size
+
+    def _prefill_one_chunk(self, st: RequestState, size: int) -> None:
+        req = st.request
+        plen = st.prompt_len
+        start = st.prefill_pos
+        chunk = np.zeros((size,), np.int64)
+        real = min(size, plen - start)
+        chunk[:real] = req.prompt[start:start + real]
+        is_last = st.chunk_idx == len(st.chunk_plan) - 1
+        logits = self.model.prefill_chunk(
+            self.params, torch.as_tensor(chunk, device=self.device)[None, :],
+            self._cache, st.slot, start, real - 1)
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_rows"] += size
+        self._note_prefill_shape(("chunk", size))
+        st.prefill_pos = start + size
+        st.chunk_idx += 1
+        if not is_last:
+            return
+        self.scheduler.finish_prefill(st.slot)
+        # steps submitted mid-prefill are stale for this slot: drop them
+        self._slot_gen[st.slot] += 1
+        self._activate_slot(st, logits)
+
+    # -- the continuous-batching loop ----------------------------------------
+    def step(self) -> None:
+        """One engine iteration: retire lagged outputs, admit, ingest
+        prompt chunks, submit one decode step."""
+        self._drain_pending(limit=self.depth)
+        self._admit()
+        self._advance_prefill()
+        if not any(st.status == Status.RUNNING
+                   for st in self.scheduler.running.values()):
+            return
+        read = self._queue.submit()
+        self.stats["decode_steps"] += 1
+        snapshot = {slot: (st, self._slot_gen[slot])
+                    for slot, st in self.scheduler.running.items()}
+        self._pending.append((read, snapshot))
+
+    def _drain_pending(self, *, limit: int) -> None:
+        """Credit the tokens of steps older than ``limit`` steps."""
+        while len(self._pending) > limit:
+            read, snapshot = self._pending.popleft()
+            t0 = time.perf_counter()
+            host_tokens = read.wait()
+            self.stats["host_blocked_s"] += time.perf_counter() - t0
+            for slot, (st, gen) in snapshot.items():
+                # stale: the request left this slot after the step was
+                # submitted, was still prefilling then, or the slot was
+                # recycled to a newer admission
+                if (st.status != Status.RUNNING or st.slot != slot
+                        or gen != self._slot_gen[slot]):
+                    continue
+                self.stats["tokens_out"] += 1
+                for dslot, _ in self.scheduler.on_token(
+                        slot, int(host_tokens[slot])):
+                    self._active[dslot] = 0
+
+    def run(self, *, max_steps: Optional[int] = None) -> dict:
+        """Drive until every submitted request finishes.  Returns
+        {uid: (gen_tokens,) np.int32}."""
+        steps = 0
+        while not self.scheduler.all_done:
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"engine did not converge in {max_steps} steps "
+                    f"(waiting={len(self.scheduler.waiting)}, "
+                    f"running={len(self.scheduler.running)})")
+            self.step()
+            steps += 1
+            if not self.scheduler.running and self._pending:
+                self._queue.drain()
+                self._drain_pending(limit=0)
+        self._queue.drain()
+        self._drain_pending(limit=0)
+        return {uid: st.output() for uid, st in self._results.items()}

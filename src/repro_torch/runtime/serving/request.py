@@ -1,0 +1,67 @@
+"""Serving request objects (copy of ``repro/runtime/serving/request.py``
+without the fault, deadline and prefix-sharing fields).
+
+A :class:`Request` is immutable user input; :class:`RequestState` is the
+scheduler's mutable bookkeeping for it.  States are host-only — device
+state lives in the engine's slot batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Optional
+
+import numpy as np
+
+from repro_torch.runtime.serving.sampling import GREEDY, SamplingParams
+
+
+class Status(enum.Enum):
+    WAITING = "waiting"        # queued, not yet admitted to a slot
+    PREFILLING = "prefilling"  # owns a slot; prompt chunks being ingested
+    RUNNING = "running"        # owns a slot; in the decode batch
+    FINISHED = "finished"      # hit EOS or max_new_tokens; slot released
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request.  ``prompt`` is a (S,) int32 token array."""
+    uid: Any
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    sampling: SamplingParams = GREEDY
+
+    def __post_init__(self):
+        object.__setattr__(self, "prompt",
+                           np.asarray(self.prompt, np.int32).reshape(-1))
+        if self.prompt.size == 0:
+            raise ValueError(f"request {self.uid!r}: empty prompt")
+        if self.max_new_tokens < 1:
+            raise ValueError(f"request {self.uid!r}: max_new_tokens < 1")
+
+
+@dataclasses.dataclass
+class RequestState:
+    request: Request
+    status: Status = Status.WAITING
+    slot: Optional[int] = None
+    generated: list = dataclasses.field(default_factory=list)
+    prefills: int = 0                     # >1 => recomputed after preemption
+    finish_reason: Optional[str] = None   # "eos" | "max_new_tokens"
+    seq: int = 0                          # arrival order (scheduler-assigned)
+    # chunked-prefill cursor (engine-owned; rewound to 0 on preemption so
+    # recompute replays the identical chunk sequence)
+    chunk_plan: Optional[list] = None
+    chunk_idx: int = 0
+    prefill_pos: int = 0
+    # service-time bookkeeping (engine-owned)
+    submitted_at: Optional[float] = None
+    ttft_s: Optional[float] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.request.prompt.shape[0])
+
+    def output(self) -> np.ndarray:
+        return np.asarray(self.generated, np.int32)

@@ -1,0 +1,161 @@
+"""Continuous-batching scheduler (port of ``repro/runtime/serving/
+scheduler.py``'s ``Scheduler`` without the fault, health and prefix-share
+hooks).
+
+Keeps the decode batch full every step: finished sequences retire and
+release their slot + pages, waiting requests are admitted into free slots
+as soon as pages exist for their prompt, and when cache growth runs out of
+pages the **youngest** running sequence is preempted (pages freed, request
+requeued in arrival order, deterministic greedy recompute on
+re-admission).  Victim-is-youngest is the progress guarantee: the oldest
+running sequence is never evicted.  Pure host logic.
+"""
+from __future__ import annotations
+
+import collections
+import heapq
+
+from repro_torch.runtime.serving.cache import PagedKVCacheManager
+from repro_torch.runtime.serving.request import Request, RequestState, Status
+
+
+class Scheduler:
+    def __init__(self, max_slots: int, cache: PagedKVCacheManager, *,
+                 max_len: int | None = None, chunked: bool = False):
+        """``max_len``: the per-slot arena depth (engine's max_seq).
+        ``chunked``: admissions enter PREFILLING (the engine ingests prompt
+        chunks across steps and calls :meth:`finish_prefill`) instead of
+        going straight to RUNNING via one monolithic prefill."""
+        if max_slots < 1:
+            raise ValueError(max_slots)
+        self.max_slots = max_slots
+        self.cache = cache
+        self.max_len = max_len
+        self.chunked = chunked
+        self.waiting: collections.deque[RequestState] = collections.deque()
+        self.running: dict[int, RequestState] = {}
+        self._free_slots: list[int] = list(range(max_slots))
+        heapq.heapify(self._free_slots)
+        self._next_seq = 0
+        self.stats = {"admitted": 0, "finished": 0, "preempted": 0}
+
+    # -- intake --------------------------------------------------------------
+    def submit(self, request: Request,
+               chunk_plan: list | None = None) -> RequestState:
+        # a request that can't fit the pool even alone would preempt itself
+        # forever; a chunked request's padded final chunk occupies rows past
+        # the prompt, so its worst case is max(padded plan, prompt + gen)
+        worst = request.prompt.shape[0] + request.max_new_tokens
+        if chunk_plan is not None:
+            worst = max(worst, sum(chunk_plan))
+        if self.cache.pages_for(worst) > self.cache.num_pages:
+            raise ValueError(
+                f"request {request.uid!r} needs {worst} cache rows but the "
+                f"pool holds {self.cache.num_pages * self.cache.page_size}")
+        if self.max_len is not None and worst > self.max_len:
+            raise ValueError(
+                f"request {request.uid!r} needs {worst} cache rows but a "
+                f"slot holds max_seq={self.max_len}")
+        st = RequestState(request, seq=self._next_seq, chunk_plan=chunk_plan)
+        self._next_seq += 1
+        self.waiting.append(st)
+        return st
+
+    @property
+    def all_done(self) -> bool:
+        return not self.waiting and not self.running
+
+    # -- admission -----------------------------------------------------------
+    def schedule(self) -> list[RequestState]:
+        """Admit FIFO-head requests into free slots (smallest first) while
+        cache pages last; returns the newly admitted states (RUNNING, or
+        PREFILLING under chunked prefill).  Admission reserves pages for
+        prompt + the first generated token, and under chunked prefill at
+        least the padded chunk plan."""
+        admitted = []
+        while self.waiting and self._free_slots:
+            st = self.waiting[0]
+            need = st.prompt_len + 1
+            if st.chunk_plan is not None:
+                need = max(need, sum(st.chunk_plan))
+            slot = self._free_slots[0]
+            if not self.cache.allocate(slot, need):
+                break                      # head-of-line blocks
+            heapq.heappop(self._free_slots)
+            self.waiting.popleft()
+            st.slot = slot
+            st.status = Status.PREFILLING if self.chunked else Status.RUNNING
+            st.prefills += 1
+            self.running[slot] = st
+            self.stats["admitted"] += 1
+            admitted.append(st)
+        return admitted
+
+    def finish_prefill(self, slot: int) -> RequestState:
+        """The engine ingested the request's final prompt chunk: it joins
+        the decode batch."""
+        st = self.running[slot]
+        if st.status != Status.PREFILLING:
+            raise ValueError(f"slot {slot} is {st.status}, not PREFILLING")
+        st.status = Status.RUNNING
+        return st
+
+    # -- per-step outcome ----------------------------------------------------
+    def on_token(self, slot: int,
+                 token: int) -> list[tuple[int, RequestState]]:
+        """Record one sampled token for ``slot``: retirement (EOS /
+        max_new_tokens) and cache growth for the next position, preempting
+        the youngest running sequence (possibly this one) until the row
+        fits.  Returns the departures ``(slot, state)``."""
+        st = self.running.get(slot)
+        if st is None:
+            return []
+        st.generated.append(int(token))
+        req = st.request
+        if req.eos_id is not None and int(token) == req.eos_id:
+            return [self._finish(st, "eos")]
+        if len(st.generated) >= req.max_new_tokens:
+            return [self._finish(st, "max_new_tokens")]
+        departures = []
+        new_len = st.prompt_len + len(st.generated) + 1
+        while not self.cache.extend(slot, new_len):
+            victim = max(self.running.values(), key=lambda s: s.seq)
+            departures.append(self._preempt(victim))
+            if victim is st:
+                break
+        return departures
+
+    def _finish(self, st: RequestState,
+                reason: str) -> tuple[int, RequestState]:
+        slot = st.slot
+        st.status = Status.FINISHED
+        st.finish_reason = reason
+        self._release(st)
+        self.stats["finished"] += 1
+        return slot, st
+
+    def _preempt(self, st: RequestState) -> tuple[int, RequestState]:
+        """Out of pages: drop the slot, requeue in arrival order.  Greedy
+        decode is deterministic, so the recompute replays the same tokens;
+        a victim caught mid-prefill rewinds its chunk cursor to 0."""
+        slot = st.slot
+        self._release(st)
+        st.status = Status.WAITING
+        st.generated.clear()
+        st.chunk_idx = 0
+        st.prefill_pos = 0
+        idx = 0
+        for w in self.waiting:
+            if w.seq > st.seq:
+                break
+            idx += 1
+        self.waiting.insert(idx, st)
+        self.stats["preempted"] += 1
+        return slot, st
+
+    def _release(self, st: RequestState) -> None:
+        slot = st.slot
+        self.running.pop(slot, None)
+        self.cache.free(slot)
+        heapq.heappush(self._free_slots, slot)
+        st.slot = None

@@ -1,0 +1,90 @@
+"""The port stands alone: it imports neither jax nor the JAX package, a
+request for the card without one raises instead of running the plain
+versions, and nothing on the CPU path launches a kernel."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import device as device_mod  # noqa: E402
+from repro_torch.kernels import (flash_attention, flash_decode,  # noqa: E402
+                                 flash_prefill_chunk, ops)
+from repro_torch.models import registry  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {repo!r})
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m.split(".")[0] in ("repro", "jax")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    script = _IMPORT_ALL.format(src=os.path.join(REPO, "src"), repo=REPO)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, proc.stdout
+    assert bad == "[]", bad
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_mod.resolve("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.build("llama3.2-3b", reduced=True)      # default: cuda
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "llama3.2-3b", "--requests", "1"])
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """The launchers never fall back: CPU operands are an error there (the
+    plain version is ops' choice for CPU tensors, not the launcher's)."""
+    q, kv = torch.zeros(2, 4, 8), torch.zeros(2, 16, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode.launch(q, kv, kv, torch.tensor([3, 4]))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill_chunk.launch(torch.zeros(2, 3, 4, 8), kv, kv,
+                                   torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch(torch.zeros(1, 4, 5, 8),
+                               torch.zeros(1, 2, 5, 8),
+                               torch.zeros(1, 2, 5, 8))
+    with pytest.raises(ValueError, match="devices"):
+        ops.flash_decode(q.to("meta"), kv.to("meta"), kv.to("meta"))
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    ops.reset_launch_counts()
+    bundle = registry.build("llama3.2-3b", reduced=True, device="cpu")
+    model = bundle.model
+    params = model.init(0)
+    cache = model.init_cache(2, 48)
+    prompt = torch.from_numpy(np.arange(9) % bundle.cfg.vocab)[None]
+    view = {k: v[:, :1] for k, v in cache.items()}
+    model.prefill(params, prompt, view)
+    model.prefill_chunk(params, prompt, cache, 1, 0, 8)
+    model.decode_step(params, torch.tensor([1, 2]), cache,
+                      torch.tensor([9, 9]))
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                   "flash_prefill_chunk": 0}
