@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` becomes one ``lib<name>-<hash>.so`` with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes).  The
 hash covers every source under ``csrc/`` and the compiler flags, so an edit
 rebuilds and an unchanged tree reuses the library.  Libraries are built at
-first use into ``<repo>/build/kernels`` (``REPRO_TORCH_BUILD_DIR``
-overrides it); :func:`build_all` starts one nvcc per source, all at once.
+first use into ``<repo>/build/kernels``; :func:`build_all` starts one nvcc
+per source, all at once.
 
 The C entry points take pointers and the CUDA stream as ``c_void_p`` and
 return ``cudaGetLastError()`` after their launches; :func:`check` raises on
@@ -36,9 +36,6 @@ BUILD_SECONDS: dict[str, float] = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     # src/repro_torch/kernels/_build.py -> the checkout root
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -55,8 +52,7 @@ def nvcc() -> str:
 
 
 def _flags() -> list[str]:
-    extra = ["-Xptxas", "-v"] if os.environ.get("REPRO_TORCH_PTXAS_V") else []
-    return ARCH_FLAGS + NVCC_FLAGS + extra
+    return ARCH_FLAGS + NVCC_FLAGS
 
 
 def _lib_path(name: str) -> Path:
@@ -90,8 +86,6 @@ def _finish(name: str, out: Path, tmp, proc, t0: float) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
-    if log.strip() and os.environ.get("REPRO_TORCH_PTXAS_V"):
-        print(log)
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
 

@@ -84,38 +84,17 @@ def layer_params(stacked, i: int):
     return stacked[i]
 
 
-# f32 logits from bf16 operands without upcasting the head (a 3072 x 128256
-# f32 copy per step at llama3.2-3b width): torch.mm(..., out_dtype=f32)
-# where this torch offers it on the device, probed once per device type.
-_F32_OUT_MM: dict = {}
-
-
-def _f32_out_mm_ok(dev: torch.device) -> bool:
-    ok = _F32_OUT_MM.get(dev.type)
-    if ok is None:
-        a = torch.ones((1, 2), dtype=torch.bfloat16, device=dev)
-        try:
-            ok = torch.mm(a, a.T, out_dtype=torch.float32).dtype \
-                == torch.float32
-        except (RuntimeError, TypeError, NotImplementedError):
-            ok = False
-        _F32_OUT_MM[dev.type] = ok
-    return ok
-
-
 def head_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, d) @ (d, V) -> f32 logits (reference: ``preferred_element_type
-    = f32``).  f32 operands multiply in f32; bf16 operands use the f32-out
-    GEMM where available, else the bf16 GEMM's output is rounded to bf16
-    before the f32 cast (the one place the port's logits round differently
-    from the reference; see PERF.md)."""
+    = f32``).  f32 operands multiply in f32.  On the card, bf16 operands go
+    through the f32-out bf16 GEMM (``torch.mm(..., out_dtype=f32)``), which
+    does not upcast the head (a 3072 x 128256 f32 copy per step at
+    llama3.2-3b width); on the CPU they are upcast."""
     if h.dtype == torch.float32 and w.dtype == torch.float32:
         return h @ w
     if h.device.type == "cpu":
         return h.float() @ w.float()
-    if _f32_out_mm_ok(h.device):
-        return torch.mm(h, w, out_dtype=torch.float32)
-    return torch.mm(h, w).float()
+    return torch.mm(h, w, out_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

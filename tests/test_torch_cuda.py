@@ -15,6 +15,19 @@ from repro_torch.kernels import ops  # noqa: E402
 PARKED = (1 << 30) + 1
 
 
+def _within_limit(got, want):
+    """Every element within its limit: 2e-5 in f32; in bf16 one bf16 ulp of
+    the larger magnitude plus 2^-20 (both versions round one f32 result to
+    bf16 once; ``chip_smoke.py`` states the argument)."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        return bool(((g - w).abs() <= 2e-5).all())
+    big = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(big)
+    ulp = torch.where(big == 0, 0.0, torch.ldexp(torch.ones_like(big), e - 8))
+    return bool(((g - w).abs() <= ulp + 2.0 ** -20).all())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -24,9 +37,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2.0 ** -5)])
-def test_cuda_kernels_match_plain(cuda, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def rn(*shape):
@@ -36,16 +48,16 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
     lens = torch.tensor([1, 17, PARKED], device=cuda)
     got = ops.flash_decode(q, k, v, lengths=lens)
     want = ops.PLAIN.flash_decode(q, k, v, lengths=lens)
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _within_limit(got, want)
     qc = rn(2, 8, 6, 16)
     pre = torch.tensor([0, 9], device=cuda)
     got = ops.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre)
     want = ops.PLAIN.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre)
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _within_limit(got, want)
     qa, ka, va = rn(2, 6, 33, 16), rn(2, 2, 33, 16), rn(2, 2, 33, 16)
     got = ops.attention(qa, ka, va)
     want = ops.PLAIN.attention(qa, ka, va)
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _within_limit(got, want)
 
 
 @pytest.mark.gpu
