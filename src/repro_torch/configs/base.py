@@ -86,24 +86,41 @@ class ArchConfig:
         return _DTYPES[self.act_dtype]
 
     def n_params(self) -> int:
-        """Total parameter count (embedding included) of a dense config."""
-        if self.family != "dense":
+        """Total parameter count (embedding included) of a dense or ssm
+        config, by the reference's formula (configs/base.py:90)."""
+        if self.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"n_params for family {self.family!r} is not ported")
         d, hd = self.d_model, self.hd
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * hd * d
-        if self.qk_norm:
-            attn += 2 * hd
-        mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
-        total = self.n_layers * (attn + mlp + 2 * d)
+        if self.family == "ssm":
+            s = self.ssm
+            di, nh = s.d_inner(d), s.n_heads(d)
+            gn = s.n_groups * s.d_state
+            per_layer = (d * (2 * di + 2 * gn + nh)       # in projections
+                         + s.conv_width * (di + 2 * gn)   # depthwise conv
+                         + 2 * nh + nh                    # A_log, dt_bias, D
+                         + di + di * d + 2 * d)           # norm + out + lns
+        else:
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d
+            if self.qk_norm:
+                attn += 2 * hd
+            mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
+            per_layer = attn + mlp + 2 * d
+        total = self.n_layers * per_layer
         total += self.vocab * d                      # embed
         if not self.tie_embeddings:
             total += self.vocab * d                  # lm head
         return int(total + d)                        # + final norm
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test scale config of the same (dense) family."""
-        return dataclasses.replace(
-            self, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-            vocab=256, head_dim=16, max_seq=128)
+        """Smoke-test scale config of the same (dense or ssm) family."""
+        kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                  vocab=256, head_dim=16, max_seq=128)
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=8, headdim=16,
+                                            chunk=16)
+            if self.family == "ssm":
+                kw["n_heads"] = 8      # d_inner(64)=128 / headdim 16
+                kw["n_kv_heads"] = 8
+        return dataclasses.replace(self, **kw)

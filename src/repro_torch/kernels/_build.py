@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_attention", "flash_decode", "flash_prefill_chunk")
+KERNELS = ("flash_attention", "flash_decode", "flash_prefill_chunk", "ssd")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo"]

@@ -1,13 +1,16 @@
 """Public kernel API: dispatch by device + tail padding.
 
-Port of ``repro/kernels/ops.py`` for the three attention kernels of the
-serving path, with the reference's argument layouts:
+Port of ``repro/kernels/ops.py`` for the kernels of the serving path, with
+the reference's argument layouts:
 
   * :func:`attention` — (..., S, D) forward attention (ops.py:194);
   * :func:`flash_decode` — (B, H, hd) queries over a (B, S, KVH, hd) cache
     with per-slot ``lengths`` (ops.py:324);
   * :func:`flash_prefill_chunk` — (B, C, H, hd) chunk queries over the
-    arena with a runtime ``prefix`` (ops.py:450).
+    arena with a runtime ``prefix`` (ops.py:450);
+  * :func:`ssd` — the Mamba2 SSD chunked scan (ops.py:555), and
+    :func:`ssd_decode_step`, its one-token recurrence (ops.py:578; plain
+    PyTorch on every device, as the reference leaves it to XLA).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version (the counterpart of the reference's ``ref`` mode),
@@ -47,8 +50,9 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import flash_decode as _fd  # noqa: E402
 from repro_torch.kernels import flash_prefill_chunk as _fpc  # noqa: E402
+from repro_torch.kernels import ssd as _ssd  # noqa: E402
 
-KERNEL_MODULES = (_fa, _fd, _fpc)
+KERNEL_MODULES = (_fa, _fd, _fpc, _ssd)
 
 
 def launch_counts() -> dict[str, int]:
@@ -204,9 +208,59 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fpc.launch(q, k, v, prefix, window=window, scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# SSD (Mamba2)
+# ---------------------------------------------------------------------------
+
+def _ssd_plain(x, log_a, B, C, *, chunk=256, initial_state=None):
+    bh, nb = x.shape[0], B.shape[0]
+    if nb != bh:
+        if nb < 1 or bh % nb:
+            raise ValueError(f"ssd: {nb} B/C rows do not divide {bh} rows")
+        B = B.repeat_interleave(bh // nb, dim=0)
+        C = C.repeat_interleave(bh // nb, dim=0)
+    return _ssd.ssd_plain(x, log_a, B, C, chunk=chunk,
+                          initial_state=initial_state)
+
+
+def ssd(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int = 256,
+        initial_state: Optional[torch.Tensor] = None):
+    """Chunked SSD: x (BH, S, P), log_a (BH, S), B/C (BH, S, N) -> (y,
+    final state f32 (BH, N, P)); ``initial_state`` (BH, N, P) seeds the
+    recurrence (serving's chunked prefill threads it across chunks).
+
+    As in the reference, any S is accepted; on the card the kernel masks a
+    ragged tail itself (no fallback), where the reference's ``ops.ssd``
+    gives way to its jnp path (ops.py:570).  In addition B/C may hold
+    BH / r rows, row g shared by x rows g * r .. g * r + r - 1 (n_groups <
+    n_heads), which the kernel reads in place.  ``chunk`` is the plain
+    version's chunk; the kernel's inner chunk is its own (64 tokens): the
+    result differs only by f32 rounding.
+    """
+    if not _on_cuda(x, log_a, B, C, initial_state):
+        return _ssd_plain(x, log_a, B, C, chunk=chunk,
+                          initial_state=initial_state)
+    return _ssd.launch(x, log_a, B, C, initial_state=initial_state)
+
+
+def ssd_decode_step(x_t, log_a_t, B_t, C_t, state):
+    """Single-token SSD recurrence (O(N·P) per head): x_t (BH, P), log_a_t
+    (BH,), B_t/C_t (BH, N), state (BH, N, P) f32.  Returns (y (BH, P) in
+    x_t's dtype, new state f32).  Plain PyTorch on every device, as in the
+    reference (jnp there); the state is returned, not written: the caller
+    writes it into its arena (masked for parked slots)."""
+    state = (torch.exp(log_a_t.float())[:, None, None] * state
+             + B_t.float()[:, :, None] * x_t.float()[:, None, :])
+    y = torch.einsum("bn,bnp->bp", C_t.float(), state)
+    return y.to(x_t.dtype), state
+
+
 #: the plain versions behind the public signatures, on any device — the
 #: oracle a model is built with (``kernels=ops.PLAIN``) to check the
 #: kernel path on the card; the serving path never uses it
 PLAIN = types.SimpleNamespace(attention=_attention_plain,
                               flash_decode=_flash_decode_plain,
-                              flash_prefill_chunk=_flash_prefill_chunk_plain)
+                              flash_prefill_chunk=_flash_prefill_chunk_plain,
+                              ssd=_ssd_plain,
+                              ssd_decode_step=ssd_decode_step)

@@ -3,7 +3,8 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b --no-reduced
 --requests 4 --prompt-len 1024 --gen 64 --slots 4 --depth 2``
 
-Port of ``repro/launch/serve.py`` for greedy dense serving.  Runs on the
+Port of ``repro/launch/serve.py`` for greedy serving of the ported
+families (dense, and ssm: ``--arch mamba2-2.7b``).  Runs on the
 card unless ``--device cpu``.  Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; prompts come from
 ``numpy.random.default_rng(0)`` as in the reference (odd requests get a
@@ -122,8 +123,9 @@ def report_stats(eng: ServingEngine) -> None:
     stats = dict(eng.stats)
     ttft = sorted(stats.pop("ttft_s", {}).values())
     print("engine:", stats)
+    unit = "state bytes/slot" if eng.model.layers.recurrent else "bytes/row"
     print(f"arena: {eng.arena_bytes / 1e6:.2f} MB resident "
-          f"(kv_format={eng.kv_format}, {eng.kv_row_bytes} bytes/row, "
+          f"(kv_format={eng.kv_format}, {eng.arena_unit_bytes} {unit}, "
           f"written in place)")
     print("scheduler:", eng.scheduler.stats)
     if ttft:

@@ -1,10 +1,14 @@
 """Weights bridge: the JAX package's parameter tree -> the port's.
 
 The reference LM's parameters (``transformer.py:335-346``) are a nested
-dict: ``embed``, ``layers.{ln1,attn.{wq,wk,wv,wo,q_norm?,k_norm?},ln2,
-mlp.{w_up,w_gate?,w_down}}`` (each leaf stacked on a leading L axis),
-``final_norm`` and ``lm_head`` (absent when embeddings are tied).  The port
-keeps that layout exactly, so the bridge is a checked leaf-by-leaf copy.
+dict: ``embed``, ``layers`` (dense: ``{ln1,attn.{wq,wk,wv,wo,q_norm?,
+k_norm?},ln2,mlp.{w_up,w_gate?,w_down}}``; ssm: ``{ln,mamba.{w_z,w_x,w_B,
+w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23), each leaf
+stacked on a leading L axis, ``final_norm`` and ``lm_head`` (absent when
+embeddings are tied).  The port keeps that layout exactly, so the bridge
+is a checked leaf-by-leaf copy.  Every leaf takes ``cfg.param_dtype``
+except the ssm family's ``A_log``/``dt_bias``/``D``, which are float32
+whatever the param dtype, as in the reference (mamba2.py:42-44).
 Callers hand the tree over as numpy arrays (``np.asarray`` of each leaf),
 so this module never sees a JAX type.
 """
@@ -16,9 +20,34 @@ import torch
 from repro_torch.core import device as device_mod
 
 
+#: leaves kept in float32 whatever the param dtype
+F32_LEAVES = ("layers.mamba.A_log", "layers.mamba.dt_bias", "layers.mamba.D")
+
+
+def _ssm_layer_shapes(cfg) -> dict:
+    s, d, nl = cfg.ssm, cfg.d_model, cfg.n_layers
+    di, nh = s.d_inner(d), s.n_heads(d)
+    gn = s.n_groups * s.d_state
+    m = "layers.mamba."
+    return {
+        "layers.ln.scale": (nl, d),
+        m + "w_z": (nl, d, di), m + "w_x": (nl, d, di),
+        m + "w_B": (nl, d, gn), m + "w_C": (nl, d, gn),
+        m + "w_dt": (nl, d, nh), m + "conv": (nl, s.conv_width, di + 2 * gn),
+        m + "A_log": (nl, nh), m + "dt_bias": (nl, nh), m + "D": (nl, nh),
+        m + "norm.scale": (nl, di), m + "w_out": (nl, di, d),
+    }
+
+
 def expected_shapes(cfg) -> dict:
-    """The dense LM's parameter tree as {path: shape}."""
+    """The LM's parameter tree as {path: shape} (dense or ssm)."""
     d, hd, nl = cfg.d_model, cfg.hd, cfg.n_layers
+    if cfg.family == "ssm":
+        shapes = {"embed": (cfg.vocab, d), **_ssm_layer_shapes(cfg),
+                  "final_norm.scale": (d,)}
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (d, cfg.vocab)
+        return shapes
     shapes = {
         "embed": (cfg.vocab, d),
         "layers.ln1.scale": (nl, d),
@@ -54,8 +83,8 @@ def _flatten(tree, prefix="") -> dict:
 
 def params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
     """Convert the reference's parameter tree (numpy leaves) into the
-    port's parameters on ``device``, at ``cfg.param_dtype``.  Raises on a
-    missing, extra or mis-shaped leaf."""
+    port's parameters on ``device``, at ``cfg.param_dtype`` (float32 for
+    :data:`F32_LEAVES`).  Raises on a missing, extra or mis-shaped leaf."""
     dev = device_mod.resolve(device)
     flat = _flatten(tree)
     want = expected_shapes(cfg)
@@ -73,5 +102,6 @@ def params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
         *parents, leaf = path.split(".")
         for name in parents:
             node = node.setdefault(name, {})
-        node[leaf] = t.to(device=dev, dtype=cfg.pdtype)
+        dtype = torch.float32 if path in F32_LEAVES else cfg.pdtype
+        node[leaf] = t.to(device=dev, dtype=dtype)
     return params

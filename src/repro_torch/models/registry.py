@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> config + model.
 
-Port of ``repro/models/registry.py`` for the dense family.  The other
-families of the reference raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+Port of ``repro/models/registry.py`` for the dense and ssm families.  The
+other families of the reference raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -10,22 +10,27 @@ import dataclasses
 from typing import Any
 
 from repro_torch.configs import (deepseek_coder_33b, llama3_2_3b,
-                                 nemotron_4_15b, qwen3_14b)
+                                 mamba2_2_7b, nemotron_4_15b, qwen3_14b)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import mamba2 as S
 from repro_torch.models import transformer as T
 
 _CONFIGS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
-    for c in (deepseek_coder_33b, nemotron_4_15b, qwen3_14b, llama3_2_3b)
+    for c in (deepseek_coder_33b, nemotron_4_15b, qwen3_14b, llama3_2_3b,
+              mamba2_2_7b)
 }
+
+#: family -> its layer set behind the LM driver
+_LAYER_SETS = {"dense": T.DENSE, "ssm": S.SSM}
 
 ARCH_NAMES: tuple[str, ...] = tuple(sorted(_CONFIGS))
 
-# the reference's non-dense architectures and the ROADMAP item porting them
+# the reference's architectures not ported yet and the ROADMAP item for each
 _NOT_PORTED = {
     "hymba-1.5b": "hybrid", "llava-next-34b": "vlm",
-    "mamba2-2.7b": "ssm", "qwen2-moe-a2.7b": "moe",
+    "qwen2-moe-a2.7b": "moe",
     "qwen3-moe-30b-a3b": "moe", "whisper-large-v3": "encdec",
 }
 
@@ -43,8 +48,9 @@ def config(name: str) -> ArchConfig:
 
 def build_model(cfg: ArchConfig, *, device="cuda", kernels=ops):
     """The family driver for a config (full or reduced)."""
-    if cfg.family == "dense":
-        return T.LM(cfg, device=device, kernels=kernels)
+    layers = _LAYER_SETS.get(cfg.family)
+    if layers is not None:
+        return T.LM(cfg, layers, device=device, kernels=kernels)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Open items 1.8)")
 

@@ -1,22 +1,26 @@
-"""Decoder-only LM: dense layer functions + the serving drivers.
+"""Decoder-only LM: dense layer functions + the family-pluggable drivers.
 
-Port of ``repro/models/transformer.py`` for the dense family: the layer
-functions (:55-101), ``attention_prefill`` (:169) and the ``LM`` driver
-(:245) with ``init``, ``init_cache``, ``prefill``, ``prefill_chunk`` /
-``_chunk_hidden`` and ``decode_step`` / ``_decode_rows``.
+Port of ``repro/models/transformer.py``: the dense layer functions
+(:55-101), ``attention_prefill`` (:169) and the ``LM`` driver (:245) with
+``init``, ``init_cache``, ``prefill``, ``prefill_chunk`` / ``_chunk_hidden``
+and ``decode_step`` / ``_decode_rows``.  As in the reference the driver is
+family-pluggable: a :class:`LayerSet` bundles one family's layer functions
+and arena (:data:`DENSE` here, ``mamba2.SSM`` for the ssm family), and the
+driver runs any of them.
 
 Parameters keep the reference's layout — per-layer tensors stacked on a
 leading L axis, weights stored (in, out) and applied as ``x @ W`` — so a
 JAX parameter pytree converts leaf by leaf (``models/convert.py``).  The
-reference's ``lax.scan`` over layers is a Python loop over L here.  The KV
-arena ``{"k", "v"}`` of (L, slots, max_seq, KVH, hd) is resident and
-written in place: each layer writes its own rows into its arena slice and
-then attends it, where the reference scans read-only views and scatters
-once after the scan (under buffer donation).  Logits come out in f32.
+reference's ``lax.scan`` over layers is a Python loop over L here.  The
+arena (dense: ``{"k", "v"}`` of (L, slots, max_seq, KVH, hd)) is resident
+and written in place: each layer writes its own rows or state into its
+arena slice, where the reference scans read-only views and scatters once
+after the scan (under buffer donation).  Logits come out in f32.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -29,9 +33,12 @@ from repro_torch.models import layers as L
 # dense layer
 # ---------------------------------------------------------------------------
 
-def dense_layer_chunk(p, cfg, x, slot_kv, positions, start, prefix, *,
-                      window=None, kops=ops):
-    """One prompt chunk through a dense layer (reference :74)."""
+def dense_layer_chunk(p, cfg, x, slot_kv, positions, start, nvalid, prefix,
+                      *, window=None, kops=ops):
+    """One prompt chunk through a dense layer (reference :74).  ``nvalid``
+    is unused: pad rows land past the prompt and are overwritten by decode
+    before any query attends them."""
+    del nvalid
     h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
     x = x + L.attention_chunk(p["attn"], cfg, h, slot_kv, positions, start,
                               prefix, window=window, kops=kops)
@@ -97,76 +104,130 @@ def head_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(h, w, out_dtype=torch.float32)
 
 
+def stack_layers(n_layers: int, make, device) -> torch.Tensor:
+    """(n_layers, ...) tensor of ``make()`` draws, made one layer-slice at
+    a time (the full-width weights never exist twice in f32)."""
+    first = make()
+    out = torch.empty((n_layers, *first.shape), dtype=first.dtype,
+                      device=device)
+    out[0] = first
+    for i in range(1, n_layers):
+        out[i] = make()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# family layer sets
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerSet:
+    """One family's layers behind the :class:`LM` driver — the port's form
+    of the reference's hooks (transformer.py:255-269).  Every layer
+    function reads and writes its per-layer arena view in place:
+
+      * ``init_params(cfg, gen, device)`` -> the stacked ``layers`` tree;
+      * ``init_cache(cfg, batch, max_seq, kv_format, device)`` -> the
+        stacked arena {leaf: (L, batch * f, ...)};
+      * ``factors(cfg)`` -> {leaf: f}, the per-leaf batch factor: leaf dim
+        1 is slots x f (1 for K/V and conv leaves, n_heads for the fused
+        SSD state; reference ``_cache_factors``, :451);
+      * ``recurrent``: the arena holds per-slot state with no sequence
+        axis, so its size does not grow with max_seq;
+      * ``prefill_layer(p, cfg, x, view_l, positions, *, kops)``;
+      * ``chunk_layer(p, cfg, x, view_l, positions, start, nvalid, prefix,
+        *, kops)``: ``nvalid`` real tokens, the rest padding;
+      * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops)``: slots parked
+        at ``PARKED_POS`` must come out untouched.
+    """
+    init_params: Callable
+    init_cache: Callable
+    factors: Callable
+    recurrent: bool
+    prefill_layer: Callable
+    chunk_layer: Callable
+    decode_layer: Callable
+
+
+def _dense_init_params(cfg, gen, dev) -> dict:
+    """N(0, 1) scaled by fan-in^-1/2 for every projection (reference
+    layers.py:160-174, :450-459), unit norms."""
+    pd, d, nl = cfg.pdtype, cfg.d_model, cfg.n_layers
+
+    def ones(n):
+        return torch.ones((nl, n), dtype=pd, device=dev)
+
+    def normal(shape, std):
+        return stack_layers(nl, lambda: L._normal(gen, shape, std, pd, dev),
+                            dev)
+
+    std_in, std_ff = d ** -0.5, cfg.d_ff ** -0.5
+    std_o = (cfg.n_heads * cfg.hd) ** -0.5
+    shapes = {"wq": ((d, cfg.n_heads * cfg.hd), std_in),
+              "wk": ((d, cfg.n_kv_heads * cfg.hd), std_in),
+              "wv": ((d, cfg.n_kv_heads * cfg.hd), std_in),
+              "wo": ((cfg.n_heads * cfg.hd, d), std_o)}
+    attn = {name: normal(s, sd) for name, (s, sd) in shapes.items()}
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": ones(cfg.hd)}
+        attn["k_norm"] = {"scale": ones(cfg.hd)}
+    shapes = {"w_up": ((d, cfg.d_ff), std_in),
+              "w_down": ((cfg.d_ff, d), std_ff)}
+    if cfg.act == "silu_gated":
+        shapes["w_gate"] = ((d, cfg.d_ff), std_in)
+    mlp = {name: normal(s, sd) for name, (s, sd) in shapes.items()}
+    return {"ln1": {"scale": ones(d)}, "attn": attn,
+            "ln2": {"scale": ones(d)}, "mlp": mlp}
+
+
+def _dense_init_cache(cfg, batch, max_seq, kv_format, device) -> dict:
+    return L.init_kv_cache(cfg, batch, max_seq, kv_format=kv_format,
+                           device=device, n_layers=cfg.n_layers)
+
+
+#: the dense family: K/V arena rows, attention kernels
+DENSE = LayerSet(
+    init_params=_dense_init_params, init_cache=_dense_init_cache, factors=lambda cfg: {"k": 1, "v": 1},
+    recurrent=False, prefill_layer=_prefill_layer,
+    chunk_layer=dense_layer_chunk, decode_layer=dense_layer_decode_rows)
+
+
 # ---------------------------------------------------------------------------
 # LM driver
 # ---------------------------------------------------------------------------
 
 class LM:
-    """Dense decoder-only LM: parameter init, arena init and the three
-    serving drivers (monolithic prefill, chunked prefill, decode step).
+    """Decoder-only LM: parameter init, arena init and the three serving
+    drivers (monolithic prefill, chunked prefill, decode step) over one
+    family's :class:`LayerSet` (``layers``, which ``models/registry.py``
+    picks per family).
 
     ``device``: where ``init``/``init_cache`` allocate ("cuda" unless the
     caller asks for "cpu"; a missing card raises).  ``kernels``: the
-    attention-op namespace — :mod:`repro_torch.kernels.ops` (dispatch by
+    kernel-op namespace — :mod:`repro_torch.kernels.ops` (dispatch by
     device: the CUDA kernels on the card) or ``ops.PLAIN`` (the plain
     versions everywhere, the on-card oracle).
     """
 
-    def __init__(self, cfg, *, device="cuda", kernels=ops):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported (ROADMAP Open items "
-                f"1.8); only 'dense' is")
+    def __init__(self, cfg, layers, *, device="cuda", kernels=ops):
         self.cfg = cfg
+        self.layers = layers
         self.device = device_mod.resolve(device)
         self.kops = kernels
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int = 0) -> dict:
         """Random weights from an explicit ``torch.Generator`` seeded with
-        ``seed``, with the reference's distributions: N(0, 1) scaled by
-        fan-in^-1/2 for every projection (layers.py:160-174, :450-459),
-        d^-1/2 for the embedding and head tables (:491), unit norms.  Made
-        on ``self.device`` one layer-slice at a time."""
+        ``seed``, with the reference's distributions (the family's layers,
+        then d^-1/2 for the embedding and head tables, layers.py:491, unit
+        norms), made on ``self.device``."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        pd, d, nl = cfg.pdtype, cfg.d_model, cfg.n_layers
-
-        def stacked(make):
-            first = make()
-            out = torch.empty((nl, *first.shape), dtype=first.dtype,
-                              device=dev)
-            out[0] = first
-            for i in range(1, nl):
-                out[i] = make()
-            return out
-
-        def ones(n):
-            return torch.ones((nl, n), dtype=pd, device=dev)
-
-        std_in, std_ff = d ** -0.5, cfg.d_ff ** -0.5
-        std_o = (cfg.n_heads * cfg.hd) ** -0.5
-        shapes = {"wq": ((d, cfg.n_heads * cfg.hd), std_in),
-                  "wk": ((d, cfg.n_kv_heads * cfg.hd), std_in),
-                  "wv": ((d, cfg.n_kv_heads * cfg.hd), std_in),
-                  "wo": ((cfg.n_heads * cfg.hd, d), std_o)}
-        attn = {name: stacked(lambda s=s, sd=sd: L._normal(gen, s, sd, pd,
-                                                           dev))
-                for name, (s, sd) in shapes.items()}
-        if cfg.qk_norm:
-            attn["q_norm"] = {"scale": ones(cfg.hd)}
-            attn["k_norm"] = {"scale": ones(cfg.hd)}
-        shapes = {"w_up": ((d, cfg.d_ff), std_in),
-                  "w_down": ((cfg.d_ff, d), std_ff)}
-        if cfg.act == "silu_gated":
-            shapes["w_gate"] = ((d, cfg.d_ff), std_in)
-        mlp = {name: stacked(lambda s=s, sd=sd: L._normal(gen, s, sd, pd,
-                                                          dev))
-               for name, (s, sd) in shapes.items()}
+        pd, d = cfg.pdtype, cfg.d_model
+        layers = self.layers.init_params(cfg, gen, dev)
         params = {
             "embed": L.embed_init(gen, cfg.vocab, d, pd, dev),
-            "layers": {"ln1": {"scale": ones(d)}, "attn": attn,
-                       "ln2": {"scale": ones(d)}, "mlp": mlp},
+            "layers": layers,
             "final_norm": {"scale": torch.ones(d, dtype=pd, device=dev)},
         }
         if not cfg.tie_embeddings:
@@ -181,32 +242,49 @@ class LM:
     # -- arena ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
                    kv_format: str = "fp32") -> dict:
-        """Stacked per-layer caches {"k", "v"} of (L, batch, max_seq, KVH,
-        hd) at the activation dtype (the fp32 storage format)."""
-        return L.init_kv_cache(self.cfg, batch, max_seq, kv_format=kv_format,
-                               device=self.device,
-                               n_layers=self.cfg.n_layers)
+        """The family's stacked per-layer arena for ``batch`` slots (dense:
+        {"k", "v"} of (L, batch, max_seq, KVH, hd) at the activation dtype,
+        the fp32 storage format)."""
+        return self.layers.init_cache(self.cfg, batch, max_seq, kv_format,
+                                      self.device)
+
+    def num_slots(self, cache: dict) -> int:
+        factors = self.layers.factors(self.cfg)
+        key = next(iter(cache))
+        return cache[key].shape[1] // factors[key]
+
+    def slot_view(self, cache: dict, slot: int) -> dict:
+        """Slot ``slot``'s rows of every arena leaf across all layers, as
+        views (writes land in the arena): leaf (L, slots * f, ...) ->
+        (L, f, ...) with the leaf's batch factor f (reference
+        ``_slot_view``, :588).  ``slot`` is a host int: the reference
+        clamps a traced index; here an out-of-range slot is an error."""
+        nslots = self.num_slots(cache)
+        if not (isinstance(slot, int) and 0 <= slot < nslots):
+            raise ValueError(f"slot {slot!r} outside [0, {nslots})")
+        factors = self.layers.factors(self.cfg)
+        return {key: leaf[:, slot * factors[key]:(slot + 1) * factors[key]]
+                for key, leaf in cache.items()}
 
     @staticmethod
-    def _layer_view(cache, i: int, slot: Optional[int] = None) -> dict:
-        if slot is None:
-            return {key: leaf[i] for key, leaf in cache.items()}
-        return {key: leaf[i, slot:slot + 1] for key, leaf in cache.items()}
+    def _layer_view(cache: dict, i: int) -> dict:
+        return {key: leaf[i] for key, leaf in cache.items()}
 
     # -- drivers -------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor,
                 cache: dict) -> torch.Tensor:
-        """Run the prompt, fill rows [0, S) of ``cache`` (a (L, B, Smax,
-        ...) arena or a slot view of one) in place, return last-position
-        logits (B, V) f32."""
+        """Run the prompt, fill ``cache`` (a (L, B*f, ...) arena or a
+        ``slot_view`` of one) in place — dense: rows [0, S); recurrent: the
+        state after the prompt — and return last-position logits (B, V)
+        f32."""
         cfg = self.cfg
         b, s = tokens.shape
         x = L.embed_lookup(params["embed"], tokens)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for i in range(cfg.n_layers):
-            x = _prefill_layer(layer_params(params["layers"], i), cfg, x,
-                               self._layer_view(cache, i), positions,
-                               kops=self.kops)
+            x = self.layers.prefill_layer(
+                layer_params(params["layers"], i), cfg, x,
+                self._layer_view(cache, i), positions, kops=self.kops)
         h = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
         return head_logits(h[:, -1], self.head(params))
 
@@ -214,36 +292,38 @@ class LM:
                       slot: int, start: int, last_idx: int) -> torch.Tensor:
         """Ingest one prompt chunk into slot ``slot`` of the arena.
 
-        tokens: (1, C); rows [start, start + C) of the slot are written in
-        place (rows past max_seq dropped); returns the logits (1, V) f32 at
-        the chunk's last real token ``last_idx``.  ``slot``/``start``/
-        ``last_idx`` are host ints: the reference clamps a traced slot index
-        (``_slot_view``); here an out-of-range slot is an error.
+        tokens: (1, C); the chunk occupies rows [start, start + C) of the
+        slot (dense: those rows are written in place, rows past max_seq
+        dropped; recurrent: the slot's state is carried from ``start`` — reset
+        at start 0 — and only the ``last_idx + 1`` real tokens enter it).
+        Returns the logits (1, V) f32 at the chunk's last real token
+        ``last_idx``.  ``slot``/``start``/``last_idx`` are host ints.
         """
-        h = self._chunk_hidden(params, tokens, cache, slot, start)
+        h = self._chunk_hidden(params, tokens, cache, slot, start,
+                               last_idx + 1)
         return head_logits(h[:, last_idx], self.head(params))
 
-    def _chunk_hidden(self, params, tokens, cache, slot: int, start: int):
+    def _chunk_hidden(self, params, tokens, cache, slot: int, start: int,
+                      nvalid: int):
         cfg = self.cfg
-        nslots = cache["k"].shape[1]
-        if not (isinstance(slot, int) and 0 <= slot < nslots):
-            raise ValueError(f"slot {slot!r} outside [0, {nslots})")
+        view = self.slot_view(cache, slot)
         b, c = tokens.shape
         x = L.embed_lookup(params["embed"], tokens)
         positions = (start + torch.arange(c, device=x.device))[None]
         positions = positions.expand(b, c)
         prefix = torch.full((b,), start, dtype=torch.int32, device=x.device)
         for i in range(cfg.n_layers):
-            x = dense_layer_chunk(layer_params(params["layers"], i), cfg, x,
-                                  self._layer_view(cache, i, slot),
-                                  positions, start, prefix, kops=self.kops)
+            x = self.layers.chunk_layer(
+                layer_params(params["layers"], i), cfg, x,
+                self._layer_view(view, i), positions, start, nvalid, prefix,
+                kops=self.kops)
         return L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
 
     def decode_step(self, params, token_t: torch.Tensor, cache: dict,
                     pos: torch.Tensor) -> torch.Tensor:
-        """token_t: (B,) int; pos: (B,) row to write per slot.  Writes each
-        layer's K/V row in place (parked slots, pos >= max_seq, untouched)
-        and returns logits (B, V) f32."""
+        """token_t: (B,) int; pos: (B,) row to write per slot.  Updates
+        each layer's arena slice in place (parked slots, pos =
+        PARKED_POS, untouched) and returns logits (B, V) f32."""
         cfg = self.cfg
         x_t = L.embed_lookup(params["embed"], token_t)
         x_t = self._decode_rows(params, cfg, x_t, cache, pos)
@@ -252,8 +332,7 @@ class LM:
 
     def _decode_rows(self, params, cfg, x_t, cache, pos):
         for i in range(cfg.n_layers):
-            x_t = dense_layer_decode_rows(layer_params(params["layers"], i),
-                                          cfg, x_t, self._layer_view(cache, i),
-                                          pos, kops=self.kops)
+            x_t = self.layers.decode_layer(
+                layer_params(params["layers"], i), cfg, x_t,
+                self._layer_view(cache, i), pos, kops=self.kops)
         return x_t
-

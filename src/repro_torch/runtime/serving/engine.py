@@ -13,16 +13,18 @@ over the whole slot batch.  As in the reference:
      finished slot decodes a few extra masked tokens that the host drops
      through the slot-generation guard.
   3. **One resident arena, written in place.**  Monolithic prefill writes
-     the slot's rows of the arena directly (no batch=1 cache + splice),
-     chunked prefill writes each chunk's rows, decode writes one row per
-     slot per layer; the reference gets the same effect from buffer
-     donation.
+     the slot's rows of the arena directly through ``model.slot_view`` (no
+     batch=1 cache + splice; a leaf's slot rows are f wide, f = n_heads for
+     the fused SSD state), chunked prefill writes each chunk's rows or
+     carried state, decode writes one row (or the new state) per slot per
+     layer; the reference gets the same effect from buffer donation.
 
 Prefill comes in two modes: monolithic (``prefill_chunks=None``; one call
 per prompt) and chunked (bucket-sized chunks interleaved with decode under
 a per-step token budget).  A slot being chunk-prefilled parks its position
 at ``PARKED_POS``: in-flight decode steps then leave its rows untouched
-(the row write is masked to ``pos < max_seq``).
+(the row write is masked to ``pos < max_seq``; a recurrent state write is
+keep-masked on ``pos < PARKED_POS``).
 """
 from __future__ import annotations
 
@@ -43,10 +45,11 @@ from repro_torch.runtime.serving.scheduler import Scheduler
 
 
 class ServingEngine:
-    """Continuous-batching greedy generation over a dense LM.
+    """Continuous-batching greedy generation over a decoder-only LM.
 
-    ``model`` exposes ``init_cache`` / ``prefill`` / ``prefill_chunk`` /
-    ``decode_step`` (``models.transformer.LM``); ``params`` live on the
+    ``model`` exposes ``init_cache`` / ``slot_view`` / ``prefill`` /
+    ``prefill_chunk`` / ``decode_step`` and ``layers.recurrent``
+    (``models.transformer.LM``, any ported family); ``params`` live on the
     model's device, which is where the engine keeps its state.
     """
 
@@ -84,7 +87,11 @@ class ServingEngine:
                                        kv_format=self.kv_format)
         self.arena_bytes = sum(t.numel() * t.element_size()
                                for t in self._cache.values())
-        self.kv_row_bytes = self.arena_bytes // (max_slots * max_seq)
+        # a recurrent arena (SSD state) has no sequence axis: its size is
+        # per slot, whatever max_seq is
+        recurrent = model.layers.recurrent
+        self.arena_unit_bytes = self.arena_bytes // (
+            max_slots if recurrent else max_slots * max_seq)
         self._queue = DispatchQueue(self._decode_step, depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
@@ -99,7 +106,8 @@ class ServingEngine:
                       "tokens_out": 0, "requests": 0,
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
-                      "kv_row_bytes": self.kv_row_bytes,
+                      ("state_bytes_per_slot" if recurrent
+                       else "kv_row_bytes"): self.arena_unit_bytes,
                       "arena_bytes": self.arena_bytes}
 
     # -- the device step -------------------------------------------------------
@@ -172,9 +180,9 @@ class ServingEngine:
             self._slot_gen[st.slot] += 1
             prompt = torch.as_tensor(st.request.prompt, dtype=torch.int64,
                                      device=self.device)[None, :]
-            view = {key: leaf[:, st.slot:st.slot + 1]
-                    for key, leaf in self._cache.items()}
-            logits = self.model.prefill(self.params, prompt, view)
+            logits = self.model.prefill(
+                self.params, prompt, self.model.slot_view(self._cache,
+                                                          st.slot))
             self.stats["prefills"] += 1
             self._note_prefill_shape(("prefill", int(prompt.shape[1])))
             self._activate_slot(st, logits)

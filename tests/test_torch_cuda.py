@@ -75,3 +75,41 @@ def test_cuda_chunk_rows_bit_equal_decode(cuda):
                            v.expand(c, s, kvh, d),
                            lengths=pre + 1 + torch.arange(c, device=cuda))
     assert torch.equal(chunk[0], dec)
+
+
+def _ssd_within_limit(got, want):
+    """ssd's per-element limit (``chip_smoke.py`` states the argument):
+    1e-4 of the element or of the output's rms (two f32 summation orders),
+    plus one ulp of the output type (each version rounds once)."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean().sqrt()
+    big = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(big)
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    ulp = torch.where(big == 0, 0.0,
+                      torch.ldexp(torch.ones_like(big), e - bits))
+    return bool(((g - w).abs() <= ulp + 1e-4 * (w.abs() + rms)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 20, 64, 200])
+def test_cuda_ssd_matches_plain(cuda, dtype, s):
+    """The ssd kernel against its plain version: ragged S, an initial
+    state, B/C rows shared by 3 heads, strided x / log_a views."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    bh, p, n = 6, 16, 8
+    x = rn(s, bh, p).to(dtype).transpose(0, 1)
+    la = -rn(s, bh).abs().transpose(0, 1) * 0.1
+    B, C = rn(2, s, n).to(dtype), rn(2, s, n).to(dtype)
+    st = rn(bh, n, p)
+    for init in (None, st):
+        got = ops.ssd(x, la, B, C, chunk=16, initial_state=init)
+        want = ops.PLAIN.ssd(x, la, B, C, chunk=16, initial_state=init)
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        assert _ssd_within_limit(got[0], want[0])
+        assert _ssd_within_limit(got[1], want[1])

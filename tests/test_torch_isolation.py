@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import device as device_mod  # noqa: E402
 from repro_torch.kernels import (flash_attention, flash_decode,  # noqa: E402
-                                 flash_prefill_chunk, ops)
+                                 flash_prefill_chunk, ops, ssd)
 from repro_torch.models import registry  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +70,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
         flash_attention.launch(torch.zeros(1, 4, 5, 8),
                                torch.zeros(1, 2, 5, 8),
                                torch.zeros(1, 2, 5, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.launch(torch.zeros(2, 5, 8), torch.zeros(2, 5),
+                   torch.zeros(2, 5, 4), torch.zeros(2, 5, 4))
     with pytest.raises(ValueError, match="devices"):
         ops.flash_decode(q.to("meta"), kv.to("meta"), kv.to("meta"))
 
@@ -87,4 +90,20 @@ def test_launch_counters_stay_zero_on_cpu():
     model.decode_step(params, torch.tensor([1, 2]), cache,
                       torch.tensor([9, 9]))
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
-                                   "flash_prefill_chunk": 0}
+                                   "flash_prefill_chunk": 0, "ssd": 0}
+
+
+def test_launch_counters_stay_zero_on_cpu_ssm():
+    """A CPU ssm prefill, prefill chunk and decode step take the plain
+    scan: no launch is counted."""
+    ops.reset_launch_counts()
+    bundle = registry.build("mamba2-2.7b", reduced=True, device="cpu")
+    model = bundle.model
+    params = model.init(0)
+    cache = model.init_cache(2, 48)
+    prompt = torch.from_numpy(np.arange(9) % bundle.cfg.vocab)[None]
+    model.prefill(params, prompt, model.slot_view(cache, 0))
+    model.prefill_chunk(params, prompt, cache, 1, 0, 8)
+    model.decode_step(params, torch.tensor([1, 2]), cache,
+                      torch.tensor([9, 9]))
+    assert set(ops.launch_counts().values()) == {0}
