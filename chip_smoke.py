@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero and prints no ``ok`` line):
 
   1. device: the card as ``nvidia-smi`` reports it, CUDA and capability;
-  2. build: the four kernels (flash_attention, flash_decode,
-     flash_prefill_chunk, ssd) from ``src/repro_torch/kernels/csrc`` with
-     nvcc for sm_90a, one nvcc per source, all at once;
+  2. build: the seven kernels (flash_attention, flash_decode,
+     flash_prefill_chunk, ssd, matmul, dotp, conv2d) from
+     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
+     source, all at once;
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
      ragged lengths, a parked slot, chunk prefix 0 and > 0; ssd: 80 heads,
@@ -29,7 +30,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      kernels against the same model built on the plain versions; for
      mamba2-2.7b also with f32 params and activations, where the limit
      must reject a planted SSD fault;
-  6. summary: the kernel JSON line, the card line, then
+  6. the vector-unit path (fmatmul, dot product, fconv2d, the core
+     modules): driven at the paper's sweep sizes with its own launch
+     counts; each kernel against its plain version there, at ragged
+     shapes and at card shapes (matmul 4096^3 f32 / bf16, dotp 2^26 f32 /
+     bf16, conv2d (64, 112, 112, 3) x (7, 7, 3, 64) f32) within the
+     reassociation bound, each with a planted fault the limit must reject
+     by more than 10x; dotp's bits repeated; kernel / plain / library
+     times; the core modules on CUDA against the CPU, bit for bit;
+  7. summary: the kernel JSON line, the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs nothing but this checkout; imports nothing of JAX.
@@ -48,6 +57,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12           # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version, element by element.  f32: JAX's own serving
 # tolerance (tests/test_serving.py:195).  bf16: both versions accumulate in
 # f32 and round the result to bf16 once; their f32 results differ far below
@@ -80,6 +90,16 @@ SSD_RTOL = 1e-4
 # the last 64-token inner chunk dropped) reads 4.48 and must exceed it.
 LOGIT_TOL = 0.1
 MAMBA2_F32_LOGIT_TOL = 1e-3
+# The vector-unit kernels (matmul, dotp, conv2d), kernel vs plain: a float32
+# result may differ from the plain version's by the reassociation bound
+# c 2^-24 sum |a b| over its contraction, with c stated beside each kernel
+# (``<module>.error_bound``: 2 K for matmul, KH KW Cin + KH KW + Cin for
+# conv2d, 2 depth(n) + 1 for dotp); a bf16 output by that plus one bf16
+# ulp of the larger magnitude (each version rounds its f32 result once).
+# Each planted fault (matmul: the last K tile dropped; conv2d: one tap
+# dropped; dotp: one block's partial dropped) must exceed the limit by
+# more than FAULT_MARGIN.
+FAULT_MARGIN = 10.0
 PARKED_POS = 1 << 30
 
 
@@ -130,11 +150,17 @@ def ssd_limit(got, w):
     return ulp + SSD_RTOL * (w.abs() + w.pow(2).mean().sqrt())
 
 
-def excess(got, want, dtype_name) -> float:
-    """max over elements of |got - want| / its limit (<= 1 passes)."""
+def excess(got, want, dtype_name, bound=None) -> float:
+    """max over elements of |got - want| / its limit (<= 1 passes);
+    ``bound``: a per-element reassociation bound (plus one bf16 ulp for a
+    bf16 output) in place of the dtype's limit."""
     import torch
     g, w = got.float(), want.float()
-    if dtype_name == "ssd":
+    if bound is not None:
+        lim = bound
+        if got.dtype == torch.bfloat16:
+            lim = lim + bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    elif dtype_name == "ssd":
         lim = ssd_limit(got, w)
     elif dtype_name == "float32":
         lim = F32_TOL
@@ -143,16 +169,22 @@ def excess(got, want, dtype_name) -> float:
     return ((g - w).abs() / lim).max().item()
 
 
-def check(name, got, want, dtype_name, extra="", fault=None):
+def check(name, got, want, dtype_name, extra="", fault=None, bound=None,
+          margin=1.0):
     """Hold a kernel's output against its plain version; with ``fault``
     (``(what, plain output of a planted fault)``) also show that the limit
-    fails that fault.  ``dtype_name``: "float32", "bfloat16" or "ssd"
-    (ssd_limit).  Returns the max abs error."""
+    fails that fault by more than ``margin``.  ``dtype_name``: "float32",
+    "bfloat16" or "ssd" (ssd_limit); ``bound``: see :func:`excess`.
+    Returns the max abs error."""
     err = (got.float() - want.float()).abs().max().item()
-    ratio = excess(got, want, dtype_name)
-    limit = {"float32": f"{F32_TOL:.1e}",
-             "ssd": f"{SSD_RTOL:.0e} (|x| + rms) + 1 ulp"}.get(
-        dtype_name, f"1 bf16 ulp + {BF16_ATOL:.1e}")
+    ratio = excess(got, want, dtype_name, bound)
+    if bound is not None:
+        limit = "c 2^-24 sum|ab|" + (" + 1 bf16 ulp"
+                                     if dtype_name == "bfloat16" else "")
+    else:
+        limit = {"float32": f"{F32_TOL:.1e}",
+                 "ssd": f"{SSD_RTOL:.0e} (|x| + rms) + 1 ulp"}.get(
+            dtype_name, f"1 bf16 ulp + {BF16_ATOL:.1e}")
     print(f"  {name:<34} max|kernel-plain| = {err:.3e}, "
           f"{ratio:.3f} of the limit ({limit}) {extra}")
     if not ratio <= 1.0:
@@ -160,12 +192,13 @@ def check(name, got, want, dtype_name, extra="", fault=None):
     if fault is not None:
         what, bad = fault
         f_err = (got.float() - bad.float()).abs().max().item()
-        f_ratio = excess(got, bad, dtype_name)
+        f_ratio = excess(got, bad, dtype_name, bound)
         print(f"    planted fault ({what}): max|kernel-fault| = "
               f"{f_err:.3e}, {f_ratio:.1f} of the limit")
-        if not f_ratio > 1.0:
+        if not f_ratio > margin:
             raise AssertionError(f"{name}: the limit passes the planted "
-                                 f"fault {what} ({f_ratio} x the limit)")
+                                 f"fault {what} ({f_ratio} x the limit, "
+                                 f"needs > {margin})")
     return err
 
 
@@ -394,14 +427,16 @@ def ssd_checks(torch, ops, cfg):
 
 
 def bound(r):
-    """Fill ``bound_ms`` / ``bound_by`` of a kernel record and print it."""
+    """Fill ``bound_ms`` / ``bound_by`` of a kernel record and print it
+    (operations at the record's ``flop_rate``, bf16's by default)."""
     t_bytes = r["bytes"] / HBM_BYTES_PER_S
-    t_ops = r["flops"] / BF16_FLOP_PER_S
+    t_ops = r["flops"] / r.get("flop_rate", BF16_FLOP_PER_S)
     r["bound_ms"] = max(t_bytes, t_ops) * 1e3
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     lib = ("none" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
-    print(f"  {r['module'].NAME:<20} kernel {r['ms']:.4f} ms | plain "
+    print(f"  {r.get('label', r['module'].NAME):<20} kernel "
+          f"{r['ms']:.4f} ms | plain "
           f"{r['plain_ms']:.4f} ms | library {lib} | bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
           f"{r['bytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.3f} GFLOP)")
@@ -602,6 +637,309 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
               f"{n}/{a.size}")
 
 
+def vector_unit_phase(torch, ops):
+    """Phase 6: the vector-unit path (fmatmul, dot product, fconv2d and the
+    core modules).  6a drives it on the card at the paper's sweep sizes
+    (``configs/ara_vu.py``, ``benchmarks/bench_*.py``) with the launch
+    counts set to 0 just before and read just after; 6b holds every kernel
+    result against its plain version there, at the ragged shapes of
+    ``tests/test_kernels.py`` and at card shapes, each with its planted
+    fault, checks that dotp repeats bit for bit, and times kernel, plain
+    version and library call; 6c compares the core modules' CUDA results
+    with their CPU results, exactly.  Returns ({kernel name: record},
+    the drive's launch counts)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.ara_vu import CONFIG as VU
+    from repro_torch.kernels import conv2d, dotp, matmul
+    P = ops.PLAIN
+    dev = "cuda"
+    # the f32 plain versions and yardsticks in full f32, as main() sets
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(6)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- 6a: drive the path -------------------------------------------------
+    print(f"phase 6a: vector-unit path on the card: matmul n^3 for n in "
+          f"{VU.bench_matmul_sizes} + 512, dotp n = bench_vector_bytes / 4 "
+          f"for {VU.bench_vector_bytes}, conv2d 7x7x3 -> 8 on hw in "
+          f"(32, 64, 112); core modules over the Table II sweep")
+    mm_in = [(rn(n, n), rn(n, n)) for n in VU.bench_matmul_sizes + (512,)]
+    dp_in = [(rn(vb // 4), rn(vb // 4)) for vb in VU.bench_vector_bytes]
+    cv_in = [(rn(1, hw, hw, 3), rn(7, 7, 3, 8)) for hw in (32, 64, 112)]
+    core_in = core_inputs(torch, VU)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    mm_out = [ops.matmul(a, b) for a, b in mm_in]
+    dp_out = [ops.dotp(a, b) for a, b in dp_in]
+    cv_out = [ops.conv2d(x, w) for x, w in cv_in]
+    core_out = core_run(torch, core_in, dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(matmul=len(mm_in), dotp=len(dp_in), conv2d=len(cv_in))
+    print(f"  launches: {counts}")
+    assert counts == want, (counts, want)
+    for out, (a, b) in zip(mm_out, mm_in):
+        assert out.shape == (a.shape[0], b.shape[1]), out.shape
+    for out in dp_out:
+        assert out.shape == () and out.dtype == torch.float32
+    for out, (x, w) in zip(cv_out, cv_in):
+        assert out.shape == (1, x.shape[1] - 6, x.shape[2] - 6, 8), out.shape
+    for out in mm_out + dp_out + cv_out:
+        assert bool(torch.isfinite(out).all())
+
+    # -- 6b: kernel vs plain, faults, times ---------------------------------
+    def mm_check(label, a, b, got=None):
+        got = ops.matmul(a, b) if got is None else got
+        kc = (a.shape[1] - 1) // matmul.BK * matmul.BK
+        return check(f"matmul {label}", got, P.matmul(a, b),
+                     names[a.dtype], bound=matmul.error_bound(a, b),
+                     margin=FAULT_MARGIN,
+                     fault=(f"last K tile, k >= {kc}, dropped",
+                            P.matmul(a[:, :kc], b[:kc])))
+
+    def dp_check(label, a, b, got=None):
+        """Random signs against the plain version; then |a|, |b|, where
+        sum |a_i b_i| is the result itself, so one partial dropped moves
+        it by ~1/G of the limit's scale (with random signs a partial can
+        cancel to nothing)."""
+        got = ops.dotp(a, b) if got is None else got
+        err = check(f"dotp {label}", got, P.dotp(a, b), "float32",
+                    bound=dotp.error_bound(a, b))
+        a, b = a.abs(), b.abs()
+        length, g = dotp.split(a.shape[0])
+        k = g // 2
+        b_bad = b.clone()
+        b_bad[k * length:(k + 1) * length] = 0
+        return max(err, check(
+            f"dotp {label} |a|.|b|", ops.dotp(a, b), P.dotp(a, b),
+            "float32", bound=dotp.error_bound(a, b), margin=FAULT_MARGIN,
+            fault=(f"partial {k} of {g} dropped", P.dotp(a, b_bad))))
+
+    def cv_check(label, x, w, got=None):
+        got = ops.conv2d(x, w) if got is None else got
+        w_bad = w.clone()
+        w_bad[-1, -1] = 0
+        return check(f"conv2d {label}", got, P.conv2d(x, w), names[x.dtype],
+                     bound=conv2d.error_bound(x, w), margin=FAULT_MARGIN,
+                     fault=("tap (KH-1, KW-1) dropped", P.conv2d(x, w_bad)))
+
+    errs = {"matmul": [], "dotp": [], "conv2d": []}
+    print("phase 6b: the paper's sweep (6a's results)")
+    for (a, b), out in zip(mm_in, mm_out):
+        errs["matmul"].append(mm_check(f"{a.shape[0]}^3 f32", a, b, out))
+    for (a, b), out in zip(dp_in, dp_out):
+        errs["dotp"].append(dp_check(f"n={a.shape[0]} f32", a, b, out))
+    for (x, w), out in zip(cv_in, cv_out):
+        errs["conv2d"].append(cv_check(f"{tuple(x.shape)} x 7x7x3x8", x, w,
+                                       out))
+    print("phase 6b: ragged shapes")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        for m, k, n in ((257, 64, 33), (96, 130, 70), (1, 512, 1)):
+            errs["matmul"].append(mm_check(f"({m}, {k}, {n}) {dn}",
+                                           rn(m, k, dtype=dtype),
+                                           rn(k, n, dtype=dtype)))
+        for n in (8, 100, 4097):
+            errs["dotp"].append(dp_check(f"n={n} {dn}", rn(n, dtype=dtype),
+                                         rn(n, dtype=dtype)))
+    for xs, ws in (((2, 16, 16, 3), (7, 7, 3, 8)),
+                   ((2, 32, 20, 4), (3, 3, 4, 4)),
+                   ((2, 9, 9, 1), (7, 7, 1, 2))):
+        errs["conv2d"].append(cv_check(f"{xs} x {ws} f32", rn(*xs),
+                                       rn(*ws)))
+    errs["conv2d"].append(cv_check(
+        "(2, 16, 16, 3) x (7, 7, 3, 8) bf16",
+        rn(2, 16, 16, 3, dtype=torch.bfloat16),
+        rn(7, 7, 3, 8, dtype=torch.bfloat16)))
+    try:
+        ops.matmul(rn(4, 4), rn(4, 4, dtype=torch.bfloat16))
+    except TypeError as e:
+        print(f"  matmul refuses mixed operand dtypes: {e}")
+    else:
+        raise AssertionError("matmul took mixed operand dtypes")
+
+    print("phase 6b: card shapes")
+    rec = {}
+    extra = []
+    s = 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = rn(s, s, dtype=dtype), rn(s, s, dtype=dtype)
+        dn = names[dtype]
+        err = mm_check(f"{s}^3 {dn}", a, b)
+        r = dict(module=matmul, label=f"matmul {dn}",
+                 max_abs_err=max(errs["matmul"] + [err]),
+                 ms=timed(lambda: matmul.launch(a, b), 10),
+                 plain_ms=timed(lambda: P.matmul(a, b), 10),
+                 library_ms=timed(lambda: torch.matmul(a, b), 10),
+                 bytes=3 * s * s * a.element_size(), flops=2 * s ** 3,
+                 flop_rate=(F32_FLOP_PER_S if dtype == torch.float32
+                            else BF16_FLOP_PER_S))
+        if dtype == torch.float32:
+            rec["matmul"] = r
+        else:
+            extra.append(r)
+        del a, b
+    n = 1 << 26
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = rn(n, dtype=dtype), rn(n, dtype=dtype)
+        dn = names[dtype]
+        err = dp_check(f"n=2^26 {dn}", a, b)
+        r1, r2 = dotp.launch(a, b), dotp.launch(a.clone(), b.clone())
+        same = bool(torch.equal(r1.reshape(1).view(torch.int32),
+                                r2.reshape(1).view(torch.int32)))
+        print(f"  dotp n=2^26 {dn}: two launches (the second on copies) "
+              f"give the same bits: {same} ({r1.item()!r})")
+        assert same, (r1.item(), r2.item())
+        lib = (timed(lambda: torch.dot(a, b), 50)
+               if dtype == torch.float32 else None)
+        r = dict(module=dotp, label=f"dotp {dn}",
+                 max_abs_err=max(errs["dotp"] + [err]),
+                 ms=timed(lambda: dotp.launch(a, b), 50),
+                 plain_ms=timed(lambda: P.dotp(a, b), 20), library_ms=lib,
+                 bytes=2 * n * a.element_size() + 4, flops=2 * n,
+                 flop_rate=(F32_FLOP_PER_S if dtype == torch.float32
+                            else BF16_FLOP_PER_S))
+        if dtype == torch.float32:
+            rec["dotp"] = r
+        else:
+            extra.append(r)
+        del a, b
+    x, w = rn(64, 112, 112, 3), rn(7, 7, 3, 64)
+    err = cv_check("(64, 112, 112, 3) x (7, 7, 3, 64) f32", x, w)
+    x_cl = x.permute(0, 3, 1, 2)                  # NCHW, channels-last
+    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_out = F.conv2d(x_cl, w_cl).permute(0, 2, 3, 1)
+    lib_err = (lib_out - P.conv2d(x, w)).abs().max().item()
+    print(f"  F.conv2d (channels-last, the yardstick) vs plain: max |diff| "
+          f"= {lib_err:.3e}")
+    ho = 112 - 6
+    rec["conv2d"] = dict(
+        module=conv2d, label="conv2d f32",
+        max_abs_err=max(errs["conv2d"] + [err]),
+        ms=timed(lambda: conv2d.launch(x, w), 20),
+        plain_ms=timed(lambda: P.conv2d(x, w), 3),
+        library_ms=timed(lambda: F.conv2d(x_cl, w_cl), 20),
+        bytes=4 * (x.numel() + w.numel() + 64 * ho * ho * 64),
+        flops=2 * 64 * ho * ho * 64 * 7 * 7 * 3, flop_rate=F32_FLOP_PER_S)
+    del x, w, x_cl, w_cl, lib_out
+    print("phase 6b: times (card shapes; bf16 rows beside the JSON's f32 "
+          "ones)")
+    for r in extra:
+        bound(r)
+
+    # -- 6c: the core modules, CUDA against CPU -------------------------------
+    cpu_out = core_run(torch, core_in, "cpu")
+    core_compare(torch, core_out, cpu_out)
+    return rec, counts
+
+
+def core_inputs(torch, VU):
+    """Inputs of the core modules' run, made on the CPU from a seed: the
+    Table II sweep (lanes x VL bytes x EEW) for lane_tree_reduce in int64
+    and float32, integer-valued floats for the multiply-reduce and the
+    strip-mined sum (every summation order gives the same exact result),
+    VRF write sequences and mask bits."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    red = []
+    for lanes in VU.bench_lane_counts:
+        for vlb in VU.bench_vector_bytes:
+            for eew in VU.bench_eew_bytes:
+                n = vlb // eew
+                if n % (lanes * (8 // eew)):
+                    continue
+                red.append((lanes, eew, torch.from_numpy(
+                    rng.integers(-100, 100, n)),
+                    torch.from_numpy(rng.standard_normal(n).astype(
+                        np.float32))))
+    ints = rng.integers(-8, 9, (2, 4096)).astype(np.float32)
+    writes = []
+    for step in range(40):
+        eew = int(rng.choice((1, 2, 4, 8)))
+        vl = None if step % 5 == 0 else int(rng.integers(0, 512 // eew + 1))
+        writes.append((int(rng.integers(0, 8)), eew, vl,
+                       "agnostic_ones" if step % 7 == 3 else "undisturbed",
+                       torch.from_numpy(rng.integers(0, 256, 512,
+                                                     dtype=np.uint8))))
+    bits = torch.from_numpy(rng.integers(0, 2, 4096) > 0)
+    return dict(red=red, ints=torch.from_numpy(ints), writes=writes,
+                bits=bits, stream=torch.from_numpy(
+                    rng.integers(-50, 50, 5000).astype(np.float32)))
+
+
+def core_run(torch, inp, dev):
+    """The core modules on ``dev``: returns their results as CPU tensors
+    (and the VRF's stats) for :func:`core_compare`."""
+    from repro_torch.core import (chaining, masking, reduction, stripmine,
+                                  vrf)
+    out = {}
+    for lanes, eew, xi, xf in inp["red"]:
+        for op in ("add", "max", "min"):
+            for kind, x in (("int", xi), ("f32", xf)):
+                out[f"lane_tree_reduce {kind} lanes={lanes} eew={eew} {op}"] \
+                    = reduction.lane_tree_reduce(x.to(dev), lanes=lanes,
+                                                 eew_bytes=eew, op=op)
+    ints = inp["ints"].to(dev)
+    out["chained_mulreduce f32"] = chaining.chained_mulreduce(ints[0],
+                                                              ints[1])
+    bf = ints.to(torch.bfloat16)
+    out["chained_mulreduce bf16"] = chaining.chained_mulreduce(bf[0], bf[1])
+
+    def body(carry, strip, vl):
+        keep = masking.tail_mask(strip.shape[0], vl)
+        return carry + torch.where(keep, strip, 0.0).sum(), strip * 2.0 + vl
+
+    x = inp["stream"].to(dev)
+    carry, outs = stripmine.stripmine(body, torch.zeros((), device=dev), x,
+                                      vlmax=512)
+    out["stripmine carry"], out["stripmine outs"] = carry, outs
+    out["stripmined_map"] = stripmine.stripmined_map(
+        lambda s, vl: s * 3.0 - vl, x.reshape(50, 100), vlmax=16, axis=1)
+    f = vrf.VectorRegisterFile(vlen_bits=4096, lanes=4, device=dev)
+    for reg, eew, vl, policy, mem in inp["writes"]:
+        f.write(reg, mem.to(dev), eew=eew, vl=vl, tail_policy=policy)
+    for reg in range(8):
+        out[f"vrf reg {reg}"] = f.regs[reg]
+        out[f"vrf elements {reg} int32"] = f.elements(reg, torch.int32)
+    out["vrf stats"] = dict(f.stats)
+    bits = inp["bits"].to(dev)
+    packed = masking.pack_bits(bits, bits.shape[0])
+    out["pack_bits"] = packed
+    out["unpack_bits"] = masking.unpack_bits(packed, bits.shape[0])
+    for eew in (1, 2, 4, 8):
+        lane = vrf.shuffle(packed, eew=eew, lanes=4)
+        out[f"mask_unit eew={eew}"] = masking.mask_unit(
+            lane, stored_eew=eew, lanes=4, num_elems=4096)
+    out["predicated"] = masking.predicated(lambda v: v * 10.0)(
+        x[:4096], ints[0], mask=bits)
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+
+def core_compare(torch, got, want):
+    """Every core-module result on CUDA equals its CPU result: tensors bit
+    for bit (dtype, shape, bytes), the VRF stats as dicts."""
+    assert got.keys() == want.keys()
+    for k in got:
+        g, w = got[k], want[k]
+        if isinstance(g, dict):
+            assert g == w, (k, g, w)
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, (k, g, w)
+        same = (torch.equal(g.reshape(-1).view(torch.uint8),
+                            w.reshape(-1).view(torch.uint8))
+                if g.dtype.is_floating_point else torch.equal(g, w))
+        assert same, (k, g, w)
+    print(f"phase 6c: {len(got)} core-module results (reduction, chaining, "
+          f"stripmine, vrf, masking) on CUDA equal the CPU results bit for "
+          f"bit; VRF stats {got['vrf stats']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -642,6 +980,11 @@ def main() -> int:
         all_runs += [run[3] for run in runs.values()]
         del bundle, params, runs
         torch.cuda.empty_cache()
+    vu_rec, vu_counts = vector_unit_phase(torch, ops)
+    for name in sorted(vu_rec):
+        bound(vu_rec[name])
+    rec.update(vu_rec)
+    all_runs.append(vu_counts)
 
     kernels = []
     for name in sorted(rec):

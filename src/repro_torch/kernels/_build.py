@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_attention", "flash_decode", "flash_prefill_chunk", "ssd")
+KERNELS = ("flash_attention", "flash_decode", "flash_prefill_chunk", "ssd",
+           "matmul", "dotp", "conv2d")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo"]
@@ -164,6 +165,13 @@ def dtype_code(*ts) -> int:
 def head_dim_ok(d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not instantiated (have {HEAD_DIMS})")
+
+
+def int32_sizes(name: str, *sizes) -> None:
+    """The C entry points take sizes as 32-bit ints."""
+    if any(s >= 2 ** 31 for s in sizes):
+        raise ValueError(f"{name}: size {max(sizes)} does not fit the "
+                         f"kernel's 32-bit sizes")
 
 
 def inner_contiguous(t):

@@ -10,7 +10,13 @@ the reference's argument layouts:
     arena with a runtime ``prefix`` (ops.py:450);
   * :func:`ssd` — the Mamba2 SSD chunked scan (ops.py:555), and
     :func:`ssd_decode_step`, its one-token recurrence (ops.py:578; plain
-    PyTorch on every device, as the reference leaves it to XLA).
+    PyTorch on every device, as the reference leaves it to XLA);
+
+and for the paper's own vector-unit workloads:
+
+  * :func:`matmul` — fmatmul, (M, K) x (K, N) (ops.py:67);
+  * :func:`dotp` — the chained multiply + reduce dot product (ops.py:87);
+  * :func:`conv2d` — fconv2d, valid NHWC x HWIO (ops.py:104).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version (the counterpart of the reference's ``ref`` mode),
@@ -51,8 +57,11 @@ from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import flash_decode as _fd  # noqa: E402
 from repro_torch.kernels import flash_prefill_chunk as _fpc  # noqa: E402
 from repro_torch.kernels import ssd as _ssd  # noqa: E402
+from repro_torch.kernels import matmul as _mm  # noqa: E402
+from repro_torch.kernels import dotp as _dp  # noqa: E402
+from repro_torch.kernels import conv2d as _cv  # noqa: E402
 
-KERNEL_MODULES = (_fa, _fd, _fpc, _ssd)
+KERNEL_MODULES = (_fa, _fd, _fpc, _ssd, _mm, _dp, _cv)
 
 
 def launch_counts() -> dict[str, int]:
@@ -256,6 +265,60 @@ def ssd_decode_step(x_t, log_a_t, B_t, C_t, state):
     return y.to(x_t.dtype), state
 
 
+# ---------------------------------------------------------------------------
+# the vector-unit kernels: fmatmul, dot product, fconv2d
+#
+# The TPU kernels' block arguments (bm/bk/bn, strip, bh/bw) are accepted
+# for the reference's signatures and have no effect: the CUDA kernels tile
+# themselves and mask ragged edges inside, where the reference zero-pads
+# to whole blocks (ops.py:75-80, :94-96, :112-118) — padded zeros add
+# exact zeros, so the function is the same.
+# ---------------------------------------------------------------------------
+
+def _matmul_plain(a, b, *, bm=256, bk=512, bn=256):
+    del bm, bk, bn
+    return _mm.matmul_plain(a, b)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256,
+           bk: int = 512, bn: int = 256) -> torch.Tensor:
+    """C = A @ B: a (M, K), b (K, N) -> (M, N) in a's dtype, accumulated
+    in float32.  The CUDA kernel takes float32 or bfloat16 (one type for
+    both) and multiplies float32 in float32, never TF32."""
+    if not _on_cuda(a, b):
+        return _matmul_plain(a, b)
+    return _mm.launch(a, b)
+
+
+def _dotp_plain(a, b, *, strip=16 * 8 * 128):
+    del strip
+    return _dp.dotp_plain(a, b)
+
+
+def dotp(a: torch.Tensor, b: torch.Tensor, *,
+         strip: int = 16 * 8 * 128) -> torch.Tensor:
+    """Dot product of two (n,) vectors -> 0-d float32 (inputs widened to
+    float32 before the multiply)."""
+    if not _on_cuda(a, b):
+        return _dotp_plain(a, b)
+    return _dp.launch(a, b)
+
+
+def _conv2d_plain(x, w, *, bh=8, bw=128):
+    del bh, bw
+    return _cv.conv2d_plain(x, w)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, bh: int = 8,
+           bw: int = 128) -> torch.Tensor:
+    """Valid convolution: x (N, H, W, Cin) x w (KH, KW, Cin, Cout) ->
+    (N, H - KH + 1, W - KW + 1, Cout) in x's dtype, accumulated in
+    float32."""
+    if not _on_cuda(x, w):
+        return _conv2d_plain(x, w)
+    return _cv.launch(x, w)
+
+
 #: the plain versions behind the public signatures, on any device — the
 #: oracle a model is built with (``kernels=ops.PLAIN``) to check the
 #: kernel path on the card; the serving path never uses it
@@ -263,4 +326,7 @@ PLAIN = types.SimpleNamespace(attention=_attention_plain,
                               flash_decode=_flash_decode_plain,
                               flash_prefill_chunk=_flash_prefill_chunk_plain,
                               ssd=_ssd_plain,
-                              ssd_decode_step=ssd_decode_step)
+                              ssd_decode_step=ssd_decode_step,
+                              matmul=_matmul_plain,
+                              dotp=_dotp_plain,
+                              conv2d=_conv2d_plain)

@@ -113,3 +113,81 @@ def test_cuda_ssd_matches_plain(cuda, dtype, s):
         assert got[0].dtype == dtype and got[1].dtype == torch.float32
         assert _ssd_within_limit(got[0], want[0])
         assert _ssd_within_limit(got[1], want[1])
+
+
+def _reassoc_within_limit(got, want, bound):
+    """The vector-unit kernels' limit (``chip_smoke.py`` states it): the
+    per-element reassociation bound c 2^-24 sum |a b| of the kernel module's
+    ``error_bound``, plus one bf16 ulp of the larger magnitude for a bf16
+    output."""
+    g, w = got.float(), want.float()
+    lim = bound
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(g.abs(), w.abs())
+        _, e = torch.frexp(big)
+        lim = lim + torch.where(big == 0, 0.0,
+                                torch.ldexp(torch.ones_like(big), e - 8))
+    return bool(((g - w).abs() <= lim).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (257, 64, 33),
+                                   (96, 130, 70), (1, 512, 1), (130, 0, 5)])
+def test_cuda_matmul_matches_plain(cuda, dtype, shape):
+    """Ragged M / K / N (and K = 0) masked in the kernel; A a column
+    slice (row stride K + 3)."""
+    from repro_torch.kernels import matmul
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    m, k, n = shape
+    a = torch.randn((m, k + 3), generator=gen, device=cuda).to(dtype)[:, :k]
+    b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    before = matmul.launches
+    got = ops.matmul(a, b)
+    assert matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _reassoc_within_limit(got, ops.PLAIN.matmul(a, b),
+                                 matmul.error_bound(a, b))
+    with pytest.raises(TypeError, match="mixed"):
+        ops.matmul(a.float(), b.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 8, 100, 4097, 1 << 20])
+def test_cuda_dotp_matches_plain_and_repeats(cuda, dtype, n):
+    """Ragged tails, an unaligned view (scalar loads), and the same bits
+    on a second launch."""
+    from repro_torch.kernels import dotp
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn((n + 1,), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((n,), generator=gen, device=cuda).to(dtype)
+    for x in (a[:n], a[1:]):                 # aligned, then offset by one
+        got = ops.dotp(x, b)
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert _reassoc_within_limit(got, ops.PLAIN.dotp(x, b),
+                                     dotp.error_bound(x, b))
+        again = dotp.launch(x.clone(), b.clone())
+        assert torch.equal(got.reshape(1).view(torch.int32),
+                           again.reshape(1).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xs,ws", [
+    ((2, 16, 16, 3), (7, 7, 3, 8)), ((2, 32, 20, 4), (3, 3, 4, 4)),
+    ((2, 9, 9, 1), (7, 7, 1, 2)), ((1, 40, 37, 20), (7, 7, 20, 70)),
+    ((1, 12, 30, 5), (3, 5, 5, 16))])
+def test_cuda_conv2d_matches_plain(cuda, dtype, xs, ws):
+    """Ragged output tiles; Cout above one 64-channel block and not a
+    multiple of 8; 20 input channels at 7 x 7 staged 6 per pass (83 KB of
+    shared memory); a non-square window."""
+    from repro_torch.kernels import conv2d
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(xs, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(ws, generator=gen, device=cuda).to(dtype)
+    got = ops.conv2d(x, w)
+    assert got.dtype == dtype
+    assert got.shape == (xs[0], xs[1] - ws[0] + 1, xs[2] - ws[1] + 1, ws[3])
+    assert _reassoc_within_limit(got, ops.PLAIN.conv2d(x, w),
+                                 conv2d.error_bound(x, w))

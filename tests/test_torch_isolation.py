@@ -11,8 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import device as device_mod  # noqa: E402
-from repro_torch.kernels import (flash_attention, flash_decode,  # noqa: E402
-                                 flash_prefill_chunk, ops, ssd)
+from repro_torch.kernels import (conv2d, dotp,  # noqa: E402
+                                 flash_attention, flash_decode,
+                                 flash_prefill_chunk, matmul, ops, ssd)
 from repro_torch.models import registry  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,6 +74,12 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd.launch(torch.zeros(2, 5, 8), torch.zeros(2, 5),
                    torch.zeros(2, 5, 4), torch.zeros(2, 5, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul.launch(torch.zeros(3, 4), torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        dotp.launch(torch.zeros(9), torch.zeros(9))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv2d.launch(torch.zeros(1, 9, 9, 3), torch.zeros(7, 7, 3, 8))
     with pytest.raises(ValueError, match="devices"):
         ops.flash_decode(q.to("meta"), kv.to("meta"), kv.to("meta"))
 
@@ -90,7 +97,8 @@ def test_launch_counters_stay_zero_on_cpu():
     model.decode_step(params, torch.tensor([1, 2]), cache,
                       torch.tensor([9, 9]))
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
-                                   "flash_prefill_chunk": 0, "ssd": 0}
+                                   "flash_prefill_chunk": 0, "ssd": 0,
+                                   "matmul": 0, "dotp": 0, "conv2d": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_ssm():
@@ -106,4 +114,22 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
     model.prefill_chunk(params, prompt, cache, 1, 0, 8)
     model.decode_step(params, torch.tensor([1, 2]), cache,
                       torch.tensor([9, 9]))
-    assert set(ops.launch_counts().values()) == {0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                   "flash_prefill_chunk": 0, "ssd": 0,
+                                   "matmul": 0, "dotp": 0, "conv2d": 0}
+
+
+def test_launch_counters_stay_zero_on_cpu_vector_unit():
+    """The vector-unit path on CPU tensors (the three ops and the
+    chained multiply-reduce) takes the plain versions: no launch."""
+    from repro_torch.core import chaining
+    ops.reset_launch_counts()
+    a, b = torch.ones(20, 12), torch.ones(12, 7)
+    assert ops.matmul(a, b).shape == (20, 7)
+    assert float(ops.dotp(a[0], a[1])) == 12.0
+    assert float(chaining.chained_mulreduce(a[0], a[1])) == 12.0
+    assert ops.conv2d(torch.ones(1, 9, 9, 3),
+                      torch.ones(7, 7, 3, 8)).shape == (1, 3, 3, 8)
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                   "flash_prefill_chunk": 0, "ssd": 0,
+                                   "matmul": 0, "dotp": 0, "conv2d": 0}
