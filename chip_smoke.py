@@ -11,21 +11,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
   2. build: the seven kernels (flash_attention, flash_decode,
      flash_prefill_chunk, ssd, matmul, dotp, conv2d) from
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-     source, all at once;
+     source, all at once; then the SASS of the three attention libraries
+     (``cuobjdump``): each bf16 kernel must hold HGMMA (warpgroup MMA) and
+     UTMALDG (TMA load);
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
      ragged lengths, a parked slot, chunk prefix 0 and > 0; ssd: 80 heads,
      S 1024 / 768 / 1000, with and without an initial state) and at a
      small f32 shape, within the stated limit, each with a planted fault
      the limit must reject; kernel / plain / bound / library-call times;
-     whether chunk row j equals flash_decode at pos = prefix + j bit for
-     bit (reported, not asserted);
+     chunk row j must equal flash_decode at pos = prefix + j bit for bit
+     (bf16, full width);
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
      depth 2), monolithic then chunked, with each kernel's launch count;
-     then a short run of each under torch.profiler (device time by
-     kernel, device busy share);
+     then short runs under torch.profiler (device time by kernel, the
+     attention kernels' own line, device busy share; both prefill modes
+     for llama3.2-3b, monolithic for mamba2-2.7b);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b also with f32 params and activations, where the limit
@@ -38,7 +41,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      reassociation bound, each with a planted fault the limit must reject
      by more than 10x; dotp's bits repeated; kernel / plain / library
      times; the core modules on CUDA against the CPU, bit for bit;
-  7. summary: the kernel JSON line, the card line, then
+  7. summary: the kernel JSON line (with each kernel's ``design``), the
+     card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs nothing but this checkout; imports nothing of JAX.
@@ -101,6 +105,36 @@ MAMBA2_F32_LOGIT_TOL = 1e-3
 # more than FAULT_MARGIN.
 FAULT_MARGIN = 10.0
 PARKED_POS = 1 << 30
+# The kernels' designs (the JSON line's ``design``): the attention kernels
+# run bf16 on the tensor cores (wgmma, K/V by TMA; their f32 path stays on
+# the CUDA cores), the others on the CUDA cores in f32.
+WGMMA_TMA = ("flash_attention", "flash_decode", "flash_prefill_chunk")
+# their kernels' names in a profile
+ATTN_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_split_kernel",
+                "fd_combine_kernel")
+
+
+def sass_check(_build):
+    """Phase 2b: in each wgmma+tma library, every bf16 kernel (the
+    functions named ``*_tc_*``, one per head dim) holds HGMMA and UTMALDG
+    in its SASS; the f32 kernels beside them hold no HGMMA."""
+    for name in WGMMA_TMA:
+        funcs, cur = {}, None
+        for line in _build.sass(name).splitlines():
+            if "Function :" in line:
+                cur = line.split("Function :")[1].strip()
+                funcs[cur] = [0, 0]
+            elif cur is not None:
+                funcs[cur][0] += "HGMMA" in line
+                funcs[cur][1] += "UTMALDG" in line
+        tc = [c for f, c in funcs.items() if "_tc_" in f]
+        other = sum(c[0] for f, c in funcs.items() if "_tc_" not in f)
+        print(f"phase 2b: {name}: SASS of {len(tc)} bf16 kernels: HGMMA "
+              f"{[c[0] for c in tc]}, UTMALDG {[c[1] for c in tc]}; "
+              f"{len(funcs) - len(tc)} f32 kernels: HGMMA {other}")
+        assert len(tc) == 5 and all(h > 0 and t > 0 for h, t in tc), \
+            (name, tc)
+        assert other == 0, (name, other)
 
 
 def timed(fn, iters: int) -> float:
@@ -303,9 +337,10 @@ def kernel_checks(torch, ops, cfg):
         arena_v[0, :1].expand(c, smax, kvh, d),
         lengths=512 + torch.arange(c, device=dev) + 1)
     pin = bool(torch.equal(chunk_out[0], dec_out))
-    print(f"  pin: chunk row j == flash_decode at pos 512 + j, bit for bit: "
-          f"{pin} (max diff "
+    print(f"  pin: chunk row j == flash_decode at pos 512 + j, bit for bit "
+          f"(bf16): {pin} (max diff "
           f"{(chunk_out[0].float() - dec_out.float()).abs().max().item()})")
+    assert pin, "chunk/decode bit pin broken at full width"
     ms = timed(lambda: flash_prefill_chunk.launch(
         q, arena_k[nxt(), :1], arena_v[layer[0], :1], pf), 20)
     plain_ms = timed(lambda: P.flash_prefill_chunk(
@@ -505,13 +540,14 @@ def serving_runs(torch, ops, serve, arch, gen):
     return bundle, params, args, runs
 
 
-def profile_run(torch, serve, bundle, params):
-    """Phase 4b: one short monolithic run (4 requests, prompts 1024/768,
-    16 new tokens) under torch.profiler: device time by kernel and the
-    device's busy share of the wall time (profiler overhead included)."""
+def profile_run(torch, serve, bundle, params, mode):
+    """Phase 4b: one short run in prefill ``mode`` (4 requests, prompts
+    1024/768, 16 new tokens) under torch.profiler: device time by kernel,
+    the attention kernels' own line, and the device's busy share of the
+    wall time (profiler overhead included)."""
     from torch.profiler import ProfilerActivity, profile
-    args = serve.parse_args(["--arch", bundle.name, "--gen", "16"]
-                            + SERVE_ARGS)
+    args = serve.parse_args(["--arch", bundle.name, "--gen", "16",
+                             "--prefill-mode", mode] + SERVE_ARGS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, _, dt = serve.serve(bundle, params, args)
@@ -525,9 +561,20 @@ def profile_run(torch, serve, bundle, params):
     if not rows:
         print("phase 4b: profiler recorded no device time (not measured)")
         return
-    print(f"phase 4b: {bundle.name} profiled monolithic run, "
-          f"{eng.stats['decode_steps']} "
-          f"decode steps + {eng.stats['prefills']} prefills: wall "
+    attn = {}
+    for us, n, key in rows:
+        for kname in ATTN_KERNELS:
+            if kname in key:
+                t, c = attn.get(kname, (0.0, 0))
+                attn[kname] = (t + us / 1e3, c + n)
+    if attn:
+        print(f"phase 4b: {bundle.name} {mode}: attention kernels' device "
+              f"time: " + ", ".join(f"{k} {t:.3f} ms in {c} launches"
+                                    for k, (t, c) in attn.items()))
+    print(f"phase 4b: {bundle.name} profiled {mode} run, "
+          f"{eng.stats['decode_steps']} decode steps + "
+          f"{eng.stats['prefills']} prefills "
+          f"({eng.stats['prefill_chunks']} chunks): wall "
           f"{dt * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / (dt * 1e3):.1f}%); top device time:")
     for us, n, key in rows[:12]:
@@ -966,6 +1013,7 @@ def main() -> int:
     print(f"phase 2: built {sorted(secs)} in "
           f"{time.perf_counter() - t0:.1f} s wall (per library: "
           f"{ {k: round(v, 1) for k, v in secs.items()} })")
+    sass_check(_build)
 
     rec = kernel_checks(torch, ops, registry.config("llama3.2-3b"))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
@@ -975,7 +1023,9 @@ def main() -> int:
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)
-        profile_run(torch, serve, bundle, params)
+        for mode in (("monolithic",) if bundle.cfg.family == "ssm"
+                     else ("monolithic", "chunked")):
+            profile_run(torch, serve, bundle, params, mode)
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         all_runs += [run[3] for run in runs.values()]
         del bundle, params, runs
@@ -996,7 +1046,9 @@ def main() -> int:
             "replaces": r["module"].REPLACES, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "design": ("wgmma+tma" if name in WGMMA_TMA
+                       else "cuda-core f32")})
     print("kernels: " + ", ".join(
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "

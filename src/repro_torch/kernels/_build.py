@@ -113,6 +113,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """The SASS of kernel library ``name`` (built on first use), as the
+    toolkit's ``cuobjdump --dump-sass`` prints it."""
+    load(name)
+    tool = Path(nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
@@ -188,6 +197,20 @@ def vec_ok(*ts) -> int:
                 or any(s % vec for s in t.stride()[:-1])):
             return 0
     return 1
+
+
+def aligned(dt: int, *ts):
+    """The operands as the kernels take them: for bf16 (``dt`` 1) every
+    tensor 16-byte aligned with 16-byte strides (the tensor-core path's TMA
+    maps and Q loads; a view that is not is copied), with ``vec`` 1; for
+    f32 as given, with ``vec`` = :func:`vec_ok` of the K/V operands."""
+    if dt == 0:
+        return (*ts, vec_ok(*ts[1:]))
+    import torch
+    ts = tuple(t if vec_ok(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in ts)
+    return (*ts, 1)
 
 
 def stream_of(t) -> P:

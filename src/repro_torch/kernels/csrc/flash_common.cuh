@@ -1,5 +1,7 @@
 // Shared tile routine of the three attention kernels (flash_decode,
-// flash_prefill_chunk, flash_attention).
+// flash_prefill_chunk, flash_attention): the float32 path, on the CUDA
+// cores.  The bfloat16 path is flash_tc.cuh's tensor-core tile, which keeps
+// this file's masking, merge formula and split structure.
 //
 // All three compute the same thing for one (batch, KV-head) pair: a tile of
 // query rows, row r = g * C + i meaning query head kvh * G + g at query
@@ -72,6 +74,16 @@ struct Problem {
   float scale;
   int vec;                   // 16-byte K/V loads are legal
 };
+
+// Does query position qpos see key kpos?  Keys past Sk never: a parked
+// decode slot's position (~2^30) walks only [0, Sk).
+__device__ __forceinline__ bool visible(const Problem& p, int qpos,
+                                        int kpos) {
+  bool ok = kpos < p.Sk;
+  if (p.causal) ok = ok && kpos <= qpos;
+  if (p.window > 0) ok = ok && kpos > qpos - p.window;
+  return ok;
+}
 
 // Merge of a split's partial (ms, ls, acc) into the running (M, L, A):
 //   M' = max(M, ms);  A' = A e^(M-M') + acc e^(ms-M');  L' likewise.
@@ -175,14 +187,6 @@ struct Tile {
       qlim[1] = hi;
     }
     __syncthreads();
-  }
-
-  __device__ __forceinline__ bool visible(const Problem& p, int qpos,
-                                          int kpos) const {
-    bool ok = kpos < p.Sk;
-    if (p.causal) ok = ok && kpos <= qpos;
-    if (p.window > 0) ok = ok && kpos > qpos - p.window;
-    return ok;
   }
 
   // Does strip [j0, j0 + BK) hold a visible key for any row of the tile?
@@ -394,25 +398,26 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace fk
 
-// Dispatch a runtime (dtype, head_dim) pair to a template instantiation:
-// dtype 0 = float32, 1 = bfloat16; head_dim in {8, 16, 32, 64, 128}.
-#define FK_DISPATCH(DTYPE, HD, FN, ...)                                      \
+// Dispatch a runtime (dtype, head_dim) pair: dtype 0 = float32 to the
+// CUDA-core tile (F32FN<float, D>), 1 = bfloat16 to the tensor-core tile of
+// flash_tc.cuh (BF16FN<D>); head_dim in {8, 16, 32, 64, 128}.
+#define FK_DISPATCH(DTYPE, HD, F32FN, BF16FN, ...)                           \
   [&]() -> int {                                                             \
     if ((DTYPE) == 0) {                                                      \
       switch (HD) {                                                          \
-        case 8: return FN<float, 8>(__VA_ARGS__);                            \
-        case 16: return FN<float, 16>(__VA_ARGS__);                          \
-        case 32: return FN<float, 32>(__VA_ARGS__);                          \
-        case 64: return FN<float, 64>(__VA_ARGS__);                          \
-        case 128: return FN<float, 128>(__VA_ARGS__);                        \
+        case 8: return F32FN<float, 8>(__VA_ARGS__);                         \
+        case 16: return F32FN<float, 16>(__VA_ARGS__);                       \
+        case 32: return F32FN<float, 32>(__VA_ARGS__);                       \
+        case 64: return F32FN<float, 64>(__VA_ARGS__);                       \
+        case 128: return F32FN<float, 128>(__VA_ARGS__);                     \
       }                                                                      \
     } else if ((DTYPE) == 1) {                                               \
       switch (HD) {                                                          \
-        case 8: return FN<__nv_bfloat16, 8>(__VA_ARGS__);                    \
-        case 16: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                  \
-        case 32: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                  \
-        case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                  \
-        case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                \
+        case 8: return BF16FN<8>(__VA_ARGS__);                               \
+        case 16: return BF16FN<16>(__VA_ARGS__);                             \
+        case 32: return BF16FN<32>(__VA_ARGS__);                             \
+        case 64: return BF16FN<64>(__VA_ARGS__);                             \
+        case 128: return BF16FN<128>(__VA_ARGS__);                           \
       }                                                                      \
     }                                                                        \
     return (int)cudaErrorInvalidValue;                                       \

@@ -15,7 +15,15 @@
 // skipped; the kernel never walks past Sk (a parked slot asks for 2^30 + 1
 // live rows).  Reads the arena in place through strides: K/V stay in their
 // (B, S, KVH, D) layout, the G query heads of a KV head share its strip.
+//
+// bf16 split CTAs run flash_tc.cuh's tensor-core tile, the routine
+// flash_prefill_chunk runs: the same wgmma k-order over D, BK-key strips,
+// three-term P, softmax order and merge, with the G query rows padded to the
+// MMA's 64 by dead rows; that is what keeps chunk row j equal to decode at
+// pos = prefix + j bit for bit.  K/V come in by TMA.  f32 split CTAs run
+// flash_common.cuh's CUDA-core tile.
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 using namespace fk;
 
@@ -94,10 +102,66 @@ static int fd_run(const Problem& p, int B, float* part, int nsplit,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int D>
+__global__ void __launch_bounds__(NT)
+fd_tc_split_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, int bmul,
+                   float* part, int nsplit) {
+  extern __shared__ __align__(128) char tc_smem[];
+  using TT = tc::TcTile<D>;
+  TT t;
+  t.init(tc_smem);
+  const int split = blockIdx.x, bkv = blockIdx.y;
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  t.load_q(p, b, kvh, 0);
+  constexpr int PER = SPLIT / BK;
+  t.run(p, &mk, &mv, kvh, b * bmul, max(t.lim[0], split * PER),
+        min(t.lim[1], split * PER + PER - 1), [](int) {});
+  const int G = p.G, cq = 2 * (t.lane % 4);
+  float* base = part + ((long long)bkv * nsplit + split) * G * (D + 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = t.row0 + 8 * i;
+    if (r >= G) continue;
+    if (t.lane % 4 == 0) {
+      base[r] = t.m[i];
+      base[G + r] = t.l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < TT::R / 4; ++c) {
+      const int col = 8 * c + cq;
+      if (col < D) {
+        base[2 * G + r * D + col] = t.o[4 * c + 2 * i];
+        base[2 * G + r * D + col + 1] = t.o[4 * c + 2 * i + 1];
+      }
+    }
+  }
+}
+
+template <int D>
+static int fd_tc_run(const Problem& p, int B, float* part, int nsplit,
+                     cudaStream_t st) {
+  if (!p.vec || p.G > tc::ROWS) return (int)cudaErrorInvalidValue;
+  CUtensorMap mk, mv;
+  int bmul;
+  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D);
+  if (e) return e;
+  const size_t smem = tc::Cfg<D>::smem;
+  e = (int)allow_smem(fd_tc_split_kernel<D>, smem);
+  if (e) return e;
+  fd_tc_split_kernel<D><<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(
+      p, mk, mv, bmul, part, nsplit);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  fd_combine_kernel<__nv_bfloat16, D><<<B * p.KVH, NT, 0, st>>>(p, part,
+                                                                nsplit);
+  return (int)cudaGetLastError();
+}
+
 // q (B, H, D), k/v (B, Sk, KVH, D), o (B, H, D) by strides; lengths (B,)
 // int32 live rows per slot (null: all Sk live).  part: scratch of
 // B * KVH * nsplit * G * (D + 2) floats, nsplit = ceil(Sk / 128).
-// Returns cudaGetLastError() after the launches.
+// Returns cudaGetLastError() after the launches.  bf16 needs vec.
 extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
                          const void* v, void* o, float* part,
                          long long sqb, long long sqh,
@@ -117,5 +181,5 @@ extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
   p.qbase = lengths; p.qbase0 = Sk; p.qbase_add = -1;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return FK_DISPATCH(dtype, hd, fd_run, p, B, part, nsplit, st);
+  return FK_DISPATCH(dtype, hd, fd_run, fd_tc_run, p, B, part, nsplit, st);
 }

@@ -6,20 +6,22 @@
 //
 // What bounds it on the H100: operations once C is large (at C = 512 and
 // prefix 512, G = 3: ~2.4 GFLOP per layer call against ~2 MB of K/V), bytes
-// for small chunks.  This first version computes on the CUDA cores in f32
-// (register micro-tiles over shared-memory strips), not on the tensor
-// cores; wgmma/TMA is later work.  Grid = (ceil(G * C / 32), B * KVH):
-// 32 folded query rows (row r = g * C + i) per CTA, which gives enough CTAs
-// without splitting the KV axis.  `prefix` is runtime data; strips past the
-// tile's last query position are skipped.
+// for small chunks.  bf16 runs on the tensor cores (flash_tc.cuh: one
+// warpgroup per 64 folded query rows, row r = g * C + i, wgmma QK^T and
+// exact-P PV products (three bf16 terms) over TMA-loaded K/V strips read
+// in place from the arena); f32 runs flash_common.cuh's CUDA-core tile
+// with 32 rows per CTA.
+// `prefix` is runtime data; strips past the tile's last query position
+// are skipped.  The bf16 grid is 1-D, heaviest tiles first.
 //
 // Bit-identity pin: the CTA walks the keys in the same SPLIT-key splits as
 // flash_decode, each split from a fresh online-softmax state, and merges
 // the splits in order with the same formula as flash_decode's combine pass
-// (flash_common.cuh).  So row j equals flash_decode at pos = prefix + j bit
-// for bit, which speculative verify relies on (transformer.py:703-713 in
-// the reference).
+// (flash_common.cuh's merge_coeffs), on the same tile routine per dtype.
+// So row j equals flash_decode at pos = prefix + j bit for bit, which
+// speculative verify relies on (transformer.py:703-713 in the reference).
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 using namespace fk;
 
@@ -57,8 +59,48 @@ static int fpc_run(const Problem& p, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+__global__ void __launch_bounds__(NT)
+fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, int bmul) {
+  extern __shared__ __align__(128) char tc_smem[];
+  using TT = tc::TcTile<D>;
+  TT t;
+  t.init(tc_smem);
+  int bkv, r0;
+  tc::tile_of(p, blockIdx.x, &bkv, &r0);
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  t.load_q(p, b, kvh, r0);
+  float A[TT::R], GM[2] = {NEG_INF, NEG_INF}, GL[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < TT::R; ++x) A[x] = 0.f;
+  // splits with no live strip are skipped: merging one is bit-neutral
+  // (alpha 1, zero partial), as in flash_decode's combine pass
+  constexpr int PER = SPLIT / BK;
+  const int last = t.lim[1];
+  t.run(p, &mk, &mv, kvh, b * bmul, t.lim[0], last, [&](int n) {
+    if (n == last || (n + 1) % PER == 0) t.merge_into(A, GM, GL);
+  });
+  t.store(p, b, kvh, r0, A, GL);
+}
+
+template <int D>
+static int fpc_tc_run(const Problem& p, int B, cudaStream_t st) {
+  if (!p.vec) return (int)cudaErrorInvalidValue;
+  CUtensorMap mk, mv;
+  int bmul;
+  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D);
+  if (e) return e;
+  const size_t smem = tc::Cfg<D>::smem;
+  e = (int)allow_smem(fpc_tc_kernel<D>, smem);
+  if (e) return e;
+  const int tiles = (p.G * p.C + tc::ROWS - 1) / tc::ROWS;
+  fpc_tc_kernel<D><<<tiles * B * p.KVH, NT, smem, st>>>(p, mk, mv, bmul);
+  return (int)cudaGetLastError();
+}
+
 // q (B, C, H, D), k/v (B, Sk, KVH, D), o (B, C, H, D) by strides;
-// prefix (B,) int32 rows live before the chunk.
+// prefix (B,) int32 rows live before the chunk.  bf16 needs vec.
 extern "C" int fpc_launch(int dtype, int hd, const void* q, const void* k,
                           const void* v, void* o,
                           long long sqb, long long sqs, long long sqh,
@@ -78,5 +120,5 @@ extern "C" int fpc_launch(int dtype, int hd, const void* q, const void* k,
   p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return FK_DISPATCH(dtype, hd, fpc_run, p, B, st);
+  return FK_DISPATCH(dtype, hd, fpc_run, fpc_tc_run, p, B, st);
 }

@@ -88,7 +88,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"n_heads={h} not divisible by kv_heads={kvh}")
     dt = _build.dtype_code(q, k, v)
     _build.head_dim_ok(d)
-    q, k, v = (_build.inner_contiguous(t) for t in (q, k, v))
+    q, k, v, vec = _build.aligned(
+        dt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     fn = _build.bind(NAME, "fa_launch", _ARGS)
@@ -99,7 +100,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               v.stride(0), v.stride(2), v.stride(1),
               o.stride(0), o.stride(1), o.stride(2),
               b, kvh, h // kvh, sq, sk, int(bool(causal)), int(window or 0),
-              float(scale), _build.vec_ok(k, v), _build.stream_of(q))
+              float(scale), vec, _build.stream_of(q))
     launches += 1
     _build.check(code, NAME)
     return o.permute(0, 2, 1, 3)

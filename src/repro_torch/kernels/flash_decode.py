@@ -95,7 +95,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"GQA group {g} > {MAX_GROUP} not instantiated")
     dt = _build.dtype_code(q, k, v)
     _build.head_dim_ok(d)
-    q, k, v = (_build.inner_contiguous(t) for t in (q, k, v))
+    q, k, v, vec = _build.aligned(
+        dt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     if lengths is not None:
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
@@ -111,7 +112,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               v.stride(0), v.stride(1), v.stride(2),
               o.stride(0), o.stride(1),
               b, kvh, g, s, _build.ptr(lengths), int(window or 0),
-              float(scale), nsplit, _build.vec_ok(k, v), _build.stream_of(q))
+              float(scale), nsplit, vec, _build.stream_of(q))
     launches += 1
     _build.check(code, NAME)
     return o

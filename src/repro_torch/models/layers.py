@@ -176,8 +176,9 @@ def attention_decode_rows(p: dict, cfg, x_t: torch.Tensor, layer_kv: dict,
     return _dot(o.reshape(b, cfg.n_heads * cfg.hd), p["wo"], cfg.adtype)
 
 
-def init_kv_cache(cfg, batch: int, max_seq: int, *, kv_format: str = "fp32",
-                  device="cpu", n_layers: Optional[int] = None) -> dict:
+def init_kv_cache(cfg, batch: int, max_seq: int, *, device,
+                  kv_format: str = "fp32",
+                  n_layers: Optional[int] = None) -> dict:
     """KV cache {"k", "v"} of (batch, max_seq, KVH, hd), with a leading
     (n_layers,) axis when given.  Only the ``fp32`` storage format is
     ported: it stores at ``cfg.adtype`` (so bf16 at a bf16 config),

@@ -202,8 +202,8 @@ def ssm_layer_init(cfg, gen, dev) -> dict:
     return {"ln": ln, "mamba": mamba_params_init(cfg, gen, dev)}
 
 
-def init_ssm_cache(cfg, batch: int, max_seq: int, kv_format: str = "fp32",
-                   device="cpu") -> dict:
+def init_ssm_cache(cfg, batch: int, max_seq: int, kv_format: str,
+                   device) -> dict:
     """Stacked {"ssm": (L, batch·nh, N, P) f32, "conv": (L, batch, W-1,
     di+2gn) adtype}; ``max_seq`` is unused (the state has no sequence
     axis).  Recurrent state stays full precision: only the fp32 format."""

@@ -38,36 +38,55 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain(cuda, dtype):
+@pytest.mark.parametrize("d,window", [(16, None), (16, 8), (8, 8),
+                                      (32, 8), (64, None), (128, None)])
+def test_cuda_kernels_match_plain(cuda, dtype, d, window):
+    """All three attention kernels against their plain versions: ragged
+    lengths and a parked slot, chunk prefixes 0 and 9, a sliding window;
+    head dims 8 and 16 (bf16: zero-padded to the MMA's depth 16) and 128
+    (two swizzled boxes a row); flash_attention with Sq = Sk = 33 and with
+    Sq = 50 < Sk = 130 (Sk not a multiple of the 64-key strip)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=cuda).to(dtype)
 
-    q, k, v = rn(3, 6, 16), rn(3, 40, 2, 16), rn(3, 40, 2, 16)
+    q, k, v = rn(3, 6, d), rn(3, 40, 2, d), rn(3, 40, 2, d)
     lens = torch.tensor([1, 17, PARKED], device=cuda)
-    got = ops.flash_decode(q, k, v, lengths=lens)
-    want = ops.PLAIN.flash_decode(q, k, v, lengths=lens)
-    assert _within_limit(got, want)
-    qc = rn(2, 8, 6, 16)
+    got = ops.flash_decode(q, k, v, lengths=lens, window=window)
+    want = ops.PLAIN.flash_decode(q, k, v, lengths=lens, window=window)
+    assert got.dtype == dtype and _within_limit(got, want)
+    qc = rn(2, 8, 6, d)
     pre = torch.tensor([0, 9], device=cuda)
-    got = ops.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre)
-    want = ops.PLAIN.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre)
-    assert _within_limit(got, want)
-    qa, ka, va = rn(2, 6, 33, 16), rn(2, 2, 33, 16), rn(2, 2, 33, 16)
-    got = ops.attention(qa, ka, va)
-    want = ops.PLAIN.attention(qa, ka, va)
-    assert _within_limit(got, want)
+    got = ops.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre,
+                                  window=window)
+    want = ops.PLAIN.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre,
+                                         window=window)
+    assert got.dtype == dtype and _within_limit(got, want)
+    for sq, sk in ((33, 33), (50, 130)):
+        qa, ka, va = rn(2, 6, sq, d), rn(2, 2, sk, d), rn(2, 2, sk, d)
+        for causal in (True, False):
+            got = ops.attention(qa, ka, va, causal=causal, window=window)
+            want = ops.PLAIN.attention(qa, ka, va, causal=causal,
+                                       window=window)
+            assert got.dtype == dtype and _within_limit(got, want)
 
 
 @pytest.mark.gpu
-def test_cuda_chunk_rows_bit_equal_decode(cuda):
-    """Chunk row j == flash_decode at pos = prefix + j, bit for bit."""
+@pytest.mark.parametrize("dtype,d,c", [(torch.float32, 16, 16),
+                                       (torch.bfloat16, 16, 16),
+                                       (torch.bfloat16, 128, 16),
+                                       (torch.bfloat16, 128, 40)])
+def test_cuda_chunk_rows_bit_equal_decode(cuda, dtype, d, c):
+    """Chunk row j == flash_decode at pos = prefix + j, bit for bit: S = 300
+    arena rows (ragged against the 64-key strips), G = 3 query heads a KV
+    head, so a 64-row bf16 tile crosses heads (C = 16: one tile of 48 rows;
+    C = 40: two tiles of 120 rows)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    c, s, kvh, h, d = 16, 300, 2, 6, 16
-    q = torch.randn((1, c, h, d), generator=gen, device=cuda)
-    k = torch.randn((1, s, kvh, d), generator=gen, device=cuda)
-    v = torch.randn((1, s, kvh, d), generator=gen, device=cuda)
+    s, kvh, h = 300, 2, 6
+    q = torch.randn((1, c, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, s, kvh, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, s, kvh, d), generator=gen, device=cuda).to(dtype)
     pre = 200
     chunk = ops.flash_prefill_chunk(q, k, v, prefix=torch.tensor([pre],
                                                                  device=cuda))
@@ -75,6 +94,32 @@ def test_cuda_chunk_rows_bit_equal_decode(cuda):
                            v.expand(c, s, kvh, d),
                            lengths=pre + 1 + torch.arange(c, device=cuda))
     assert torch.equal(chunk[0], dec)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_views_not_16_byte_aligned(cuda):
+    """bf16 operands whose base or strides are not 16-byte aligned (the
+    tensor-core kernels' TMA maps and Q loads need it) are copied, not
+    refused, and give the plain versions' result."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    q, k, v = rn(2, 6, 17)[..., 1:], rn(2, 40, 2, 17)[..., 1:], \
+        rn(2, 40, 2, 16)
+    lens = torch.tensor([5, 40], device=cuda)
+    assert _within_limit(ops.flash_decode(q, k, v, lengths=lens),
+                         ops.PLAIN.flash_decode(q, k, v, lengths=lens))
+    qc, pre = rn(2, 8, 6, 17)[..., 1:], torch.tensor([0, 9], device=cuda)
+    assert _within_limit(ops.flash_prefill_chunk(qc, k, v, prefix=pre),
+                         ops.PLAIN.flash_prefill_chunk(qc, k, v,
+                                                       prefix=pre))
+    qa, ka = rn(1, 6, 33, 17)[..., 1:], rn(1, 2, 33, 17)[..., 1:]
+    va = rn(1, 2, 33, 16)
+    assert _within_limit(ops.attention(qa, ka, va),
+                         ops.PLAIN.attention(qa, ka, va))
 
 
 def _ssd_within_limit(got, want):

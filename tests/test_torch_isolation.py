@@ -84,6 +84,22 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ops.flash_decode(q.to("meta"), kv.to("meta"), kv.to("meta"))
 
 
+def test_cache_constructors_take_no_default_device():
+    """Nothing lands on the CPU unasked: both arena constructors need their
+    ``device``, and build where they are told."""
+    from repro_torch.models import layers, mamba2
+    cfg = registry.config("llama3.2-3b").reduced()
+    with pytest.raises(TypeError, match="device"):
+        layers.init_kv_cache(cfg, 2, 16)
+    cache = layers.init_kv_cache(cfg, 2, 16, device="cpu")
+    assert cache["k"].device.type == "cpu"
+    scfg = registry.config("mamba2-2.7b").reduced()
+    with pytest.raises(TypeError, match="device"):
+        mamba2.init_ssm_cache(scfg, 2, 16, "fp32")
+    state = mamba2.init_ssm_cache(scfg, 2, 16, "fp32", "cpu")
+    assert all(t.device.type == "cpu" for t in state.values())
+
+
 def test_launch_counters_stay_zero_on_cpu():
     ops.reset_launch_counts()
     bundle = registry.build("llama3.2-3b", reduced=True, device="cpu")
