@@ -11,15 +11,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
   2. build: the seven kernels (flash_attention, flash_decode,
      flash_prefill_chunk, ssd, matmul, dotp, conv2d) from
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-     source, all at once; then the SASS of the three attention libraries
-     (``cuobjdump``): each bf16 kernel must hold HGMMA (warpgroup MMA) and
-     UTMALDG (TMA load);
+     source, all at once; then the SASS (``cuobjdump``): each bf16
+     attention kernel must hold HGMMA (warpgroup MMA) and UTMALDG (TMA
+     load), each bf16 ssd kernel HMMA (mma.sync), the f32 matmul kernel
+     LDGSTS (cp.async) and no tensor-core MMA; the registers and stack of
+     the ssd and matmul kernels, where the new ones must not spill;
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
      ragged lengths, a parked slot, chunk prefix 0 and > 0; ssd: 80 heads,
-     S 1024 / 768 / 1000, with and without an initial state) and at a
-     small f32 shape, within the stated limit, each with a planted fault
-     the limit must reject; kernel / plain / bound / library-call times;
+     S 1024 / 768 / 1000, with and without an initial state, and the f32
+     state it carries between its two passes) and at a small f32 shape,
+     within the stated limit, each with a planted fault the limit must
+     reject; kernel / plain / bound / library-call times;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
      (bf16, full width);
   4. serving, for llama3.2-3b (the attention kernels) and then
@@ -27,8 +30,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
      depth 2), monolithic then chunked, with each kernel's launch count;
      then short runs under torch.profiler (device time by kernel, the
-     attention kernels' own line, device busy share; both prefill modes
-     for llama3.2-3b, monolithic for mamba2-2.7b);
+     attention and ssd kernels' own line, device busy share; both prefill
+     modes for llama3.2-3b, monolithic for mamba2-2.7b);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b also with f32 params and activations, where the limit
@@ -105,36 +108,74 @@ MAMBA2_F32_LOGIT_TOL = 1e-3
 # more than FAULT_MARGIN.
 FAULT_MARGIN = 10.0
 PARKED_POS = 1 << 30
-# The kernels' designs (the JSON line's ``design``): the attention kernels
-# run bf16 on the tensor cores (wgmma, K/V by TMA; their f32 path stays on
-# the CUDA cores), the others on the CUDA cores in f32.
+# The kernels' designs (the JSON line's ``design``).
 WGMMA_TMA = ("flash_attention", "flash_decode", "flash_prefill_chunk")
-# their kernels' names in a profile
-ATTN_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_split_kernel",
-                "fd_combine_kernel")
+DESIGN = {
+    **{k: "bf16: wgmma+tma; f32: cuda-core" for k in WGMMA_TMA},
+    "ssd": "bf16: mma.sync m16n8k16, f32 operands as 2 bf16 terms, rows "
+           "split into pieces over 2 passes; f32: cuda-core, a block a row",
+    "matmul": "f32: cuda-core fmaf, cp.async 4-stage ring, 2 blocks an SM; "
+              "bf16: cuda-core, register staging",
+    "dotp": "cuda-core f32", "conv2d": "cuda-core f32"}
+# kernels named in the profile's own line (phase 4b)
+PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_split_kernel",
+                    "fd_combine_kernel", "ssd_tc_kernel<false>",
+                    "ssd_tc_kernel<true>", "ssd_f32_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
+
+
+def sass_counts(_build, name):
+    """{kernel function: {op: SASS lines holding it}} of library ``name``."""
+    funcs, cur = {}, None
+    for line in _build.sass(name).splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
+            for op in SASS_OPS:
+                funcs[cur][op] += op in line
+    return funcs
 
 
 def sass_check(_build):
-    """Phase 2b: in each wgmma+tma library, every bf16 kernel (the
+    """Phase 2b.  In each wgmma+tma library, every bf16 kernel (the
     functions named ``*_tc_*``, one per head dim) holds HGMMA and UTMALDG
-    in its SASS; the f32 kernels beside them hold no HGMMA."""
+    in its SASS; the f32 kernels beside them hold no HGMMA.  The two bf16
+    ssd kernels (``ssd_tc_kernel``) hold HMMA; the f32 matmul kernels
+    (``mm_f32_kernel``) hold LDGSTS and neither HMMA nor HGMMA.  The ssd and
+    matmul kernels' registers and stack are printed; the new ones must not
+    spill (STACK and LOCAL 0)."""
     for name in WGMMA_TMA:
-        funcs, cur = {}, None
-        for line in _build.sass(name).splitlines():
-            if "Function :" in line:
-                cur = line.split("Function :")[1].strip()
-                funcs[cur] = [0, 0]
-            elif cur is not None:
-                funcs[cur][0] += "HGMMA" in line
-                funcs[cur][1] += "UTMALDG" in line
+        funcs = sass_counts(_build, name)
         tc = [c for f, c in funcs.items() if "_tc_" in f]
-        other = sum(c[0] for f, c in funcs.items() if "_tc_" not in f)
+        other = sum(c["HGMMA"] for f, c in funcs.items() if "_tc_" not in f)
         print(f"phase 2b: {name}: SASS of {len(tc)} bf16 kernels: HGMMA "
-              f"{[c[0] for c in tc]}, UTMALDG {[c[1] for c in tc]}; "
-              f"{len(funcs) - len(tc)} f32 kernels: HGMMA {other}")
-        assert len(tc) == 5 and all(h > 0 and t > 0 for h, t in tc), \
-            (name, tc)
+              f"{[c['HGMMA'] for c in tc]}, UTMALDG "
+              f"{[c['UTMALDG'] for c in tc]}; {len(funcs) - len(tc)} f32 "
+              f"kernels: HGMMA {other}")
+        assert len(tc) == 5 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                    for c in tc), (name, tc)
         assert other == 0, (name, other)
+    for name, new, want, none in (
+            ("ssd", "ssd_tc_kernel", ("HMMA",), ()),
+            ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"))):
+        funcs = sass_counts(_build, name)
+        use = _build.resource_usage(name)
+        hits = 0
+        for f, c in funcs.items():
+            u = next((v for k, v in use.items() if k in f or f in k), {})
+            print(f"phase 2b: {name}: {f}: SASS "
+                  f"{ {op: n for op, n in c.items() if n} }; REG "
+                  f"{u.get('REG')} STACK {u.get('STACK')} LOCAL "
+                  f"{u.get('LOCAL')}")
+            if new not in f:
+                continue
+            hits += 1
+            assert all(c[op] > 0 for op in want), (f, c)
+            assert all(c[op] == 0 for op in none), (f, c)
+            assert u.get("REG", 0) > 0 and u.get("STACK", 1) == 0 \
+                and u.get("LOCAL", 0) == 0, (f, u)
+        assert hits == 2, (name, list(funcs))
 
 
 def timed(fn, iters: int) -> float:
@@ -457,6 +498,13 @@ def ssd_checks(torch, ops, cfg):
     full, rem = divmod(s, q)
     pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
     flops = nh * (2 * pairs * (n + hd) + 2 * 2 * s * n * hd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g, cpp = ssd.pieces(nh, s, sms)
+    print(f"  ssd bf16 at {nh} rows x S={s} on {sms} SMs: {g} pieces of "
+          f"{cpp} chunks a row ({(g - 1) * nh} blocks in pass 1, {g * nh} "
+          f"in pass 2); f32 state carried between the passes: "
+          f"{ssd.carried_bytes(nh, s, sms) / 1e6:.2f} MB, beside "
+          f"{nbytes / 1e6:.2f} MB of operands and results")
     return dict(module=ssd, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 library_ms=None, bytes=nbytes, flops=flops)
 
@@ -561,16 +609,16 @@ def profile_run(torch, serve, bundle, params, mode):
     if not rows:
         print("phase 4b: profiler recorded no device time (not measured)")
         return
-    attn = {}
+    own = {}
     for us, n, key in rows:
-        for kname in ATTN_KERNELS:
+        for kname in PROFILED_KERNELS:
             if kname in key:
-                t, c = attn.get(kname, (0.0, 0))
-                attn[kname] = (t + us / 1e3, c + n)
-    if attn:
-        print(f"phase 4b: {bundle.name} {mode}: attention kernels' device "
+                t, c = own.get(kname, (0.0, 0))
+                own[kname] = (t + us / 1e3, c + n)
+    if own:
+        print(f"phase 4b: {bundle.name} {mode}: the port's kernels' device "
               f"time: " + ", ".join(f"{k} {t:.3f} ms in {c} launches"
-                                    for k, (t, c) in attn.items()))
+                                    for k, (t, c) in own.items()))
     print(f"phase 4b: {bundle.name} profiled {mode} run, "
           f"{eng.stats['decode_steps']} decode steps + "
           f"{eng.stats['prefills']} prefills "
@@ -1047,8 +1095,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "design": ("wgmma+tma" if name in WGMMA_TMA
-                       else "cuda-core f32")})
+            "design": DESIGN[name]})
     print("kernels: " + ", ".join(
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -120,6 +121,27 @@ def sass(name: str) -> str:
     tool = Path(nvcc()).parent / "cuobjdump"
     return subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
                           capture_output=True, text=True, check=True).stdout
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """{kernel function: {"REG": registers a thread, "STACK": bytes,
+    "LOCAL": bytes, ...}} of library ``name`` (built on first use), as the
+    toolkit's ``cuobjdump --dump-resource-usage`` prints them; a kernel
+    with no local arrays that has STACK or LOCAL above 0 spills."""
+    load(name)
+    tool = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-resource-usage",
+                          str(_lib_path(name))], capture_output=True,
+                         text=True, check=True).stdout
+    res, cur = {}, None
+    for line in out.splitlines():
+        if "Function " in line:
+            cur = line.split("Function ", 1)[1].strip().rstrip(":")
+            res[cur] = {}
+        elif cur is not None and "REG:" in line:
+            res[cur] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)",
+                                                         line)}
+    return res
 
 
 def check(code: int, name: str) -> None:

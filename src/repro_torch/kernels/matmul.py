@@ -7,8 +7,15 @@ Two versions of one function live here:
     the float32 product of the widened operands, cast to ``a.dtype`` (the
     CPU path, and the oracle the CUDA kernel is held against);
   * :func:`launch` — the hand-written CUDA kernel (``csrc/matmul.cu``):
-    128 x 128 output tiles, 32-deep K tiles in shared memory, an f32
-    register accumulator; ragged M / N / K masked in the kernel.
+    128 x 128 output tiles, an f32 register accumulator, one in-order fmaf
+    chain over k per element (no split-K: the bits repeat); ragged M / N /
+    K masked in the kernel.  float32: 16-deep K tiles by cp.async into a
+    4-stage shared-memory ring with one barrier a tile, A transposed on the
+    copy without bank conflicts, two 256-thread blocks an SM.  Bound, as
+    ``PERF.md`` counts it: operations, 2 M N K at the 67 TFLOP/s float32
+    CUDA-core peak (2.05 ms at 4096^3); the ring keeps the CUDA cores fed
+    from shared memory.  bfloat16: 32-deep K tiles staged through
+    registers, also on the CUDA cores.
 
 ``ops.matmul`` picks between them by the tensors' device.
 """
@@ -21,7 +28,8 @@ from repro_torch.kernels import _build
 NAME = "matmul"
 SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
 REPLACES = "src/repro/kernels/matmul.py:51"
-BK = 32          # depth of the kernel's K tile (csrc/matmul.cu BK)
+BK = 32          # K tile a planted fault drops (the bf16 kernel's BK; the
+                 # f32 kernel's 16-deep tiles fit it twice)
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0

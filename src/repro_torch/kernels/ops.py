@@ -244,8 +244,9 @@ def ssd(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     gives way to its jnp path (ops.py:570).  In addition B/C may hold
     BH / r rows, row g shared by x rows g * r .. g * r + r - 1 (n_groups <
     n_heads), which the kernel reads in place.  ``chunk`` is the plain
-    version's chunk; the kernel's inner chunk is its own (64 tokens): the
-    result differs only by f32 rounding.
+    version's chunk; the kernel's chunk is its own (64 tokens), and in
+    bf16 its f32 operands enter the tensor cores as two bf16 terms: the
+    result differs only by rounding (~2^-17 relative per term).
     """
     if not _on_cuda(x, log_a, B, C, initial_state):
         return _ssd_plain(x, log_a, B, C, chunk=chunk,

@@ -160,6 +160,61 @@ def test_cuda_ssd_matches_plain(cuda, dtype, s):
         assert _ssd_within_limit(got[1], want[1])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [6, 80, 160])
+@pytest.mark.parametrize("s", [1, 64, 65, 1000])
+def test_cuda_ssd_pieces_match_plain_and_repeat(cuda, dtype, bh, s):
+    """mamba2-2.7b's head width (P 64, N 128), two B/C groups: 6 rows cut
+    into one piece a chunk, 80 rows into 3 pieces of several chunks, 160
+    rows into one piece; S below one chunk, at one, just past one, and
+    ragged across pieces.  Within the limit, and y and the state repeat bit
+    for bit on a second call."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=cuda).manual_seed(8)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    p, n = 64, 128
+    x = (rn(s, bh, p) * 0.05).to(dtype).transpose(0, 1)
+    la = -torch.rand((bh, s), generator=gen, device=cuda) * 0.1
+    B, C = rn(2, s, n).to(dtype), rn(2, s, n).to(dtype)
+    st = rn(bh, n, p) * 0.1
+    for init in (None, st):
+        before = ssd.launches
+        got = ops.ssd(x, la, B, C, chunk=256, initial_state=init)
+        assert ssd.launches == before + 1
+        want = ops.PLAIN.ssd(x, la, B, C, chunk=256, initial_state=init)
+        assert _ssd_within_limit(got[0], want[0])
+        assert _ssd_within_limit(got[1], want[1])
+        again = ssd.launch(x, la, B, C, initial_state=init)
+        for a, b in zip(got, again):
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_bf16_unaligned_rows(cuda):
+    """bf16 x / B / C whose rows are not 16-byte aligned (headdim 12,
+    d_state 20, x offset by one element) are copied to aligned rows by the
+    wrapper; the result is within the limit."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    bh, s, p, n = 6, 150, 12, 20
+    x = rn(bh, s, p + 1).bfloat16()[..., 1:]
+    la = -torch.rand((bh, s), generator=gen, device=cuda) * 0.1
+    B, C = rn(3, s, n).bfloat16(), rn(3, s, n).bfloat16()
+    st = rn(bh, n, p)
+    got = ops.ssd(x, la, B, C, chunk=256, initial_state=st)
+    want = ops.PLAIN.ssd(x, la, B, C, chunk=256, initial_state=st)
+    assert _ssd_within_limit(got[0], want[0])
+    assert _ssd_within_limit(got[1], want[1])
+
+
 def _reassoc_within_limit(got, want, bound):
     """The vector-unit kernels' limit (``chip_smoke.py`` states it): the
     per-element reassociation bound c 2^-24 sum |a b| of the kernel module's
@@ -195,6 +250,30 @@ def test_cuda_matmul_matches_plain(cuda, dtype, shape):
                                  matmul.error_bound(a, b))
     with pytest.raises(TypeError, match="mixed"):
         ops.matmul(a.float(), b.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 5, 64), (130, 50, 70),
+                                   (1, 300, 129), (200, 16, 6)])
+@pytest.mark.parametrize("b_stride", [0, 1])
+def test_cuda_matmul_edges_repeat(cuda, dtype, shape, b_stride):
+    """K shorter than one 16-deep stage, K not a multiple of it, M = 1, N
+    not a multiple of 4; B contiguous or a column slice (row stride N + 1:
+    4-byte copies in place of 16-byte ones).  Within the limit, and the
+    same bits on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    m, k, n = shape
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((k, n + b_stride), generator=gen,
+                    device=cuda).to(dtype)[:, :n]
+    from repro_torch.kernels import matmul
+    got = ops.matmul(a, b)
+    assert got.shape == (m, n) and got.dtype == dtype
+    assert _reassoc_within_limit(got, ops.PLAIN.matmul(a, b),
+                                 matmul.error_bound(a, b))
+    again = matmul.launch(a.clone(), b.clone())
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
 
 
 @pytest.mark.gpu
