@@ -13,16 +13,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
      source, all at once; then the SASS (``cuobjdump``): each bf16
      attention kernel must hold HGMMA (warpgroup MMA) and UTMALDG (TMA
-     load), each bf16 ssd kernel HMMA (mma.sync), the f32 matmul kernel
-     LDGSTS (cp.async) and no tensor-core MMA; the registers and stack of
-     the ssd and matmul kernels, where the new ones must not spill;
+     load), flash_decode no combine kernel, each bf16 ssd kernel HMMA
+     (mma.sync), the bf16 matmul kernel HGMMA and UTMALDG, the f32 matmul
+     kernels LDGSTS (cp.async) and no tensor-core MMA, and none of those
+     ssd / matmul kernels may spill (registers and stack printed);
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
      ragged lengths, a parked slot, chunk prefix 0 and > 0; ssd: 80 heads,
      S 1024 / 768 / 1000, with and without an initial state, and the f32
      state it carries between its two passes) and at a small f32 shape,
      within the stated limit, each with a planted fault the limit must
-     reject; kernel / plain / bound / library-call times;
+     reject; kernel / plain / bound / library-call times; flash_decode's
+     arrival counters read 0 after its calls, and its CTAs an SM;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
      (bf16, full width);
   4. serving, for llama3.2-3b (the attention kernels) and then
@@ -34,16 +36,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      modes for llama3.2-3b, monolithic for mamba2-2.7b);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
-     mamba2-2.7b also with f32 params and activations, where the limit
-     must reject a planted SSD fault;
+     mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
+     through a chunk and 4 decode steps, held to limits stated from a
+     control, and (5b) the logits with f32 params and activations; each
+     limit must reject a planted SSD fault;
   6. the vector-unit path (fmatmul, dot product, fconv2d, the core
      modules): driven at the paper's sweep sizes with its own launch
      counts; each kernel against its plain version there, at ragged
      shapes and at card shapes (matmul 4096^3 f32 / bf16, dotp 2^26 f32 /
      bf16, conv2d (64, 112, 112, 3) x (7, 7, 3, 64) f32) within the
      reassociation bound, each with a planted fault the limit must reject
-     by more than 10x; dotp's bits repeated; kernel / plain / library
-     times; the core modules on CUDA against the CPU, bit for bit;
+     by more than 10x; at the matmul and dotp card shapes kernel and plain
+     version each against the float64 result within its own share; which
+     bf16 matmul shapes take the padding step; dotp's bits repeated;
+     kernel / plain / library times; the core modules on CUDA against the
+     CPU, bit for bit;
   7. summary: the kernel JSON line (with each kernel's ``design``), the
      card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
@@ -97,6 +104,35 @@ SSD_RTOL = 1e-4
 # the last 64-token inner chunk dropped) reads 4.48 and must exceed it.
 LOGIT_TOL = 0.1
 MAMBA2_F32_LOGIT_TOL = 1e-3
+# Phase 5c holds the bf16 ssd tensor-core kernel inside the model: one
+# mamba2-2.7b layer at full width in bf16 on request 0's prompt, the final
+# SSD state carried through a 64-token chunk and 4 decode steps, kernel
+# path against plain path.  The control is the plain path with 64-token
+# instead of 256-token SSD chunks on the same layer and inputs, which
+# changes nothing but the f32 rounding of the scan.  Each quantity is read
+# in ulps of its own type: max over elements of |a - b| / (ulp(max(|a|,
+# |b|)) + ulp(rms)), the rms term a floor for elements near 0 (layer_ulps).
+# Limit per quantity: its margin times the control's reading, taken as at
+# least 1 (a bf16 output the control happens to leave unflipped still
+# flips by one ulp).
+#   * bf16 outputs (the layer's y, the chunk's y, the decode outputs): both
+#     paths reach them through one-ulp flips of the bf16 SSD output; the
+#     kernel's f32 results lie farther from the plain path's than the
+#     control's (its f32 operands enter the tensor cores as two bf16
+#     terms, ~2^-17 relative per term against ~2^-24), so more elements
+#     flip, each by the same ulp, and the flips compound through the
+#     gate, the norm and the out-projection: margin 4;
+#   * f32 states (after the prompt, after the chunk): they carry the
+#     rounding itself.  The kernel reads 2.5x (prompt) and 20x (after the
+#     chunk) the control; a lower-precision control, the same arithmetic
+#     with one bf16 term per f32 operand instead of two (one_term), must
+#     fail, and reads far above the kernel: margin 64, 3x above the
+#     kernel's 20x, so that a state a few times less precise fails.
+# The planted fault of phase 5b (the carry into the last 64-token inner
+# chunk dropped, here in the prompt's scan) must exceed every limit by
+# more than FAULT_MARGIN.
+SSM_LAYER_MARGIN = {"y": 4.0, "state": 64.0, "chunk y": 4.0,
+                    "chunk state": 64.0, "decode out": 4.0}
 # The vector-unit kernels (matmul, dotp, conv2d), kernel vs plain: a float32
 # result may differ from the plain version's by the reassociation bound
 # c 2^-24 sum |a b| over its contraction, with c stated beside each kernel
@@ -112,15 +148,18 @@ PARKED_POS = 1 << 30
 WGMMA_TMA = ("flash_attention", "flash_decode", "flash_prefill_chunk")
 DESIGN = {
     **{k: "bf16: wgmma+tma; f32: cuda-core" for k in WGMMA_TMA},
+    "flash_decode": "bf16: wgmma+tma; f32: cuda-core; one launch, the last "
+                    "split CTA of a row merges its partials in split order",
     "ssd": "bf16: mma.sync m16n8k16, f32 operands as 2 bf16 terms, rows "
            "split into pieces over 2 passes; f32: cuda-core, a block a row",
-    "matmul": "f32: cuda-core fmaf, cp.async 4-stage ring, 2 blocks an SM; "
-              "bf16: cuda-core, register staging",
+    "matmul": "bf16: wgmma+tma, 128x256 tiles, 4-stage ring, a producer "
+              "thread and 2 consumer warpgroups; f32: cuda-core fmaf, "
+              "cp.async 4-stage ring, 2 blocks an SM",
     "dotp": "cuda-core f32", "conv2d": "cuda-core f32"}
 # kernels named in the profile's own line (phase 4b)
-PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_split_kernel",
-                    "fd_combine_kernel", "ssd_tc_kernel<false>",
-                    "ssd_tc_kernel<true>", "ssd_f32_kernel")
+PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_kernel",
+                    "ssd_tc_kernel<false>", "ssd_tc_kernel<true>",
+                    "ssd_f32_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
 
 
@@ -137,14 +176,22 @@ def sass_counts(_build, name):
     return funcs
 
 
+# Phase 2b's rules for the kernels that must not spill: (library, kernel
+# function, SASS ops it must hold, ops it must not hold, how many such
+# functions the library has).
+SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
+              ("matmul", "mm_bf16_kernel", ("HGMMA", "UTMALDG"), (), 1),
+              ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"), 2))
+
+
 def sass_check(_build):
     """Phase 2b.  In each wgmma+tma library, every bf16 kernel (the
     functions named ``*_tc_*``, one per head dim) holds HGMMA and UTMALDG
-    in its SASS; the f32 kernels beside them hold no HGMMA.  The two bf16
-    ssd kernels (``ssd_tc_kernel``) hold HMMA; the f32 matmul kernels
-    (``mm_f32_kernel``) hold LDGSTS and neither HMMA nor HGMMA.  The ssd and
-    matmul kernels' registers and stack are printed; the new ones must not
-    spill (STACK and LOCAL 0)."""
+    in its SASS; the f32 kernels beside them hold no HGMMA; flash_decode
+    holds no combine kernel (one launch a call).  Then SASS_RULES: the two
+    bf16 ssd kernels hold HMMA, the bf16 matmul kernel HGMMA and UTMALDG,
+    the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, and none of
+    them spills (STACK and LOCAL 0); their registers are printed."""
     for name in WGMMA_TMA:
         funcs = sass_counts(_build, name)
         tc = [c for f, c in funcs.items() if "_tc_" in f]
@@ -156,26 +203,30 @@ def sass_check(_build):
         assert len(tc) == 5 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
                                     for c in tc), (name, tc)
         assert other == 0, (name, other)
-    for name, new, want, none in (
-            ("ssd", "ssd_tc_kernel", ("HMMA",), ()),
-            ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"))):
+    fd = list(sass_counts(_build, "flash_decode"))
+    assert not any("combine" in f for f in fd), fd
+    use = _build.resource_usage("flash_decode")
+    print(f"phase 2b: flash_decode: {len(fd)} kernels, no combine kernel; "
+          f"registers of the bf16 kernels "
+          f"{[u.get('REG') for f, u in use.items() if '_tc_' in f]}")
+    for name, new, want, none, count in SASS_RULES:
         funcs = sass_counts(_build, name)
         use = _build.resource_usage(name)
         hits = 0
         for f, c in funcs.items():
+            if new not in f:
+                continue
             u = next((v for k, v in use.items() if k in f or f in k), {})
             print(f"phase 2b: {name}: {f}: SASS "
                   f"{ {op: n for op, n in c.items() if n} }; REG "
                   f"{u.get('REG')} STACK {u.get('STACK')} LOCAL "
                   f"{u.get('LOCAL')}")
-            if new not in f:
-                continue
             hits += 1
             assert all(c[op] > 0 for op in want), (f, c)
             assert all(c[op] == 0 for op in none), (f, c)
             assert u.get("REG", 0) > 0 and u.get("STACK", 1) == 0 \
                 and u.get("LOCAL", 0) == 0, (f, u)
-        assert hits == 2, (name, list(funcs))
+        assert hits == count, (name, new, list(funcs))
 
 
 def timed(fn, iters: int) -> float:
@@ -205,12 +256,22 @@ def sdpa(q, k, v, **kw):
         q, k, v, enable_gqa=k.shape[1] != q.shape[1], **kw)
 
 
+def ulp(x, bits):
+    """Spacing of floats with ``bits`` significant bits (bf16 8, f32 24)
+    at |x|, in x's dtype; 0 at 0."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - bits))
+
+
+def type_bits(t) -> int:
+    import torch
+    return 8 if t.dtype == torch.bfloat16 else 24
+
+
 def bf16_ulp(x):
     """Spacing of bfloat16 values (8 significant bits) at |x|; 0 at 0."""
-    import torch
-    x = x.float()
-    _, e = torch.frexp(x)
-    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+    return ulp(x.float(), 8)
 
 
 def ssd_limit(got, w):
@@ -218,11 +279,8 @@ def ssd_limit(got, w):
     one ulp of ``got``'s type at the larger magnitude (w: f32)."""
     import torch
     big = torch.maximum(got.float().abs(), w.abs())
-    _, e = torch.frexp(big)
-    bits = 24 if got.dtype == torch.float32 else 8
-    ulp = torch.where(big == 0, 0.0,
-                      torch.ldexp(torch.ones_like(big), e - bits))
-    return ulp + SSD_RTOL * (w.abs() + w.pow(2).mean().sqrt())
+    return (ulp(big, type_bits(got))
+            + SSD_RTOL * (w.abs() + w.pow(2).mean().sqrt()))
 
 
 def excess(got, want, dtype_name, bound=None) -> float:
@@ -275,6 +333,23 @@ def check(name, got, want, dtype_name, extra="", fault=None, bound=None,
                                  f"fault {what} ({f_ratio} x the limit, "
                                  f"needs > {margin})")
     return err
+
+
+def exact_check(name, got, plain, exact, shares):
+    """Hold the kernel's result and the plain version's to the float64
+    result ``exact``, each under its own share of the reassociation bound
+    (``shares``: (kernel, plain), the module's ``error_bound_exact`` and
+    ``plain_bound_exact``), plus one bf16 ulp of the larger magnitude for
+    a bf16 output (``matmul.exact_limit``); print the share of its limit
+    each reads."""
+    from repro_torch.kernels.matmul import exact_limit
+    reads = [((r.double() - exact).abs() / exact_limit(r, exact, share))
+             .max().item() for r, share in zip((got, plain), shares)]
+    print(f"  {name:<34} against float64: kernel {reads[0]:.3e}, plain "
+          f"{reads[1]:.3e} of its own share")
+    if not max(reads) <= 1.0:
+        raise AssertionError(f"{name}: against float64 {reads} x the "
+                             f"limit")
 
 
 def kernel_checks(torch, ops, cfg):
@@ -339,8 +414,20 @@ def kernel_checks(torch, ops, cfg):
         layer[0] = (layer[0] + 1) % nl
         return layer[0]
 
+    before = flash_decode.launches
     ms = timed(lambda: flash_decode.launch(q, arena_k[nxt()],
                                            arena_v[layer[0]], lens), 50)
+    torch.cuda.synchronize()
+    rows = slots * kvh
+    left = int(flash_decode.counters(q.device, rows)[:rows].abs().sum())
+    occ = flash_decode.occupancy(torch.bfloat16, d, h // kvh)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  flash_decode: {flash_decode.launches - before} calls, one "
+          f"launch each; arrival counters after them: {left} (must be 0); "
+          f"{occ} CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+          f", bf16, hd {d}, G {h // kvh}): {occ * sms} slots for "
+          f"{-(-smax // flash_decode.SPLIT) * rows} CTAs at Sk={smax}")
+    assert left == 0, left
     plain_ms = timed(lambda: P.flash_decode(q, arena_k[nxt()],
                                             arena_v[layer[0]],
                                             lengths=lens), 5)
@@ -643,14 +730,6 @@ def ssm_f32_check(torch, ops, cfg, params, prompt):
     from repro_torch.models import registry
     P = ops.PLAIN
 
-    def carry_dropped(x, log_a, B, C, *, chunk=256, initial_state=None):
-        cut = (x.shape[1] - 1) // 64 * 64
-        y0, _ = P.ssd(x[:, :cut], log_a[:, :cut], B[:, :cut], C[:, :cut],
-                      chunk=chunk, initial_state=initial_state)
-        y1, st = P.ssd(x[:, cut:], log_a[:, cut:], B[:, cut:], C[:, cut:],
-                       chunk=chunk)
-        return torch.cat([y0, y1], dim=1), st
-
     def f32(tree):
         return ({k: f32(v) for k, v in tree.items()}
                 if isinstance(tree, dict) else tree.float())
@@ -658,7 +737,7 @@ def ssm_f32_check(torch, ops, cfg, params, prompt):
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 act_dtype="float32")
     p32 = f32(params)
-    faulty = types.SimpleNamespace(**{**vars(P), "ssd": carry_dropped})
+    faulty = types.SimpleNamespace(**{**vars(P), "ssd": carry_dropped(P)})
     logits = {name: prefill_logits(registry.build_model(
                   cfg32, device="cuda", kernels=k), p32, prompt)
               for name, k in (("kernel", ops), ("plain", P),
@@ -675,6 +754,145 @@ def ssm_f32_check(torch, ops, cfg, params, prompt):
     assert bool(torch.isfinite(logits["kernel"]).all())
     assert diff <= tol, diff
     assert f_diff > tol, f_diff
+
+
+def carry_dropped(P):
+    """The plain ssd with a planted fault: the carry into the last 64-token
+    inner chunk dropped (the state entering it is zero)."""
+    import torch
+
+    def ssd(x, log_a, B, C, *, chunk=256, initial_state=None):
+        cut = (x.shape[1] - 1) // 64 * 64
+        y0, _ = P.ssd(x[:, :cut], log_a[:, :cut], B[:, :cut], C[:, :cut],
+                      chunk=chunk, initial_state=initial_state)
+        y1, st = P.ssd(x[:, cut:], log_a[:, cut:], B[:, cut:], C[:, cut:],
+                       chunk=chunk)
+        return torch.cat([y0, y1], dim=1), st
+    return ssd
+
+
+def one_term():
+    """A lower-precision ssd, the control phase 5c's state limits must
+    reject: the bf16 kernel's arithmetic (64-token chunks in order; exact
+    bf16 products, f32 sums) with each f32 operand the tensor cores take
+    (the decayed scores G, the carried state H, w X) rounded to one bf16
+    term instead of the kernel's two (``csrc/ssd.cu``)."""
+    import torch
+
+    def one(t):
+        return t.bfloat16().float()
+
+    def ssd(x, log_a, B, C, *, chunk=256, initial_state=None):
+        bh, s, p = x.shape
+        B, C = (t.float().repeat_interleave(bh // t.shape[0], 0)
+                for t in (B, C))
+        h = (torch.zeros((bh, B.shape[-1], p), device=x.device)
+             if initial_state is None else initial_state.float())
+        ys = []
+        for c0 in range(0, s, 64):
+            xb, Bb, Cb = (t[:, c0:c0 + 64].float() for t in (x, B, C))
+            cum = torch.cumsum(log_a[:, c0:c0 + 64].float(), dim=-1)
+            q = cum.shape[1]
+            keep = torch.ones((q, q), dtype=torch.bool,
+                              device=x.device).tril()
+            g = torch.where(keep, (Cb @ Bb.transpose(1, 2)) * torch.exp(
+                cum[:, :, None] - cum[:, None, :]), 0.0)
+            ys.append((Cb @ one(h)) * torch.exp(cum)[..., None]
+                      + one(g) @ xb)
+            wx = torch.exp(cum[:, -1:] - cum)[..., None] * xb
+            h = (h * torch.exp(cum[:, -1])[:, None, None]
+                 + Bb.transpose(1, 2) @ one(wx))
+        y = torch.cat(ys, 1) if ys else x.float()
+        return y.to(x.dtype), h
+    return ssd
+
+
+def ssm_layer_check(torch, ops, cfg, params, prompt):
+    """Phase 5c: layer 0 of mamba2-2.7b in bf16 (``mamba_apply`` on the
+    rms-normed embeddings of request 0's prompt, as serving's monolithic
+    prefill runs it), its final SSD state and conv tail carried through
+    one 64-token chunk (``initial_state``) and 4 decode steps
+    (``mamba_decode_step``).  Kernel path (the ssd tensor-core kernel)
+    against plain path, each quantity held to SSM_LAYER_MARGIN times the
+    control; the planted fault must exceed every limit by more than
+    FAULT_MARGIN."""
+    import types
+
+    import numpy as np
+    from repro_torch.kernels import ssd
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2
+    from repro_torch.models.transformer import layer_params
+    P = ops.PLAIN
+    p = layer_params(params["layers"], 0)
+    more = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, 64 + 4), device=prompt.device)
+    cfg64 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                             chunk=64))
+
+    def h(tokens):
+        return L.rmsnorm(p["ln"], L.embed_lookup(params["embed"], tokens),
+                         cfg.rms_eps)
+
+    def run(kops, c, first=None):
+        """The quantities of one path; ``first``: the ops of the prompt's
+        scan when they differ (the planted fault)."""
+        y, (st, tail) = mamba2.mamba_apply(p["mamba"], c, h(prompt),
+                                           kops=first or kops,
+                                           return_state=True)
+        yc, (stc, tailc) = mamba2.mamba_apply(
+            p["mamba"], c, h(more[None, :64]), kops=kops, initial_state=st,
+            conv_tail=tail, return_state=True)
+        cache, outs = {"ssm": stc, "conv": tailc}, []
+        for t in range(64, 68):
+            o, cache = mamba2.mamba_decode_step(p["mamba"], c,
+                                                h(more[t:t + 1]), cache,
+                                                kops=kops)
+            outs.append(o)
+        return {"y": y, "state": st, "chunk y": yc, "chunk state": stc,
+                "decode out": torch.stack(outs)}
+
+    before = ssd.launches
+    got = run(ops, cfg)
+    launched = ssd.launches - before
+    plain, ctrl = run(P, cfg), run(P, cfg64)
+    fault = run(P, cfg, types.SimpleNamespace(**{**vars(P),
+                                                 "ssd": carry_dropped(P)}))
+    low = run(types.SimpleNamespace(**{**vars(P), "ssd": one_term()}), cfg)
+    assert launched == 2, launched       # the prompt's scan and the chunk's
+    assert got["y"].dtype == torch.bfloat16, got["y"].dtype
+    print(f"phase 5c: {cfg.name} layer 0, bf16, request 0's "
+          f"{prompt.shape[1]}-token prompt, then a 64-token chunk and 4 "
+          f"decode steps carried from its state ({launched} ssd launches on "
+          f"the kernel path)")
+    for q in got:
+        c = layer_ulps(ctrl[q], plain[q])
+        lim = SSM_LAYER_MARGIN[q] * max(c, 1.0)
+        k = layer_ulps(got[q], plain[q])
+        f = layer_ulps(fault[q], plain[q])
+        lo = layer_ulps(low[q], plain[q])
+        err = (got[q].float() - plain[q].float()).abs().max().item()
+        print(f"  {q:<12} ({str(got[q].dtype)[6:]}) control {c:.2f} ulps, "
+              f"limit {lim:.2f} ({SSM_LAYER_MARGIN[q]:g}x); kernel {k:.2f} "
+              f"= {k / lim:.3f} of it (max|diff| {err:.3e}); planted fault "
+              f"{f:.4g} = {f / lim:.1f}x; one bf16 term {lo:.4g} = "
+              f"{lo / lim:.2f}x")
+        assert bool(torch.isfinite(got[q]).all()), q
+        assert k <= lim, (q, k, lim)
+        assert f > FAULT_MARGIN * lim, (q, f, lim)
+        if got[q].dtype == torch.float32:
+            assert lo > lim, (q, lo, lim)
+
+
+def layer_ulps(got, want) -> float:
+    """max over elements of |got - want| in ulps of got's type (bf16 or
+    f32) at the larger magnitude, floored at the ulp of want's rms."""
+    import torch
+    bits = type_bits(got)
+    g, w = got.float(), want.float()
+    floor = ulp(w.pow(2).mean().sqrt(), bits)
+    return ((g - w).abs() / (ulp(torch.maximum(g.abs(), w.abs()), bits)
+                             + floor)).max().item()
 
 
 def end_to_end(torch, ops, serve, bundle, params, args, runs):
@@ -718,6 +936,7 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
     assert bool(torch.isfinite(logits["kernel"]).all())
     if ssm:
         del logits, models, plain
+        ssm_layer_check(torch, ops, bundle.cfg, params, prompt)
         ssm_f32_check(torch, ops, bundle.cfg, params, prompt)
     else:
         assert diff <= LOGIT_TOL, diff
@@ -836,9 +1055,11 @@ def vector_unit_phase(torch, ops):
     for dtype in (torch.float32, torch.bfloat16):
         dn = "f32" if dtype == torch.float32 else "bf16"
         for m, k, n in ((257, 64, 33), (96, 130, 70), (1, 512, 1)):
-            errs["matmul"].append(mm_check(f"({m}, {k}, {n}) {dn}",
-                                           rn(m, k, dtype=dtype),
-                                           rn(k, n, dtype=dtype)))
+            a, b = rn(m, k, dtype=dtype), rn(k, n, dtype=dtype)
+            if dtype == torch.bfloat16:
+                print(f"  matmul ({m}, {k}, {n}) bf16: the padding step "
+                      f"copies {matmul.pad_operands(a, b)[2] or 'nothing'}")
+            errs["matmul"].append(mm_check(f"({m}, {k}, {n}) {dn}", a, b))
         for n in (8, 100, 4097):
             errs["dotp"].append(dp_check(f"n={n} {dn}", rn(n, dtype=dtype),
                                          rn(n, dtype=dtype)))
@@ -865,7 +1086,13 @@ def vector_unit_phase(torch, ops):
     for dtype in (torch.float32, torch.bfloat16):
         a, b = rn(s, s, dtype=dtype), rn(s, s, dtype=dtype)
         dn = names[dtype]
-        err = mm_check(f"{s}^3 {dn}", a, b)
+        got = ops.matmul(a, b)
+        err = mm_check(f"{s}^3 {dn}", a, b, got)
+        exact_check(f"matmul {s}^3 {dn}", got, P.matmul(a, b),
+                    torch.matmul(a.double(), b.double()),
+                    (matmul.error_bound_exact(a, b),
+                     matmul.plain_bound_exact(a, b)))
+        del got
         r = dict(module=matmul, label=f"matmul {dn}",
                  max_abs_err=max(errs["matmul"] + [err]),
                  ms=timed(lambda: matmul.launch(a, b), 10),
@@ -883,7 +1110,12 @@ def vector_unit_phase(torch, ops):
     for dtype in (torch.float32, torch.bfloat16):
         a, b = rn(n, dtype=dtype), rn(n, dtype=dtype)
         dn = names[dtype]
-        err = dp_check(f"n=2^26 {dn}", a, b)
+        got = ops.dotp(a, b)
+        err = dp_check(f"n=2^26 {dn}", a, b, got)
+        exact_check(f"dotp n=2^26 {dn}", got, P.dotp(a, b),
+                    (a.double() * b.double()).sum(),
+                    (dotp.error_bound_exact(a, b),
+                     dotp.plain_bound_exact(a, b)))
         r1, r2 = dotp.launch(a, b), dotp.launch(a.clone(), b.clone())
         same = bool(torch.equal(r1.reshape(1).view(torch.int32),
                                 r2.reshape(1).view(torch.int32)))

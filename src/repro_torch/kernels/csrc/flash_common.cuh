@@ -25,7 +25,7 @@
 // formula (merge_coeffs).  That is what lets flash_prefill_chunk row j equal
 // flash_decode at pos = prefix + j bit for bit: the chunk kernel runs the
 // per-split partials and the merge in-CTA, the decode kernel runs them in
-// separate CTAs plus a combine pass, and the arithmetic is the same.
+// separate CTAs and the last of them merges, and the arithmetic is the same.
 // Explicit __f*_rn intrinsics keep nvcc from contracting differently in the
 // two kernels.
 #pragma once

@@ -9,12 +9,30 @@
 // 4 * G * D flops per key row.  The grid is the problem: B * KVH = 32 rows
 // against 132 SMs.  So the KV axis is split across CTAs in fixed SPLIT-key
 // ranges (the reference's kv_seq lane split, flash_decode.py:21-23): grid =
-// (ceil(Sk / SPLIT), B * KVH), each CTA writes a partial (m, l, acc) to a
-// scratch buffer the wrapper allocates, and a combine pass merges the
-// partials in split order.  Splits and strips past a row's live length are
-// skipped; the kernel never walks past Sk (a parked slot asks for 2^30 + 1
-// live rows).  Reads the arena in place through strides: K/V stay in their
-// (B, S, KVH, D) layout, the G query heads of a KV head share its strip.
+// (ceil(Sk / SPLIT), B * KVH), and each CTA writes a partial (m, l, acc) to
+// a scratch buffer the wrapper allocates.  Splits and strips past a row's
+// live length are skipped; the kernel never walks past Sk (a parked slot
+// asks for 2^30 + 1 live rows).  Reads the arena in place through strides:
+// K/V stay in their (B, S, KVH, D) layout, the G query heads of a KV head
+// share its strip.
+//
+// One launch.  Every split CTA of a row, live or not, arrives on the row's
+// arrival counter (an integer atomicAdd after a __threadfence that
+// publishes its partial); the CTA that arrives last merges the row's
+// partials in ascending split order from (NEG_INF, 0, 0) with
+// merge_coeffs / merge_val, and resets the counter to 0.  No float
+// atomics: the merge order is fixed, so the result does not depend on
+// which CTA arrives last.  The counters live in a per-(device, stream)
+// buffer that the wrapper zeroes once, so a call issues no memset.  The
+// merge runs once the row's slowest split is done; each thread merges its
+// elements in split order, the loads of FOLD splits in flight at a time.
+//
+// Occupancy.  At hd 128 a bf16 split CTA takes 81 KB of shared memory (a
+// 64-row Q box and two 32 KB K/V stages): 2 CTAs an SM, 264 slots for 288
+// CTAs at Sk = 1121 with 4 slots x 8 KV heads.  An 8-row Q box for G <= 8
+// with a 168-register cap reaches 3 CTAs an SM, but measured no faster
+// with the merge in the kernel's tail, so the tile is kept as the prefill
+// kernels run it.
 //
 // bf16 split CTAs run flash_tc.cuh's tensor-core tile, the routine
 // flash_prefill_chunk runs: the same wgmma k-order over D, BK-key strips,
@@ -27,9 +45,78 @@
 
 using namespace fk;
 
+constexpr int FOLD = 8;    // splits whose partials are loaded at once
+
+// Merge the nsplit partials of row bkv in ascending split order from
+// (NEG_INF, 0, 0) with merge_coeffs / merge_val -- flash_prefill_chunk's
+// in-CTA merge, step for step -- and write the row's output.  FOLD splits'
+// loads are in flight at a time; the merges keep their order.  The
+// partials are read past L1 (__ldcg): other CTAs wrote them.
+template <typename T, int D>
+__device__ void combine_row(const Problem& p, const float* part, int nsplit,
+                            int bkv) {
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int G = p.G;
+  const long long stride = (long long)G * (D + 2);
+  const float* row = part + (long long)bkv * nsplit * stride;
+  T* o = reinterpret_cast<T*>(p.o);
+  for (int e = threadIdx.x; e < G * D; e += NT) {
+    const int r = e / D, d = e % D;
+    float M = NEG_INF, L = 0.f, A = 0.f;
+    for (int s0 = 0; s0 < nsplit; s0 += FOLD) {
+      float ms[FOLD], ls[FOLD], as[FOLD];
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u) {
+        if (s0 + u < nsplit) {
+          const float* base = row + (s0 + u) * stride;
+          ms[u] = __ldcg(base + r);
+          ls[u] = __ldcg(base + G + r);
+          as[u] = __ldcg(base + 2 * G + r * D + d);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u) {
+        if (s0 + u < nsplit) {
+          float M2, a, bb;
+          merge_coeffs(M, ms[u], &M2, &a, &bb);
+          A = merge_val(A, a, as[u], bb);
+          L = merge_val(L, a, ls[u], bb);
+          M = M2;
+        }
+      }
+    }
+    o[b * p.sob + (long long)(kvh * G + r) * p.soh + d] =
+        from_f<T>(finish_val(A, L));
+  }
+}
+
+// After a split CTA has written its partial: arrive on row bkv's counter;
+// the last of the row's nsplit CTAs to arrive resets it and merges the row.
+// Thread 0's fences order the whole CTA's partial (made visible to it by
+// the barrier) before its arrival, and the other CTAs' partials before
+// the merge's reads.
+template <typename T, int D>
+__device__ __forceinline__ void arrive_and_combine(const Problem& p,
+                                                   const float* part,
+                                                   int* count, int nsplit,
+                                                   int bkv) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&count[bkv], 1) == nsplit - 1;
+    if (last) {
+      count[bkv] = 0;              // every CTA of the row has arrived
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (last) combine_row<T, D>(p, part, nsplit, bkv);
+}
+
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(NT)
-fd_split_kernel(Problem p, float* part, int nsplit) {
+fd_kernel(Problem p, float* part, int* count, int nsplit) {
   extern __shared__ __align__(16) char smem[];
   using TT = Tile<T, D, ROWS>;
   TT t;
@@ -55,58 +142,14 @@ fd_split_kernel(Problem p, float* part, int nsplit) {
         base[2 * G + r * D + dl + TT::DL * w] = t.acc[v][w];
     }
   }
-}
-
-// Merge the per-split partials of one (slot, KV head) row in split order.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-fd_combine_kernel(Problem p, const float* part, int nsplit) {
-  const int bkv = blockIdx.x, b = bkv / p.KVH, kvh = bkv % p.KVH;
-  const int G = p.G;
-  T* o = reinterpret_cast<T*>(p.o);
-  for (int e = threadIdx.x; e < G * D; e += NT) {
-    const int r = e / D, d = e % D;
-    float M = NEG_INF, L = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float* base = part + ((long long)bkv * nsplit + s) * G * (D + 2);
-      float M2, a, bb;
-      merge_coeffs(M, base[r], &M2, &a, &bb);
-      A = merge_val(A, a, base[2 * G + r * D + d], bb);
-      L = merge_val(L, a, base[G + r], bb);
-      M = M2;
-    }
-    o[b * p.sob + (long long)(kvh * G + r) * p.soh + d] =
-        from_f<T>(finish_val(A, L));
-  }
-}
-
-template <typename T, int D, int ROWS>
-static int fd_run_rows(const Problem& p, int B, float* part, int nsplit,
-                       cudaStream_t st) {
-  const size_t smem = Smem<D, ROWS>::bytes;
-  cudaError_t e = allow_smem(fd_split_kernel<T, D, ROWS>, smem);
-  if (e != cudaSuccess) return (int)e;
-  fd_split_kernel<T, D, ROWS>
-      <<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(p, part, nsplit);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  fd_combine_kernel<T, D><<<B * p.KVH, NT, 0, st>>>(p, part, nsplit);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-static int fd_run(const Problem& p, int B, float* part, int nsplit,
-                  cudaStream_t st) {
-  if (p.G <= 8) return fd_run_rows<T, D, 8>(p, B, part, nsplit, st);
-  if (p.G <= 16) return fd_run_rows<T, D, 16>(p, B, part, nsplit, st);
-  return (int)cudaErrorInvalidValue;
+  arrive_and_combine<T, D>(p, part, count, nsplit, bkv);
 }
 
 template <int D>
 __global__ void __launch_bounds__(NT)
-fd_tc_split_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
-                   const __grid_constant__ CUtensorMap mv, int bmul,
-                   float* part, int nsplit) {
+fd_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv, int bmul, float* part,
+             int* count, int nsplit) {
   extern __shared__ __align__(128) char tc_smem[];
   using TT = tc::TcTile<D>;
   TT t;
@@ -136,34 +179,75 @@ fd_tc_split_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
       }
     }
   }
+  arrive_and_combine<__nv_bfloat16, D>(p, part, count, nsplit, bkv);
+}
+
+// The f32 kernel of a group size: G query rows in a tile of 8 or 16.
+template <typename T, int D, typename F>
+static int fd_f32_pick(int G, F f) {
+  if (G <= 8) return f(fd_kernel<T, D, 8>, Smem<D, 8>::bytes);
+  if (G <= 16) return f(fd_kernel<T, D, 16>, Smem<D, 16>::bytes);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+static int fd_run(const Problem& p, int B, float* part, int* count,
+                  int nsplit, cudaStream_t st) {
+  return fd_f32_pick<T, D>(p.G, [&](auto kernel, size_t smem) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(p, part, count,
+                                                       nsplit);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <int D>
-static int fd_tc_run(const Problem& p, int B, float* part, int nsplit,
-                     cudaStream_t st) {
+static int fd_tc_run(const Problem& p, int B, float* part, int* count,
+                     int nsplit, cudaStream_t st) {
   if (!p.vec || p.G > tc::ROWS) return (int)cudaErrorInvalidValue;
   CUtensorMap mk, mv;
   int bmul;
   int e = tc::make_maps(p, B, &mk, &mv, &bmul, D);
   if (e) return e;
   const size_t smem = tc::Cfg<D>::smem;
-  e = (int)allow_smem(fd_tc_split_kernel<D>, smem);
+  e = (int)allow_smem(fd_tc_kernel<D>, smem);
   if (e) return e;
-  fd_tc_split_kernel<D><<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(
-      p, mk, mv, bmul, part, nsplit);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  fd_combine_kernel<__nv_bfloat16, D><<<B * p.KVH, NT, 0, st>>>(p, part,
-                                                                nsplit);
+  fd_tc_kernel<D><<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(
+      p, mk, mv, bmul, part, count, nsplit);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the kernel for (dtype, hd, G) that fit on one SM at once.
+template <typename T, int D>
+static int fd_occ(const Problem& p, int* blocks) {
+  return fd_f32_pick<T, D>(p.G, [&](auto kernel, size_t smem) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
+                                                        smem);
+    return (int)e;
+  });
+}
+
+template <int D>
+static int fd_tc_occ(const Problem& p, int* blocks) {
+  if (p.G > tc::ROWS) return (int)cudaErrorInvalidValue;
+  const size_t smem = tc::Cfg<D>::smem;
+  cudaError_t e = allow_smem(fd_tc_kernel<D>, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fd_tc_kernel<D>,
+                                                      NT, smem);
+  return (int)e;
 }
 
 // q (B, H, D), k/v (B, Sk, KVH, D), o (B, H, D) by strides; lengths (B,)
 // int32 live rows per slot (null: all Sk live).  part: scratch of
-// B * KVH * nsplit * G * (D + 2) floats, nsplit = ceil(Sk / 128).
-// Returns cudaGetLastError() after the launches.  bf16 needs vec.
+// B * KVH * nsplit * G * (D + 2) floats, nsplit = ceil(Sk / 128); count:
+// B * KVH int32 arrival counters, 0 on entry and left 0.  Returns
+// cudaGetLastError() after the launch.  bf16 needs vec.
 extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
-                         const void* v, void* o, float* part,
+                         const void* v, void* o, float* part, int* count,
                          long long sqb, long long sqh,
                          long long skb, long long sks, long long skh,
                          long long svb, long long svs, long long svh,
@@ -181,5 +265,15 @@ extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
   p.qbase = lengths; p.qbase0 = Sk; p.qbase_add = -1;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return FK_DISPATCH(dtype, hd, fd_run, fd_tc_run, p, B, part, nsplit, st);
+  return FK_DISPATCH(dtype, hd, fd_run, fd_tc_run, p, B, part, count,
+                     nsplit, st);
+}
+
+// *blocks = CTAs of the (dtype, hd, G) kernel resident on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a CUDA error
+// code.
+extern "C" int fd_occupancy(int dtype, int hd, int G, int* blocks) {
+  Problem p;
+  p.G = G;
+  return FK_DISPATCH(dtype, hd, fd_occ, fd_tc_occ, p, blocks);
 }

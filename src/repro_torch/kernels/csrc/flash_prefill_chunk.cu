@@ -16,7 +16,7 @@
 //
 // Bit-identity pin: the CTA walks the keys in the same SPLIT-key splits as
 // flash_decode, each split from a fresh online-softmax state, and merges
-// the splits in order with the same formula as flash_decode's combine pass
+// the splits in order with the same formula as flash_decode's combine
 // (flash_common.cuh's merge_coeffs), on the same tile routine per dtype.
 // So row j equals flash_decode at pos = prefix + j bit for bit, which
 // speculative verify relies on (transformer.py:703-713 in the reference).
@@ -75,7 +75,7 @@ fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
 #pragma unroll
   for (int x = 0; x < TT::R; ++x) A[x] = 0.f;
   // splits with no live strip are skipped: merging one is bit-neutral
-  // (alpha 1, zero partial), as in flash_decode's combine pass
+  // (alpha 1, zero partial), as in flash_decode's combine
   constexpr int PER = SPLIT / BK;
   const int last = t.lim[1];
   t.run(p, &mk, &mv, kvh, b * bmul, t.lim[0], last, [&](int n) {

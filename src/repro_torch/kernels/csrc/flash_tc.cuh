@@ -438,8 +438,8 @@ struct TcTile {
     }
   }
 
-  // Fold the split-local (m, l, o) into the running (GM, GL, A) with the
-  // combine pass's formula and reset the split-local state.
+  // Fold the split-local (m, l, o) into the running (GM, GL, A) with
+  // flash_decode's combine formula and reset the split-local state.
   __device__ __forceinline__ void merge_into(float (&A)[R], float (&GM)[2],
                                              float (&GL)[2]) {
 #pragma unroll

@@ -53,15 +53,34 @@ def dotp_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() * b.float()).sum()
 
 
+def error_bound_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How far the kernel's result may lie from the exact dot product
+    (float64 of the operands): depth(n) 2^-24 sum_i |a_i b_i| — each term
+    passes through :func:`depth` roundings in the kernel's order, its
+    product none (fmaf; first-order bound)."""
+    return depth(a.shape[0]) * 2.0 ** -24 * _abs_sum(a, b)
+
+
+def plain_bound_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The same for :func:`dotp_plain`: (depth(n) + 1) 2^-24 sum_i |a_i
+    b_i| — its product rounding, and its reduction (torch's sum, which
+    spreads one sum over more threads than the kernel's 256 per range)
+    taken as no deeper than the kernel's.  ``chip_smoke.py`` holds it to
+    the float64 result at card shapes, so the assumption is checked, not
+    taken on trust."""
+    return (depth(a.shape[0]) + 1) * 2.0 ** -24 * _abs_sum(a, b)
+
+
 def error_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """How far the kernel's result may lie from :func:`dotp_plain`'s:
-    c 2^-24 sum_i |a_i b_i| with c = 2 depth(n) + 1 — the kernel's
-    :func:`depth` roundings per term, the plain version's product
-    rounding, and its reduction taken as no deeper than the kernel's
-    (torch spreads one sum over more threads than the kernel's 256 per
-    range; first-order bounds)."""
+    """How far the kernel's result may lie from :func:`dotp_plain`'s: the
+    two shares of the exact result together, c 2^-24 sum_i |a_i b_i| with
+    c = 2 depth(n) + 1."""
     c = 2 * depth(a.shape[0]) + 1
-    return c * 2.0 ** -24 * dotp_plain(a.float().abs(), b.float().abs())
+    return c * 2.0 ** -24 * _abs_sum(a, b)
+
+
+def _abs_sum(a, b):
+    return dotp_plain(a.float().abs(), b.float().abs())
 
 
 _ARGS = [_build.I, _build.P, _build.P, _build.P, _build.P, _build.LL,

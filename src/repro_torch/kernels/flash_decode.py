@@ -7,13 +7,16 @@ kernel at :96).  Two versions of one function live here:
     reference's ``ops._flash_decode_ref`` in plain PyTorch (the CPU path
     and the oracle the CUDA kernel is held against);
   * :func:`launch` — the hand-written CUDA kernel
-    (``csrc/flash_decode.cu``): split-KV CTAs + an in-order combine pass,
-    reading the (B, S, KVH, D) arena in place through strides.
+    (``csrc/flash_decode.cu``), one launch: split-KV CTAs reading the (B,
+    S, KVH, D) arena in place through strides, the last CTA of each (slot,
+    KV head) row to arrive merging the row's partials in split order
+    (arrival counters from :func:`counters`).
 
 ``ops.flash_decode`` picks between them by the tensors' device.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -29,6 +32,9 @@ MAX_GROUP = 16
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+
+#: {(device index, stream): int32 arrival counters} (see :func:`counters`)
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
@@ -73,7 +79,39 @@ def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
     return (acc / safe[..., None]).to(q.dtype)
 
 
-_ARGS = ([_build.I, _build.I] + [_build.P] * 5 + [_build.LL] * 10
+def counters(device: torch.device, rows: int) -> torch.Tensor:
+    """The kernel's arrival counters for the current stream of ``device``:
+    int32, at least ``rows`` of them, one per (slot, KV head) row.  The
+    buffer is zeroed once, when it is allocated, and the kernel's
+    combining CTA sets its row's counter back to 0, so a call issues no
+    memset.  It is state kept between calls, the price of merging in the
+    same launch (0.0213 ms against 0.0240 ms for a separate combine launch
+    at llama3.2-3b's decode shape, 4 slots x 1121 rows, on an H100 80GB
+    HBM3 at 700 W; ``chip_smoke.py`` phase 3b): a CUDA graph capture must
+    allocate its stream's buffer before capture starts.  Each stream has its own buffer: two calls in
+    flight on two streams would mix their arrivals."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(rows, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def occupancy(dtype: torch.dtype, head_dim: int, group: int) -> int:
+    """CTAs of the kernel for (dtype, head_dim, GQA group) that one SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    fn = _build.bind(NAME, "fd_occupancy", [_build.I, _build.I, _build.I,
+                                            ctypes.POINTER(ctypes.c_int)])
+    code = fn({torch.float32: 0, torch.bfloat16: 1}[dtype], head_dim, group,
+              ctypes.byref(blocks))
+    _build.check(code, NAME)
+    return blocks.value
+
+
+_ARGS = ([_build.I, _build.I] + [_build.P] * 6 + [_build.LL] * 10
          + [_build.I] * 4 + [_build.P, _build.I, _build.F, _build.I,
                              _build.I, _build.P])
 
@@ -104,9 +142,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nsplit = -(-s // SPLIT)
     part = torch.empty(b * kvh * nsplit * g * (d + 2), dtype=torch.float32,
                        device=q.device)
+    count = counters(q.device, b * kvh)
     fn = _build.bind(NAME, "fd_launch", _ARGS)
     code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-              _build.ptr(o), _build.ptr(part),
+              _build.ptr(o), _build.ptr(part), _build.ptr(count),
               q.stride(0), q.stride(1),
               k.stride(0), k.stride(1), k.stride(2),
               v.stride(0), v.stride(1), v.stride(2),

@@ -276,6 +276,76 @@ def test_cuda_matmul_edges_repeat(cuda, dtype, shape, b_stride):
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
 
 
+def _exact_within_limit(got, exact, share):
+    """Against the float64 product: the module's ``error_bound_exact``
+    share, plus one bf16 ulp of the larger magnitude for a bf16 output
+    (``matmul.exact_limit``)."""
+    from repro_torch.kernels.matmul import exact_limit
+    return bool(((got.double() - exact).abs()
+                 <= exact_limit(got, exact, share)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 512, 4096), (1, 1, 1),
+                                   (63, 65, 129), (65, 129, 255),
+                                   (129, 255, 63), (255, 63, 65),
+                                   (129, 64, 257)])
+def test_cuda_matmul_bf16_tiles_exact_and_repeat(cuda, shape):
+    """The tensor-core kernel where M, N and K cross the 128 x 256 tile and
+    the 64-deep stage (and 4096 x 512 x 4096): within ``error_bound`` of the
+    plain version, within ``error_bound_exact`` of the float64 product, the
+    same bits on a second call; operands whose rows are not 16-byte
+    aligned take the padding step."""
+    from repro_torch.kernels import matmul
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    m, k, n = shape
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    assert matmul.pad_operands(a, b)[2] == tuple(
+        name for name, t in (("A", a), ("B", b)) if not matmul.tma_ready(t))
+    got = ops.matmul(a, b)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _reassoc_within_limit(got, ops.PLAIN.matmul(a, b),
+                                 matmul.error_bound(a, b))
+    assert _exact_within_limit(got, torch.matmul(a.double(), b.double()),
+                               matmul.error_bound_exact(a, b))
+    again = matmul.launch(a, b)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["a column slice", "b column slice",
+                                  "a base offset", "k zero", "aligned"])
+def test_cuda_matmul_bf16_unaligned_rows_take_the_copy(cuda, case):
+    """Each operand the TMA maps cannot read in place (row stride not a
+    multiple of 8 elements, base not 16-byte aligned, K = 0) goes through
+    the padding step; an aligned pair does not; every result is within
+    the limit of the plain version and of the float64 product."""
+    from repro_torch.kernels import matmul
+    gen = torch.Generator(device=cuda).manual_seed(12)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).bfloat16()
+
+    m, k, n = 70, 96, 130
+    a, b = rn(m, k), rn(k, n + 6)[:, :n]     # b: row stride 136, aligned
+    want = ()
+    if case == "a column slice":
+        a, want = rn(m, k + 3)[:, :k], ("A",)
+    elif case == "b column slice":
+        b, want = rn(k, n + 1)[:, :n], ("B",)
+    elif case == "a base offset":
+        a, want = rn(m * k + 1)[1:].view(m, k), ("A",)
+    elif case == "k zero":
+        a, b, want = rn(m, 0), rn(0, n), ("A", "B")
+    assert matmul.pad_operands(a, b)[2] == want
+    got = ops.matmul(a, b)
+    assert _reassoc_within_limit(got, ops.PLAIN.matmul(a, b),
+                                 matmul.error_bound(a, b))
+    assert _exact_within_limit(got, torch.matmul(a.double(), b.double()),
+                               matmul.error_bound_exact(a, b))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [0, 8, 100, 4097, 1 << 20])
@@ -315,3 +385,31 @@ def test_cuda_conv2d_matches_plain(cuda, dtype, xs, ws):
     assert got.shape == (xs[0], xs[1] - ws[0] + 1, xs[2] - ws[1] + 1, ws[3])
     assert _reassoc_within_limit(got, ops.PLAIN.conv2d(x, w),
                                  conv2d.error_bound(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [1, 128, 129, 1121])
+def test_cuda_flash_decode_one_launch_counters_and_repeat(cuda, dtype, sk):
+    """One launch a call: rows of length 1, parked (2^30 + 1) and full
+    beside each other combine to the plain version's result; the arrival
+    counters read 0 after every call; two back-to-back calls give the
+    same bits."""
+    from repro_torch.kernels import flash_decode
+    gen = torch.Generator(device=cuda).manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    b, kvh, g, d = 4, 2, 3, 128
+    q, k, v = rn(b, kvh * g, d), rn(b, sk, kvh, d), rn(b, sk, kvh, d)
+    lens = torch.tensor([1, PARKED, sk, max(1, sk // 2)], device=cuda)
+    before = flash_decode.launches
+    got = ops.flash_decode(q, k, v, lengths=lens)
+    again = ops.flash_decode(q, k, v, lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 2
+    count = flash_decode.counters(q.device, b * kvh)
+    assert not bool(count.any())
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    assert _within_limit(got, ops.PLAIN.flash_decode(q, k, v, lengths=lens))

@@ -211,3 +211,26 @@ def test_one_term_misses_the_limit_at_mamba2_width():
     """G, H and w X cast to bf16 once (~2^-9 relative) miss the limit by
     more than 10x."""
     assert _mamba2_excess(1, False) > 10.0
+
+
+@pytest.mark.parametrize("s,groups,with_state", [(64, 2, True),
+                                                 (128, 1, True),
+                                                 (192, 1, False),
+                                                 (192, 2, True)])
+def test_phase_5c_control_is_the_one_term_routine(s, groups, with_state):
+    """``chip_smoke.one_term``, the lower-precision control phase 5c's
+    state limits must reject, is this emulation with one term on one
+    piece, bit for bit, and misses the card's kernel-level limit."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    x, la, B, C, st = _inputs(s, 4, s, 16, 32, groups)
+    init = st if with_state else None
+    got = chip_smoke.one_term()(x, la, B, C, initial_state=init)
+    want = emulate(x, la, B, C, init, sms=1, n_terms=1)
+    assert ssd.pieces(4, s, 1) == (1, s // Q)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = ops.PLAIN.ssd(x, la, B, C, chunk=256, initial_state=init)
+    assert excess(got[1], plain[1]) > 10.0
