@@ -30,10 +30,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
-     depth 2), monolithic then chunked, with each kernel's launch count;
-     then short runs under torch.profiler (device time by kernel, the
-     attention and ssd kernels' own line, device busy share; both prefill
-     modes for llama3.2-3b, monolithic for mamba2-2.7b);
+     depth 2), monolithic then chunked, the decode step replayed as the
+     engine's captured CUDA graph (the default on the card), with each
+     kernel's launch count (replays included: flash_decode n_layers x
+     (replays + the warm-up step)) and the graph's warm-up and capture
+     time and pool bytes; 4b: short runs under torch.profiler (device
+     time by kernel, the attention and ssd kernels' own line, device busy
+     share; captured in both prefill modes for llama3.2-3b and monolithic
+     for mamba2-2.7b, eager monolithic for both; in a captured run the
+     graph launches must equal the replays, and each kernel's counted
+     launches the ones the profile saw); 4c: the same requests
+     with the eager step (``--no-decode-graph``) and the captured one, 3
+     pairs a prefill mode in alternating order, token streams equal to
+     phase 4's, tok/s and wall ms per decode step; and ms per decode step
+     over decode-only windows (every prompt in, 32 steps synchronised at
+     both ends, 3 alternating pairs);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -62,6 +73,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -160,6 +173,8 @@ DESIGN = {
 PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_kernel",
                     "ssd_tc_kernel<false>", "ssd_tc_kernel<true>",
                     "ssd_f32_kernel")
+# the device kernel(s) of a wrapper that a captured decode step launches
+DEVICE_SYMBOL = {"flash_decode": re.compile(r"\bfd_(?:tc_)?kernel\b")}
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
 
 
@@ -655,6 +670,18 @@ def serving_runs(torch, ops, serve, arch, gen):
         print(f"  {mode} kernel launches: {counts}; arena "
               f"{eng.arena_bytes / 1e6:.1f} MB; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        g = eng.graph
+        assert g is not None and g.replays == eng.stats["decode_steps"], \
+            "the engine must replay its captured decode step"
+        assert g.pool_bytes > 0, g.pool_bytes
+        print(f"  {mode} decode graph (built before the tok/s clock "
+              f"starts): warm-up {g.warmup_s * 1e3:.1f} ms, capture "
+              f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes / 1e6:.1f} "
+              f"MB; {g.replays} replays of {g.launches}")
+        if cfg.family == "dense":
+            # every replayed launch counted, plus the warm-up step's own
+            assert counts["flash_decode"] == cfg.n_layers * (g.replays + 1), \
+                (counts, g.replays)
         for o in out.values():
             assert o.shape == (margs.gen,), o.shape
             assert ((o >= 0) & (o < cfg.vocab)).all()
@@ -675,27 +702,56 @@ def serving_runs(torch, ops, serve, arch, gen):
     return bundle, params, args, runs
 
 
-def profile_run(torch, serve, bundle, params, mode):
+def device_time(prof):
+    """(kernel rows [(device us, count, name)] sorted by time, cudaGraphLaunch
+    calls) of a torch.profiler run.  Only the device's own events count
+    (``device_type`` CUDA: kernels, copies, memsets): an aten op's row
+    repeats the device time of the kernels it launched, so summing every
+    row would count an eager op twice and a graph's kernels (launched by
+    no op) once."""
+    from torch.autograd import DeviceType
+    rows, graph_launches = [], 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total, e.count, e.key))
+        if e.key == "cudaGraphLaunch":
+            graph_launches += e.count
+    return sorted(rows, reverse=True), graph_launches
+
+
+def profile_run(torch, ops, serve, bundle, params, mode, graph=True):
     """Phase 4b: one short run in prefill ``mode`` (4 requests, prompts
-    1024/768, 16 new tokens) under torch.profiler: device time by kernel,
-    the attention kernels' own line, and the device's busy share of the
-    wall time (profiler overhead included)."""
+    1024/768, 16 new tokens), its decode step captured (``graph``) or
+    eager, under torch.profiler: device time by kernel, the attention and
+    ssd kernels' own line, and the device's busy share of the wall time
+    (the kernels' summed device time; profiler overhead included in the
+    wall).  The engine (and its graph) is built before the profile
+    starts.  Returns the busy share, or None when the profiler recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(["--arch", bundle.name, "--gen", "16",
-                             "--prefill-mode", mode] + SERVE_ARGS)
+                             "--prefill-mode", mode] + SERVE_ARGS
+                            + ([] if graph else ["--no-decode-graph"]))
+    eng = serve.engine(bundle, params, args)
+    label = f"{bundle.name} {mode} {'captured' if graph else 'eager'}"
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, _, dt = serve.serve(bundle, params, args)
-    rows = []
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    rows, graph_launches = device_time(prof)
     busy = sum(r[0] for r in rows) / 1e3
     if not rows:
-        print("phase 4b: profiler recorded no device time (not measured)")
-        return
+        # a captured run's replayed launches are counted, not seen: with no
+        # device events they cannot be held against the device
+        assert not graph, f"phase 4b: {label}: profiler saw no device time"
+        print(f"phase 4b: {label}: profiler recorded no device time (not "
+              f"measured)")
+        return None
     own = {}
     for us, n, key in rows:
         for kname in PROFILED_KERNELS:
@@ -703,10 +759,25 @@ def profile_run(torch, serve, bundle, params, mode):
                 t, c = own.get(kname, (0.0, 0))
                 own[kname] = (t + us / 1e3, c + n)
     if own:
-        print(f"phase 4b: {bundle.name} {mode}: the port's kernels' device "
+        print(f"phase 4b: {label}: the port's kernels' device "
               f"time: " + ", ".join(f"{k} {t:.3f} ms in {c} launches"
                                     for k, (t, c) in own.items()))
-    print(f"phase 4b: {bundle.name} profiled {mode} run, "
+    if graph:
+        # the counts each replay adds (``ops.add_launches``) against the
+        # kernels the device ran in the same run
+        print(f"phase 4b: {label}: {graph_launches} cudaGraphLaunch calls "
+              f"for {eng.graph.replays} replays")
+        assert graph_launches == eng.graph.replays, \
+            (graph_launches, eng.graph.replays)
+        for name in eng.graph.launches:
+            symbol = DEVICE_SYMBOL[name]
+            seen = sum(n for _, n, key in rows if symbol.search(key))
+            print(f"phase 4b: {label}: {name} kernels in the profile {seen} "
+                  f"of {counted[name]} counted"
+                  + ("; the profiler shows graph launches in place of their "
+                     "kernels" if not seen else ""))
+            assert seen == counted[name], (name, seen, counted[name])
+    print(f"phase 4b: {label} profiled run, "
           f"{eng.stats['decode_steps']} decode steps + "
           f"{eng.stats['prefills']} prefills "
           f"({eng.stats['prefill_chunks']} chunks): wall "
@@ -714,6 +785,121 @@ def profile_run(torch, serve, bundle, params, mode):
           f"({100 * busy / (dt * 1e3):.1f}%); top device time:")
     for us, n, key in rows[:12]:
         print(f"    {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    return busy / (dt * 1e3)
+
+
+def same_streams(got, want) -> bool:
+    return sorted(got) == sorted(want) and all(
+        (got[u] == want[u]).all() for u in want)
+
+
+# the order of the i-th eager / captured pair: alternating, as host-bound
+# time drifts within a call
+PAIR_ORDER = (("eager", "captured"), ("captured", "eager"))
+
+
+def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
+    """Phase 4c: phase 4's requests served again with the eager decode step
+    (``--no-decode-graph``) and with the captured one, ``pairs`` pairs a
+    prefill mode in alternating order; every run's token streams must equal phase 4's captured run's.
+    Prints tok/s and wall ms per decode step (prefill included) of each
+    run; returns {mode: {kind: [(tok/s, ms per step), ...]}}."""
+    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    table = {}
+    for mode in ("monolithic", "chunked"):
+        want = runs[mode][1]
+        res = {"eager": [], "captured": []}
+        for i in range(pairs):
+            for kind in PAIR_ORDER[i % 2]:
+                args = serve.parse_args(
+                    base + ["--prefill-mode", mode]
+                    + (["--no-decode-graph"] if kind == "eager" else []))
+                eng, out, dt = serve.serve(bundle, params, args)
+                assert (eng.graph is None) == (kind == "eager")
+                assert same_streams(out, want), (mode, kind, i)
+                total = sum(o.size for o in out.values())
+                res[kind].append((total / dt,
+                                  1e3 * dt / eng.stats["decode_steps"]))
+                del eng, out
+        table[mode] = res
+        print(f"phase 4c: {bundle.name} {mode}: token streams of "
+              f"{2 * pairs} runs (eager and captured, alternating) equal "
+              f"phase 4's captured run's")
+        for kind in ("eager", "captured"):
+            print(f"  {kind:8s} tok/s "
+                  f"{[round(r[0], 1) for r in res[kind]]}, ms per decode "
+                  f"step incl. prefill {[round(r[1], 2) for r in res[kind]]}")
+    return table
+
+
+def decode_window(torch, serve, bundle, params, pairs=3, steps=32):
+    """Phase 4c, decode only: an eager and a captured engine each take the
+    4 requests (monolithic) until every prompt is in, then run ``steps``
+    engine steps at a time, synchronised at both ends, ``pairs`` windows
+    each in alternating order; both then run to the end and must give the
+    same token streams.  Then ``steps // 4`` more steps of each under
+    torch.profiler give the device's time and busy share a decode step.
+    Returns ({kind: [ms per decode step, ...]}, {kind: (device ms, wall
+    ms) a step})."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serving import Status
+    gen = pairs * steps + steps // 4 + 16
+    engines = {}
+    for kind in ("eager", "captured"):
+        args = serve.parse_args(
+            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+            + (["--no-decode-graph"] if kind == "eager" else []))
+        eng = engines[kind] = serve.engine(bundle, params, args)
+        while eng.scheduler.waiting or any(
+                st.status != Status.RUNNING
+                for st in eng.scheduler.running.values()):
+            eng.step()
+    ms = {"eager": [], "captured": []}
+    for i in range(pairs):
+        for kind in PAIR_ORDER[i % 2]:
+            eng = engines[kind]
+            n0 = eng.stats["decode_steps"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            ms[kind].append(1e3 * (time.perf_counter() - t0) / steps)
+            assert eng.stats["decode_steps"] - n0 == steps
+    busy = {}
+    for kind, eng in engines.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps // 4):
+                eng.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        rows, _ = device_time(prof)
+        busy[kind] = (sum(r[0] for r in rows) / 1e3 / (steps // 4),
+                      dt * 1e3 / (steps // 4))
+        if kind == "captured":
+            print(f"phase 4c: {bundle.name} captured decode step, top "
+                  f"device time a step:")
+            for us, n, key in rows[:10]:
+                print(f"    {us / 1e3 / (steps // 4):8.3f} ms "
+                      f"{n // (steps // 4):5d}x  {key[:90]}")
+    outs = {kind: eng.run() for kind, eng in engines.items()}
+    assert same_streams(outs["captured"], outs["eager"])
+    print(f"phase 4c: {bundle.name} decode only (4 slots live, {steps} "
+          f"steps a window, synchronised at both ends): ms per decode step "
+          f"eager {[round(x, 3) for x in ms['eager']]}, captured "
+          f"{[round(x, 3) for x in ms['captured']]}; token streams "
+          f"({gen} new tokens a request) equal")
+    # the profiler slows the host's side, so the busy share is taken
+    # against the unprofiled windows' median wall time a step
+    print(f"phase 4c: {bundle.name} decode only, {steps // 4} steps under "
+          f"torch.profiler: " + ", ".join(
+              f"{k} device {d:.3f} ms a step ({w:.3f} ms wall profiled; "
+              f"{100 * d / statistics.median(ms[k]):.1f}% of the unprofiled "
+              f"median)" for k, (d, w) in busy.items()))
+    return ms, busy
 
 
 def prefill_logits(model, params, prompt):
@@ -1303,9 +1489,25 @@ def main() -> int:
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)
+        busy = {("monolithic", "eager"): profile_run(
+            torch, ops, serve, bundle, params, "monolithic", graph=False)}
         for mode in (("monolithic",) if bundle.cfg.family == "ssm"
                      else ("monolithic", "chunked")):
-            profile_run(torch, serve, bundle, params, mode)
+            busy[(mode, "captured")] = profile_run(torch, ops, serve, bundle,
+                                                   params, mode)
+        pairs = eager_vs_captured(serve, bundle, params, runs, gen=64)
+        window, wbusy = decode_window(torch, serve, bundle, params)
+        print(f"phase 4c: {bundle.name} summary ({smi}), medians: " + "; ".join(
+            f"{mode} {kind} {statistics.median(r[0] for r in res[kind]):.1f}"
+            f" tok/s, {statistics.median(r[1] for r in res[kind]):.2f} ms a "
+            f"step incl. prefill" for mode, res in pairs.items()
+            for kind in res) + "; decode only " + ", ".join(
+            f"{kind} {statistics.median(ms):.3f} ms a step (device "
+            f"{wbusy[kind][0]:.3f} ms)" for kind, ms in window.items())
+            + "; device busy (4b) " + ", ".join(
+            f"{mode} {kind} " + ("not measured" if b is None
+                                 else f"{100 * b:.1f}%")
+            for (mode, kind), b in busy.items()))
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         all_runs += [run[3] for run in runs.values()]
         del bundle, params, runs

@@ -16,8 +16,9 @@ kernel at :96).  Two versions of one function live here:
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -33,8 +34,10 @@ MAX_GROUP = 16
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
 
-#: {(device index, stream): int32 arrival counters} (see :func:`counters`)
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+#: {(device index, owner, rows): int32 arrival counters}; the owner is the
+#: current stream's handle, or the name given to :func:`owned_counters`
+_COUNTERS: dict[tuple[int, int | str, int], torch.Tensor] = {}
+_OWNER: Optional[str] = None
 
 
 def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
@@ -80,23 +83,49 @@ def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
 
 
 def counters(device: torch.device, rows: int) -> torch.Tensor:
-    """The kernel's arrival counters for the current stream of ``device``:
-    int32, at least ``rows`` of them, one per (slot, KV head) row.  The
-    buffer is zeroed once, when it is allocated, and the kernel's
-    combining CTA sets its row's counter back to 0, so a call issues no
-    memset.  It is state kept between calls, the price of merging in the
-    same launch (0.0213 ms against 0.0240 ms for a separate combine launch
-    at llama3.2-3b's decode shape, 4 slots x 1121 rows, on an H100 80GB
-    HBM3 at 700 W; ``chip_smoke.py`` phase 3b): a CUDA graph capture must
-    allocate its stream's buffer before capture starts.  Each stream has its own buffer: two calls in
-    flight on two streams would mix their arrivals."""
+    """The kernel's arrival counters for the current stream of ``device``
+    (or for the owner named by :func:`owned_counters`): int32, ``rows`` of
+    them, one per (slot, KV head) row.  The buffer is zeroed once, when it
+    is allocated, and the kernel's combining CTA sets its row's counter
+    back to 0, so a call issues no memset.  It is state kept between calls,
+    the price of merging in the same launch (0.0213 ms against 0.0240 ms
+    for a separate combine launch at llama3.2-3b's decode shape, 4 slots x
+    1121 rows, on an H100 80GB HBM3 at 700 W; ``chip_smoke.py`` phase 3b).
+    Each (owner, rows) pair has its own buffer: two calls in flight at once
+    on one buffer would mix their arrivals.
+
+    A CUDA graph bakes the buffer's address in and replays on whatever
+    stream its caller is on, so a stream cannot own a graph's buffer: the
+    serving engine's ``DecodeGraph`` runs its warm-up step and its capture
+    inside :func:`owned_counters` under a name of its own, and the eager
+    warm-up allocates that graph's buffer here.  None may be allocated under
+    capture (its zeros would be a captured memset, not a state), and none
+    is ever freed, since a graph may hold its address."""
     stream = torch.cuda.current_stream(device)
-    key = (stream.device_index, stream.cuda_stream)
+    owner = stream.cuda_stream if _OWNER is None else _OWNER
+    key = (stream.device_index, owner, rows)
     buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < rows:
-        buf = torch.zeros(rows, dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode: arrival counters allocated under CUDA graph "
+                "capture; run the step once outside capture first")
+        buf = _COUNTERS[key] = torch.zeros(rows, dtype=torch.int32,
+                                           device=device)
     return buf
+
+
+@contextlib.contextmanager
+def owned_counters(owner: str) -> Iterator[None]:
+    """Within the block, :func:`counters` hands out ``owner``'s buffers
+    instead of the current stream's: a captured graph's launches keep their
+    own arrival counters, whichever stream replays the graph."""
+    global _OWNER
+    prev, _OWNER = _OWNER, owner
+    try:
+        yield
+    finally:
+        _OWNER = prev
 
 
 def occupancy(dtype: torch.dtype, head_dim: int, group: int) -> int:

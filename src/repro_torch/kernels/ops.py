@@ -74,6 +74,14 @@ def reset_launch_counts() -> None:
         m.launches = 0
 
 
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` {kernel name: launches} to the counters: a CUDA graph
+    replay launches the kernels its capture recorded with no wrapper call
+    to count them (``runtime/serving/graphs.py``)."""
+    for m in KERNEL_MODULES:
+        m.launches += delta.get(m.NAME, 0)
+
+
 def _on_cuda(*ts) -> bool:
     """True for CUDA operands, False for CPU ones; raises on a mix or on
     any other device."""

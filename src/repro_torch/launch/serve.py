@@ -12,7 +12,9 @@ card unless ``--device cpu``.  Weights are random, drawn from a
 
 ``--reduced`` (the default) builds the smoke-test width; ``--no-reduced``
 builds the published config (the reference's flag is ``store_true`` with
-``default=True`` and so can never be switched off).
+``default=True`` and so can never be switched off).  On the card the
+engine replays its decode step as one captured CUDA graph;
+``--no-decode-graph`` runs the step eagerly (``EngineConfig.decode_graph``).
 """
 from __future__ import annotations
 
@@ -61,6 +63,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="smoke-test width (default); --no-reduced builds "
                         "the published config")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--no-decode-graph", dest="decode_graph",
+                   action="store_false",
+                   help="run the decode step eagerly on the card too "
+                        "(default: replay it as a captured CUDA graph)")
     return p.parse_args(argv)
 
 
@@ -92,12 +98,13 @@ def engine_config(args, lens) -> EngineConfig:
         max_seq=max(lens) + args.gen + pad_slack + 1,
         depth=args.depth, page_size=args.page_size, num_pages=args.pages,
         prefill_chunks=chunks, prefill_budget=args.prefill_budget,
-        kv_format=args.kv_format, base_seed=args.seed)
+        kv_format=args.kv_format, base_seed=args.seed,
+        decode_graph=args.decode_graph)
 
 
-def serve(bundle, params, args):
-    """Serve ``args.requests`` greedy requests; returns (engine, {uid:
-    tokens}, wall seconds).  The clock stops after the device finished."""
+def engine(bundle, params, args) -> ServingEngine:
+    """The engine for ``args`` (on the card its decode graph captured) with
+    the ``args.requests`` greedy requests submitted."""
     rng = np.random.default_rng(0)
     lens = prompt_lengths(args)
     prompts = [rng.integers(0, bundle.cfg.vocab, n) for n in lens]
@@ -106,6 +113,14 @@ def serve(bundle, params, args):
     for i in range(args.requests):
         eng.submit(Request(uid=i, prompt=prompts[i],
                            max_new_tokens=args.gen))
+    return eng
+
+
+def serve(bundle, params, args):
+    """Serve ``args.requests`` greedy requests; returns (engine, {uid:
+    tokens}, wall seconds).  The clock starts after the engine is built
+    (and its decode graph captured) and stops after the device finished."""
+    eng = engine(bundle, params, args)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     t0 = time.perf_counter()
@@ -128,6 +143,11 @@ def report_stats(eng: ServingEngine) -> None:
           f"(kv_format={eng.kv_format}, {eng.arena_unit_bytes} {unit}, "
           f"written in place)")
     print("scheduler:", eng.scheduler.stats)
+    g = eng.graph
+    if g is not None:
+        print(f"decode graph: warm-up {g.warmup_s * 1e3:.1f} ms, capture "
+              f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes / 1e6:.1f} MB,"
+              f" {g.replays} replays of {g.launches} kernel launches")
     if ttft:
         print(f"ttft_s: mean={np.mean(ttft):.4f} "
               f"p50={_percentile(ttft, 50):.4f} "

@@ -27,6 +27,10 @@ class EngineConfig:
     ``kv_format``       KV-arena storage format; only "fp32" (stores at the
                         activation dtype) is ported
     ``base_seed``       run-level seed (weights of ``launch.serve``)
+    ``decode_graph``    on the card, replay the decode step as one
+                        captured CUDA graph (the reference's compiled step);
+                        False runs it eagerly there too.  On the CPU the
+                        step is always eager
     """
     max_slots: int = 8
     max_seq: int = 256
@@ -37,6 +41,7 @@ class EngineConfig:
     prefill_budget: Optional[int] = None
     kv_format: str = "fp32"
     base_seed: int = 0
+    decode_graph: bool = True
 
     def __post_init__(self):
         if self.kv_format != "fp32":

@@ -18,6 +18,11 @@ over the whole slot batch.  As in the reference:
      the fused SSD state), chunked prefill writes each chunk's rows or
      carried state, decode writes one row (or the new state) per slot per
      layer; the reference gets the same effect from buffer donation.
+  4. **One captured step.**  On the card the decode step is captured once,
+     at construction, as a CUDA graph (``graphs.DecodeGraph``) and replayed
+     every step: the counterpart of the reference's compiled step, always
+     the same shape.  ``EngineConfig.decode_graph=False`` asks for the
+     eager step; on the CPU the step always runs eagerly.
 
 Prefill comes in two modes: monolithic (``prefill_chunks=None``; one call
 per prompt) and chunked (bucket-sized chunks interleaved with decode under
@@ -40,6 +45,7 @@ from repro_torch.models.layers import PARKED_POS
 from repro_torch.runtime.serving import chunking
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.config import EngineConfig
+from repro_torch.runtime.serving.graphs import DecodeGraph
 from repro_torch.runtime.serving.request import Request, RequestState, Status
 from repro_torch.runtime.serving.scheduler import Scheduler
 
@@ -92,7 +98,14 @@ class ServingEngine:
         recurrent = model.layers.recurrent
         self.arena_unit_bytes = self.arena_bytes // (
             max_slots if recurrent else max_slots * max_seq)
-        self._queue = DispatchQueue(self._decode_step, depth=self.depth)
+        capture = config.decode_graph and dev.type == "cuda"
+        #: the captured decode step (None: the step runs eagerly)
+        self.graph = (DecodeGraph(self._decode_step, self._tokens,
+                                  self._pos, self._active)
+                      if capture else None)
+        self._queue = DispatchQueue(
+            self.graph.replay if capture else self._decode_step,
+            depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
         # holds the same admission generation
@@ -114,7 +127,9 @@ class ServingEngine:
     def _decode_step(self) -> torch.Tensor:
         """One greedy decode step over every slot (in place on the slot
         vectors and the arena); returns the raw argmax vector the host
-        reads back ``depth`` steps later."""
+        reads back ``depth`` steps later.  This is what the decode graph
+        captures: it makes no host read, and the tensors it touches are
+        never rebound (host writes to the slot vectors are in place)."""
         logits = self.model.decode_step(self.params, self._tokens,
                                         self._cache, self._pos)
         sampled = torch.argmax(logits, dim=-1)

@@ -413,3 +413,135 @@ def test_cuda_flash_decode_one_launch_counters_and_repeat(cuda, dtype, sk):
     assert not bool(count.any())
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
     assert _within_limit(got, ops.PLAIN.flash_decode(q, k, v, lengths=lens))
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's captured decode step (runtime/serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _tiny(family, dtype):
+    """(model, params): the reduced config of llama3.2-3b (dense) or
+    mamba2-2.7b (ssm) at ``dtype``, random weights from seed 0."""
+    import dataclasses
+    from repro_torch.models import registry
+    arch = "llama3.2-3b" if family == "dense" else "mamba2-2.7b"
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = dataclasses.replace(registry.config(arch).reduced(),
+                              param_dtype=name, act_dtype=name)
+    model = registry.build_model(cfg, device="cuda")
+    return model, model.init(0)
+
+
+def _graph_engine(model, params, lens=(5, 9, 7, 12), gens=(8, 6, 10, 7),
+                  **kw):
+    """A port engine with greedy requests of prompt ``lens`` submitted."""
+    import numpy as np
+    from repro_torch.runtime import serving
+    eng = serving.ServingEngine(model, model.cfg, params,
+                                config=serving.EngineConfig(
+                                    **{"max_slots": 2, "max_seq": 64, **kw}))
+    rng = np.random.default_rng(0)
+    for i, (n, g) in enumerate(zip(lens, gens)):
+        eng.submit(serving.Request(uid=i, prompt=rng.integers(
+            0, model.cfg.vocab, n), max_new_tokens=g))
+    return eng
+
+
+def _same_streams(got, want):
+    assert sorted(got) == sorted(want)
+    return all((got[u] == want[u]).all() for u in want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks", [None, (4, 8)])
+def test_cuda_decode_graph_streams_equal_eager(cuda, family, dtype, chunks):
+    """The captured engine (the default on the card) gives the eager
+    engine's token streams; its graph is replayed once a decode step; the
+    launch counters see every replayed launch: flash_decode n_layers x
+    (replays + the warm-up step), ssd only in prefill."""
+    model, params = _tiny(family, dtype)
+    want = _graph_engine(model, params, decode_graph=False,
+                         prefill_chunks=chunks).run()
+    ops.reset_launch_counts()
+    eng = _graph_engine(model, params, prefill_chunks=chunks)
+    assert eng.graph is not None
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    replays, nl = eng.graph.replays, model.cfg.n_layers
+    assert replays == eng.stats["decode_steps"] > 0
+    assert eng.graph.pool_bytes > 0
+    if family == "dense":
+        assert eng.graph.launches == {"flash_decode": nl}
+        assert counts["flash_decode"] == nl * (replays + 1), counts
+    else:
+        assert eng.graph.launches == {}
+        prefills = eng.stats["prefills"] + eng.stats["prefill_chunks"]
+        assert counts["ssd"] == nl * prefills, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_graph_logits_bit_equal_eager(cuda, family, dtype):
+    """Three decode steps of the model's ``decode_step`` captured (a parked
+    slot beside two live ones) against the same steps run eagerly on a copy
+    of the arena: logits and arena bit for bit after every step."""
+    from repro_torch.models.layers import PARKED_POS
+    from repro_torch.runtime.serving.graphs import DecodeGraph
+    model, params = _tiny(family, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    cache = model.init_cache(3, 64)
+    for slot, n in ((0, 9), (2, 20)):
+        prompt = torch.randint(0, model.cfg.vocab, (1, n), generator=gen,
+                               device=cuda)
+        model.prefill(params, prompt, model.slot_view(cache, slot))
+    copy = {k: v.clone() for k, v in cache.items()}
+    tokens = torch.tensor([3, 4, 5], device=cuda)
+    pos = torch.tensor([9, PARKED_POS, 20], device=cuda)
+    graph = DecodeGraph(lambda: model.decode_step(params, tokens, cache,
+                                                  pos),
+                        tokens, pos, torch.zeros_like(pos))
+    for _ in range(3):
+        got = graph.replay()
+        want = model.decode_step(params, tokens, copy, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        for k in cache:
+            assert torch.equal(cache[k].view(torch.uint8),
+                               copy[k].view(torch.uint8)), k
+        tokens.copy_(torch.argmax(want, dim=-1))
+        pos.add_(torch.tensor([1, 0, 1], device=cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_second_engine_leaves_first_unchanged(cuda):
+    """A second engine captured while the first is mid-run (its own graph,
+    pool and flash_decode counters at another slot count) leaves the
+    first's token streams unchanged, and gives the eager streams itself; a
+    third at the first's slot count gets arrival counters of its own, and
+    stepping it between the first's steps changes neither stream."""
+    from repro_torch.kernels import flash_decode
+    model, params = _tiny("dense", torch.bfloat16)
+    kw2 = dict(max_slots=3, prefill_chunks=(4, 8))
+    want1 = _graph_engine(model, params, decode_graph=False).run()
+    want2 = _graph_engine(model, params, decode_graph=False, **kw2).run()
+    first = _graph_engine(model, params)
+    for _ in range(6):
+        first.step()
+    second = _graph_engine(model, params, **kw2)
+    third = _graph_engine(model, params)
+    assert second.graph is not first.graph
+    rows = 2 * model.cfg.n_kv_heads
+    keys = [(torch.cuda.current_device(), e.graph.counters_owner, rows)
+            for e in (first, third)]
+    assert keys[0] != keys[1]
+    assert all(k in flash_decode._COUNTERS for k in keys)
+    for _ in range(4):
+        third.step()
+        first.step()
+    assert _same_streams(first.run(), want1)
+    assert _same_streams(second.run(), want2)
+    assert _same_streams(third.run(), want1)

@@ -1,0 +1,181 @@
+"""The serving engine's captured decode step (``runtime/serving/graphs.py``)
+on the CPU, where nothing is captured: what capture relies on.
+
+  * the step the graph captures (``ServingEngine._decode_step``) makes no
+    host read, with live, parked (mid-chunked-prefill) and never-used slots
+    side by side, in the dense and the ssm family;
+  * the parked warm-up that precedes capture leaves the arena, the SSD and
+    conv state and the slot vectors as they were, bit for bit, and the run
+    that goes on afterwards still matches the JAX package's engine token
+    for token;
+  * ``EngineConfig.decode_graph`` on the CPU: the step is always eager.
+
+The captured graph itself runs on the card only (``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from repro.runtime import serving as jserving  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.layers import PARKED_POS  # noqa: E402
+from repro_torch.runtime import serving as tserving  # noqa: E402
+from repro_torch.runtime.serving import graphs  # noqa: E402
+from repro_torch.runtime.serving.request import Status  # noqa: E402
+
+from test_torch_model import TINY, bridged  # noqa: E402
+from test_torch_ssm import TINY_SSM, ssm_bridged  # noqa: E402
+
+#: ops that copy a device value to the host (a graph cannot hold them)
+HOST_READS = ("_local_scalar_dense", "item", "nonzero", "masked_select",
+              "unique")
+
+
+def _bool_index(name, args) -> bool:
+    """An index / index_put with a boolean mask: its kernel counts the mask
+    on the host (a nonzero below the dispatcher, which the mode never
+    sees)."""
+    return name.startswith("index") and len(args) > 1 and any(
+        isinstance(t, torch.Tensor) and t.dtype in (torch.bool, torch.uint8)
+        for t in (args[1] if isinstance(args[1], (list, tuple)) else ()))
+
+
+# live, parked and never-used slots side by side: 4 slots, 3 requests, one
+# prompt long enough to stay mid-prefill for many steps at 4 tokens a step
+MIXED = dict(max_slots=4, max_seq=64, depth=2, prefill_chunks=(4, 8),
+             prefill_budget=4)
+LENS, GENS = (5, 30, 6), (10, 6, 10)
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on every aten op that reads a tensor's value on the host."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name.split("::")[-1]
+        if any(r in name for r in HOST_READS) or _bool_index(name, args):
+            raise AssertionError(f"host read in the captured step: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(scope="module", params=["dense", "ssm"])
+def family(request):
+    """(JAX config, (jax model, jax params, port model, port params))."""
+    if request.param == "dense":
+        return TINY, bridged(TINY)
+    return TINY_SSM, ssm_bridged(TINY_SSM)
+
+
+def _engine(mod, model, cfg, params, **kw):
+    eng = mod.ServingEngine(model, cfg, params,
+                            config=mod.EngineConfig(**{**MIXED, **kw}))
+    rng = np.random.default_rng(0)
+    for i, (n, g) in enumerate(zip(LENS, GENS)):
+        eng.submit(mod.Request(uid=i, prompt=rng.integers(0, cfg.vocab, n),
+                               max_new_tokens=g))
+    return eng
+
+
+def _mixed_engine(family):
+    """A port engine stepped until decoding, prefilling and unused slots
+    coexist (its arena rows / states are then non-zero)."""
+    _, (_, _, tm, tp) = family
+    eng = _engine(tserving, tm, tm.cfg, tp)
+    for _ in range(50):
+        states = [st.status for st in eng.scheduler.running.values()]
+        if Status.RUNNING in states and Status.PREFILLING in states:
+            break
+        eng.step()
+    pos, active = eng._pos.tolist(), eng._active.tolist()
+    assert PARKED_POS in pos and 1 in active, (pos, active)
+    assert any(a == 0 and p != PARKED_POS for p, a in zip(pos, active)), \
+        (pos, active)
+    return eng
+
+
+def _snapshot(eng) -> dict:
+    """Every tensor of the engine's state, as raw bytes."""
+    state = {f"cache.{k}": v for k, v in eng._cache.items()}
+    state.update(tokens=eng._tokens, pos=eng._pos, active=eng._active)
+    return {k: v.detach().clone().view(torch.uint8) for k, v in state.items()}
+
+
+def test_guard_refuses_host_reads():
+    """The guard itself: each kind of host read raises under it."""
+    x = torch.arange(6.0)
+    reads = (lambda: x.sum().item(), lambda: torch.nonzero(x),
+             lambda: x[x > 2], lambda: x.__setitem__(x > 2, 1.0),
+             lambda: torch.masked_select(x, x > 2),
+             lambda: torch.unique(x), lambda: int(x[0]))
+    for read in reads:
+        with pytest.raises(AssertionError, match="host read"):
+            with NoHostRead():
+                read()
+
+
+def test_decode_step_makes_no_host_read(family):
+    """(a) The function the graph captures runs through with no host read,
+    live, parked and never-used slots side by side; and it advances only
+    the live slots."""
+    eng = _mixed_engine(family)
+    live = eng._active.clone() == 1
+    pos0 = eng._pos.clone()
+    with NoHostRead():
+        out = eng._decode_step()
+    assert out.shape == (eng.max_slots,)
+    assert torch.equal(eng._pos, pos0 + live.long())
+
+
+def test_parked_warm_up_leaves_no_trace(family):
+    """(b) The parked warm-up on a mid-run engine leaves the arena (dense
+    rows; ssm state and conv tail), tokens, positions and active flags bit
+    for bit as they were, and the run then still matches the JAX engine."""
+    jcfg, (jm, jp, _, _) = family
+    eng = _mixed_engine(family)
+    before = _snapshot(eng)
+    graphs.parked_warm_up(eng._decode_step, eng._tokens, eng._pos,
+                          eng._active)
+    after = _snapshot(eng)
+    assert before.keys() == after.keys()
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    got = eng.run(max_steps=2000)
+    want = _engine(jserving, jm, jcfg, jp).run(max_steps=2000)
+    assert sorted(got) == sorted(want)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")
+
+
+def test_decode_graph_field_rules(family):
+    """(c) On the CPU the step runs eagerly whatever ``decode_graph`` says
+    (the default, True, captures only on the card); the CLI's
+    ``--no-decode-graph`` clears the field; a DecodeGraph refuses CPU
+    tensors."""
+    _, (_, _, tm, tp) = family
+    assert tserving.EngineConfig().decode_graph is True
+    for kw in ({}, {"decode_graph": True}, {"decode_graph": False}):
+        eng = _engine(tserving, tm, tm.cfg, tp, **kw)
+        assert eng.graph is None and eng._queue.step_fn == eng._decode_step
+    base = ["--arch", "llama3.2-3b"]
+    assert serve.parse_args(base).decode_graph is True
+    assert serve.parse_args(base + ["--no-decode-graph"]).decode_graph \
+        is False
+    with pytest.raises(ValueError, match="CUDA"):
+        graphs.DecodeGraph(eng._decode_step, eng._tokens, eng._pos,
+                           eng._active)
+
+
+def test_add_launches_adds_to_the_named_counters():
+    """A replay's launches reach ``ops.launch_counts()``; other kernels'
+    counts stay."""
+    before = ops.launch_counts()
+    ops.add_launches({"flash_decode": 28, "ssd": 2})
+    after = ops.launch_counts()
+    ops.add_launches({"flash_decode": -28, "ssd": -2})
+    assert after == {**before, "flash_decode": before["flash_decode"] + 28,
+                     "ssd": before["ssd"] + 2}
+    assert ops.launch_counts() == before
