@@ -33,8 +33,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      depth 2), monolithic then chunked, the decode step replayed as the
      engine's captured CUDA graph (the default on the card), with each
      kernel's launch count (replays included: flash_decode n_layers x
-     (replays + the warm-up step)) and the graph's warm-up and capture
-     time and pool bytes; 4b: short runs under torch.profiler (device
+     (replays + the warm-up step)), no sampled step and no sampled graph
+     in these greedy runs, and the graph's warm-up and capture time and
+     pool bytes; 4b: short runs under torch.profiler (device
      time by kernel, the attention and ssd kernels' own line, device busy
      share; captured in both prefill modes for llama3.2-3b and monolithic
      for mamba2-2.7b, eager monolithic for both; in a captured run the
@@ -44,7 +45,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      pairs a prefill mode in alternating order, token streams equal to
      phase 4's, tok/s and wall ms per decode step; and ms per decode step
      over decode-only windows (every prompt in, 32 steps synchronised at
-     both ends, 3 alternating pairs);
+     both ends, 3 alternating pairs); 4d: the sampled decode step, the
+     engine's second graph: ``sample_step`` on the card against the CPU at
+     4 x 128256 and 4 x 50280 (keys, words, kept sets and tokens bit for
+     bit; q + 1 must move the tokens), its device time alone, a
+     chi-square of 20000 draws on the card; then phase 4's requests with
+     half of them sampled (temperature 0.6, top-k 50, top-p 0.9, min-p
+     0.05), both prefill modes: captured streams equal to eager ones, the
+     greedy requests equal to phase 4's, a sampled request served alone
+     equal to its stream in the batch, and decode-only windows of the
+     greedy twin against the sampled graph (3 alternating pairs);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -673,11 +683,9 @@ def serving_runs(torch, ops, serve, arch, gen):
         g = eng.graph
         assert g is not None and g.replays == eng.stats["decode_steps"], \
             "the engine must replay its captured decode step"
-        assert g.pool_bytes > 0, g.pool_bytes
-        print(f"  {mode} decode graph (built before the tok/s clock "
-              f"starts): warm-up {g.warmup_s * 1e3:.1f} ms, capture "
-              f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes / 1e6:.1f} "
-              f"MB; {g.replays} replays of {g.launches}")
+        # greedy traffic never captures or runs the sampled graph
+        assert eng.sampled_graph is None and eng.stats["sampled_steps"] == 0
+        print_graphs(f"  {mode}", eng)
         if cfg.family == "dense":
             # every replayed launch counted, plus the warm-up step's own
             assert counts["flash_decode"] == cfg.n_layers * (g.replays + 1), \
@@ -700,6 +708,20 @@ def serving_runs(torch, ops, serve, arch, gen):
         assert chunked["flash_prefill_chunk"] > 0, chunked
         assert chunked["flash_decode"] > 0, chunked
     return bundle, params, args, runs
+
+
+def print_graphs(label, eng):
+    """Print (and check) the cost of the engine's decode graphs, the
+    sampled one where traffic sampled: built before the tok/s clock
+    starts."""
+    for name, g in (("greedy", eng.graph), ("sampled", eng.sampled_graph)):
+        if g is None:
+            continue
+        assert g.pool_bytes > 0, (name, g.pool_bytes)
+        print(f"{label} {name} decode graph: warm-up {g.warmup_s * 1e3:.1f} "
+              f"ms, capture {g.capture_s * 1e3:.1f} ms, pool "
+              f"{g.pool_bytes / 1e6:.1f} MB; {g.replays} replays of "
+              f"{g.launches}")
 
 
 def device_time(prof):
@@ -832,31 +854,34 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
     return table
 
 
-def decode_window(torch, serve, bundle, params, pairs=3, steps=32):
-    """Phase 4c, decode only: an eager and a captured engine each take the
-    4 requests (monolithic) until every prompt is in, then run ``steps``
+def decode_window(torch, serve, bundle, params, kinds=None, pairs=3,
+                  steps=32, same=True, phase="4c"):
+    """Phase 4c (and 4d), decode only: one engine per kind (``kinds``:
+    {name: extra serve flags}; default eager and captured) takes the 4
+    requests (monolithic) until every prompt is in, then runs ``steps``
     engine steps at a time, synchronised at both ends, ``pairs`` windows
-    each in alternating order; both then run to the end and must give the
-    same token streams.  Then ``steps // 4`` more steps of each under
-    torch.profiler give the device's time and busy share a decode step.
-    Returns ({kind: [ms per decode step, ...]}, {kind: (device ms, wall
-    ms) a step})."""
+    each in alternating order; all then run to the end and, if ``same``,
+    must give the same token streams.  Then ``steps // 4`` more steps of
+    each under torch.profiler give the device's time and busy share a
+    decode step.  Returns ({kind: [ms per decode step, ...]}, {kind:
+    (device ms, wall ms) a step})."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.serving import Status
+    kinds = kinds or {"eager": ["--no-decode-graph"], "captured": []}
+    names = list(kinds)
     gen = pairs * steps + steps // 4 + 16
     engines = {}
-    for kind in ("eager", "captured"):
+    for kind, extra in kinds.items():
         args = serve.parse_args(
-            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
-            + (["--no-decode-graph"] if kind == "eager" else []))
+            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS + extra)
         eng = engines[kind] = serve.engine(bundle, params, args)
         while eng.scheduler.waiting or any(
                 st.status != Status.RUNNING
                 for st in eng.scheduler.running.values()):
             eng.step()
-    ms = {"eager": [], "captured": []}
+    ms = {kind: [] for kind in names}
     for i in range(pairs):
-        for kind in PAIR_ORDER[i % 2]:
+        for kind in (names if i % 2 == 0 else names[::-1]):
             eng = engines[kind]
             n0 = eng.stats["decode_steps"]
             torch.cuda.synchronize()
@@ -879,27 +904,218 @@ def decode_window(torch, serve, bundle, params, pairs=3, steps=32):
         rows, _ = device_time(prof)
         busy[kind] = (sum(r[0] for r in rows) / 1e3 / (steps // 4),
                       dt * 1e3 / (steps // 4))
-        if kind == "captured":
-            print(f"phase 4c: {bundle.name} captured decode step, top "
+        if kind != "eager":
+            print(f"phase {phase}: {bundle.name} {kind} decode step, top "
                   f"device time a step:")
             for us, n, key in rows[:10]:
                 print(f"    {us / 1e3 / (steps // 4):8.3f} ms "
                       f"{n // (steps // 4):5d}x  {key[:90]}")
     outs = {kind: eng.run() for kind, eng in engines.items()}
-    assert same_streams(outs["captured"], outs["eager"])
-    print(f"phase 4c: {bundle.name} decode only (4 slots live, {steps} "
+    if same:
+        assert same_streams(outs[names[0]], outs[names[1]])
+    print(f"phase {phase}: {bundle.name} decode only (4 slots live, {steps} "
           f"steps a window, synchronised at both ends): ms per decode step "
-          f"eager {[round(x, 3) for x in ms['eager']]}, captured "
-          f"{[round(x, 3) for x in ms['captured']]}; token streams "
-          f"({gen} new tokens a request) equal")
+          + ", ".join(f"{k} {[round(x, 3) for x in ms[k]]}" for k in names)
+          + (f"; token streams ({gen} new tokens a request) equal"
+             if same else ""))
     # the profiler slows the host's side, so the busy share is taken
     # against the unprofiled windows' median wall time a step
-    print(f"phase 4c: {bundle.name} decode only, {steps // 4} steps under "
-          f"torch.profiler: " + ", ".join(
+    print(f"phase {phase}: {bundle.name} decode only, {steps // 4} steps "
+          f"under torch.profiler: " + ", ".join(
               f"{k} device {d:.3f} ms a step ({w:.3f} ms wall profiled; "
               f"{100 * d / statistics.median(ms[k]):.1f}% of the unprofiled "
               f"median)" for k, (d, w) in busy.items()))
     return ms, busy
+
+
+# Phase 4d: the served runs' sampling knobs, every filter on (llama3.2-3b's
+# published generation_config.json samples at temperature 0.6, top-p 0.9),
+# half the requests sampled so that greedy and sampled slots share steps
+SAMPLE_ARGS = ["--temperature", "0.6", "--top-k", "50", "--top-p", "0.9",
+               "--min-p", "0.05", "--sampling-mix", "0.5"]
+# (temperature, top_k, top_p, min_p, seed, q) of the four slots of the
+# sampler check, one of them greedy
+SLOT_KNOBS = ((0.6, 50, 0.9, 0.05, 3, 1025), (1.0, 0, 1.0, 0.0, 11, 769),
+              (0.0, 0, 1.0, 0.0, 5, 1030),
+              (1.3, 0, 0.95, 0.02, 2**31 - 1, 2**20))
+
+
+def sampler_inputs(torch, v, dev):
+    """Phase 4d's sampler inputs at vocabulary ``v``: f32 logits of std 3
+    from a CPU generator, then the slots' vectors, all on ``dev``."""
+    gen = torch.Generator().manual_seed(v)
+    logits = torch.randn(len(SLOT_KNOBS), v, generator=gen) * 3
+    t, k, p, m, seed, q = zip(*SLOT_KNOBS)
+    vecs = (torch.tensor(seed), torch.tensor(q), torch.tensor(t),
+            torch.tensor(k), torch.tensor(p), torch.tensor(m))
+    return [x.to(dev) for x in (logits,) + vecs]
+
+
+def chi2_check(torch, L, sampling, n=20000, v=101):
+    """Phase 4d: ``n`` draws from one row at V = ``v`` taken as rows on the
+    card (positions 0..n-1), chi-square against the port's numpy oracle
+    (``sampling.chi2_gof``: the reference's harness)."""
+    import numpy as np
+    sp = sampling.SamplingParams(temperature=0.8, top_k=12, top_p=0.9,
+                                 min_p=0.05)
+    logits = np.random.default_rng(v).standard_normal(v).astype(np.float32)
+    x = torch.as_tensor(logits, device="cuda")[None].expand(n, -1)
+
+    def full(val, dtype):
+        return torch.full((n,), val, dtype=dtype, device="cuda")
+
+    toks = L.sample_step(x, full(17, torch.int64),
+                         torch.arange(n, device="cuda"),
+                         full(sp.temperature, torch.float32),
+                         full(sp.top_k, torch.int64),
+                         full(sp.top_p, torch.float32),
+                         full(sp.min_p, torch.float32)).cpu().numpy()
+    stat, df, limit = sampling.chi2_gof(
+        toks, sampling.reference_probs(logits, sp))
+    print(f"phase 4d: chi-square of {n} draws on the card at V={v} "
+          f"({sp}): {stat:.2f} on {df} df, limit {limit:.2f}")
+    assert stat < limit, (stat, limit)
+
+
+def sampler_checks(torch):
+    """Phase 4d (a): ``sample_step`` on the card against the same function
+    on the CPU, same f32 logits at 4 x 128256 (llama3.2-3b) and 4 x 50280
+    (mamba2-2.7b), other knobs and seed in each slot: keys, the V-word
+    draws, the kept sets and values and the tokens bit for bit; with q + 1
+    the sampled slots' tokens must move (the planted fault) and the greedy
+    slot's not.  Then the sampler alone on the card, eager (wall ms a call,
+    synchronised) and captured in a CUDA graph (device ms a replay), and
+    the chi-square."""
+    from repro_torch.core import prng
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serving import sampling
+    res = {}
+    sampled = torch.tensor([kn[0] > 0 for kn in SLOT_KNOBS])
+    for v in (128256, 50280):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            logits, seed, q, t, k, p, m = sampler_inputs(torch, v, dev)
+            keys = prng.fold_in(prng.fold_in(
+                torch.zeros((4, 2), dtype=torch.int64, device=dev), seed), q)
+            out[dev] = [x.cpu() for x in (
+                keys, prng.random_bits32(keys, (v,)),
+                L.masked_logits(logits, t, k, p, m),
+                L.sample_step(logits, seed, q, t, k, p, m),
+                L.sample_step(logits, seed, q + 1, t, k, p, m))]
+        (ck, cb, cx, ct, cf), (gk, gb, gx, gt, gf) = out["cpu"], out["cuda"]
+        assert torch.equal(ck, gk) and torch.equal(cb, gb), v
+        assert torch.equal(cx.view(torch.int32), gx.view(torch.int32)), v
+        assert torch.equal(ct, gt) and torch.equal(cf, gf), v
+        moved = (gt != gf) & sampled
+        assert moved.any() and not (gt != gf)[~sampled].any(), (gt, gf)
+        kept = torch.isfinite(gx).sum(-1).tolist()
+        print(f"phase 4d: sample_step at 4 x {v}: keys, words, kept sets "
+              f"(sizes {kept}) and values, tokens {gt.tolist()} equal on "
+              f"the card and the CPU bit for bit; q + 1 moves "
+              f"{int(moved.sum())} of {int(sampled.sum())} sampled tokens "
+              f"({gf.tolist()}), the greedy slot's not")
+        args = sampler_inputs(torch, v, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            L.sample_step(*args)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / 3
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            L.sample_step(*args)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tok = L.sample_step(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(tok.cpu(), gt)
+        captured_ms = timed(graph.replay, 20)
+        res[v] = (eager_ms, captured_ms)
+        print(f"phase 4d: sample_step alone at 4 x {v}: eager {eager_ms:.3f} "
+              f"ms wall a call, captured {captured_ms:.4f} ms device a "
+              f"replay")
+        del graph
+    chi2_check(torch, L, sampling)
+    return res
+
+
+def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
+    """Phase 4d (b): phase 4's requests with half of them sampled
+    (SAMPLE_ARGS), both prefill modes, the decode steps captured (the
+    default) and eager: streams equal; the greedy requests equal phase 4's
+    streams (a greedy row takes the argmax, bit for bit, and no row's logits
+    depend on its batch-mates); a sampled request served alone (same slots
+    and arena) equal to its stream in the batch; the sampled graph replayed
+    once a sampled step.  Returns ({mode: (tok/s, sampled steps, decode
+    steps)}, [launch counts of each captured run])."""
+    import numpy as np
+    from repro_torch.runtime.serving import Request, ServingEngine
+    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS \
+        + SAMPLE_ARGS
+    cfg = bundle.cfg
+    res, all_counts = {}, []
+    for mode in ("monolithic", "chunked"):
+        args = serve.parse_args(base + ["--prefill-mode", mode])
+        plan = serve.sampling_plan(
+            args.requests, temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, min_p=args.min_p, seed=args.seed,
+            mix=args.sampling_mix)
+        ops.reset_launch_counts()
+        eng, out, dt = serve.serve(bundle, params, args)
+        counts = ops.launch_counts()
+        all_counts.append(counts)
+        st = eng.stats
+        total = sum(o.size for o in out.values())
+        assert st["sampled_requests"] == 2 and st["sampled_steps"] > 0, st
+        assert eng.sampled_graph.replays == st["sampled_steps"]
+        assert eng.graph.replays + eng.sampled_graph.replays == \
+            st["decode_steps"]
+        if cfg.family == "dense":
+            assert counts["flash_decode"] == cfg.n_layers * (
+                st["decode_steps"] + 2), counts
+        else:
+            assert counts["ssd"] == cfg.n_layers * (
+                st["prefills"] + st["prefill_chunks"]) > 0, counts
+        print(f"phase 4d: {bundle.name} {mode}, requests "
+              f"{[i for i, sp in enumerate(plan) if not sp.is_greedy]} "
+              f"sampled: {total} tokens in {dt:.3f} s = {total / dt:.1f} "
+              f"tok/s; {st['sampled_steps']} of {st['decode_steps']} decode "
+              f"steps sampled; kernel launches {counts}")
+        print_graphs(f"  {mode}", eng)
+        eargs = serve.parse_args(base + ["--prefill-mode", mode,
+                                         "--no-decode-graph"])
+        e_eng, e_out, e_dt = serve.serve(bundle, params, eargs)
+        assert e_eng.sampled_graph is None
+        assert same_streams(out, e_out), mode
+        want = runs[mode][1]
+        greedy = [i for i, sp in enumerate(plan) if sp.is_greedy]
+        for uid in greedy:
+            assert (out[uid] == want[uid]).all(), (mode, uid)
+        lens = serve.prompt_lengths(args)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+        uid = next(i for i, sp in enumerate(plan) if not sp.is_greedy)
+        alone = ServingEngine(bundle.model, cfg, params,
+                              config=serve.engine_config(args, lens))
+        alone.submit(Request(uid=uid, prompt=prompts[uid],
+                             max_new_tokens=gen, sampling=plan[uid]))
+        a_out = alone.run()
+        assert (a_out[uid] == out[uid]).all(), (mode, uid)
+        n_diff = sum(int((out[i] != want[i]).any()) for i in out
+                     if i not in greedy)
+        print(f"phase 4d: {bundle.name} {mode}: streams of the captured "
+              f"and the eager engine ({e_eng.stats['sampled_steps']} eager "
+              f"sampled steps, {total / e_dt:.1f} tok/s) equal; greedy "
+              f"requests {greedy} equal phase 4's; sampled request {uid} "
+              f"served alone equals its stream in the batch; {n_diff} of "
+              f"{len(out) - len(greedy)} sampled streams differ from phase "
+              f"4's greedy ones")
+        res[mode] = (total / dt, st["sampled_steps"], st["decode_steps"])
+        del eng, e_eng, alone
+    return res, all_counts
 
 
 def prefill_logits(model, params, prompt):
@@ -1481,6 +1697,7 @@ def main() -> int:
           f"{ {k: round(v, 1) for k, v in secs.items()} })")
     sass_check(_build)
 
+    sampler_checks(torch)
     rec = kernel_checks(torch, ops, registry.config("llama3.2-3b"))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
     for name in sorted(rec):
@@ -1497,6 +1714,18 @@ def main() -> int:
                                                    params, mode)
         pairs = eager_vs_captured(serve, bundle, params, runs, gen=64)
         window, wbusy = decode_window(torch, serve, bundle, params)
+        mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params,
+                                       runs)
+        swindow, sbusy = decode_window(
+            torch, serve, bundle, params, same=False, phase="4d",
+            kinds={"greedy": [], "sampled": SAMPLE_ARGS
+                   + ["--sampling-mix", "1.0"]})
+        print(f"phase 4d: {bundle.name} summary ({smi}): mixed runs "
+              + "; ".join(f"{mode} {r[0]:.1f} tok/s ({r[1]} of {r[2]} steps "
+                          f"sampled)" for mode, r in mixed.items())
+              + "; decode only, median ms a step " + ", ".join(
+                  f"{kind} {statistics.median(ms):.3f} (device "
+                  f"{sbusy[kind][0]:.3f})" for kind, ms in swindow.items()))
         print(f"phase 4c: {bundle.name} summary ({smi}), medians: " + "; ".join(
             f"{mode} {kind} {statistics.median(r[0] for r in res[kind]):.1f}"
             f" tok/s, {statistics.median(r[1] for r in res[kind]):.2f} ms a "
@@ -1509,7 +1738,7 @@ def main() -> int:
                                  else f"{100 * b:.1f}%")
             for (mode, kind), b in busy.items()))
         end_to_end(torch, ops, serve, bundle, params, args, runs)
-        all_runs += [run[3] for run in runs.values()]
+        all_runs += [run[3] for run in runs.values()] + counts4d
         del bundle, params, runs
         torch.cuda.empty_cache()
     vu_rec, vu_counts = vector_unit_phase(torch, ops)

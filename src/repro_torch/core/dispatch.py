@@ -41,19 +41,20 @@ class Readback:
 class DispatchQueue:
     """Keeps at most ``depth`` dispatched-but-unfinished steps in flight.
 
-    ``step_fn(*args)`` enqueues one device step and returns the vector the
-    host will read back; :meth:`submit` returns its :class:`Readback`.
+    :meth:`submit` takes the step to run (the engine's greedy or sampled
+    decode step): ``step_fn(*args)`` enqueues one device step and returns
+    the vector the host will read back; ``submit`` returns its
+    :class:`Readback`.  All steps share the queue, in submit order.
     """
 
-    def __init__(self, step_fn: Callable, *, depth: int = 2):
+    def __init__(self, *, depth: int = 2):
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
-        self.step_fn = step_fn
         self.depth = depth
         self._inflight: collections.deque = collections.deque()
 
-    def submit(self, *args) -> Readback:
-        rb = Readback(self.step_fn(*args))
+    def submit(self, step_fn: Callable, *args) -> Readback:
+        rb = Readback(step_fn(*args))
         if self.depth == 0:
             rb.wait()
             return rb

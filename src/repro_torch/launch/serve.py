@@ -3,18 +3,25 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b --no-reduced
 --requests 4 --prompt-len 1024 --gen 64 --slots 4 --depth 2``
 
-Port of ``repro/launch/serve.py`` for greedy serving of the ported
-families (dense, and ssm: ``--arch mamba2-2.7b``).  Runs on the
-card unless ``--device cpu``.  Weights are random, drawn from a
-``torch.Generator`` seeded with ``--seed``; prompts come from
+Port of ``repro/launch/serve.py`` for the ported families (dense, and
+ssm: ``--arch mamba2-2.7b``).  Runs on the card unless ``--device cpu``.
+Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
+reference always draws them from ``PRNGKey(0)``); prompts come from
 ``numpy.random.default_rng(0)`` as in the reference (odd requests get a
 25%-shorter prompt, or ``--prompt-mix`` cycles given lengths).
+
+Sampling as in the reference: ``--temperature`` > 0 makes a
+``--sampling-mix`` fraction of the requests sample (spread evenly over
+arrival order, the rest greedy) with ``--top-k`` / ``--top-p`` /
+``--min-p``; ``--seed`` is the run's base sampling seed and request i
+samples with ``--seed + i``, so a rerun replays the same streams.
 
 ``--reduced`` (the default) builds the smoke-test width; ``--no-reduced``
 builds the published config (the reference's flag is ``store_true`` with
 ``default=True`` and so can never be switched off).  On the card the
-engine replays its decode step as one captured CUDA graph;
-``--no-decode-graph`` runs the step eagerly (``EngineConfig.decode_graph``).
+engine replays its decode steps (greedy and sampled) as captured CUDA
+graphs; ``--no-decode-graph`` runs them eagerly
+(``EngineConfig.decode_graph``).
 """
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import registry
-from repro_torch.runtime.serving import (DEFAULT_BUCKETS, EngineConfig,
-                                         Request, ServingEngine)
+from repro_torch.runtime.serving import (DEFAULT_BUCKETS, GREEDY,
+                                         EngineConfig, Request,
+                                         SamplingParams, ServingEngine)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,8 +64,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-format", choices=["fp32"], default="fp32",
                    help="KV-arena storage format (fp32 = stored at the "
                         "activation dtype; the others are not ported yet)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature for sampled requests "
+                        "(0 = greedy argmax for every request)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="keep only the k highest-probability tokens "
+                        "(0 = off)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling mass bound in (0, 1]")
+    p.add_argument("--min-p", type=float, default=0.0,
+                   help="drop tokens below min-p * max token probability")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights' torch.Generator")
+                   help="run-level base PRNG seed; request i samples with "
+                        "seed+i, so a rerun replays identical streams")
+    p.add_argument("--sampling-mix", type=float, default=1.0,
+                   help="fraction of requests that sample (evenly spread); "
+                        "the rest decode greedily")
     p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="smoke-test width (default); --no-reduced builds "
@@ -72,10 +94,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build(args):
     """(bundle, params) for ``args``: the model on ``--device`` with random
-    weights from ``--seed``."""
+    weights from seed 0."""
     bundle = registry.build(args.arch, reduced=args.reduced,
                             device=args.device)
-    return bundle, bundle.model.init(args.seed)
+    return bundle, bundle.model.init(0)
 
 
 def prompt_lengths(args) -> list[int]:
@@ -102,24 +124,48 @@ def engine_config(args, lens) -> EngineConfig:
         decode_graph=args.decode_graph)
 
 
+def sampling_plan(n_requests: int, *, temperature: float, top_k: int,
+                  top_p: float, min_p: float, seed: int,
+                  mix: float) -> list[SamplingParams]:
+    """Per-request SamplingParams for a run (reference serve.py:117): a
+    ``mix`` fraction of the requests sample (spread evenly over arrival
+    order, Bresenham-style), the rest decode greedily.  Request i's seed is
+    ``seed + i``, so streams differ but the run replays from one seed."""
+    if temperature <= 0 or mix <= 0:
+        return [GREEDY] * n_requests
+    mix = min(mix, 1.0)
+    return [
+        SamplingParams(temperature=temperature, top_k=top_k, top_p=top_p,
+                       min_p=min_p, seed=seed + i)
+        if int((i + 1) * mix) > int(i * mix) else GREEDY
+        for i in range(n_requests)
+    ]
+
+
 def engine(bundle, params, args) -> ServingEngine:
-    """The engine for ``args`` (on the card its decode graph captured) with
-    the ``args.requests`` greedy requests submitted."""
+    """The engine for ``args`` with the ``args.requests`` requests
+    submitted, sampled as :func:`sampling_plan` says (on the card its
+    greedy decode graph captured, and its sampled one if a request
+    samples)."""
     rng = np.random.default_rng(0)
     lens = prompt_lengths(args)
     prompts = [rng.integers(0, bundle.cfg.vocab, n) for n in lens]
     eng = ServingEngine(bundle.model, bundle.cfg, params,
                         config=engine_config(args, lens))
+    plan = sampling_plan(args.requests, temperature=args.temperature,
+                         top_k=args.top_k, top_p=args.top_p,
+                         min_p=args.min_p, seed=args.seed,
+                         mix=args.sampling_mix)
     for i in range(args.requests):
         eng.submit(Request(uid=i, prompt=prompts[i],
-                           max_new_tokens=args.gen))
+                           max_new_tokens=args.gen, sampling=plan[i]))
     return eng
 
 
 def serve(bundle, params, args):
-    """Serve ``args.requests`` greedy requests; returns (engine, {uid:
+    """Serve ``args.requests`` requests; returns (engine, {uid:
     tokens}, wall seconds).  The clock starts after the engine is built
-    (and its decode graph captured) and stops after the device finished."""
+    (and its decode graphs captured) and stops after the device finished."""
     eng = engine(bundle, params, args)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
@@ -142,12 +188,21 @@ def report_stats(eng: ServingEngine) -> None:
     print(f"arena: {eng.arena_bytes / 1e6:.2f} MB resident "
           f"(kv_format={eng.kv_format}, {eng.arena_unit_bytes} {unit}, "
           f"written in place)")
+    total = max(stats["requests"], 1)
+    sampled = stats["sampled_requests"]
+    per_req = (f"{stats['sampled_steps'] / sampled:.1f} sampling "
+               f"steps/request" if sampled else "n/a (greedy-only run)")
+    print(f"sampler: base_seed={eng.base_seed} "
+          f"sampled={sampled}/{total} requests "
+          f"(greedy={total - sampled}; {per_req}; keys fold "
+          f"(seed, position) — batch/preemption invariant)")
     print("scheduler:", eng.scheduler.stats)
-    g = eng.graph
-    if g is not None:
-        print(f"decode graph: warm-up {g.warmup_s * 1e3:.1f} ms, capture "
-              f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes / 1e6:.1f} MB,"
-              f" {g.replays} replays of {g.launches} kernel launches")
+    for name, g in (("greedy", eng.graph), ("sampled", eng.sampled_graph)):
+        if g is not None:
+            print(f"{name} decode graph: warm-up {g.warmup_s * 1e3:.1f} ms, "
+                  f"capture {g.capture_s * 1e3:.1f} ms, pool "
+                  f"{g.pool_bytes / 1e6:.1f} MB, {g.replays} replays of "
+                  f"{g.launches} kernel launches")
     if ttft:
         print(f"ttft_s: mean={np.mean(ttft):.4f} "
               f"p50={_percentile(ttft, 50):.4f} "

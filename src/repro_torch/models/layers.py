@@ -22,9 +22,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 
 # Decode-position sentinel for a slot whose prompt is mid-chunked-prefill
@@ -225,3 +227,211 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# stochastic sampling (temperature / top-k / top-p / min-p)
+# ---------------------------------------------------------------------------
+#
+# Reference layers.py:559-676.  A slot's key for the token at absolute
+# cache position q is fold_in(fold_in(PRNGKey(0), seed), q): a pure function
+# of the request's seed and q, so a stream does not depend on its
+# batch-mates, on chunking or on preemption.  Everything here is made of
+# ops whose result is defined bit for bit (IEEE adds, compares, integer
+# arithmetic, a sort) but for three float64 logs rounded to float32 (equal
+# on every device but for a double rounding), so the CPU and the card draw
+# the same tokens.
+
+_M32 = 0xFFFFFFFF
+
+#: window of the float32 sums below (XLA's CPU tree reduction, see tree_sum)
+SUM_WINDOW = 32
+#: thresholds tried at once per round of the top-p search
+TOP_P_WAYS = 15
+
+
+def _monotone_key(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving bijection float32 -> uint32, held in int64 (the sign
+    bit of non-negatives flipped, all bits of negatives).  Callers
+    canonicalise -0.0 to +0.0 first (``x + 0.0``)."""
+    u = x.view(torch.int32).to(torch.int64) & _M32
+    return torch.where(u < (1 << 31), u | (1 << 31), _M32 - u)
+
+
+def _seq_sum(a: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis, left to right."""
+    acc = a[..., 0]
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., j]
+    return acc
+
+
+def _windowed(a: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (..., SUM_WINDOW, ceil(n / SUM_WINDOW)): ``a`` zero-padded
+    evenly on both sides (the odd one on the right) to whole windows, term j
+    of every window contiguous (so each add of ``_window_sums`` reads
+    contiguous rows)."""
+    pad = -a.shape[-1] % SUM_WINDOW
+    if pad:
+        a = F.pad(a, (pad // 2, pad - pad // 2))
+    return a.unflatten(-1, (-1, SUM_WINDOW)).transpose(-1, -2).contiguous()
+
+
+def _window_sums(w: torch.Tensor) -> torch.Tensor:
+    """(..., SUM_WINDOW, m) -> (..., m): each window summed left to right."""
+    acc = w[..., 0, :] + w[..., 1, :]
+    for j in range(2, SUM_WINDOW):
+        acc += w[..., j, :]
+    return acc
+
+
+def tree_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis of float32 ``a``, rounded as the reference's
+    ``jnp.sum`` rounds them on XLA's CPU backend: while more than
+    ``SUM_WINDOW`` terms are left, zero-pad them evenly on both sides (the
+    odd one on the right) to whole windows and sum each window left to
+    right; then sum what is left left to right.  The top-p cutoff compares
+    such sums, and at top_p near 1 the terms they absorb decide which tail
+    entries survive, so the order is part of the result."""
+    while a.shape[-1] > SUM_WINDOW:
+        a = _window_sums(_windowed(a))
+    return _seq_sum(a)
+
+
+def _top_p_cutoff(keys, w, order, pz):
+    """Smallest key t with mass{x > t} < pz per row: the reference's 32
+    bisection rounds over uint32 find the same t, since the mass (a
+    ``tree_sum`` of the masked weights) only falls as t grows and changes
+    only at the row's own keys.  Searches the sorted keys ``order`` instead,
+    ``TOP_P_WAYS`` thresholds a round (ceil(log_16 V) rounds).  The answer
+    lies in (lo, hi] of the sorted keys: the test fails below every key
+    (all the mass is above; Z < top_p x Z never holds) and holds at the
+    largest key (no mass above it)."""
+    b, v = keys.shape
+    dev = keys.device
+    # the first level of tree_sum laid out once: a padding term has key 0
+    # (above no threshold) and weight 0, as the reference's padding adds 0
+    wide = v > SUM_WINDOW
+    if wide:
+        keys, w = _windowed(keys), _windowed(w)
+    lo = torch.full((b, 1), -1, dtype=torch.int64, device=dev)
+    hi = torch.full((b, 1), v - 1, dtype=torch.int64, device=dev)
+    ways = TOP_P_WAYS
+    r = torch.arange(1, ways + 1, dtype=torch.int64, device=dev)[None]
+    width = v
+    while width > 1:
+        idx = torch.minimum(lo + ((hi - lo) * r + ways) // (ways + 1), hi)
+        t = order.gather(1, idx)                               # (B, ways)
+        t = t[:, :, None, None] if wide else t[:, :, None]
+        above = torch.where(keys[:, None] > t, w[:, None], 0.0)
+        mass = tree_sum(_window_sums(above) if wide else above)
+        ok = mass < pz[:, None]
+        hi = torch.minimum(torch.where(ok, idx, v).amin(-1, keepdim=True), hi)
+        lo = torch.maximum(torch.where(ok, -1, idx).amax(-1, keepdim=True),
+                           lo)
+        width = -(-width // (ways + 1))
+    return order.gather(1, hi)[:, 0]
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+# the float32 exp of XLA's CPU backend (jax 0.9.0): Cephes' expf, its
+# multiply-adds fused; constants as XLA holds them
+_EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
+_LOG2E = _f32(1.442695)
+_EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(-2.12194440e-4)
+_EXP_P = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                 8.3334519073e-3, 4.1665795894e-2,
+                                 1.6666665459e-1, 0.5))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a x b + c rounded once, as a fused multiply-add rounds it:
+    the product of two float32 values is exact in float64, so only the
+    float64 sum's rounding can differ from one rounding (a double rounding,
+    about once in 2^29)."""
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    return (a.double() * b + c).float()
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as the reference computes it on XLA's CPU backend, op
+    for op (its polynomial, fused multiply-adds, results below the smallest
+    normal flushed to zero), so the same on every device.  XLA's exp is not
+    correctly rounded, and the top-p sums at top_p = 1 keep or absorb tail
+    weights by their last bit."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    m = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(m, -_EXP_C1, x)
+    r = _fma(m, -_EXP_C2, r)
+    p = _fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        p = _fma(p, r, c)
+    y = 1.0 + _fma(p, r * r, r)
+    scale = ((m.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    return torch.where(out < prng.TINY_F32, 0.0, out)
+
+
+def masked_logits(logits: torch.Tensor, temp: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  min_p: torch.Tensor) -> torch.Tensor:
+    """Temperature-scale and mask logits per slot (reference layers.py:580).
+
+    logits (B, V); temp / top_p / min_p (B,) float; top_k (B,) int.  Divide
+    by the temperature, then keep the intersection of the top-k, nucleus
+    and min-p sets of the scaled row; the rest becomes -inf.  top_k <= 0
+    turns top-k off (ties at the k-th value all stay); an entry survives
+    top-p iff the mass strictly above it is < top_p; min-p drops entries
+    below min_p x the largest probability; the argmax always survives.  The
+    three filters are value cutoffs on the monotone key, so the mask is one
+    compare against their maximum.
+
+    The cutoffs equal the reference's bisection results: top-k's is the
+    k-th largest key (a sort), top-p's the smallest key whose mass above
+    is < top_p x Z, found on the sorted keys (``_top_p_cutoff``) with the
+    reference's float32 sums in the reference's order (``tree_sum``) over
+    the reference's float32 weights (``xla_exp``).  The min-p ``log`` is
+    taken in float64 and rounded once; XLA's float32 ``log`` can differ by
+    an ulp, which moves the min-p cutoff by one float32 step.
+    """
+    v = logits.shape[-1]
+    x = logits.float() / torch.clamp(temp.float(), min=1e-6)[:, None]
+    x = x + 0.0                          # -0.0 -> +0.0 for the key map
+    keys = _monotone_key(x)
+    top = x.amax(dim=-1, keepdim=True)
+    w = xla_exp(x - top)                 # unnormalised probs
+    pz = top_p.float() * tree_sum(w)
+    order = torch.sort(keys, dim=-1).values
+    k = torch.clamp(top_k.to(torch.int64), 1, v)
+    ck = order.gather(1, (v - k)[:, None])[:, 0]  # k-th largest key
+    ck = torch.where(top_k > 0, ck, 0)
+    cp = _top_p_cutoff(keys, w, order, pz)
+    # min-p in logit space: prob >= min_p x max-prob <=> x >= top +
+    # log(min_p) (log 0 = -inf keeps everything when min-p is off)
+    cm = _monotone_key(
+        (top + torch.log(min_p.double()).float()[:, None]) + 0.0)[:, 0]
+    cutoff = torch.maximum(torch.maximum(ck, cp), cm)
+    cutoff = torch.minimum(cutoff, order[:, -1])     # the argmax survives
+    return torch.where(keys >= cutoff[:, None], x, float("-inf"))
+
+
+def sample_step(logits: torch.Tensor, seed: torch.Tensor, q: torch.Tensor,
+                temp: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                min_p: torch.Tensor) -> torch.Tensor:
+    """Per-slot sampling (reference layers.py:648): Gumbel-argmax over
+    :func:`masked_logits` with slot b's key ``fold_in(fold_in(PRNGKey(0),
+    seed[b]), q[b])``, q the cache position the token will occupy.  Rows
+    with ``temp <= 0`` take the plain argmax of ``logits``, bit for bit.
+    Ties go to the first index.  Makes no host read (the sampled decode
+    graph captures it).  Returns (B,) int64 tokens."""
+    greedy = torch.argmax(logits, dim=-1)
+    x = masked_logits(logits, temp, top_k, top_p, min_p)
+    key0 = torch.zeros(seed.shape + (2,), dtype=torch.int64,
+                       device=logits.device)        # PRNGKey(0)
+    keys = prng.fold_in(prng.fold_in(key0, seed), q)
+    stoch = torch.argmax(x + prng.gumbel(keys, (x.shape[-1],)), dim=-1)
+    return torch.where(temp > 0, stoch, greedy)

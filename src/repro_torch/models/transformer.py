@@ -2,11 +2,11 @@
 
 Port of ``repro/models/transformer.py``: the dense layer functions
 (:55-101), ``attention_prefill`` (:169) and the ``LM`` driver (:245) with
-``init``, ``init_cache``, ``prefill``, ``prefill_chunk`` / ``_chunk_hidden``
-and ``decode_step`` / ``_decode_rows``.  As in the reference the driver is
-family-pluggable: a :class:`LayerSet` bundles one family's layer functions
-and arena (:data:`DENSE` here, ``mamba2.SSM`` for the ssm family), and the
-driver runs any of them.
+``init``, ``init_cache``, ``prefill``, ``prefill_chunk`` / ``_chunk_hidden``,
+``decode_step`` / ``_decode_rows`` and ``decode_and_sample``.  As in the
+reference the driver is family-pluggable: a :class:`LayerSet` bundles one
+family's layer functions and arena (:data:`DENSE` here, ``mamba2.SSM`` for
+the ssm family), and the driver runs any of them.
 
 Parameters keep the reference's layout — per-layer tensors stacked on a
 leading L axis, weights stored (in, out) and applied as ``x @ W`` — so a
@@ -329,6 +329,19 @@ class LM:
         x_t = self._decode_rows(params, cfg, x_t, cache, pos)
         h = L.rmsnorm(params["final_norm"], x_t, cfg.rms_eps)
         return head_logits(h, self.head(params))
+
+    def decode_and_sample(self, params, token_t: torch.Tensor, cache: dict,
+                          pos: torch.Tensor, samp: dict) -> torch.Tensor:
+        """One decode step, then on-device sampling (reference
+        transformer.py:785), shared by every family: the (B, V) logits stay
+        on the device and the (B,) int64 tokens come out.  ``samp`` is the
+        engine's per-slot vectors (``temp`` / ``top_p`` / ``min_p`` float32,
+        ``top_k`` / ``seed`` int); the token drawn here will occupy row
+        ``pos + 1``, so its key folds ``(seed, pos + 1)``.  Slots with
+        ``temp <= 0`` take the argmax, bit for bit."""
+        logits = self.decode_step(params, token_t, cache, pos)
+        return L.sample_step(logits, samp["seed"], pos + 1, samp["temp"],
+                             samp["top_k"], samp["top_p"], samp["min_p"])
 
     def _decode_rows(self, params, cfg, x_t, cache, pos):
         for i in range(cfg.n_layers):

@@ -26,7 +26,8 @@ class EngineConfig:
                         largest bucket
     ``kv_format``       KV-arena storage format; only "fp32" (stores at the
                         activation dtype) is ported
-    ``base_seed``       run-level seed (weights of ``launch.serve``)
+    ``base_seed``       run-level sampling seed: a sampled request with
+                        ``seed=None`` samples with it
     ``decode_graph``    on the card, replay the decode step as one
                         captured CUDA graph (the reference's compiled step);
                         False runs it eagerly there too.  On the CPU the

@@ -1,5 +1,6 @@
 """Continuous-batching serving engine (port of ``repro/runtime/serving/
-engine.py``'s ``ServingEngine`` for greedy decode over the fp32 KV format).
+engine.py``'s ``ServingEngine``: greedy and sampled decode over the fp32 KV
+format).
 
 The host runs scheduling and admission; the device runs one decode step
 over the whole slot batch.  As in the reference:
@@ -18,11 +19,25 @@ over the whole slot batch.  As in the reference:
      the fused SSD state), chunked prefill writes each chunk's rows or
      carried state, decode writes one row (or the new state) per slot per
      layer; the reference gets the same effect from buffer donation.
-  4. **One captured step.**  On the card the decode step is captured once,
-     at construction, as a CUDA graph (``graphs.DecodeGraph``) and replayed
-     every step: the counterpart of the reference's compiled step, always
-     the same shape.  ``EngineConfig.decode_graph=False`` asks for the
-     eager step; on the CPU the step always runs eagerly.
+  4. **Two captured steps.**  On the card each decode step is captured
+     once as a CUDA graph (``graphs.DecodeGraph``) and replayed: the
+     counterpart of the reference's compiled steps, always the same shape.
+     As in the reference (engine.py:167-216) there are two: the sampled
+     step (decode + ``sample_step`` over the five per-slot sampling
+     vectors) and its pure-argmax twin.  The twin is captured at
+     construction, the sampled step at the first sampled submit (the
+     reference compiles it at its first call).  A step whose RUNNING slots
+     are all greedy replays the twin, so greedy traffic pays nothing for
+     sampling (``stats["sampled_steps"]`` counts the others).
+     ``EngineConfig.decode_graph=False`` asks for eager steps; on the CPU
+     the steps always run eagerly.
+  5. **Keys fold (seed, position) only.**  A sampled slot's token at cache
+     row q is drawn with ``fold_in(fold_in(PRNGKey(0), seed), q)``; the
+     first token at q = prompt_len, off the prefill logits.  So a stream
+     does not depend on its batch-mates, on chunking or on a preemption's
+     recompute, and the slot-generation guard drops a step's token for a
+     slot that was (re)admitted after the step was submitted, whichever of
+     the two steps it was.
 
 Prefill comes in two modes: monolithic (``prefill_chunks=None``; one call
 per prompt) and chunked (bucket-sized chunks interleaved with decode under
@@ -42,7 +57,7 @@ import torch
 
 from repro_torch.core.dispatch import DispatchQueue, Readback
 from repro_torch.models.layers import PARKED_POS
-from repro_torch.runtime.serving import chunking
+from repro_torch.runtime.serving import chunking, sampling
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.config import EngineConfig
 from repro_torch.runtime.serving.graphs import DecodeGraph
@@ -51,10 +66,12 @@ from repro_torch.runtime.serving.scheduler import Scheduler
 
 
 class ServingEngine:
-    """Continuous-batching greedy generation over a decoder-only LM.
+    """Continuous-batching generation (greedy or sampled, per request) over
+    a decoder-only LM.
 
     ``model`` exposes ``init_cache`` / ``slot_view`` / ``prefill`` /
-    ``prefill_chunk`` / ``decode_step`` and ``layers.recurrent``
+    ``prefill_chunk`` / ``decode_step`` / ``decode_and_sample`` and
+    ``layers.recurrent``
     (``models.transformer.LM``, any ported family); ``params`` live on the
     model's device, which is where the engine keeps its state.
     """
@@ -89,6 +106,8 @@ class ServingEngine:
         self._tokens = torch.zeros(max_slots, dtype=torch.int64, device=dev)
         self._pos = torch.zeros(max_slots, dtype=torch.int64, device=dev)
         self._active = torch.zeros(max_slots, dtype=torch.int64, device=dev)
+        #: per-slot sampling vectors (greedy until a sampled admission)
+        self._samp = sampling.init_slot_state(max_slots, dev)
         self._cache = model.init_cache(max_slots, max_seq,
                                        kv_format=self.kv_format)
         self.arena_bytes = sum(t.numel() * t.element_size()
@@ -98,14 +117,19 @@ class ServingEngine:
         recurrent = model.layers.recurrent
         self.arena_unit_bytes = self.arena_bytes // (
             max_slots if recurrent else max_slots * max_seq)
-        capture = config.decode_graph and dev.type == "cuda"
-        #: the captured decode step (None: the step runs eagerly)
+        self._capture = config.decode_graph and dev.type == "cuda"
+        #: the captured greedy decode step (None: eager steps)
         self.graph = (DecodeGraph(self._decode_step, self._tokens,
                                   self._pos, self._active)
-                      if capture else None)
-        self._queue = DispatchQueue(
-            self.graph.replay if capture else self._decode_step,
-            depth=self.depth)
+                      if self._capture else None)
+        #: the captured sampled step: None until the first sampled submit
+        #: (and always None for eager steps)
+        self.sampled_graph = None
+        self._greedy_step = (self.graph.replay if self._capture
+                             else self._decode_step)
+        self._sampled_step = (None if self._capture
+                              else self._decode_step_sampled)
+        self._queue = DispatchQueue(depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
         # holds the same admission generation
@@ -117,22 +141,38 @@ class ServingEngine:
         self.stats = {"decode_steps": 0, "prefills": 0, "prefill_chunks": 0,
                       "prefill_shapes": 0, "prefill_rows": 0,
                       "tokens_out": 0, "requests": 0,
+                      "sampled_requests": 0, "sampled_steps": 0,
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
                       ("state_bytes_per_slot" if recurrent
                        else "kv_row_bytes"): self.arena_unit_bytes,
                       "arena_bytes": self.arena_bytes}
 
-    # -- the device step -------------------------------------------------------
+    # -- the device steps ----------------------------------------------------
     def _decode_step(self) -> torch.Tensor:
         """One greedy decode step over every slot (in place on the slot
         vectors and the arena); returns the raw argmax vector the host
-        reads back ``depth`` steps later.  This is what the decode graph
-        captures: it makes no host read, and the tensors it touches are
-        never rebound (host writes to the slot vectors are in place)."""
+        reads back ``depth`` steps later.  This is what the greedy decode
+        graph captures: it makes no host read, and the tensors it touches
+        are never rebound (host writes to the slot vectors are in place)."""
         logits = self.model.decode_step(self.params, self._tokens,
                                         self._cache, self._pos)
-        sampled = torch.argmax(logits, dim=-1)
+        return self._advance(torch.argmax(logits, dim=-1))
+
+    def _decode_step_sampled(self) -> torch.Tensor:
+        """The sampled twin of :meth:`_decode_step` (reference
+        ``_compiled_decode``): decode, then ``sample_step`` over the five
+        per-slot sampling vectors, read in place (greedy slots take the
+        argmax).  What the sampled decode graph captures."""
+        sampled = self.model.decode_and_sample(self.params, self._tokens,
+                                               self._cache, self._pos,
+                                               self._samp)
+        return self._advance(sampled)
+
+    def _advance(self, sampled: torch.Tensor) -> torch.Tensor:
+        """Keep the new token where a slot is active (a dead slot keeps its
+        old one) and freeze a dead slot's position; returns ``sampled``,
+        the raw vector the host reads back."""
         self._tokens.copy_(torch.where(self._active == 1, sampled,
                                        self._tokens))
         self._pos.add_(self._active)
@@ -156,10 +196,6 @@ class ServingEngine:
 
     # -- intake --------------------------------------------------------------
     def submit(self, request: Request) -> RequestState:
-        if not request.sampling.is_greedy:
-            raise NotImplementedError(
-                "sampled decode is not ported yet (ROADMAP Open items "
-                "1.5); submit greedy requests (temperature 0)")
         need = request.prompt.shape[0] + 1
         if need > self.max_seq:
             raise ValueError(
@@ -177,6 +213,16 @@ class ServingEngine:
         st = self.scheduler.submit(request, chunk_plan=plan)
         st.submitted_at = self._clock()
         self.stats["requests"] += 1
+        if not request.sampling.is_greedy:
+            self.stats["sampled_requests"] += 1
+            if self._sampled_step is None:
+                # the reference compiles its sampled step at its first
+                # call; here it is captured at the first sampled request,
+                # so greedy-only traffic never pays for it
+                self.sampled_graph = DecodeGraph(
+                    self._decode_step_sampled, self._tokens, self._pos,
+                    self._active)
+                self._sampled_step = self.sampled_graph.replay
         self._results[request.uid] = st
         return st
 
@@ -203,12 +249,22 @@ class ServingEngine:
             self._activate_slot(st, logits)
 
     def _activate_slot(self, st: RequestState, logits) -> None:
-        """Take the prompt's first token (argmax of ``logits`` (1, V) at
-        pos0 = prompt_len) and put the slot into the decode batch — shared
-        by monolithic admission and the chunked path's final chunk."""
+        """Draw the prompt's first token off ``logits`` (1, V) and put the
+        slot into the decode batch — shared by monolithic admission and the
+        chunked path's final chunk.  The token occupies row pos0 =
+        prompt_len, so it is drawn with the decode path's key at q = pos0
+        (the argmax for a greedy request); the slot's sampling vectors are
+        (re)written before the slot joins the batch."""
         slot = st.slot
         pos0 = st.prompt_len
-        tok = int(self._read_now(torch.argmax(logits[0]).reshape(1))[0])
+        sp = st.request.sampling
+        seed = sampling.resolve_seed(sp, self.base_seed)
+        if sp.is_greedy:
+            token0 = torch.argmax(logits[0]).reshape(1)
+        else:
+            token0 = sampling.sample_first(logits, seed, pos0, sp)
+        sampling.write_slot(self._samp, slot, sp, seed)
+        tok = int(self._read_now(token0)[0])
         self._first_token(st)
         self._tokens[slot] = tok
         self._pos[slot] = pos0
@@ -282,14 +338,20 @@ class ServingEngine:
     # -- the continuous-batching loop ----------------------------------------
     def step(self) -> None:
         """One engine iteration: retire lagged outputs, admit, ingest
-        prompt chunks, submit one decode step."""
+        prompt chunks, submit one decode step: the sampled one if a RUNNING
+        slot samples, else its greedy twin."""
         self._drain_pending(limit=self.depth)
         self._admit()
         self._advance_prefill()
-        if not any(st.status == Status.RUNNING
-                   for st in self.scheduler.running.values()):
+        running = [st for st in self.scheduler.running.values()
+                   if st.status == Status.RUNNING]
+        if not running:
             return
-        read = self._queue.submit()
+        if any(not st.request.sampling.is_greedy for st in running):
+            self.stats["sampled_steps"] += 1
+            read = self._queue.submit(self._sampled_step)
+        else:
+            read = self._queue.submit(self._greedy_step)
         self.stats["decode_steps"] += 1
         snapshot = {slot: (st, self._slot_gen[slot])
                     for slot, st in self.scheduler.running.items()}

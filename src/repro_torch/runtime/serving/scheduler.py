@@ -6,9 +6,10 @@ Keeps the decode batch full every step: finished sequences retire and
 release their slot + pages, waiting requests are admitted into free slots
 as soon as pages exist for their prompt, and when cache growth runs out of
 pages the **youngest** running sequence is preempted (pages freed, request
-requeued in arrival order, deterministic greedy recompute on
-re-admission).  Victim-is-youngest is the progress guarantee: the oldest
-running sequence is never evicted.  Pure host logic.
+requeued in arrival order, deterministic recompute on re-admission:
+greedy or sampled, the draws fold only (seed, position)).
+Victim-is-youngest is the progress guarantee: the oldest running sequence
+is never evicted.  Pure host logic.
 """
 from __future__ import annotations
 

@@ -433,8 +433,9 @@ def _tiny(family, dtype):
 
 
 def _graph_engine(model, params, lens=(5, 9, 7, 12), gens=(8, 6, 10, 7),
-                  **kw):
-    """A port engine with greedy requests of prompt ``lens`` submitted."""
+                  plan=None, **kw):
+    """A port engine with requests of prompt ``lens`` submitted, greedy
+    unless ``plan`` gives request i's SamplingParams."""
     import numpy as np
     from repro_torch.runtime import serving
     eng = serving.ServingEngine(model, model.cfg, params,
@@ -442,8 +443,10 @@ def _graph_engine(model, params, lens=(5, 9, 7, 12), gens=(8, 6, 10, 7),
                                     **{"max_slots": 2, "max_seq": 64, **kw}))
     rng = np.random.default_rng(0)
     for i, (n, g) in enumerate(zip(lens, gens)):
-        eng.submit(serving.Request(uid=i, prompt=rng.integers(
-            0, model.cfg.vocab, n), max_new_tokens=g))
+        eng.submit(serving.Request(
+            uid=i, prompt=rng.integers(0, model.cfg.vocab, n),
+            max_new_tokens=g,
+            sampling=plan[i] if plan else serving.GREEDY))
     return eng
 
 
@@ -460,7 +463,8 @@ def test_cuda_decode_graph_streams_equal_eager(cuda, family, dtype, chunks):
     """The captured engine (the default on the card) gives the eager
     engine's token streams; its graph is replayed once a decode step; the
     launch counters see every replayed launch: flash_decode n_layers x
-    (replays + the warm-up step), ssd only in prefill."""
+    (replays + the warm-up step), ssd only in prefill.  Greedy traffic
+    captures no sampled graph."""
     model, params = _tiny(family, dtype)
     want = _graph_engine(model, params, decode_graph=False,
                          prefill_chunks=chunks).run()
@@ -472,6 +476,7 @@ def test_cuda_decode_graph_streams_equal_eager(cuda, family, dtype, chunks):
     assert _same_streams(got, want)
     replays, nl = eng.graph.replays, model.cfg.n_layers
     assert replays == eng.stats["decode_steps"] > 0
+    assert eng.sampled_graph is None and eng.stats["sampled_steps"] == 0
     assert eng.graph.pool_bytes > 0
     if family == "dense":
         assert eng.graph.launches == {"flash_decode": nl}
@@ -545,3 +550,185 @@ def test_cuda_second_engine_leaves_first_unchanged(cuda):
     assert _same_streams(first.run(), want1)
     assert _same_streams(second.run(), want2)
     assert _same_streams(third.run(), want1)
+
+
+# ---------------------------------------------------------------------------
+# on-device sampling (models/layers.py sample_step, the sampled graph)
+# ---------------------------------------------------------------------------
+
+#: (temperature, top_k, top_p, min_p, seed, q) of the four slots
+SLOT_KNOBS = ((0.6, 50, 0.9, 0.05, 3, 1025), (1.0, 0, 1.0, 0.0, 11, 769),
+              (0.0, 0, 1.0, 0.0, 5, 1030), (1.3, 0, 0.95, 0.02, 2**31 - 1,
+                                            2**20))
+
+
+def _sampler_inputs(v, dev):
+    gen = torch.Generator().manual_seed(v)
+    logits = torch.randn(len(SLOT_KNOBS), v, generator=gen) * 3
+    t, k, p, m, seed, q = zip(*SLOT_KNOBS)
+    vecs = (torch.tensor(seed), torch.tensor(q), torch.tensor(t),
+            torch.tensor(k), torch.tensor(p), torch.tensor(m))
+    return [x.to(dev) for x in (logits,) + vecs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [50280, 128256])
+def test_cuda_sample_step_equals_cpu(cuda, v):
+    """Keys, words, kept sets and tokens on the card equal the CPU's bit for
+    bit at full vocabulary, different knobs and seeds in each slot; q off by
+    one moves the sampled tokens."""
+    from repro_torch.core import prng
+    from repro_torch.models import layers as L
+    out = {}
+    for dev in ("cpu", cuda):
+        logits, seed, q, t, k, p, m = _sampler_inputs(v, dev)
+        keys = prng.fold_in(prng.fold_in(
+            torch.zeros((4, 2), dtype=torch.int64, device=dev), seed), q)
+        out[str(dev)] = (keys, prng.random_bits32(keys, (v,)),
+                         L.masked_logits(logits, t, k, p, m),
+                         L.sample_step(logits, seed, q, t, k, p, m),
+                         L.sample_step(logits, seed, q + 1, t, k, p, m))
+    cpu, card = out["cpu"], out["cuda"]
+    for a, b in zip(cpu[:2], card[:2]):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(torch.isfinite(cpu[2]), torch.isfinite(card[2]).cpu())
+    assert torch.equal(cpu[2].view(torch.int32), card[2].cpu().view(
+        torch.int32))
+    assert torch.equal(cpu[3], card[3].cpu())
+    assert torch.equal(cpu[4], card[4].cpu())
+    sampled = torch.tensor([kn[0] > 0 for kn in SLOT_KNOBS])
+    assert (card[3] != card[4]).cpu()[sampled].any()
+    assert torch.equal(card[3][~sampled.to(cuda)],
+                       card[4][~sampled.to(cuda)])
+
+
+@pytest.mark.gpu
+def test_cuda_sampled_marginal_matches_reference(cuda):
+    """20000 draws at V = 101 taken as rows on the card: chi-square against
+    the port's numpy oracle (the reference's harness)."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serving import sampling
+    sp = sampling.SamplingParams(temperature=0.8, top_k=12, top_p=0.9,
+                                 min_p=0.05)
+    logits = np.random.default_rng(101).standard_normal(101).astype(
+        np.float32)
+    n = 20000
+    x = torch.as_tensor(logits, device=cuda)[None].expand(n, -1)
+
+    def full(val, dtype):
+        return torch.full((n,), val, dtype=dtype, device=cuda)
+
+    toks = L.sample_step(x, full(17, torch.int64),
+                         torch.arange(n, device=cuda),
+                         full(sp.temperature, torch.float32),
+                         full(sp.top_k, torch.int64),
+                         full(sp.top_p, torch.float32),
+                         full(sp.min_p, torch.float32)).cpu().numpy()
+    stat, df, limit = sampling.chi2_gof(
+        toks, sampling.reference_probs(logits, sp))
+    assert stat < limit, (stat, df, limit)
+
+
+def _mixed_plan(n=4):
+    from repro_torch.launch import serve
+    return serve.sampling_plan(n, temperature=0.6, top_k=50, top_p=0.9,
+                               min_p=0.05, seed=0, mix=0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks", [None, (4, 8)])
+def test_cuda_sampled_graph_streams_equal_eager(cuda, family, dtype, chunks):
+    """Half the requests sampled: the captured engine (greedy twin and
+    sampled graph) gives the eager engine's streams; the sampled graph is
+    replayed once a sampled step, the twin once each other step; the greedy
+    requests' streams equal an all-greedy run's."""
+    model, params = _tiny(family, dtype)
+    plan = _mixed_plan()
+    want = _graph_engine(model, params, plan=plan, decode_graph=False,
+                         prefill_chunks=chunks).run()
+    greedy = _graph_engine(model, params, prefill_chunks=chunks).run()
+    ops.reset_launch_counts()
+    eng = _graph_engine(model, params, plan=plan, prefill_chunks=chunks)
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    for uid, sp in enumerate(plan):
+        if sp.is_greedy:
+            assert (got[uid] == greedy[uid]).all(), uid
+    st, nl = eng.stats, model.cfg.n_layers
+    assert eng.sampled_graph.replays == st["sampled_steps"] > 0
+    assert eng.graph.replays + eng.sampled_graph.replays == \
+        st["decode_steps"]
+    assert st["sampled_requests"] == 2
+    assert eng.sampled_graph.pool_bytes > 0
+    if family == "dense":
+        assert eng.sampled_graph.launches == {"flash_decode": nl}
+        assert counts["flash_decode"] == nl * (st["decode_steps"] + 2), \
+            counts
+
+
+@pytest.mark.gpu
+def test_cuda_sampled_graph_warm_up_leaves_vectors(cuda):
+    """Capturing a sampled graph on a mid-run engine (its parked warm-up)
+    leaves the engine's sampling vectors and slot vectors bit for bit, and
+    the run goes on to the eager streams."""
+    from repro_torch.runtime.serving.graphs import DecodeGraph
+    model, params = _tiny("dense", torch.bfloat16)
+    plan = _mixed_plan()
+    want = _graph_engine(model, params, plan=plan, decode_graph=False).run()
+    eng = _graph_engine(model, params, plan=plan)
+    for _ in range(5):
+        eng.step()
+    state = {**{f"samp.{k}": v for k, v in eng._samp.items()},
+             "tokens": eng._tokens, "pos": eng._pos, "active": eng._active}
+    before = {k: v.clone() for k, v in state.items()}
+    DecodeGraph(eng._decode_step_sampled, eng._tokens, eng._pos,
+                eng._active)
+    for k, v in state.items():
+        assert torch.equal(v, before[k]), k
+    assert _same_streams(eng.run(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_cuda_sampled_graph_captured_at_first_sampled_submit(cuda, family):
+    """A greedy-only engine holds no sampled graph; the first sampled
+    request submitted mid-run captures it (its parked warm-up leaves the
+    slot and sampling vectors bit for bit), a second one reuses it, and
+    the run gives the streams of an eager engine fed the same way."""
+    import numpy as np
+    from repro_torch.runtime import serving
+    model, params = _tiny(family, torch.bfloat16)
+    sp = _mixed_plan()[1]
+    assert not sp.is_greedy
+    rng = np.random.default_rng(1)
+    late = [rng.integers(0, model.cfg.vocab, n) for n in (6, 10)]
+
+    def feed(eng, checks):
+        for _ in range(5):
+            eng.step()
+        for i, prompt in enumerate(late):
+            if checks:
+                assert (eng.sampled_graph is None) == (i == 0)
+                state = {**{f"samp.{k}": v for k, v in eng._samp.items()},
+                         "tokens": eng._tokens, "pos": eng._pos,
+                         "active": eng._active}
+                before = {k: v.clone() for k, v in state.items()}
+                graph = eng.sampled_graph
+            eng.submit(serving.Request(uid=10 + i, prompt=prompt,
+                                       max_new_tokens=8, sampling=sp))
+            if checks:
+                assert eng.sampled_graph is not None
+                assert graph is None or eng.sampled_graph is graph
+                for k, v in state.items():
+                    assert torch.equal(v, before[k]), k
+        return eng.run()
+
+    want = feed(_graph_engine(model, params, decode_graph=False), False)
+    eng = _graph_engine(model, params)
+    assert eng.sampled_graph is None
+    assert _same_streams(feed(eng, True), want)
+    assert eng.sampled_graph.replays == eng.stats["sampled_steps"] > 0

@@ -8,7 +8,10 @@ on the CPU, where nothing is captured: what capture relies on.
     conv state and the slot vectors as they were, bit for bit, and the run
     that goes on afterwards still matches the JAX package's engine token
     for token;
-  * ``EngineConfig.decode_graph`` on the CPU: the step is always eager.
+  * ``EngineConfig.decode_graph`` on the CPU: the step is always eager;
+  * the same for the sampled step (``ServingEngine._decode_step_sampled``,
+    the second graph): no host read, and its parked warm-up leaves the
+    arena, the slot vectors and the five sampling vectors bit for bit.
 
 The captured graph itself runs on the card only (``tests/test_torch_cuda.py``).
 """
@@ -159,7 +162,7 @@ def test_decode_graph_field_rules(family):
     assert tserving.EngineConfig().decode_graph is True
     for kw in ({}, {"decode_graph": True}, {"decode_graph": False}):
         eng = _engine(tserving, tm, tm.cfg, tp, **kw)
-        assert eng.graph is None and eng._queue.step_fn == eng._decode_step
+        assert eng.graph is None and eng._greedy_step == eng._decode_step
     base = ["--arch", "llama3.2-3b"]
     assert serve.parse_args(base).decode_graph is True
     assert serve.parse_args(base + ["--no-decode-graph"]).decode_graph \
@@ -179,3 +182,82 @@ def test_add_launches_adds_to_the_named_counters():
     assert after == {**before, "flash_decode": before["flash_decode"] + 28,
                      "ssd": before["ssd"] + 2}
     assert ops.launch_counts() == before
+
+
+# requests 0 and 2 sample (different knobs), request 1 is greedy
+SAMPLED = ({"temperature": 0.8, "top_k": 20, "top_p": 0.9, "min_p": 0.05,
+            "seed": 5}, None, {"temperature": 1.2, "top_p": 0.95})
+
+
+def _sampled_engine(mod, model, cfg, params, **kw):
+    eng = mod.ServingEngine(model, cfg, params,
+                            config=mod.EngineConfig(**{**MIXED, **kw}))
+    rng = np.random.default_rng(0)
+    for i, (n, g, sp) in enumerate(zip(LENS, GENS, SAMPLED)):
+        eng.submit(mod.Request(
+            uid=i, prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=g,
+            sampling=mod.SamplingParams(**sp) if sp else mod.GREEDY))
+    return eng
+
+
+def _mixed_sampled_engine(family):
+    """A port engine stepped until a sampled slot decodes beside a
+    prefilling one (and an unused slot)."""
+    _, (_, _, tm, tp) = family
+    eng = _sampled_engine(tserving, tm, tm.cfg, tp)
+    for _ in range(50):
+        states = [st.status for st in eng.scheduler.running.values()]
+        if Status.RUNNING in states and Status.PREFILLING in states:
+            break
+        eng.step()
+    assert PARKED_POS in eng._pos.tolist() and (eng._samp["temp"] > 0).any()
+    return eng
+
+
+def test_sampled_decode_step_makes_no_host_read(family):
+    """The sampled step (decode + masked_logits + Gumbel draw over the five
+    slot vectors) runs through with no host read and advances only the live
+    slots."""
+    eng = _mixed_sampled_engine(family)
+    live = eng._active.clone() == 1
+    pos0 = eng._pos.clone()
+    with NoHostRead():
+        out = eng._decode_step_sampled()
+    assert out.shape == (eng.max_slots,)
+    assert torch.equal(eng._pos, pos0 + live.long())
+
+
+def test_sampled_parked_warm_up_leaves_no_trace(family):
+    """The sampled step's parked warm-up on a mid-run engine leaves the
+    arena, the slot vectors and the sampling vectors bit for bit, and the
+    run then still matches the JAX engine's sampled streams."""
+    jcfg, (jm, jp, _, _) = family
+    eng = _mixed_sampled_engine(family)
+    before = _snapshot(eng)
+    before.update({f"samp.{k}": v.clone().view(torch.uint8)
+                   for k, v in eng._samp.items()})
+    graphs.parked_warm_up(eng._decode_step_sampled, eng._tokens, eng._pos,
+                          eng._active)
+    after = _snapshot(eng)
+    after.update({f"samp.{k}": v.clone().view(torch.uint8)
+                  for k, v in eng._samp.items()})
+    assert before.keys() == after.keys()
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    got = eng.run(max_steps=2000)
+    want = _sampled_engine(jserving, jm, jcfg, jp).run(max_steps=2000)
+    assert eng.stats["sampled_steps"] > 0
+    assert sorted(got) == sorted(want)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")
+
+
+def test_sampled_step_is_eager_on_the_cpu(family):
+    """On the CPU no graph is captured: the sampled step is the eager
+    method, submitted through the same queue as the greedy one."""
+    _, (_, _, tm, tp) = family
+    for kw in ({}, {"decode_graph": False}):
+        eng = _sampled_engine(tserving, tm, tm.cfg, tp, **kw)
+        assert eng.sampled_graph is None
+        assert eng._sampled_step == eng._decode_step_sampled

@@ -78,10 +78,6 @@ def test_engine_rejects_unported_options(models):
         tserving.EngineConfig(prefix_sharing=True)
     eng = tserving.ServingEngine(tm, tm.cfg, tp,
                                  config=tserving.EngineConfig(max_seq=32))
-    sampled = tserving.SamplingParams(temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(tserving.Request(uid=0, prompt=np.arange(4),
-                                    max_new_tokens=2, sampling=sampled))
     with pytest.raises(ValueError):
         eng.submit(tserving.Request(uid=1, prompt=np.arange(40),
                                     max_new_tokens=2))
@@ -105,8 +101,8 @@ def test_dispatch_queue_lags_readback(depth):
         state["n"] += 1
         return torch.full((3,), state["n"])
 
-    q = DispatchQueue(step, depth=depth)
-    reads = [q.submit() for _ in range(6)]
+    q = DispatchQueue(depth=depth)
+    reads = [q.submit(step) for _ in range(6)]
     assert len(q._inflight) == min(depth, 6)
     q.drain()
     assert [int(r.wait()[0]) for r in reads] == [1, 2, 3, 4, 5, 6]
