@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
      source, all at once; then the SASS (``cuobjdump``): each bf16
      attention kernel must hold HGMMA (warpgroup MMA) and UTMALDG (TMA
-     load), flash_decode no combine kernel, each bf16 ssd kernel HMMA
+     load), the scaled ones (bf16 q over int8 / fp8 arenas) included,
+     flash_decode no combine kernel, each bf16 ssd kernel HMMA
      (mma.sync), the bf16 matmul kernel HGMMA and UTMALDG, the f32 matmul
      kernels LDGSTS (cp.async) and no tensor-core MMA, and none of those
      ssd / matmul kernels may spill (registers and stack printed);
@@ -26,7 +27,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      reject; kernel / plain / bound / library-call times; flash_decode's
      arrival counters read 0 after its calls, and its CTAs an SM;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
-     (bf16, full width);
+     (bf16, full width); 3d: the fused-dequant branch of flash_decode and
+     flash_prefill_chunk, small f32 shapes over bf16 / int8 / fp8 arenas
+     and bf16 q over int8 / fp8 arenas at llama3.2-3b's full width, against
+     the plain versions with planted faults (V scaled by K's scales), the
+     bit pin per format, times against the byte bound;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -54,7 +59,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      0.05), both prefill modes: captured streams equal to eager ones, the
      greedy requests equal to phase 4's, a sampled request served alone
      equal to its stream in the batch, and decode-only windows of the
-     greedy twin against the sampled graph (3 alternating pairs);
+     greedy twin against the sampled graph (3 alternating pairs); 4e
+     (llama3.2-3b): served with narrow KV arenas, bf16 (streams equal
+     phase 4's), then int8 and fp8, both prefill modes captured and one
+     eager run (streams equal), every flash_decode launch scaled, the
+     chunked first-token logits of the kernel and the plain model within
+     the phase 5 limit, kv_row_bytes and arena bytes beside fp32's, the
+     token match against fp32 and one decode-only window pair;
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -178,13 +189,27 @@ DESIGN = {
     "matmul": "bf16: wgmma+tma, 128x256 tiles, 4-stage ring, a producer "
               "thread and 2 consumer warpgroups; f32: cuda-core fmaf, "
               "cp.async 4-stage ring, 2 blocks an SM",
-    "dotp": "cuda-core f32", "conv2d": "cuda-core f32"}
+    "dotp": "cuda-core f32", "conv2d": "cuda-core f32",
+    "flash_decode_scaled": "int8 / fp8 arena + f32 scales: TMA at one byte "
+                           "an element, widened to bf16 in shared memory, "
+                           "wgmma; scales on the scores and on P",
+    "flash_prefill_chunk_scaled": "int8 / fp8 arena + f32 scales: TMA at one "
+                                  "byte an element, widened to bf16 in shared "
+                                  "memory, wgmma; scales on the scores and "
+                                  "on P"}
+# the TPU kernels' scaled branch each scaled row replaces
+SCALED_REPLACES = {
+    "flash_decode_scaled": "src/repro/kernels/flash_decode.py:39",
+    "flash_prefill_chunk_scaled":
+        "src/repro/kernels/flash_prefill_chunk.py:38"}
 # kernels named in the profile's own line (phase 4b)
 PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_kernel",
                     "ssd_tc_kernel<false>", "ssd_tc_kernel<true>",
                     "ssd_f32_kernel")
 # the device kernel(s) of a wrapper that a captured decode step launches
 DEVICE_SYMBOL = {"flash_decode": re.compile(r"\bfd_(?:tc_)?kernel\b")}
+# a tensor-core kernel instantiated for an int8 (mangled "a") or fp8 arena
+NARROW_SYMBOL = re.compile(r"ILi\d+E(?:a|13__nv_fp8_e4m3)E")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
 
 
@@ -217,18 +242,30 @@ def sass_check(_build):
     bf16 ssd kernels hold HMMA, the bf16 matmul kernel HGMMA and UTMALDG,
     the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, and none of
     them spills (STACK and LOCAL 0); their registers are printed."""
+    seen = {}
     for name in WGMMA_TMA:
-        funcs = sass_counts(_build, name)
+        funcs = seen[name] = sass_counts(_build, name)
         tc = [c for f, c in funcs.items() if "_tc_" in f]
+        narrow = [c for f, c in funcs.items()
+                  if "_tc_" in f and NARROW_SYMBOL.search(f)]
         other = sum(c["HGMMA"] for f, c in funcs.items() if "_tc_" not in f)
-        print(f"phase 2b: {name}: SASS of {len(tc)} bf16 kernels: HGMMA "
+        print(f"phase 2b: {name}: SASS of {len(tc)} bf16-q kernels: HGMMA "
               f"{[c['HGMMA'] for c in tc]}, UTMALDG "
-              f"{[c['UTMALDG'] for c in tc]}; {len(funcs) - len(tc)} f32 "
+              f"{[c['UTMALDG'] for c in tc]}; {len(funcs) - len(tc)} f32-q "
               f"kernels: HGMMA {other}")
-        assert len(tc) == 5 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
-                                    for c in tc), (name, tc)
+        # one per head dim, and for the arena kernels one per head dim and
+        # arena type (bf16, the scaled int8 and fp8)
+        want = 5 if name == "flash_attention" else 15
+        assert len(tc) == want and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                       for c in tc), (name, tc)
+        assert len(narrow) == want - 5, (name, len(narrow))
+        if narrow:
+            print(f"phase 2b: {name}: the {len(narrow)} scaled bf16-q "
+                  f"kernels (int8, fp8 arenas) hold HGMMA "
+                  f"{[c['HGMMA'] for c in narrow]} and UTMALDG "
+                  f"{[c['UTMALDG'] for c in narrow]}")
         assert other == 0, (name, other)
-    fd = list(sass_counts(_build, "flash_decode"))
+    fd = list(seen["flash_decode"])
     assert not any("combine" in f for f in fd), fd
     use = _build.resource_usage("flash_decode")
     print(f"phase 2b: flash_decode: {len(fd)} kernels, no combine kernel; "
@@ -530,6 +567,171 @@ def kernel_checks(torch, ops, cfg):
         bytes=2 * (2 * qb.numel() + kb.numel() + vb.numel()),
         flops=4 * h * d * s * (s + 1) // 2)
     del arena_k, arena_v
+    return rec
+
+
+def scaled_kernel_checks(torch, ops, cfg):
+    """Phase 3d: the fused-dequant branch of flash_decode and
+    flash_prefill_chunk (int8 / fp8 arenas with f32 scales per row and KV
+    head).  Small f32 shapes over bf16, int8 and fp8 arenas (the CUDA-core
+    tile) and bf16 q over int8 and fp8 arenas at llama3.2-3b's full width
+    (the tensor-core tile: flash_decode at 4 x 1121 rows, lengths 1088 /
+    832 / parked / 1; flash_prefill_chunk at C = 512, prefixes 0 and 512),
+    each against its plain version within today's limits, each limit
+    failing a planted fault (V scaled by K's scales; over a bf16 arena,
+    which has no scales, one key too many); the chunk/decode bit pin per
+    format at full width; kernel / plain times, and the byte bound of the
+    arena, its scales, q and o.  Returns the two scaled records (times of
+    int8; fp8's under ``formats``)."""
+    from repro_torch.core import kv_format as kvf
+    from repro_torch.kernels import flash_decode, flash_prefill_chunk
+    P = ops.PLAIN
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def arena(fmt, shape):
+        k = torch.randn(shape, generator=gen, device=dev)
+        v = torch.randn(shape, generator=gen, device=dev)
+        (kq, ks), (vq, vs) = (kvf.quantize(kvf.get(fmt), t) for t in (k, v))
+        return kq, vq, ks, vs
+
+    def scales(ks, vs, fault=False):
+        return ({} if ks is None
+                else dict(k_scale=ks, v_scale=ks if fault else vs))
+
+    print("phase 3d: small float32 shapes over bf16, int8 and fp8 arenas")
+    q = torch.randn((3, 8, 16), generator=gen, device=dev)
+    qc = torch.randn((2, 16, 8, 16), generator=gen, device=dev)
+    lens = torch.tensor([1, 17, PARKED_POS + 1], device=dev)
+    pre = torch.tensor([5, 0], device=dev)
+    for fmt in ("bf16", "int8", "fp8"):
+        k, v, ks, vs = arena(fmt, (3, 40, 2, 16))
+        sc, bad = scales(ks, vs), scales(ks, vs, fault=True)
+        sc2 = {key: t[:2] for key, t in sc.items()}
+        bad2 = {key: t[:2] for key, t in bad.items()}
+        what = ("V scaled by K's scales" if ks is not None
+                else "one key too many")
+        more = 0 if ks is not None else 1
+        for w in (None, 8):
+            check(f"flash_decode f32/{fmt} window={w}",
+                  ops.flash_decode(q, k, v, lengths=lens, window=w, **sc),
+                  P.flash_decode(q, k, v, lengths=lens, window=w, **sc),
+                  "float32", fault=(what, P.flash_decode(
+                      q, k, v, lengths=lens + more, window=w, **bad)))
+            check(f"flash_prefill_chunk f32/{fmt} window={w}",
+                  ops.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre,
+                                          window=w, **sc2),
+                  P.flash_prefill_chunk(qc, k[:2], v[:2], prefix=pre,
+                                        window=w, **sc2),
+                  "float32", fault=(what, P.flash_prefill_chunk(
+                      qc, k[:2], v[:2], prefix=pre + more, window=w,
+                      **bad2)))
+
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots, smax, nl, c = 4, 1121, 8, 512
+    print(f"phase 3d: full width, bf16 q over int8 and fp8 arenas (H={h}, "
+          f"KVH={kvh}, D={d}, slots={slots}, max_seq={smax}, {nl} layers > "
+          f"50 MB L2)")
+    lens = torch.tensor([1088, 832, PARKED_POS + 1, 1], device=dev)
+    q = torch.randn((slots, h, d), generator=gen, device=dev).bfloat16()
+    qc = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
+    live = int(torch.clamp(lens, max=smax).sum())
+    rows = 512 + c
+    qpos = 512 + torch.arange(c, device=dev)
+    pairs = int((torch.arange(smax, device=dev)[None, :]
+                 <= qpos[:, None]).sum())
+    out = {}
+    for fmt in ("int8", "fp8"):
+        layers = [arena(fmt, (slots, smax, kvh, d)) for _ in range(nl)]
+        ak, av, aks, avs = (torch.stack(t) for t in zip(*layers))
+        del layers
+        layer = [0]
+
+        def nxt():
+            layer[0] = (layer[0] + 1) % nl
+            return layer[0]
+
+        sc = dict(k_scale=aks[0], v_scale=avs[0])
+        bad = dict(k_scale=aks[0], v_scale=aks[0])
+        err_d = check(f"flash_decode bf16/{fmt}",
+                      ops.flash_decode(q, ak[0], av[0], lengths=lens, **sc),
+                      P.flash_decode(q, ak[0], av[0], lengths=lens, **sc),
+                      "bfloat16", "(lengths 1088/832/parked/1)",
+                      fault=("V scaled by K's scales", P.flash_decode(
+                          q, ak[0], av[0], lengths=lens, **bad)))
+        ms_d = timed(lambda: flash_decode.launch(
+            q, ak[nxt()], av[layer[0]], lens, k_scale=aks[layer[0]],
+            v_scale=avs[layer[0]]), 50)
+        torch.cuda.synchronize()
+        left = int(flash_decode.counters(q.device, slots * kvh)[
+            :slots * kvh].abs().sum())
+        assert left == 0, left
+        plain_d = timed(lambda: P.flash_decode(
+            q, ak[nxt()], av[layer[0]], lengths=lens,
+            k_scale=aks[layer[0]], v_scale=avs[layer[0]]), 5)
+        errs = []
+        for p0 in (0, 512):
+            pf = torch.tensor([p0], device=dev)
+            sc1 = {key: t[:1] for key, t in sc.items()}
+            bad1 = {key: t[:1] for key, t in bad.items()}
+            errs.append(check(
+                f"flash_prefill_chunk bf16/{fmt} prefix={p0}",
+                ops.flash_prefill_chunk(qc, ak[0, :1], av[0, :1], prefix=pf,
+                                        **sc1),
+                P.flash_prefill_chunk(qc, ak[0, :1], av[0, :1], prefix=pf,
+                                      **sc1),
+                "bfloat16", f"(C={c})", fault=(
+                    "V scaled by K's scales", P.flash_prefill_chunk(
+                        qc, ak[0, :1], av[0, :1], prefix=pf, **bad1))))
+        pf = torch.tensor([512], device=dev)
+        chunk_out = ops.flash_prefill_chunk(
+            qc, ak[0, :1], av[0, :1], prefix=pf, k_scale=aks[0, :1],
+            v_scale=avs[0, :1])
+        ex = lambda t: t[0, :1].expand(c, *t.shape[2:])  # noqa: E731
+        dec_out = ops.flash_decode(
+            qc[0], ex(ak), ex(av), lengths=qpos + 1, k_scale=ex(aks),
+            v_scale=ex(avs))
+        pin = bool(torch.equal(chunk_out[0], dec_out))
+        print(f"  pin ({fmt}): chunk row j == flash_decode at pos 512 + j, "
+              f"bit for bit: {pin} (max diff "
+              f"{(chunk_out[0].float() - dec_out.float()).abs().max().item()}"
+              f")")
+        assert pin, f"chunk/decode bit pin broken at full width ({fmt})"
+        ms_c = timed(lambda: flash_prefill_chunk.launch(
+            qc, ak[nxt(), :1], av[layer[0], :1], pf,
+            k_scale=aks[layer[0], :1], v_scale=avs[layer[0], :1]), 20)
+        plain_c = timed(lambda: P.flash_prefill_chunk(
+            qc, ak[nxt(), :1], av[layer[0], :1], prefix=pf,
+            k_scale=aks[layer[0], :1], v_scale=avs[layer[0], :1]), 5)
+        esize = ak.element_size()
+        # each input read once, each output written once: q and o in bf16,
+        # the live K/V rows at one byte an element, one f32 scale per row
+        # and KV head for K and for V
+        out[fmt] = {
+            "flash_decode_scaled": dict(
+                err=err_d, ms=ms_d, plain_ms=plain_d,
+                bytes=2 * 2 * q.numel() + 2 * live * kvh * (d * esize + 4),
+                flops=4 * live * h * d),
+            "flash_prefill_chunk_scaled": dict(
+                err=max(errs), ms=ms_c, plain_ms=plain_c,
+                bytes=2 * 2 * qc.numel() + 2 * rows * kvh * (d * esize + 4),
+                flops=4 * pairs * h * d)}
+        del ak, av, aks, avs
+    rec = {}
+    for name, module in (("flash_decode_scaled", flash_decode),
+                         ("flash_prefill_chunk_scaled", flash_prefill_chunk)):
+        i8 = out["int8"][name]
+        rec[name] = dict(
+            module=module, label=name, replaces=SCALED_REPLACES[name],
+            max_abs_err=max(out[f][name]["err"] for f in out), ms=i8["ms"],
+            plain_ms=i8["plain_ms"], library_ms=None, bytes=i8["bytes"],
+            flops=i8["flops"], pin=True,
+            formats={f: {k: out[f][name][k] for k in ("ms", "plain_ms")}
+                     for f in out})
+        print(f"  {name}: kernel ms int8 {out['int8'][name]['ms']:.4f}, fp8 "
+              f"{out['fp8'][name]['ms']:.4f}; plain ms int8 "
+              f"{out['int8'][name]['plain_ms']:.4f}, fp8 "
+              f"{out['fp8'][name]['plain_ms']:.4f}")
     return rec
 
 
@@ -856,8 +1058,9 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
 
 def decode_window(torch, serve, bundle, params, kinds=None, pairs=3,
                   steps=32, same=True, phase="4c"):
-    """Phase 4c (and 4d), decode only: one engine per kind (``kinds``:
-    {name: extra serve flags}; default eager and captured) takes the 4
+    """Phase 4c (and 4d, 4e), decode only: one engine per kind (``kinds``:
+    {name: extra serve flags, or (flags, {args attribute: value}) for what
+    the CLI does not take}; default eager and captured) takes the 4
     requests (monolithic) until every prompt is in, then runs ``steps``
     engine steps at a time, synchronised at both ends, ``pairs`` windows
     each in alternating order; all then run to the end and, if ``same``,
@@ -872,8 +1075,11 @@ def decode_window(torch, serve, bundle, params, kinds=None, pairs=3,
     gen = pairs * steps + steps // 4 + 16
     engines = {}
     for kind, extra in kinds.items():
+        flags, attrs = (extra, {}) if isinstance(extra, list) else extra
         args = serve.parse_args(
-            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS + extra)
+            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS + flags)
+        for key, value in attrs.items():
+            setattr(args, key, value)
         eng = engines[kind] = serve.engine(bundle, params, args)
         while eng.scheduler.waiting or any(
                 st.status != Status.RUNNING
@@ -1116,6 +1322,119 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
         res[mode] = (total / dt, st["sampled_steps"], st["decode_steps"])
         del eng, e_eng, alone
     return res, all_counts
+
+
+def narrow_logits(torch, ops, bundle, params, prompt, fmt):
+    """Request 0's first-token logits through chunked prefill (512-token
+    chunks, each attending the arena in format ``fmt``) of the kernel model
+    and of the same model on the plain versions: max |diff|."""
+    from repro_torch.models import registry
+    plain = registry.build_model(bundle.cfg, device="cuda", kernels=ops.PLAIN)
+    n = prompt.shape[1]
+    logits = {}
+    for name, model in (("kernel", bundle.model), ("plain", plain)):
+        cache = model.init_cache(1, n + 1, kv_format=fmt)
+        for start in range(0, n, 512):
+            piece = prompt[:, start:start + 512]
+            out = model.prefill_chunk(params, piece, cache, 0, start,
+                                      piece.shape[1] - 1)
+        logits[name] = out[0]
+        del cache
+    return (logits["kernel"] - logits["plain"]).abs().max().item()
+
+
+def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
+    """Phase 4e: llama3.2-3b served with narrow KV arenas.  bf16 first: for
+    this bf16 model it is the fp32 format's arena, so its streams must equal
+    phase 4's.  Then int8 and fp8 (fp8 through ``EngineConfig``, as in the
+    reference): phase 4's requests, monolithic and chunked, the decode step
+    captured, and one eager monolithic run, whose streams the captured
+    run's must equal; every flash_decode launch (and every chunk's
+    flash_prefill_chunk launch) scaled, their counts from these runs alone
+    (set to 0 just before each run, read just after); the page pool and its
+    scale sidecar drained; the eager run serves the first 16 tokens of each
+    request (a stream does not depend on when the others stop: phase 4d's
+    request served alone); request 0's chunked first-token logits, kernel
+    model vs plain model, within LOGIT_TOL.  Printed: kv_row_bytes and arena
+    bytes beside fp32's, the greedy token match against phase 4's fp32
+    streams (``tolerance``), and one decode-only window each of fp32, int8
+    and fp8 (device ms a step; reported, not gated).  Returns [launch
+    counts of each captured run]."""
+    import numpy as np
+    from repro_torch.runtime.serving import tolerance
+    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    cfg = bundle.cfg
+    nl = cfg.n_layers
+    all_counts = []
+
+    def run(mode, fmt, eager=False):
+        args = serve.parse_args(base + ["--prefill-mode", mode]
+                                + (["--no-decode-graph", "--gen", "16"]
+                                   if eager else []))
+        args.kv_format = fmt
+        ops.reset_launch_counts()
+        eng, out, dt = serve.serve(bundle, params, args)
+        return eng, out, dt, ops.launch_counts()
+
+    eng, out, _, counts = run("monolithic", "bf16")
+    assert same_streams(out, runs["monolithic"][1])
+    assert counts["flash_decode_scaled"] == 0 and \
+        eng.arena_bytes == runs["monolithic"][0].arena_bytes
+    print("phase 4e: llama3.2-3b bf16 arena (the fp32 format's for this "
+          "bf16 model): streams equal phase 4's, no scaled launch")
+    for fmt in ("int8", "fp8"):
+        outs = {}
+        for mode in ("monolithic", "chunked"):
+            eng, out, dt, counts = run(mode, fmt)
+            all_counts.append(counts)
+            outs[mode] = out
+            ref = runs[mode][0]
+            steps = eng.stats["decode_steps"]
+            assert eng.graph.replays == steps > 0
+            assert counts["flash_decode_scaled"] == counts["flash_decode"] \
+                == nl * (steps + 1), counts
+            assert counts["flash_prefill_chunk_scaled"] == \
+                counts["flash_prefill_chunk"], counts
+            if mode == "chunked":
+                assert counts["flash_prefill_chunk_scaled"] == \
+                    nl * eng.stats["prefill_chunks"] > 0, counts
+            assert eng.cache_mgr.free_pages == eng.cache_mgr.num_pages
+            assert eng.cache_mgr.scale_sidecar_pages == 0
+            report = tolerance.compare_streams(runs[mode][1], out)
+            total = sum(o.size for o in out.values())
+            print(f"phase 4e: {fmt} {mode}: {total} tokens in {dt:.3f} s = "
+                  f"{total / dt:.1f} tok/s; kv_row_bytes "
+                  f"{eng.kv_row_bytes} vs fp32's {ref.kv_row_bytes} "
+                  f"({eng.kv_row_bytes / ref.kv_row_bytes:.3f}x), arena "
+                  f"{eng.arena_bytes / 1e6:.1f} MB vs "
+                  f"{ref.arena_bytes / 1e6:.1f} MB; token match vs fp32: "
+                  f"{report.describe()}; launches {counts}")
+            print_graphs(f"  {mode}", eng)
+            del eng
+        e_eng, e_out, e_dt, _ = run("monolithic", fmt, eager=True)
+        assert e_eng.graph is None
+        head = {u: o[:16] for u, o in outs["monolithic"].items()}
+        assert same_streams(head, e_out), fmt
+        e_tok = sum(o.size for o in e_out.values()) / e_dt
+        print(f"phase 4e: {fmt}: the captured monolithic streams' first 16 "
+              f"tokens equal the eager engine's ({e_tok:.1f} tok/s eager)")
+        rng = np.random.default_rng(0)
+        lens = serve.prompt_lengths(serve.parse_args(base))
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, lens[0]),
+                                 device="cuda")[None]
+        diff = narrow_logits(torch, ops, bundle, params, prompt, fmt)
+        print(f"phase 4e: {fmt}: request 0's chunked first-token logits, "
+              f"kernel vs plain model over the {fmt} arena: max |diff| = "
+              f"{diff:.4e} (tol {LOGIT_TOL})")
+        assert diff <= LOGIT_TOL, (fmt, diff)
+    window, wbusy = decode_window(
+        torch, serve, bundle, params, pairs=1, same=False, phase="4e",
+        kinds={"fp32": [], "int8": ["--kv-format", "int8"],
+               "fp8": ([], {"kv_format": "fp8"})})
+    print(f"phase 4e: {bundle.name} decode only, one window each: "
+          + ", ".join(f"{k} {window[k][0]:.3f} ms wall, device "
+                      f"{wbusy[k][0]:.3f} ms a step" for k in window))
+    return all_counts
 
 
 def prefill_logits(model, params, prompt):
@@ -1699,6 +2018,8 @@ def main() -> int:
 
     sampler_checks(torch)
     rec = kernel_checks(torch, ops, registry.config("llama3.2-3b"))
+    rec.update(scaled_kernel_checks(torch, ops,
+                                    registry.config("llama3.2-3b")))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
     for name in sorted(rec):
         bound(rec[name])
@@ -1737,6 +2058,8 @@ def main() -> int:
             f"{mode} {kind} " + ("not measured" if b is None
                                  else f"{100 * b:.1f}%")
             for (mode, kind), b in busy.items()))
+        if bundle.cfg.family == "dense":
+            all_runs += narrow_runs(torch, ops, serve, bundle, params, runs)
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         all_runs += [run[3] for run in runs.values()] + counts4d
         del bundle, params, runs
@@ -1754,15 +2077,18 @@ def main() -> int:
         assert launches > 0, (name, launches)
         kernels.append({
             "name": name, "route": "cuda", "source": r["module"].SOURCE,
-            "replaces": r["module"].REPLACES, "launches": launches,
+            "replaces": r.get("replaces", r["module"].REPLACES),
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "design": DESIGN[name]})
+            "design": DESIGN[name],
+            **({"formats": r["formats"]} if "formats" in r else {})})
     print("kernels: " + ", ".join(
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "
-          f"{'holds' if rec['flash_prefill_chunk']['pin'] else 'broken'}")
+          f"{'holds' if rec['flash_prefill_chunk']['pin'] else 'broken'}"
+          f" (bf16), holds (int8, fp8)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,12 @@ Every function takes a leading slot axis: a key is an int64 tensor
 ``(..., 2)`` holding two uint32 words, and the draws come out
 ``(..., *shape)``.  torch has no full uint32 arithmetic, so every word
 lives in an int64 and is masked back to 32 bits after each add and shift.
-Keys and bits are exact.  The two logarithms of ``gumbel`` are taken in
-float64 and rounded to float32, so a draw is the same on the CPU and on
-the card (but for a double rounding, about once in 2^29); XLA's float32
-``log`` differs from the correctly rounded one by an ulp now and then, so
-a Gumbel may differ from jax's by a float32 step or two
-(``tests/test_torch_sampling.py`` states the limit).
+Keys and bits are exact.  The two logarithms of ``gumbel`` are XLA's
+CPU float32 ``log`` copied op for op (:func:`xla_log`), so a Gumbel equals
+jax's bit for bit, on the CPU and on the card (but for a double rounding
+in an emulated fused multiply-add, about once in 2^29).  XLA's ``log`` is
+not correctly rounded (about one value in five is a float32 step off), so
+a correctly rounded log would move draws on a near-tie.
 """
 from __future__ import annotations
 
@@ -94,15 +94,63 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     return torch.clamp(floats * scale + lo, min=lo)
 
 
-def _log32(x: torch.Tensor) -> torch.Tensor:
-    """float32 log through float64: the correctly rounded value (but for a
-    double rounding), the same on every device."""
-    return torch.log(x.double()).float()
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a x b + c rounded once, as a fused multiply-add rounds it:
+    the product of two float32 values is exact in float64, so only the
+    float64 sum's rounding can differ from one rounding (a double rounding,
+    about once in 2^29)."""
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    return (a.double() * b + c).float()
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+# the float32 log of XLA's CPU backend (jax 0.9.0): Cephes' logf, the
+# polynomial's multiply-adds and the product into the exponent term fused;
+# constants as XLA holds them
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+_SQRTHF = _f32(0.707106781186547524)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU backend computes it, op for op, so the
+    same on every device: x = 2^e m with m in [sqrt(1/2), sqrt(2)), a
+    degree-8 polynomial in m - 1 evaluated in three interleaved Horner
+    chains, the exponent added back in two parts (q2 e is exact).  Inputs
+    below the smallest normal in magnitude read as zero (-inf; XLA flushes
+    subnormals), other negatives give NaN, +inf gives +inf; log(1) = 0
+    exactly."""
+    x = x.float()
+    bits = torch.clamp(x, min=TINY_F32).view(torch.int32)
+    # m in [0.5, 1): the mantissa under the exponent of 0.5
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 126).float()
+    low = m < _SQRTHF
+    e = e - low.float()
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = fma32(fma32(t, p[0], p[1]), t, p[2])
+    y1 = fma32(fma32(t, p[3], p[4]), t, p[5])
+    y2 = fma32(fma32(t, p[6], p[7]), t, p[8])
+    y = fma32(fma32(y, x3, y1), x3, y2)
+    y = fma32(y, x3, _LOG_Q1 * e)
+    out = ((t - 0.5 * x2) + y) + _LOG_Q2 * e
+    out = torch.where(x.abs() < TINY_F32, float("-inf"), out)
+    out = torch.where(x == float("inf"), float("inf"), out)
+    return torch.where((x <= -TINY_F32) | torch.isnan(x), float("nan"), out)
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` (mode "low") for each key
-    of ``key`` (..., 2): float32 (..., *shape), within a few ulps of jax's
-    (its logarithms are rounded once each, see the module docstring)."""
+    of ``key`` (..., 2): float32 (..., *shape), bit for bit."""
     u = uniform(key, shape, TINY_F32, 1.0)
-    return -_log32(-_log32(u))
+    return -xla_log(-xla_log(u))

@@ -179,6 +179,24 @@ def require_cuda(name: str, *ts) -> None:
                          f"{sorted(bad)}")
 
 
+def type_codes(q_dtype, kv_dtype) -> tuple[int, int]:
+    """(q code, arena code) of the attention kernels, as their C entry
+    points take them: q 0 float32 / 1 bfloat16; the arena 0 float32, 1
+    bfloat16, 2 int8, 3 fp8 e4m3 (the last two scaled, core/kv_format.py).
+    float32 q reads any of them; bfloat16 q reads bfloat16, int8 or fp8.
+    Raises ``TypeError`` on anything else."""
+    import torch
+    qt = {torch.float32: 0, torch.bfloat16: 1}.get(q_dtype)
+    kt = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+          torch.float8_e4m3fn: 3}.get(kv_dtype)
+    if qt is None or kt is None or (qt == 1 and kt == 0):
+        raise TypeError(f"attention kernels take float32 or bfloat16 "
+                        f"queries over an arena of their own type, bfloat16 "
+                        f"(under float32), int8 or float8_e4m3fn; got q "
+                        f"{q_dtype} over {kv_dtype}")
+    return qt, kt
+
+
 def dtype_code(*ts) -> int:
     """0 for float32, 1 for bfloat16 operands; raises on anything else or
     on mixed types."""
@@ -191,6 +209,42 @@ def dtype_code(*ts) -> int:
         raise TypeError(f"kernel operands must be float32 or bfloat16, "
                         f"got {dt}")
     return code
+
+
+def kv_codes(q, k, v) -> tuple[int, int]:
+    """:func:`type_codes` of attention operands; k and v share a type."""
+    if k.dtype != v.dtype:
+        raise TypeError(f"mixed K/V dtypes {k.dtype}, {v.dtype}")
+    return type_codes(q.dtype, k.dtype)
+
+
+def scales(k, k_scale, v_scale) -> int:
+    """1 for a scaled arena (int8 / fp8 K with f32 ``k_scale`` /
+    ``v_scale`` of shape K.shape[:3] and one stride set, read in place),
+    0 for an unscaled one (no scales); raises on anything between."""
+    narrow = k.element_size() == 1
+    if k_scale is None and v_scale is None and not narrow:
+        return 0
+    if not narrow or k_scale is None or v_scale is None:
+        raise ValueError(f"scales go with an int8 / fp8 arena and only with "
+                         f"one: arena {k.dtype}, k_scale "
+                         f"{k_scale is not None}, v_scale "
+                         f"{v_scale is not None}")
+    import torch
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(k.shape[:3]):
+            raise ValueError(f"scales must be float32 {tuple(k.shape[:3])}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if k_scale.stride() != v_scale.stride():
+        raise ValueError(f"k_scale and v_scale strides differ: "
+                         f"{k_scale.stride()} vs {v_scale.stride()}")
+    return 1
+
+
+def scale_strides(k_scale) -> tuple[int, int, int]:
+    """(batch, position, head) element strides of the scales (0s if
+    none): the kernels read them in place."""
+    return tuple(k_scale.stride()) if k_scale is not None else (0, 0, 0)
 
 
 def head_dim_ok(d: int) -> None:
@@ -221,6 +275,25 @@ def vec_ok(*ts) -> int:
     return 1
 
 
+def tma_ok(t) -> bool:
+    """A TMA map can read ``t`` in place: a 16-byte aligned base and
+    outer strides that are multiples of 16 bytes."""
+    return not (t.data_ptr() % 16 or any(
+        (s * t.element_size()) % 16 for s in t.stride()[:-1]))
+
+
+def _padded_copy(t):
+    """``t`` copied into rows padded to a 16-byte multiple, as a view of
+    the first ``t.shape[-1]`` columns (strides and base TMA can read)."""
+    import torch
+    per = 16 // t.element_size()
+    d = t.shape[-1]
+    buf = torch.zeros((*t.shape[:-1], -(-d // per) * per), dtype=t.dtype,
+                      device=t.device)
+    buf[..., :d] = t
+    return buf[..., :d]
+
+
 def aligned(dt: int, *ts):
     """The operands as the kernels take them: for bf16 (``dt`` 1) every
     tensor 16-byte aligned with 16-byte strides (the tensor-core path's TMA
@@ -233,6 +306,18 @@ def aligned(dt: int, *ts):
                else t.clone(memory_format=torch.contiguous_format)
                for t in ts)
     return (*ts, 1)
+
+
+def arena_aligned(qt: int, kt: int, q, k, v):
+    """:func:`aligned` for the arena kernels, whose K/V may be narrower
+    than q (``kt`` from :func:`type_codes`).  An int8 / fp8 K/V under
+    bfloat16 q needs only what TMA needs (:func:`tma_ok`); rows of fewer
+    than 16 bytes (head_dim 8) are copied into 16-byte rows."""
+    if kt < 2 or qt == 0:
+        return aligned(qt, q, k, v)
+    (q,) = aligned(qt, q)[:1]
+    k, v = (t if tma_ok(t) else _padded_copy(t) for t in (k, v))
+    return q, k, v, 1
 
 
 def stream_of(t) -> P:

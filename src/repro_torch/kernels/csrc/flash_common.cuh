@@ -28,11 +28,23 @@
 // separate CTAs and the last of them merges, and the arithmetic is the same.
 // Explicit __f*_rn intrinsics keep nvcc from contracting differently in the
 // two kernels.
+//
+// Narrow arenas.  flash_decode and flash_prefill_chunk also read a K/V
+// arena narrower than q (the TPU kernels' fused-dequant branch,
+// src/repro/kernels/flash_decode.py:39-44,72-75 and
+// flash_prefill_chunk.py:38-44,73-76): bf16 under f32 queries, and int8 or
+// fp8 e4m3 with one f32 scale per (row, KV head) (Problem::ks / vs, read
+// in place through their strides).  The f32 tile widens each K/V element
+// as it loads the strip and multiplies it by its row's scale, in the
+// reference's order (k.float() * ks, then the products).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fk {
 
@@ -46,6 +58,14 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// An arena type with a scale per (row, KV head): int8 and fp8 e4m3.
+template <typename KT>
+constexpr bool scaled_v = sizeof(KT) == 1;
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -73,6 +93,11 @@ struct Problem {
   int window;                // <= 0: no sliding window
   float scale;
   int vec;                   // 16-byte K/V loads are legal
+  // scaled arenas: (B, Sk, KVH) f32 scales of K and V, element strides
+  // batch / position / head shared by both
+  const float* ks = nullptr;
+  const float* vs = nullptr;
+  long long ssb = 0, sss = 0, ssh = 0;
 };
 
 // Does query position qpos see key kpos?  Keys past Sk never: a parked
@@ -110,9 +135,11 @@ struct Smem {
   static constexpr size_t bytes = floats * 4 + ROWS * 4 + 2 * 4;
 };
 
-template <typename T, int D, int ROWS>
+// T: the type of q and o; KT: the arena's (T by default).
+template <typename T, int D, int ROWS, typename KT = T>
 struct Tile {
   using S = Smem<D, ROWS>;
+  static constexpr bool SC = scaled_v<KT>;
   static constexpr int DP = S::DP, SP = S::SP;
   // score mapping: 16 key lanes x 8 row groups, each thread a
   // RPT x KPT micro-tile (every score is still one sequential d-chain)
@@ -198,12 +225,15 @@ struct Tile {
     return live;
   }
 
+  // K/V rows [j0, j0 + BK) widened to f32 (times their scales for a
+  // scaled arena), zeros past Sk.
   __device__ void load_kv(const Problem& p, int b, int kvh, int j0) {
-    const T* k = reinterpret_cast<const T*>(p.k);
-    const T* v = reinterpret_cast<const T*>(p.v);
+    const KT* k = reinterpret_cast<const KT*>(p.k);
+    const KT* v = reinterpret_cast<const KT*>(p.v);
     const long long kb = b * p.skb + kvh * p.skh;
     const long long vb = b * p.svb + kvh * p.svh;
-    constexpr int VEC = 16 / sizeof(T);
+    const long long sb = b * p.ssb + kvh * p.ssh;
+    constexpr int VEC = 16 / sizeof(KT);
     if (p.vec && D % VEC == 0) {
       constexpr int NV = D / VEC;
       for (int e = tid; e < BK * NV; e += NT) {
@@ -213,12 +243,19 @@ struct Tile {
               k + kb + kpos * p.sks + c * VEC);
           const uint4 vu = *reinterpret_cast<const uint4*>(
               v + vb + kpos * p.svs + c * VEC);
-          const T* kt = reinterpret_cast<const T*>(&ku);
-          const T* vt = reinterpret_cast<const T*>(&vu);
+          const KT* kt = reinterpret_cast<const KT*>(&ku);
+          const KT* vt = reinterpret_cast<const KT*>(&vu);
+          float sk = 1.f, sv = 1.f;
+          if constexpr (SC) {
+            sk = p.ks[sb + kpos * p.sss];
+            sv = p.vs[sb + kpos * p.sss];
+          }
 #pragma unroll
           for (int x = 0; x < VEC; ++x) {
-            Ks[j * DP + c * VEC + x] = to_f(kt[x]);
-            Vs[j * DP + c * VEC + x] = to_f(vt[x]);
+            Ks[j * DP + c * VEC + x] = SC ? __fmul_rn(to_f(kt[x]), sk)
+                                          : to_f(kt[x]);
+            Vs[j * DP + c * VEC + x] = SC ? __fmul_rn(to_f(vt[x]), sv)
+                                          : to_f(vt[x]);
           }
         } else {
 #pragma unroll
@@ -232,8 +269,16 @@ struct Tile {
       for (int e = tid; e < BK * D; e += NT) {
         const int j = e / D, d = e % D, kpos = j0 + j;
         const bool in = kpos < p.Sk;
-        Ks[j * DP + d] = in ? to_f(k[kb + kpos * p.sks + d]) : 0.f;
-        Vs[j * DP + d] = in ? to_f(v[vb + kpos * p.svs + d]) : 0.f;
+        float kx = in ? to_f(k[kb + kpos * p.sks + d]) : 0.f;
+        float vx = in ? to_f(v[vb + kpos * p.svs + d]) : 0.f;
+        if constexpr (SC) {
+          if (in) {
+            kx = __fmul_rn(kx, p.ks[sb + kpos * p.sss]);
+            vx = __fmul_rn(vx, p.vs[sb + kpos * p.sss]);
+          }
+        }
+        Ks[j * DP + d] = kx;
+        Vs[j * DP + d] = vx;
       }
     }
   }
@@ -422,3 +467,58 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
     }                                                                        \
     return (int)cudaErrorInvalidValue;                                       \
   }()
+
+
+namespace fk {
+
+// Runtime codes to compile-time parameters, for the arena kernels'
+// (q type, arena type, head_dim) dispatch: f(HeadDim<D>{}) for head_dim in
+// {8, 16, 32, 64, 128}; f(TypeTag<KT>{}) for the arena code 0 float32, 1
+// bfloat16, 2 int8, 3 fp8 e4m3.
+template <int D> using HeadDim = std::integral_constant<int, D>;
+template <typename T> struct TypeTag { using type = T; };
+
+template <typename F>
+inline int with_head_dim(int hd, F f) {
+  switch (hd) {
+    case 8: return f(HeadDim<8>{});
+    case 16: return f(HeadDim<16>{});
+    case 32: return f(HeadDim<32>{});
+    case 64: return f(HeadDim<64>{});
+    case 128: return f(HeadDim<128>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename F>
+inline int with_kv_type(int code, F f) {
+  switch (code) {
+    case 0: return f(TypeTag<float>{});
+    case 1: return f(TypeTag<__nv_bfloat16>{});
+    case 2: return f(TypeTag<int8_t>{});
+    case 3: return f(TypeTag<__nv_fp8_e4m3>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dispatch (q type 0 float32 / 1 bfloat16, arena code, head_dim) to
+// f32(TypeTag<KT>, HeadDim<D>) -- the CUDA-core tile, every arena type --
+// or tc(TypeTag<KT>, HeadDim<D>) -- the tensor-core tile, whose arena is
+// bf16, int8 or fp8 (a float32 arena under bf16 q is refused).
+template <typename F32, typename TC>
+inline int dispatch_kv(int qtype, int kvtype, int hd, F32 f32, TC tc) {
+  return with_head_dim(hd, [&](auto d) {
+    return with_kv_type(kvtype, [&](auto kt) -> int {
+      using KT = typename decltype(kt)::type;
+      if (qtype == 0) return f32(kt, d);
+      if constexpr (std::is_same<KT, float>::value) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        if (qtype == 1) return tc(kt, d);
+        return (int)cudaErrorInvalidValue;
+      }
+    });
+  });
+}
+
+}  // namespace fk

@@ -40,6 +40,15 @@
 // MMA's 64 by dead rows; that is what keeps chunk row j equal to decode at
 // pos = prefix + j bit for bit.  K/V come in by TMA.  f32 split CTAs run
 // flash_common.cuh's CUDA-core tile.
+//
+// Narrow arenas (the TPU kernel's scaled branch, _fd_kernel scaled=True,
+// flash_decode.py:39-44,72-75): the arena may be int8 or fp8 e4m3 with
+// (B, Sk, KVH) f32 scales read in place, under bf16 or f32 queries, or
+// bf16 under f32 queries.  Still one launch a call: the bf16-q split CTA
+// brings its narrow strips in by TMA at one byte an element (half a bf16
+// strip's bytes, the point of the format: at llama3.2-3b's decode shape
+// the arena is 0.52x of bf16's with its scales) and widens them in shared
+// memory (flash_tc.cuh); the f32-q CTA widens and scales as it loads.
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
 
@@ -114,11 +123,11 @@ __device__ __forceinline__ void arrive_and_combine(const Problem& p,
   if (last) combine_row<T, D>(p, part, nsplit, bkv);
 }
 
-template <typename T, int D, int ROWS>
+template <typename T, typename KT, int D, int ROWS>
 __global__ void __launch_bounds__(NT)
 fd_kernel(Problem p, float* part, int* count, int nsplit) {
   extern __shared__ __align__(16) char smem[];
-  using TT = Tile<T, D, ROWS>;
+  using TT = Tile<T, D, ROWS, KT>;
   TT t;
   t.init(smem);
   const int split = blockIdx.x, bkv = blockIdx.y;
@@ -145,13 +154,13 @@ fd_kernel(Problem p, float* part, int* count, int nsplit) {
   arrive_and_combine<T, D>(p, part, count, nsplit, bkv);
 }
 
-template <int D>
+template <int D, typename KT>
 __global__ void __launch_bounds__(NT)
 fd_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
              const __grid_constant__ CUtensorMap mv, int bmul, float* part,
              int* count, int nsplit) {
   extern __shared__ __align__(128) char tc_smem[];
-  using TT = tc::TcTile<D>;
+  using TT = tc::TcTile<D, KT>;
   TT t;
   t.init(tc_smem);
   const int split = blockIdx.x, bkv = blockIdx.y;
@@ -183,17 +192,17 @@ fd_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
 }
 
 // The f32 kernel of a group size: G query rows in a tile of 8 or 16.
-template <typename T, int D, typename F>
+template <typename T, typename KT, int D, typename F>
 static int fd_f32_pick(int G, F f) {
-  if (G <= 8) return f(fd_kernel<T, D, 8>, Smem<D, 8>::bytes);
-  if (G <= 16) return f(fd_kernel<T, D, 16>, Smem<D, 16>::bytes);
+  if (G <= 8) return f(fd_kernel<T, KT, D, 8>, Smem<D, 8>::bytes);
+  if (G <= 16) return f(fd_kernel<T, KT, D, 16>, Smem<D, 16>::bytes);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 static int fd_run(const Problem& p, int B, float* part, int* count,
                   int nsplit, cudaStream_t st) {
-  return fd_f32_pick<T, D>(p.G, [&](auto kernel, size_t smem) {
+  return fd_f32_pick<T, KT, D>(p.G, [&](auto kernel, size_t smem) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(p, part, count,
@@ -202,26 +211,27 @@ static int fd_run(const Problem& p, int B, float* part, int* count,
   });
 }
 
-template <int D>
+template <int D, typename KT>
 static int fd_tc_run(const Problem& p, int B, float* part, int* count,
                      int nsplit, cudaStream_t st) {
   if (!p.vec || p.G > tc::ROWS) return (int)cudaErrorInvalidValue;
   CUtensorMap mk, mv;
   int bmul;
-  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D);
+  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D, (int)sizeof(KT));
   if (e) return e;
-  const size_t smem = tc::Cfg<D>::smem;
-  e = (int)allow_smem(fd_tc_kernel<D>, smem);
+  const size_t smem = tc::Cfg<D, KT>::smem;
+  e = (int)allow_smem(fd_tc_kernel<D, KT>, smem);
   if (e) return e;
-  fd_tc_kernel<D><<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(
+  fd_tc_kernel<D, KT><<<dim3(nsplit, B * p.KVH), NT, smem, st>>>(
       p, mk, mv, bmul, part, count, nsplit);
   return (int)cudaGetLastError();
 }
 
-// CTAs of the kernel for (dtype, hd, G) that fit on one SM at once.
-template <typename T, int D>
+// CTAs of the kernel for (q type, arena type, hd, G) that fit on one SM at
+// once.
+template <typename T, typename KT, int D>
 static int fd_occ(const Problem& p, int* blocks) {
-  return fd_f32_pick<T, D>(p.G, [&](auto kernel, size_t smem) {
+  return fd_f32_pick<T, KT, D>(p.G, [&](auto kernel, size_t smem) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
@@ -230,27 +240,32 @@ static int fd_occ(const Problem& p, int* blocks) {
   });
 }
 
-template <int D>
+template <int D, typename KT>
 static int fd_tc_occ(const Problem& p, int* blocks) {
   if (p.G > tc::ROWS) return (int)cudaErrorInvalidValue;
-  const size_t smem = tc::Cfg<D>::smem;
-  cudaError_t e = allow_smem(fd_tc_kernel<D>, smem);
+  const size_t smem = tc::Cfg<D, KT>::smem;
+  cudaError_t e = allow_smem(fd_tc_kernel<D, KT>, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fd_tc_kernel<D>,
-                                                      NT, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fd_tc_kernel<D, KT>, NT, smem);
   return (int)e;
 }
 
-// q (B, H, D), k/v (B, Sk, KVH, D), o (B, H, D) by strides; lengths (B,)
-// int32 live rows per slot (null: all Sk live).  part: scratch of
-// B * KVH * nsplit * G * (D + 2) floats, nsplit = ceil(Sk / 128); count:
-// B * KVH int32 arrival counters, 0 on entry and left 0.  Returns
-// cudaGetLastError() after the launch.  bf16 needs vec.
-extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
-                         const void* v, void* o, float* part, int* count,
+// q (B, H, D), k/v (B, Sk, KVH, D), o (B, H, D) by strides; ks/vs (B, Sk,
+// KVH) f32 scales of an int8 / fp8 arena by strides (ssb, sss, ssh; null
+// for an unscaled arena); lengths (B,) int32 live rows per slot (null: all
+// Sk live).  qtype 0 float32 / 1 bfloat16; kvtype 0 float32, 1 bfloat16,
+// 2 int8, 3 fp8 e4m3 (bf16 q: 1-3).  part: scratch of B * KVH * nsplit *
+// G * (D + 2) floats, nsplit = ceil(Sk / 128); count: B * KVH int32
+// arrival counters, 0 on entry and left 0.  Returns cudaGetLastError()
+// after the launch.  bf16 needs vec.
+extern "C" int fd_launch(int qtype, int kvtype, int hd, const void* q,
+                         const void* k, const void* v, const float* ks,
+                         const float* vs, void* o, float* part, int* count,
                          long long sqb, long long sqh,
                          long long skb, long long sks, long long skh,
                          long long svb, long long svs, long long svh,
+                         long long ssb, long long sss, long long ssh,
                          long long sob, long long soh,
                          int B, int KVH, int G, int Sk, const int* lengths,
                          int window, float scale, int nsplit, int vec,
@@ -261,19 +276,40 @@ extern "C" int fd_launch(int dtype, int hd, const void* q, const void* k,
   p.skb = skb; p.sks = sks; p.skh = skh;
   p.svb = svb; p.svs = svs; p.svh = svh;
   p.sob = sob; p.sos = 0; p.soh = soh;
+  p.ks = ks; p.vs = vs; p.ssb = ssb; p.sss = sss; p.ssh = ssh;
   p.KVH = KVH; p.G = G; p.C = 1; p.Sk = Sk;
   p.qbase = lengths; p.qbase0 = Sk; p.qbase_add = -1;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return FK_DISPATCH(dtype, hd, fd_run, fd_tc_run, p, B, part, count,
-                     nsplit, st);
+  return dispatch_kv(
+      qtype, kvtype, hd,
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fd_run<float, KT, decltype(d)::value>(p, B, part, count,
+                                                     nsplit, st);
+      },
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fd_tc_run<decltype(d)::value, KT>(p, B, part, count, nsplit,
+                                                 st);
+      });
 }
 
-// *blocks = CTAs of the (dtype, hd, G) kernel resident on one SM at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a CUDA error
-// code.
-extern "C" int fd_occupancy(int dtype, int hd, int G, int* blocks) {
+// *blocks = CTAs of the (q type, arena type, hd, G) kernel resident on one
+// SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a
+// CUDA error code.
+extern "C" int fd_occupancy(int qtype, int kvtype, int hd, int G,
+                            int* blocks) {
   Problem p;
   p.G = G;
-  return FK_DISPATCH(dtype, hd, fd_occ, fd_tc_occ, p, blocks);
+  return dispatch_kv(
+      qtype, kvtype, hd,
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fd_occ<float, KT, decltype(d)::value>(p, blocks);
+      },
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fd_tc_occ<decltype(d)::value, KT>(p, blocks);
+      });
 }

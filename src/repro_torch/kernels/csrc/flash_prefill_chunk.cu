@@ -20,6 +20,11 @@
 // (flash_common.cuh's merge_coeffs), on the same tile routine per dtype.
 // So row j equals flash_decode at pos = prefix + j bit for bit, which
 // speculative verify relies on (transformer.py:703-713 in the reference).
+//
+// Narrow arenas (the TPU kernel's scaled branch, flash_prefill_chunk.py:
+// 38-44,73-76): int8 or fp8 e4m3 K/V with (B, Sk, KVH) f32 scales, or bf16
+// under f32 queries, read and widened as flash_decode reads them (the same
+// tile routines), so the pin holds per format.
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
 
@@ -27,10 +32,10 @@ using namespace fk;
 
 constexpr int FPC_ROWS = 32;
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(NT) fpc_kernel(Problem p) {
   extern __shared__ __align__(16) char smem[];
-  using TT = Tile<T, D, FPC_ROWS>;
+  using TT = Tile<T, D, FPC_ROWS, KT>;
   TT t;
   t.init(smem);
   const int r0 = blockIdx.x * FPC_ROWS, bkv = blockIdx.y;
@@ -49,22 +54,22 @@ __global__ void __launch_bounds__(NT) fpc_kernel(Problem p) {
   t.store(p, b, kvh, r0, A, t.GL);
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 static int fpc_run(const Problem& p, int B, cudaStream_t st) {
   const size_t smem = Smem<D, FPC_ROWS>::bytes;
-  cudaError_t e = allow_smem(fpc_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(fpc_kernel<T, KT, D>, smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (p.G * p.C + FPC_ROWS - 1) / FPC_ROWS;
-  fpc_kernel<T, D><<<dim3(tiles, B * p.KVH), NT, smem, st>>>(p);
+  fpc_kernel<T, KT, D><<<dim3(tiles, B * p.KVH), NT, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename KT>
 __global__ void __launch_bounds__(NT)
 fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, int bmul) {
   extern __shared__ __align__(128) char tc_smem[];
-  using TT = tc::TcTile<D>;
+  using TT = tc::TcTile<D, KT>;
   TT t;
   t.init(tc_smem);
   int bkv, r0;
@@ -84,28 +89,33 @@ fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   t.store(p, b, kvh, r0, A, GL);
 }
 
-template <int D>
+template <int D, typename KT>
 static int fpc_tc_run(const Problem& p, int B, cudaStream_t st) {
   if (!p.vec) return (int)cudaErrorInvalidValue;
   CUtensorMap mk, mv;
   int bmul;
-  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D);
+  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D, (int)sizeof(KT));
   if (e) return e;
-  const size_t smem = tc::Cfg<D>::smem;
-  e = (int)allow_smem(fpc_tc_kernel<D>, smem);
+  const size_t smem = tc::Cfg<D, KT>::smem;
+  e = (int)allow_smem(fpc_tc_kernel<D, KT>, smem);
   if (e) return e;
   const int tiles = (p.G * p.C + tc::ROWS - 1) / tc::ROWS;
-  fpc_tc_kernel<D><<<tiles * B * p.KVH, NT, smem, st>>>(p, mk, mv, bmul);
+  fpc_tc_kernel<D, KT><<<tiles * B * p.KVH, NT, smem, st>>>(p, mk, mv,
+                                                            bmul);
   return (int)cudaGetLastError();
 }
 
-// q (B, C, H, D), k/v (B, Sk, KVH, D), o (B, C, H, D) by strides;
-// prefix (B,) int32 rows live before the chunk.  bf16 needs vec.
-extern "C" int fpc_launch(int dtype, int hd, const void* q, const void* k,
-                          const void* v, void* o,
+// q (B, C, H, D), k/v (B, Sk, KVH, D), o (B, C, H, D) by strides; ks/vs
+// (B, Sk, KVH) f32 scales of an int8 / fp8 arena by strides (null for an
+// unscaled arena); prefix (B,) int32 rows live before the chunk.  Types as
+// fd_launch's.  bf16 needs vec.
+extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
+                          const void* k, const void* v, const float* ks,
+                          const float* vs, void* o,
                           long long sqb, long long sqs, long long sqh,
                           long long skb, long long sks, long long skh,
                           long long svb, long long svs, long long svh,
+                          long long ssb, long long sss, long long ssh,
                           long long sob, long long sos, long long soh,
                           int B, int KVH, int G, int C, int Sk,
                           const int* prefix, int window, float scale,
@@ -116,9 +126,19 @@ extern "C" int fpc_launch(int dtype, int hd, const void* q, const void* k,
   p.skb = skb; p.sks = sks; p.skh = skh;
   p.svb = svb; p.svs = svs; p.svh = svh;
   p.sob = sob; p.sos = sos; p.soh = soh;
+  p.ks = ks; p.vs = vs; p.ssb = ssb; p.sss = sss; p.ssh = ssh;
   p.KVH = KVH; p.G = G; p.C = C; p.Sk = Sk;
   p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return FK_DISPATCH(dtype, hd, fpc_run, fpc_tc_run, p, B, st);
+  return dispatch_kv(
+      qtype, kvtype, hd,
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fpc_run<float, KT, decltype(d)::value>(p, B, st);
+      },
+      [&](auto kt, auto d) {
+        using KT = typename decltype(kt)::type;
+        return fpc_tc_run<decltype(d)::value, KT>(p, B, st);
+      });
 }

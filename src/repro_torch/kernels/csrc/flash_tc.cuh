@@ -48,6 +48,25 @@
 // product's B operand with the key axis as its depth, MN-major (wgmma's
 // transpose bit).  K/V are read in place from the arena's strides through
 // a 4-D tensor map (D, position, head, batch) built on the host per launch.
+//
+// Narrow arenas (int8 / fp8 e4m3 with one f32 scale per row and KV head:
+// the TPU kernels' fused-dequant branch).  TMA brings each strip in at its
+// own byte width (a row of D bytes, no swizzle) into the ring; the scales
+// come with it, one 4-byte cp.async a thread that arrives on the same
+// stage barrier.  Each strip is then widened into the swizzled bf16 K and V
+// boxes that the products read (an int8 or e4m3 value is exact in bf16),
+// generic-proxy writes fenced for the async proxy as Q is.  The scales
+// never enter the tensor cores: with ks / vs the strip's K / V scales,
+//
+//   s = (Q K^T) * ks * scale    per key column, before the row max;
+//   P' = P * vs                 in f32 after the exp, before the
+//                               three-term split, so P' V = P (vs V) with
+//                               P' still exact;
+//   l sums the unscaled P.
+//
+// The reference scales K and V first ((k ks) in f32, then the products),
+// so the two differ by f32 rounding only; the chunk/decode bit pin holds
+// per format, both kernels running this routine.
 #pragma once
 
 #include <cuda.h>
@@ -66,16 +85,27 @@ constexpr int NST = 2;          // K/V stages in the ring
 constexpr int BOX = 64;         // elements per swizzled column box (128 B)
 constexpr int BOX_BYTES = 64 * 128;   // one 64-row box
 
-template <int D>
+// KT: the arena's type, bf16 or (scaled) int8 / fp8 e4m3.
+template <int D, typename KT = __nv_bfloat16>
 struct Cfg {
+  static constexpr bool NARROW = scaled_v<KT>;
   static constexpr int NB = D <= 64 ? 1 : D / 64;    // boxes per row
   static constexpr int DV = NB * 64;                 // PV product's N
   static constexpr int KST = (D + 15) / 16;          // QK^T k-steps
   static constexpr int R = DV / 2;                   // O floats / thread
   static constexpr int Q_BYTES = NB * BOX_BYTES;
-  static constexpr int STAGE_BYTES = 2 * NB * BOX_BYTES;   // K + V
+  // a narrow strip's row in the ring: D bytes, at least TMA's 16
+  static constexpr int ROW_BYTES = D < 16 ? 16 : D;
+  static constexpr int RAW_BYTES = BK * ROW_BYTES;   // one narrow K strip
+  // the widened bf16 K and V boxes (narrow only; bf16 strips are read in
+  // the ring)
+  static constexpr int WIDE_BYTES = NARROW ? 2 * NB * BOX_BYTES : 0;
+  static constexpr int STAGE_BYTES = NARROW ? 2 * RAW_BYTES
+                                            : 2 * NB * BOX_BYTES;  // K + V
+  static constexpr int SCALE_BYTES = NARROW ? 2 * BK * 4 : 0;  // per stage
   // 1 KB of slack to align the swizzled tiles to 1024 bytes
-  static constexpr size_t smem = 1024 + Q_BYTES + NST * STAGE_BYTES
+  static constexpr size_t smem = 1024 + Q_BYTES + WIDE_BYTES
+                                 + NST * (STAGE_BYTES + SCALE_BYTES)
                                  + 8 * NST + 4 * ROWS + 16;
 };
 
@@ -131,6 +161,56 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (++tries > (1u << 26)) __trap();
   }
 }
+// One 4-byte cp.async into shared memory whose completion arrives on
+// ``bar`` (counted in the barrier's arrival count: .noinc).
+__device__ __forceinline__ void cp_async4_arrive(void* dst, const void* src,
+                                                 uint64_t* bar) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// 16 narrow values as 16 bf16 (two 16-byte chunks), exactly.  int8 x
+// without a conversion instruction: the byte x + 128 under the exponent of
+// 2^23 is the float 2^23 + 128 + x, exact, and so is subtracting 2^23 +
+// 128; every int8 value is exact in bf16.
+__device__ __forceinline__ void widen16(const uint4& raw, uint4& lo,
+                                        uint4& hi, int8_t) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+  uint32_t* o[2] = {reinterpret_cast<uint32_t*>(&lo),
+                    reinterpret_cast<uint32_t*>(&hi)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;       // bytes x + 128
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                   0x7440 + b)),
+                       8388736.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * h], f[2 * h + 1]);
+      o[i / 2][2 * (i % 2) + h] = *reinterpret_cast<uint32_t*>(&v);
+    }
+  }
+}
+__device__ __forceinline__ void widen16(const uint4& raw, uint4& lo,
+                                        uint4& hi, __nv_fp8_e4m3) {
+  const __nv_fp8x2_storage_t* x =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint32_t* o[2] = {reinterpret_cast<uint32_t*>(&lo),
+                    reinterpret_cast<uint32_t*>(&hi)};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2(x[i], __NV_E4M3)));
+    __nv_bfloat162 v = __floats2bfloat162_rn(f.x, f.y);
+    o[i / 4][i % 4] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
 // One 64 x 64 box of a 4-D tensor map into shared memory; coordinates
 // (column, position, head, batch), innermost first.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -224,12 +304,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 
 
 // -- the tile ---------------------------------------------------------------
-template <int D>
+// KT: the arena's type (bf16; int8 / fp8 e4m3 with scales).
+template <int D, typename KT = __nv_bfloat16>
 struct TcTile {
-  using CF = Cfg<D>;
+  using CF = Cfg<D, KT>;
+  static constexpr bool NARROW = CF::NARROW;
   static constexpr int R = CF::R;
+  static_assert(!NARROW || NT == 2 * BK, "one scale a thread per strip");
   char* q_s;            // Q: NB boxes of 64 rows x 128 B
-  char* kv_s;           // NST stages: NB K boxes, then NB V boxes
+  char* wide_s;         // narrow: the widened K boxes, then the V boxes
+  char* kv_s;           // NST stages: NB K boxes, then NB V boxes (bf16);
+                        // narrow: the raw K strip, then the raw V strip
+  float* sc_s;          // narrow: NST stages of BK K scales, BK V scales
   uint64_t* bar;        // one full barrier per stage
   int* qp;              // absolute query position of each row
   int* lim;             // first and last live strip (CTA-uniform)
@@ -237,21 +323,31 @@ struct TcTile {
   float m[2], l[2];     // split-local max / sum of this thread's two rows
   int qpos[2];
   int tid, lane, row0;  // this thread's rows: row0 and row0 + 8
+  int b;                // the batch row (its scales' index)
 
   __device__ __forceinline__ void init(char* smem) {
     char* base = reinterpret_cast<char*>(
         (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
     q_s = base;
-    kv_s = q_s + CF::Q_BYTES;
-    bar = reinterpret_cast<uint64_t*>(kv_s + NST * CF::STAGE_BYTES);
+    wide_s = q_s + CF::Q_BYTES;
+    kv_s = wide_s + CF::WIDE_BYTES;
+    sc_s = reinterpret_cast<float*>(kv_s + NST * CF::STAGE_BYTES);
+    bar = reinterpret_cast<uint64_t*>(reinterpret_cast<char*>(sc_s)
+                                      + NST * CF::SCALE_BYTES);
     qp = reinterpret_cast<int*>(bar + NST);
     lim = qp + ROWS;
     tid = threadIdx.x;
     lane = tid % 32;
     row0 = (tid / 32) * 16 + lane / 4;
     if (tid == 0) {
-      for (int s = 0; s < NST; ++s) mbar_init(&bar[s], 1);
+      // narrow: thread 0's expect_tx and every thread's scale copy arrive
+      for (int s = 0; s < NST; ++s) mbar_init(&bar[s], NARROW ? 1 + NT : 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (NARROW) {
+      // the V boxes' columns past the strip's rows (D < 64) stay zero
+      for (int e = tid; e < CF::WIDE_BYTES / 16; e += NT)
+        reinterpret_cast<uint4*>(wide_s)[e] = make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int x = 0; x < R; ++x) o[x] = 0.f;
@@ -282,13 +378,14 @@ struct TcTile {
       *reinterpret_cast<uint4*>(q_s + (c / 8) * BOX_BYTES + r * 128
                                 + ((c % 8) ^ (r % 8)) * 16) = x;
     }
+    this->b = b;
     const int base = (p.qbase ? p.qbase[b] : p.qbase0) + p.qbase_add;
     for (int r = tid; r < ROWS; r += NT) {
       const int R = r0 + r;
       qp[r] = R < nrows ? base + R % p.C : DEAD_QPOS;
     }
-    // Q was written through the generic proxy; wgmma reads it through the
-    // async proxy
+    // Q (and a narrow tile's zeroed boxes) was written through the generic
+    // proxy; wgmma reads it through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (tid == 0) {
@@ -309,26 +406,69 @@ struct TcTile {
     qpos[1] = qp[row0 + 8];
   }
 
-  // Thread 0: strip n's K and V boxes into stage st.
+  // Thread 0: strip n's K and V boxes (narrow: its raw K and V rows)
+  // into stage st.
   __device__ __forceinline__ void load_strip(const CUtensorMap* mk,
                                              const CUtensorMap* mv, int n,
                                              int st, int kvh, int bb) {
     char* ks = kv_s + st * CF::STAGE_BYTES;
-    char* vs = ks + CF::NB * BOX_BYTES;
     mbar_expect_tx(&bar[st], CF::STAGE_BYTES);
+    if constexpr (NARROW) {
+      tma_load(ks, mk, &bar[st], 0, n * BK, kvh, bb);
+      tma_load(ks + CF::RAW_BYTES, mv, &bar[st], 0, n * BK, kvh, bb);
+    } else {
+      char* vs = ks + CF::NB * BOX_BYTES;
 #pragma unroll
-    for (int j = 0; j < CF::NB; ++j) {
-      tma_load(ks + j * BOX_BYTES, mk, &bar[st], j * BOX, n * BK, kvh, bb);
-      tma_load(vs + j * BOX_BYTES, mv, &bar[st], j * BOX, n * BK, kvh, bb);
+      for (int j = 0; j < CF::NB; ++j) {
+        tma_load(ks + j * BOX_BYTES, mk, &bar[st], j * BOX, n * BK, kvh, bb);
+        tma_load(vs + j * BOX_BYTES, mv, &bar[st], j * BOX, n * BK, kvh, bb);
+      }
     }
   }
 
+  // Every thread (narrow only): one scale of strip n into stage st --
+  // threads 0..BK-1 K's, BK..2BK-1 V's -- arriving on the stage's barrier.
+  // A key past Sk reads row Sk - 1's scale (its key is masked).
+  __device__ __forceinline__ void load_scales(const Problem& p, int n,
+                                              int st, int kvh) {
+    const int j = tid % BK;
+    const int kpos = min(n * BK + j, p.Sk - 1);
+    const float* src = (tid < BK ? p.ks : p.vs) + b * p.ssb
+                       + (long long)kpos * p.sss + (long long)kvh * p.ssh;
+    cp_async4_arrive(sc_s + st * 2 * BK + tid, src, &bar[st]);
+  }
+
+  // Every thread (narrow only): stage st's raw K and V strips widened into
+  // the swizzled bf16 boxes the products read, then fenced for them.
+  __device__ __forceinline__ void widen(int st) {
+    constexpr int CPR = CF::ROW_BYTES / 16;    // 16-byte chunks a row
+    const char* raw = kv_s + st * CF::STAGE_BYTES;
+    for (int e = tid; e < 2 * BK * CPR; e += NT) {
+      const int which = e / (BK * CPR), j = (e / CPR) % BK, u = e % CPR;
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          raw + which * CF::RAW_BYTES + j * CF::ROW_BYTES + u * 16);
+      uint4 lo, hi;
+      widen16(x, lo, hi, KT{});
+      // columns [16u, 16u + 16): chunks c8, c8 + 1 of box 16u / 64
+      char* box = wide_s + which * CF::NB * BOX_BYTES
+                  + (u / 4) * BOX_BYTES + j * 128;
+      const int c8 = 2 * (u % 4);
+      *reinterpret_cast<uint4*>(box + ((c8 ^ (j % 8)) * 16)) = lo;
+      *reinterpret_cast<uint4*>(box + (((c8 + 1) ^ (j % 8)) * 16)) = hi;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
+
   // One strip of keys [j0, j0 + BK) in stage st: scores, online-softmax
-  // update of this thread's two rows, O = O * alpha + (hi + mid + lo) V.
+  // update of this thread's two rows, O = O * alpha + (hi + mid + lo) V
+  // (narrow: scores times the K scales, P times the V scales).
   __device__ __forceinline__ void strip(const Problem& p, int j0,
                                         int st) {
-    const char* ks = kv_s + st * CF::STAGE_BYTES;
+    const char* ks = NARROW ? wide_s : kv_s + st * CF::STAGE_BYTES;
     const char* vs = ks + CF::NB * BOX_BYTES;
+    const float* sk = sc_s + st * 2 * BK;
+    const float* sv = sk + BK;
     float s[32];
 #pragma unroll
     for (int x = 0; x < 32; ++x) s[x] = 0.f;
@@ -351,9 +491,11 @@ struct TcTile {
       for (int c = 0; c < 8; ++c)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int x = 4 * c + 2 * i + j;
-          s[x] = visible(p, qpos[i], j0 + 8 * c + cq + j)
-                     ? __fmul_rn(s[x], p.scale) : -INFINITY;
+          const int x = 4 * c + 2 * i + j, col = 8 * c + cq + j;
+          float sc = s[x];
+          if constexpr (NARROW) sc = __fmul_rn(sc, sk[col]);
+          s[x] = visible(p, qpos[i], j0 + col) ? __fmul_rn(sc, p.scale)
+                                               : -INFINITY;
           mx = fmaxf(mx, s[x]);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -367,6 +509,7 @@ struct TcTile {
           const int x = 4 * c + 2 * i + j;
           s[x] = expf(s[x] - mx);          // exp(-inf) = 0: masked keys
           sum = __fadd_rn(sum, s[x]);
+          if constexpr (NARROW) s[x] = __fmul_rn(s[x], sv[8 * c + cq + j]);
         }
       sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
       sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
@@ -427,13 +570,24 @@ struct TcTile {
     if (tid == 0)
       for (int i = 0; i < NST && n0 + i <= n1; ++i)
         load_strip(mk, mv, n0 + i, i, kvh, bb);
+    if constexpr (NARROW)
+      for (int i = 0; i < NST && n0 + i <= n1; ++i)
+        load_scales(p, n0 + i, i, kvh);
     for (int n = n0; n <= n1; ++n) {
       const int u = n - n0, st = u % NST;
       mbar_wait(&bar[st], (u / NST) & 1);
+      if constexpr (NARROW) widen(st);
       strip(p, n * BK, st);
       __syncthreads();
-      if (tid == 0 && n + NST <= n1)
-        load_strip(mk, mv, n + NST, st, kvh, bb);
+      if (n + NST <= n1) {
+        if (tid == 0) {
+          // the stage was last read through the generic proxy (widen)
+          if constexpr (NARROW)
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          load_strip(mk, mv, n + NST, st, kvh, bb);
+        }
+        if constexpr (NARROW) load_scales(p, n + NST, st, kvh);
+      }
       after(n);
     }
   }
@@ -508,38 +662,49 @@ inline EncodeFn encode_fn() {
   return fn;
 }
 
-// A 4-D map (D, position, head, batch) over a bf16 (B, S, KVH, D) operand
-// read in place through its element strides, 64 x 64 boxes, 128-byte
-// swizzle, zeros past every edge.  A broadcast batch (stride 0, as from
-// expand) becomes an extent-1 axis read at coordinate 0 (*bmul = 0).
+// A 4-D map (D, position, head, batch) over a (B, S, KVH, D) operand read
+// in place through its element strides, zeros past every edge.  bf16
+// (``esize`` 2): 64 x 64 boxes, 128-byte swizzle.  A narrow arena
+// (``esize`` 1): boxes of 64 rows of max(D, 16) bytes, no swizzle (the
+// strip is widened before the products read it).  A broadcast batch
+// (stride 0, as from expand) becomes an extent-1 axis read at coordinate
+// 0 (*bmul = 0).
 inline int make_kv_map(CUtensorMap* map, const void* ptr, int D, int S,
                        int KVH, int B, long long ss, long long sh,
-                       long long sb, int* bmul) {
+                       long long sb, int* bmul, int esize = 2) {
   EncodeFn enc = encode_fn();
   if (!enc) return (int)cudaErrorNotSupported;
   *bmul = sb != 0;
   const long long outer = ss * S > sh * KVH ? ss * S : sh * KVH;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)KVH,
                         (cuuint64_t)(sb ? B : 1)};
-  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                           (cuuint64_t)(sb ? sb : outer) * 2};
-  cuuint32_t box[4] = {BOX, BK, 1, 1};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * esize, (cuuint64_t)sh * esize,
+                           (cuuint64_t)(sb ? sb : outer) * esize};
+  const bool narrow = esize == 1;
+  cuuint32_t box[4] = {narrow ? (cuuint32_t)(D < 16 ? 16 : D)
+                              : (cuuint32_t)BOX, BK, 1, 1};
   cuuint32_t es[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = enc(map, narrow ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, es,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   narrow ? CU_TENSOR_MAP_SWIZZLE_NONE
+                          : CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Both maps of a problem; returns 0 or a CUDA error code.
+// Both maps of a problem (``esize``: the arena's bytes an element);
+// returns 0 or a CUDA error code.
 inline int make_maps(const Problem& p, int B, CUtensorMap* mk,
-                     CUtensorMap* mv, int* bmul, int D) {
+                     CUtensorMap* mv, int* bmul, int D, int esize = 2) {
   int bk = 0, bv = 0;
-  int e = make_kv_map(mk, p.k, D, p.Sk, p.KVH, B, p.sks, p.skh, p.skb, &bk);
+  int e = make_kv_map(mk, p.k, D, p.Sk, p.KVH, B, p.sks, p.skh, p.skb, &bk,
+                      esize);
   if (e) return e;
-  e = make_kv_map(mv, p.v, D, p.Sk, p.KVH, B, p.svs, p.svh, p.svb, &bv);
+  e = make_kv_map(mv, p.v, D, p.Sk, p.KVH, B, p.svs, p.svh, p.svb, &bv,
+                  esize);
   if (e) return e;
   if (bk != bv) return (int)cudaErrorInvalidValue;
   *bmul = bk;

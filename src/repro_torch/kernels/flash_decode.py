@@ -12,6 +12,11 @@ kernel at :96).  Two versions of one function live here:
     KV head) row to arrive merging the row's partials in split order
     (arrival counters from :func:`counters`).
 
+Both take the fused-dequant branch of the TPU kernel (``_fd_kernel``,
+``scaled=True``, flash_decode.py:39-44,72-75): an int8 or fp8 arena with
+its (B, S, KVH) f32 scales, each row widened and scaled before it enters
+the products.
+
 ``ops.flash_decode`` picks between them by the tensors' device.
 """
 from __future__ import annotations
@@ -33,6 +38,8 @@ MAX_GROUP = 16
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+#: the scaled ones among them (an int8 / fp8 arena with its scales)
+launches_scaled = 0
 
 #: {(device index, owner, rows): int32 arrival counters}; the owner is the
 #: current stream's handle, or the name given to :func:`owned_counters`
@@ -41,16 +48,20 @@ _OWNER: Optional[str] = None
 
 
 def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
-                       bk: int = 512):
+                       bk: int = 512, k_scale=None, v_scale=None):
     """q: (B, KVH, G, hd); k/v: (B, S, KVH, hd); lengths: (B,) live rows.
     Strip-mined online softmax over ``bk``-row KV strips with the per-slot
-    tail mask ``kpos < min(lengths, S)`` (and ``kpos >= lengths - window``)."""
+    tail mask ``kpos < min(lengths, S)`` (and ``kpos >= lengths - window``).
+    ``k_scale`` / ``v_scale`` (B, S, KVH): each strip is widened to f32
+    and multiplied by its scale strip before the products, as the
+    reference's ``_flash_decode_ref`` does (ops.py:254-300)."""
     b, s, kvh, hd = k.shape
     g = q.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     bk = min(bk, s)
     kp = _pad_to(k, bk, 1)
     vp = _pad_to(v, bk, 1)
+    ksp, vsp = _scale_pads(k_scale, v_scale, bk)
     nkb = kp.shape[1] // bk
     dev = q.device
     q32 = q.float() * scale
@@ -60,8 +71,7 @@ def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
     acc = torch.zeros((b, kvh, g, hd), dtype=torch.float32, device=dev)
     ar = torch.arange(bk, device=dev)
     for jb in range(nkb):
-        kb = kp[:, jb * bk:(jb + 1) * bk].float()
-        vb = vp[:, jb * bk:(jb + 1) * bk].float()
+        kb, vb = _widened(kp, vp, ksp, vsp, jb * bk, bk)
         kpos = jb * bk + ar[None, :]
         # kpos < s: a length past the arena (a parked slot) attends the
         # arena only, never the strip padding (the reference's ref path
@@ -80,6 +90,25 @@ def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
         m = m_new
     safe = torch.where(l > 0, l, 1.0)
     return (acc / safe[..., None]).to(q.dtype)
+
+
+def _scale_pads(k_scale, v_scale, bk: int):
+    """The scales zero-padded to whole ``bk``-row strips (None, None when
+    the arena is not scaled)."""
+    if k_scale is None:
+        return None, None
+    return _pad_to(k_scale, bk, 1), _pad_to(v_scale, bk, 1)
+
+
+def _widened(kp, vp, ksp, vsp, j0: int, bk: int):
+    """Rows [j0, j0 + bk) of K and V widened to f32, each row times its
+    scale where the arena is scaled."""
+    kb = kp[:, j0:j0 + bk].float()
+    vb = vp[:, j0:j0 + bk].float()
+    if ksp is not None:
+        kb = kb * ksp[:, j0:j0 + bk, :, None]
+        vb = vb * vsp[:, j0:j0 + bk, :, None]
+    return kb, vb
 
 
 def counters(device: torch.device, rows: int) -> torch.Tensor:
@@ -128,31 +157,37 @@ def owned_counters(owner: str) -> Iterator[None]:
         _OWNER = prev
 
 
-def occupancy(dtype: torch.dtype, head_dim: int, group: int) -> int:
-    """CTAs of the kernel for (dtype, head_dim, GQA group) that one SM
-    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def occupancy(dtype: torch.dtype, head_dim: int, group: int,
+              kv_dtype: Optional[torch.dtype] = None) -> int:
+    """CTAs of the kernel for (q dtype, head_dim, GQA group, arena dtype:
+    q's by default) that one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     blocks = ctypes.c_int(0)
-    fn = _build.bind(NAME, "fd_occupancy", [_build.I, _build.I, _build.I,
-                                            ctypes.POINTER(ctypes.c_int)])
-    code = fn({torch.float32: 0, torch.bfloat16: 1}[dtype], head_dim, group,
-              ctypes.byref(blocks))
+    fn = _build.bind(NAME, "fd_occupancy", [_build.I] * 4
+                     + [ctypes.POINTER(ctypes.c_int)])
+    qt, kt = _build.type_codes(dtype, kv_dtype or dtype)
+    code = fn(qt, kt, head_dim, group, ctypes.byref(blocks))
     _build.check(code, NAME)
     return blocks.value
 
 
-_ARGS = ([_build.I, _build.I] + [_build.P] * 6 + [_build.LL] * 10
+_ARGS = ([_build.I] * 3 + [_build.P] * 8 + [_build.LL] * 13
          + [_build.I] * 4 + [_build.P, _build.I, _build.F, _build.I,
                              _build.I, _build.P])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lengths: Optional[torch.Tensor], *, window: Optional[int] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None,
+           k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CUDA kernel.  q: (B, H, D); k/v: (B, S, KVH, D) (any strides with a
     unit last axis — an arena layer view is read in place); lengths: (B,)
-    live rows per slot or None (all S).  Returns (B, H, D) in q's dtype."""
-    global launches
-    _build.require_cuda(NAME, q, k, v, lengths)
+    live rows per slot or None (all S); k_scale / v_scale: (B, S, KVH) f32
+    for an int8 / fp8 arena (read in place by strides), None otherwise.
+    Returns (B, H, D) in q's dtype."""
+    global launches, launches_scaled
+    _build.require_cuda(NAME, q, k, v, lengths, k_scale, v_scale)
     b, h, d = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -160,10 +195,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = h // kvh
     if g > MAX_GROUP:
         raise ValueError(f"GQA group {g} > {MAX_GROUP} not instantiated")
-    dt = _build.dtype_code(q, k, v)
+    qt, kt = _build.kv_codes(q, k, v)
     _build.head_dim_ok(d)
-    q, k, v, vec = _build.aligned(
-        dt, *(_build.inner_contiguous(t) for t in (q, k, v)))
+    scaled = _build.scales(k, k_scale, v_scale)
+    q, k, v, vec = _build.arena_aligned(
+        qt, kt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     if lengths is not None:
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
@@ -173,14 +209,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
     count = counters(q.device, b * kvh)
     fn = _build.bind(NAME, "fd_launch", _ARGS)
-    code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+    code = fn(qt, kt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+              _build.ptr(k_scale), _build.ptr(v_scale),
               _build.ptr(o), _build.ptr(part), _build.ptr(count),
               q.stride(0), q.stride(1),
               k.stride(0), k.stride(1), k.stride(2),
               v.stride(0), v.stride(1), v.stride(2),
+              *_build.scale_strides(k_scale),
               o.stride(0), o.stride(1),
               b, kvh, g, s, _build.ptr(lengths), int(window or 0),
               float(scale), nsplit, vec, _build.stream_of(q))
     launches += 1
+    launches_scaled += scaled
     _build.check(code, NAME)
     return o

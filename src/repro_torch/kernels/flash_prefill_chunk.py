@@ -10,6 +10,10 @@ prefix + i and sees ``kpos <= prefix + i``.  ``prefix`` is runtime data.
   * :func:`launch` — the CUDA kernel (``csrc/flash_prefill_chunk.cu``),
     which walks the keys in flash_decode's splits and merge order so chunk
     row j equals flash_decode at pos = prefix + j bit for bit.
+
+Both take the fused-dequant branch of the TPU kernel (``_fpc_kernel``,
+flash_prefill_chunk.py:38-44,73-76): an int8 or fp8 arena with its (B, S,
+KVH) f32 scales, as flash_decode does.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode import _scale_pads, _widened
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
 NAME = "flash_prefill_chunk"
@@ -26,19 +31,24 @@ REPLACES = "src/repro/kernels/flash_prefill_chunk.py:97"
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+#: the scaled ones among them (an int8 / fp8 arena with its scales)
+launches_scaled = 0
 
 
 def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
-                              bk: int = 512):
+                              bk: int = 512, k_scale=None, v_scale=None):
     """q: (B, KVH, G, C, hd); k/v: (B, S, KVH, hd); prefix: (B,) rows live
     before the chunk.  Strip-mined online softmax; chunk row i attends
-    ``kpos <= prefix + i`` (and ``> prefix + i - window``)."""
+    ``kpos <= prefix + i`` (and ``> prefix + i - window``).  ``k_scale`` /
+    ``v_scale`` (B, S, KVH): strips widened and scaled as the reference's
+    ``_flash_prefill_chunk_ref`` does (ops.py:386-420)."""
     b, s, kvh, hd = k.shape
     g, c = q.shape[2], q.shape[3]
     scale = scale if scale is not None else hd ** -0.5
     bk = min(bk, s)
     kp = _pad_to(k, bk, 1)
     vp = _pad_to(v, bk, 1)
+    ksp, vsp = _scale_pads(k_scale, v_scale, bk)
     nkb = kp.shape[1] // bk
     dev = q.device
     q32 = q.float() * scale
@@ -49,8 +59,7 @@ def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
     acc = torch.zeros((b, kvh, g, c, hd), dtype=torch.float32, device=dev)
     ar = torch.arange(bk, device=dev)
     for jb in range(nkb):
-        kb = kp[:, jb * bk:(jb + 1) * bk].float()
-        vb = vp[:, jb * bk:(jb + 1) * bk].float()
+        kb, vb = _widened(kp, vp, ksp, vsp, jb * bk, bk)
         kpos = (jb * bk + ar)[None, None, :]                  # (1, 1, bk)
         mask = (kpos <= qpos[..., None]) & (kpos < s)        # (B, C, bk)
         if window is not None:
@@ -69,39 +78,45 @@ def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
     return (acc / safe[..., None]).to(q.dtype)
 
 
-_ARGS = ([_build.I, _build.I] + [_build.P] * 4 + [_build.LL] * 12
+_ARGS = ([_build.I] * 3 + [_build.P] * 6 + [_build.LL] * 15
          + [_build.I] * 5 + [_build.P, _build.I, _build.F, _build.I,
                              _build.P])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            prefix: torch.Tensor, *, window: Optional[int] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None,
+           k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CUDA kernel.  q: (B, C, H, D); k/v: (B, S, KVH, D) read in place by
-    strides; prefix: (B,) int rows live before the chunk.  Returns
-    (B, C, H, D) in q's dtype."""
-    global launches
-    _build.require_cuda(NAME, q, k, v, prefix)
+    strides; prefix: (B,) int rows live before the chunk; k_scale /
+    v_scale: (B, S, KVH) f32 for an int8 / fp8 arena, None otherwise.
+    Returns (B, C, H, D) in q's dtype."""
+    global launches, launches_scaled
+    _build.require_cuda(NAME, q, k, v, prefix, k_scale, v_scale)
     b, c, h, d = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
         raise ValueError(f"n_heads={h} not divisible by kv_heads={kvh}")
-    dt = _build.dtype_code(q, k, v)
+    qt, kt = _build.kv_codes(q, k, v)
     _build.head_dim_ok(d)
-    q, k, v, vec = _build.aligned(
-        dt, *(_build.inner_contiguous(t) for t in (q, k, v)))
+    scaled = _build.scales(k, k_scale, v_scale)
+    q, k, v, vec = _build.arena_aligned(
+        qt, kt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     prefix = prefix.to(device=q.device, dtype=torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     fn = _build.bind(NAME, "fpc_launch", _ARGS)
-    code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-              _build.ptr(o),
+    code = fn(qt, kt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+              _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(o),
               q.stride(0), q.stride(1), q.stride(2),
               k.stride(0), k.stride(1), k.stride(2),
               v.stride(0), v.stride(1), v.stride(2),
+              *_build.scale_strides(k_scale),
               o.stride(0), o.stride(1), o.stride(2),
               b, kvh, h // kvh, c, s, _build.ptr(prefix), int(window or 0),
               float(scale), vec, _build.stream_of(q))
     launches += 1
+    launches_scaled += scaled
     _build.check(code, NAME)
     return o

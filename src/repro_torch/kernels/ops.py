@@ -62,24 +62,35 @@ from repro_torch.kernels import dotp as _dp  # noqa: E402
 from repro_torch.kernels import conv2d as _cv  # noqa: E402
 
 KERNEL_MODULES = (_fa, _fd, _fpc, _ssd, _mm, _dp, _cv)
+#: the kernels with a fused-dequant branch: their scaled launches (over an
+#: int8 / fp8 arena) are also counted apart, as ``<name>_scaled``
+SCALED_MODULES = (_fd, _fpc)
+
+
+def _counters():
+    """(count name, module, attribute) of every launch counter."""
+    return ([(m.NAME, m, "launches") for m in KERNEL_MODULES]
+            + [(m.NAME + "_scaled", m, "launches_scaled")
+               for m in SCALED_MODULES])
 
 
 def launch_counts() -> dict[str, int]:
-    """{kernel name: launches since the last reset}."""
-    return {m.NAME: m.launches for m in KERNEL_MODULES}
+    """{kernel name: launches since the last reset}, and {``<name>_scaled``:
+    the scaled ones among them} for the kernels of ``SCALED_MODULES``."""
+    return {name: getattr(m, attr) for name, m, attr in _counters()}
 
 
 def reset_launch_counts() -> None:
-    for m in KERNEL_MODULES:
-        m.launches = 0
+    for _, m, attr in _counters():
+        setattr(m, attr, 0)
 
 
 def add_launches(delta: dict[str, int]) -> None:
-    """Add ``delta`` {kernel name: launches} to the counters: a CUDA graph
+    """Add ``delta`` {count name: launches} to the counters: a CUDA graph
     replay launches the kernels its capture recorded with no wrapper call
     to count them (``runtime/serving/graphs.py``)."""
-    for m in KERNEL_MODULES:
-        m.launches += delta.get(m.NAME, 0)
+    for name, m, attr in _counters():
+        setattr(m, attr, getattr(m, attr) + delta.get(name, 0))
 
 
 def _on_cuda(*ts) -> bool:
@@ -91,13 +102,6 @@ def _on_cuda(*ts) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"operands on unsupported/mixed devices: {kinds}")
-
-
-def _no_scales(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV formats (k_scale/v_scale) are not ported yet "
-            "(ROADMAP Open items 1.7.4)")
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +159,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_decode_plain(q, k, v, *, lengths=None, window=None, scale=None,
                         bk=512, k_scale=None, v_scale=None):
-    _no_scales(k_scale, v_scale)
     b, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -164,7 +167,8 @@ def _flash_decode_plain(q, k, v, *, lengths=None, window=None, scale=None,
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     qg = q.reshape(b, kvh, h // kvh, hd)
     out = _fd.flash_decode_plain(qg, k, v, lengths=lengths, window=window,
-                                 scale=scale, bk=bk)
+                                 scale=scale, bk=bk, k_scale=k_scale,
+                                 v_scale=v_scale)
     return out.reshape(b, h, hd)
 
 
@@ -178,13 +182,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, H, hd); k/v: (B, S, KVH, hd); lengths: (B,) live KV rows per
     sequence (None = all S).  Returns (B, H, hd).  Lengths past S (a
     parked slot) attend all S rows and never read beyond them.
+
+    ``k_scale`` / ``v_scale``: (B, S, KVH) f32 dequant scales of a scaled
+    arena (int8 or fp8 K/V, ``core/kv_format.py``): each K/V row is
+    widened and multiplied by its scale inside the kernel, so the arena is
+    never widened in memory (reference ops.py:324-360).
     """
-    if not _on_cuda(q, k, v, lengths):
+    if not _on_cuda(q, k, v, lengths, k_scale, v_scale):
         return _flash_decode_plain(q, k, v, lengths=lengths, window=window,
                                    scale=scale, bk=bk, k_scale=k_scale,
                                    v_scale=v_scale)
-    _no_scales(k_scale, v_scale)
-    return _fd.launch(q, k, v, lengths, window=window, scale=scale)
+    return _fd.launch(q, k, v, lengths, window=window, scale=scale,
+                      k_scale=k_scale, v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +202,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
                                bk=512, k_scale=None, v_scale=None):
-    _no_scales(k_scale, v_scale)
     b, c, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -202,7 +210,8 @@ def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
     # (B, C, H, hd) -> (B, KVH, G, C, hd): consecutive G heads share a KV head
     qg = q.transpose(1, 2).reshape(b, kvh, g, c, hd)
     out = _fpc.flash_prefill_chunk_plain(qg, k, v, prefix=prefix,
-                                         window=window, scale=scale, bk=bk)
+                                         window=window, scale=scale, bk=bk,
+                                         k_scale=k_scale, v_scale=v_scale)
     return out.reshape(b, h, c, hd).transpose(1, 2)
 
 
@@ -215,14 +224,15 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, C, H, hd); k/v: (B, S, KVH, hd) with the chunk's K/V already at
     rows [prefix, prefix + C); prefix: (B,) rows live before the chunk.
-    Returns (B, C, H, hd).
+    Returns (B, C, H, hd).  ``k_scale`` / ``v_scale``: as for
+    :func:`flash_decode`.
     """
-    if not _on_cuda(q, k, v, prefix):
+    if not _on_cuda(q, k, v, prefix, k_scale, v_scale):
         return _flash_prefill_chunk_plain(q, k, v, prefix=prefix,
                                           window=window, scale=scale, bk=bk,
                                           k_scale=k_scale, v_scale=v_scale)
-    _no_scales(k_scale, v_scale)
-    return _fpc.launch(q, k, v, prefix, window=window, scale=scale)
+    return _fpc.launch(q, k, v, prefix, window=window, scale=scale,
+                       k_scale=k_scale, v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------

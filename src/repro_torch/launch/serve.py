@@ -61,9 +61,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--prompt-mix", default=None,
                    help="comma-separated prompt lengths cycled over the "
                         "requests; overrides --prompt-len")
-    p.add_argument("--kv-format", choices=["fp32"], default="fp32",
+    p.add_argument("--kv-format", choices=["fp32", "bf16", "int8"],
+                   default="fp32",
                    help="KV-arena storage format (fp32 = stored at the "
-                        "activation dtype; the others are not ported yet)")
+                        "activation dtype; int8 adds per-row scales, "
+                        "dequantized inside the attention kernels; fp8 "
+                        "through EngineConfig)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="sampling temperature for sampled requests "
                         "(0 = greedy argmax for every request)")

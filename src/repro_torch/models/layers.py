@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import kv_format as kvf
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 
@@ -127,37 +128,59 @@ def write_rows(arena: torch.Tensor, rows: torch.Tensor,
                pos: torch.Tensor) -> None:
     """arena[b, pos[b]] = rows[b] in place, for the b with pos[b] < S.
 
-    arena: (B, S, KVH, hd); rows: (B, KVH, hd); pos: (B,).  A row whose pos
-    is out of range (a parked slot) is left untouched — the reference gets
-    this from XLA's drop-on-out-of-bounds scatter.  No host sync.
+    arena: (B, S, ...) (K/V rows (B, S, KVH, hd), or their scales (B, S,
+    KVH)); rows: (B, ...); pos: (B,).  A row whose pos is out of range (a
+    parked slot) is left untouched — the reference gets this from XLA's
+    drop-on-out-of-bounds scatter.  No host sync.
     """
     b, s = arena.shape[:2]
     ok = pos < s
     idx = torch.where(ok, pos, torch.zeros_like(pos)).long()
     bidx = torch.arange(b, device=arena.device)
     keep = arena[bidx, idx]
-    arena[bidx, idx] = torch.where(ok[:, None, None], rows.to(arena.dtype),
-                                   keep)
+    arena[bidx, idx] = torch.where(ok.view(b, *[1] * (rows.ndim - 1)),
+                                   rows.to(arena.dtype), keep)
+
+
+def _quantized(view: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """New K/V rows in the view's storage format: {"k", "v"} (and
+    {"k_scale", "v_scale"} for a scaled format), quantized once, as the
+    reference quantizes on write (layers.py:330-338)."""
+    if "k_scale" not in view:
+        return {"k": k.to(view["k"].dtype), "v": v.to(view["v"].dtype)}
+    # K and V quantized as one tensor: the same values, half the small
+    # kernels in a decode step
+    q, scale = kvf.quantize(kvf.get(kv_cache_format(view)),
+                            torch.stack((k, v)))
+    return {"k": q[0], "v": q[1], "k_scale": scale[0], "v_scale": scale[1]}
+
+
+def _scales(view: dict) -> dict:
+    """The kernels' scale arguments of a view (none for unscaled)."""
+    return {"k_scale": view.get("k_scale"), "v_scale": view.get("v_scale")}
 
 
 def attention_chunk(p: dict, cfg, x: torch.Tensor, slot_kv: dict,
                     positions: torch.Tensor, start: int,
                     prefix: torch.Tensor, *, window: Optional[int] = None,
                     kops=ops) -> torch.Tensor:
-    """One prompt chunk: write its K/V rows into the slot's arena view at
-    rows [start, start + C) (rows past max_seq dropped), then attend the
-    slot's prefix + the chunk with ``flash_prefill_chunk``.
+    """One prompt chunk: write its K/V rows (quantized to the arena's
+    format, with their scales) into the slot's arena view at rows [start,
+    start + C) (rows past max_seq dropped), then attend the slot's prefix +
+    the chunk with ``flash_prefill_chunk`` over the stored rows.
 
     x: (B, C, d); ``slot_kv``: {"k", "v"} views (B, Smax, KVH, hd) of the
-    resident arena; ``prefix``: (B,) int32 tensor holding ``start``.
+    resident arena (+ {"k_scale", "v_scale"} (B, Smax, KVH) for a scaled
+    format); ``prefix``: (B,) int32 tensor holding ``start``.
     """
     b, c, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    ck, cv = slot_kv["k"], slot_kv["v"]
-    n = max(0, min(c, ck.shape[1] - start))
-    ck[:, start:start + n] = k[:, :n].to(ck.dtype)
-    cv[:, start:start + n] = v[:, :n].to(cv.dtype)
-    o = kops.flash_prefill_chunk(q, ck, cv, prefix=prefix, window=window)
+    n = max(0, min(c, slot_kv["k"].shape[1] - start))
+    for key, rows in _quantized(slot_kv, k, v).items():
+        slot_kv[key][:, start:start + n] = rows[:, :n]
+    o = kops.flash_prefill_chunk(q, slot_kv["k"], slot_kv["v"],
+                                 prefix=prefix, window=window,
+                                 **_scales(slot_kv))
     return _dot(o.reshape(b, c, -1), p["wo"], cfg.adtype)
 
 
@@ -165,35 +188,54 @@ def attention_decode_rows(p: dict, cfg, x_t: torch.Tensor, layer_kv: dict,
                           pos: torch.Tensor, *,
                           window: Optional[int] = None,
                           kops=ops) -> torch.Tensor:
-    """One decode step: write the token's K/V row at ``pos`` into the
-    arena layer view (masked to pos < max_seq), then ``flash_decode`` over
-    it with ``lengths = pos + 1``.  x_t: (B, d); layer_kv: {"k", "v"} of
-    (B, Smax, KVH, hd).  Returns (B, d)."""
+    """One decode step: write the token's K/V row (quantized to the
+    arena's format, with its scales) at ``pos`` into the arena layer view
+    (masked to pos < max_seq), then ``flash_decode`` over it with
+    ``lengths = pos + 1``.  x_t: (B, d); layer_kv: {"k", "v"} of (B, Smax,
+    KVH, hd) (+ scales (B, Smax, KVH)).  Returns (B, d)."""
     b, _ = x_t.shape
     q, k_t, v_t = _decode_qkv(p, cfg, x_t, pos, True)
-    write_rows(layer_kv["k"], k_t[:, 0], pos)
-    write_rows(layer_kv["v"], v_t[:, 0], pos)
+    for key, rows in _quantized(layer_kv, k_t[:, 0], v_t[:, 0]).items():
+        write_rows(layer_kv[key], rows, pos)
     o = kops.flash_decode(q[:, 0], layer_kv["k"], layer_kv["v"],
-                          lengths=pos + 1, window=window)
+                          lengths=pos + 1, window=window,
+                          **_scales(layer_kv))
     return _dot(o.reshape(b, cfg.n_heads * cfg.hd), p["wo"], cfg.adtype)
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, *, device,
                   kv_format: str = "fp32",
                   n_layers: Optional[int] = None) -> dict:
-    """KV cache {"k", "v"} of (batch, max_seq, KVH, hd), with a leading
-    (n_layers,) axis when given.  Only the ``fp32`` storage format is
-    ported: it stores at ``cfg.adtype`` (so bf16 at a bf16 config),
-    exactly as the reference's fp32 format (layers.py:418-421)."""
-    if kv_format != "fp32":
-        raise NotImplementedError(
-            f"kv_format={kv_format!r} is not ported yet (ROADMAP Open "
-            f"items 1.7.4); only 'fp32' is")
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    if n_layers is not None:
-        shape = (n_layers, *shape)
-    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+    """KV cache {"k", "v"} of (batch, max_seq, KVH, hd) in ``kv_format``'s
+    storage dtype (``fp32``: ``cfg.adtype``, so bf16 at a bf16 config, as
+    the reference's fp32 format), with a leading (n_layers,) axis when
+    given.  A scaled format (int8, fp8) adds ``k_scale`` / ``v_scale`` of
+    (batch, max_seq, KVH) f32 filled with 1.0, so a row never written
+    dequantizes to exact zeros (reference layers.py:408-431)."""
+    fmt = kvf.get(kv_format)
+    lead = (batch, max_seq) if n_layers is None else (n_layers, batch,
+                                                      max_seq)
+    shape = (*lead, cfg.n_kv_heads, cfg.hd)
+    dt = fmt.resolve_dtype(cfg.adtype)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if fmt.scaled:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.ones((*lead, cfg.n_kv_heads),
+                                    dtype=kvf.SCALE_DTYPE, device=device)
+    return cache
+
+
+def kv_cache_format(cache: dict) -> str:
+    """The storage format of a (per-layer or stacked) KV cache, read from
+    its leaves (reference layers.py:434): scales and an int8 arena are
+    ``int8``, scales otherwise ``fp8``; a bf16 arena ``bf16``."""
+    k = cache["k"]
+    if "k_scale" in cache:
+        return "int8" if k.dtype == torch.int8 else "fp8"
+    if k.dtype == torch.bfloat16:
+        return "bf16"
+    return "fp32"
 
 
 # ---------------------------------------------------------------------------
@@ -347,14 +389,7 @@ _EXP_P = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
                                  1.6666665459e-1, 0.5))
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 a x b + c rounded once, as a fused multiply-add rounds it:
-    the product of two float32 values is exact in float64, so only the
-    float64 sum's rounding can differ from one rounding (a double rounding,
-    about once in 2^29)."""
-    c = c.double() if isinstance(c, torch.Tensor) else c
-    b = b.double() if isinstance(b, torch.Tensor) else b
-    return (a.double() * b + c).float()
+_fma = prng.fma32
 
 
 def xla_exp(x: torch.Tensor) -> torch.Tensor:
@@ -394,9 +429,8 @@ def masked_logits(logits: torch.Tensor, temp: torch.Tensor,
     k-th largest key (a sort), top-p's the smallest key whose mass above
     is < top_p x Z, found on the sorted keys (``_top_p_cutoff``) with the
     reference's float32 sums in the reference's order (``tree_sum``) over
-    the reference's float32 weights (``xla_exp``).  The min-p ``log`` is
-    taken in float64 and rounded once; XLA's float32 ``log`` can differ by
-    an ulp, which moves the min-p cutoff by one float32 step.
+    the reference's float32 weights (``xla_exp``); the min-p ``log`` is
+    XLA's float32 log (``prng.xla_log``).
     """
     v = logits.shape[-1]
     x = logits.float() / torch.clamp(temp.float(), min=1e-6)[:, None]
@@ -413,7 +447,7 @@ def masked_logits(logits: torch.Tensor, temp: torch.Tensor,
     # min-p in logit space: prob >= min_p x max-prob <=> x >= top +
     # log(min_p) (log 0 = -inf keeps everything when min-p is off)
     cm = _monotone_key(
-        (top + torch.log(min_p.double()).float()[:, None]) + 0.0)[:, 0]
+        (top + prng.xla_log(min_p)[:, None]) + 0.0)[:, 0]
     cutoff = torch.maximum(torch.maximum(ck, cp), cm)
     cutoff = torch.minimum(cutoff, order[:, -1])     # the argmax survives
     return torch.where(keys >= cutoff[:, None], x, float("-inf"))

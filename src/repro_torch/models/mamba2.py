@@ -206,11 +206,9 @@ def init_ssm_cache(cfg, batch: int, max_seq: int, kv_format: str,
                    device) -> dict:
     """Stacked {"ssm": (L, batch·nh, N, P) f32, "conv": (L, batch, W-1,
     di+2gn) adtype}; ``max_seq`` is unused (the state has no sequence
-    axis).  Recurrent state stays full precision: only the fp32 format."""
-    del max_seq
-    if kv_format != "fp32":
-        raise ValueError(f"kv_format={kv_format!r}: recurrent state stays "
-                         f"full precision (only 'fp32')")
+    axis).  Recurrent state stays full precision: ``LM.init_cache`` admits
+    only the fp32 format."""
+    del max_seq, kv_format
     s, d, di, nh, gn = _dims(cfg)
     nl = cfg.n_layers
     return {

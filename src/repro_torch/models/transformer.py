@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import device as device_mod
+from repro_torch.core import kv_format as kvf
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -60,15 +61,18 @@ def attention_prefill(p_attn, cfg, h, cache_kv, positions, *, window=None,
                       kops=ops):
     """Causal full-sequence attention + KV-cache fill (reference :169).
 
-    h: (B, S, d); cache_kv: {"k", "v"} views (B, Smax, KVH, hd), rows
-    [0, S) written in place.  K/V go to the attention op with their KVH
-    heads; the kernel reads query head h's KV head as h // G instead of the
-    reference's ``jnp.repeat``.
+    h: (B, S, d); cache_kv: {"k", "v"} views (B, Smax, KVH, hd) (+ their
+    scales for a scaled format), rows [0, S) written in place, quantized
+    to the arena's format.  Attention reads the fresh K/V at full
+    precision, as in the reference (:189-202); only the arena copy is
+    narrowed.  K/V go to the attention op with their KVH heads; the kernel
+    reads query head h's KV head as h // G instead of the reference's
+    ``jnp.repeat``.
     """
     q, k, v = L._project_qkv(p_attn, cfg, h, positions)
     b, s = q.shape[:2]
-    cache_kv["k"][:, :s] = k.to(cache_kv["k"].dtype)
-    cache_kv["v"][:, :s] = v.to(cache_kv["v"].dtype)
+    for key, rows in L._quantized(cache_kv, k, v).items():
+        cache_kv[key][:, :s] = rows
     of = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True, window=window)
     o = of.transpose(1, 2).reshape(b, s, -1)
@@ -130,8 +134,8 @@ class LayerSet:
       * ``init_cache(cfg, batch, max_seq, kv_format, device)`` -> the
         stacked arena {leaf: (L, batch * f, ...)};
       * ``factors(cfg)`` -> {leaf: f}, the per-leaf batch factor: leaf dim
-        1 is slots x f (1 for K/V and conv leaves, n_heads for the fused
-        SSD state; reference ``_cache_factors``, :451);
+        1 is slots x f (1 for K/V, their scales and conv leaves, n_heads
+        for the fused SSD state; reference ``_cache_factors``, :451);
       * ``recurrent``: the arena holds per-slot state with no sequence
         axis, so its size does not grow with max_seq;
       * ``prefill_layer(p, cfg, x, view_l, positions, *, kops)``;
@@ -187,7 +191,8 @@ def _dense_init_cache(cfg, batch, max_seq, kv_format, device) -> dict:
 
 #: the dense family: K/V arena rows, attention kernels
 DENSE = LayerSet(
-    init_params=_dense_init_params, init_cache=_dense_init_cache, factors=lambda cfg: {"k": 1, "v": 1},
+    init_params=_dense_init_params, init_cache=_dense_init_cache,
+    factors=lambda cfg: dict.fromkeys(("k", "v", "k_scale", "v_scale"), 1),
     recurrent=False, prefill_layer=_prefill_layer,
     chunk_layer=dense_layer_chunk, decode_layer=dense_layer_decode_rows)
 
@@ -243,8 +248,15 @@ class LM:
     def init_cache(self, batch: int, max_seq: int,
                    kv_format: str = "fp32") -> dict:
         """The family's stacked per-layer arena for ``batch`` slots (dense:
-        {"k", "v"} of (L, batch, max_seq, KVH, hd) at the activation dtype,
-        the fp32 storage format)."""
+        {"k", "v"} of (L, batch, max_seq, KVH, hd) in ``kv_format``'s
+        storage dtype, + {"k_scale", "v_scale"} of (L, batch, max_seq, KVH)
+        for a scaled format).  An unknown format, or a narrow one for a
+        recurrent family, raises ``ValueError`` (reference :399-405)."""
+        kvf.get(kv_format)
+        if kv_format != "fp32" and self.layers.recurrent:
+            raise ValueError(
+                f"kv_format={kv_format!r}: the {self.cfg.family} family's "
+                f"recurrent state stays full precision (only 'fp32')")
         return self.layers.init_cache(self.cfg, batch, max_seq, kv_format,
                                       self.device)
 

@@ -3,14 +3,14 @@
 
 Fields not listed here (prefix sharing, speculative decoding, faults,
 health, admission caps, donation) belong to later slices: passing one
-raises ``TypeError``, and a KV format other than ``fp32`` raises
-``NotImplementedError``.
+raises ``TypeError``.  An unknown KV format raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.core import kv_format as kvf
 from repro_torch.runtime.serving.chunking import validate_buckets
 
 
@@ -24,8 +24,9 @@ class EngineConfig:
     ``prefill_chunks``  bucket sizes for chunked prefill; None = monolithic
     ``prefill_budget``  prompt tokens ingested per engine step; None =
                         largest bucket
-    ``kv_format``       KV-arena storage format; only "fp32" (stores at the
-                        activation dtype) is ported
+    ``kv_format``       KV-arena storage format (``core/kv_format.py``):
+                        "fp32" (stores at the activation dtype), "bf16",
+                        "int8" or "fp8" (the last two with per-row scales)
     ``base_seed``       run-level sampling seed: a sampled request with
                         ``seed=None`` samples with it
     ``decode_graph``    on the card, replay the decode step as one
@@ -45,10 +46,7 @@ class EngineConfig:
     decode_graph: bool = True
 
     def __post_init__(self):
-        if self.kv_format != "fp32":
-            raise NotImplementedError(
-                f"kv_format={self.kv_format!r} is not ported yet (ROADMAP "
-                f"Open items 1.7.4); only 'fp32' is")
+        kvf.get(self.kv_format)
         for name in ("max_slots", "max_seq", "page_size"):
             if getattr(self, name) < 1:
                 raise ValueError(f"EngineConfig.{name} must be >= 1, "
@@ -66,3 +64,7 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.prefill_budget must be >= 1 or None, "
                 f"got {self.prefill_budget}")
+
+    def replace(self, **changes) -> "EngineConfig":
+        """A copy with ``changes`` applied (validated again)."""
+        return dataclasses.replace(self, **changes)

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (port of ``repro/runtime/serving/
-engine.py``'s ``ServingEngine``: greedy and sampled decode over the fp32 KV
-format).
+engine.py``'s ``ServingEngine``: greedy and sampled decode over any KV
+storage format, ``EngineConfig.kv_format``).
 
 The host runs scheduling and admission; the device runs one decode step
 over the whole slot batch.  As in the reference:
@@ -55,6 +55,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import kv_format as kvf
 from repro_torch.core.dispatch import DispatchQueue, Readback
 from repro_torch.models.layers import PARKED_POS
 from repro_torch.runtime.serving import chunking, sampling
@@ -95,10 +96,17 @@ class ServingEngine:
                                      if self.prefill_chunks else 0))
         self.kv_format = config.kv_format
         self.base_seed = int(config.base_seed)
+        # resident arena bytes of one token row, all layers (reference
+        # engine.py:516-518)
+        self.kv_row_bytes = kvf.bytes_per_row(
+            kvf.get(self.kv_format), getattr(cfg, "n_kv_heads", 1),
+            getattr(cfg, "hd", 0), cfg.adtype) * cfg.n_layers
         num_pages = config.num_pages
         if num_pages is None:
             num_pages = max_slots * -(-max_seq // config.page_size)
-        self.cache_mgr = PagedKVCacheManager(num_pages, config.page_size)
+        self.cache_mgr = PagedKVCacheManager(
+            num_pages, config.page_size, kv_format=self.kv_format,
+            row_bytes=self.kv_row_bytes)
         self.scheduler = Scheduler(max_slots, self.cache_mgr,
                                    max_len=max_seq,
                                    chunked=self.prefill_chunks is not None)
@@ -144,8 +152,9 @@ class ServingEngine:
                       "sampled_requests": 0, "sampled_steps": 0,
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
-                      ("state_bytes_per_slot" if recurrent
-                       else "kv_row_bytes"): self.arena_unit_bytes,
+                      **({"state_bytes_per_slot": self.arena_unit_bytes}
+                         if recurrent else
+                         {"kv_row_bytes": self.kv_row_bytes}),
                       "arena_bytes": self.arena_bytes}
 
     # -- the device steps ----------------------------------------------------

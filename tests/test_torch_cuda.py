@@ -96,6 +96,136 @@ def test_cuda_chunk_rows_bit_equal_decode(cuda, dtype, d, c):
     assert torch.equal(chunk[0], dec)
 
 
+# (q dtype, arena format) of the scaled-branch tests: f32 q over a bf16,
+# int8 or fp8 arena (the CUDA-core tile), bf16 q over int8 or fp8 (the
+# tensor-core tile; a bf16 arena under bf16 q is the unscaled path above)
+NARROW_CASES = [(torch.float32, "bf16"), (torch.float32, "int8"),
+                (torch.float32, "fp8"), (torch.bfloat16, "int8"),
+                (torch.bfloat16, "fp8")]
+
+
+def _narrow_arena(gen, fmt_name, shape, device):
+    """(k, v, k_scale, v_scale) of a random f32 arena stored in format
+    ``fmt_name`` (scales None for an unscaled format)."""
+    from repro_torch.core import kv_format as kvf
+    fmt = kvf.get(fmt_name)
+    k = torch.randn(shape, generator=gen, device=device)
+    v = torch.randn(shape, generator=gen, device=device)
+    (kq, ks), (vq, vs) = kvf.quantize(fmt, k), kvf.quantize(fmt, v)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", NARROW_CASES)
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("window", [None, 8])
+def test_cuda_narrow_arena_kernels_match_plain(cuda, dtype, fmt, d, window):
+    """flash_decode and flash_prefill_chunk over a narrow arena (the scaled
+    branch for int8 / fp8) against their plain versions, within the dtype's
+    limit: lengths 1 / 17 / parked / 130 over 130 rows (three 64-key
+    strips, two splits), chunk prefixes 0, 9 and 100.  The kernels scale
+    the scores and P where the plain versions scale K and V: they differ
+    by f32 rounding only."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((4, 6, d), generator=gen, device=cuda).to(dtype)
+    k, v, ks, vs = _narrow_arena(gen, fmt, (4, 130, 2, d), cuda)
+    lens = torch.tensor([1, 17, PARKED, 130], device=cuda)
+    kw = dict(lengths=lens, window=window, k_scale=ks, v_scale=vs)
+    got = ops.flash_decode(q, k, v, **kw)
+    want = ops.PLAIN.flash_decode(q, k, v, **kw)
+    assert got.dtype == dtype and _within_limit(got, want)
+    qc = torch.randn((3, 8, 6, d), generator=gen, device=cuda).to(dtype)
+    sc = {} if ks is None else dict(k_scale=ks[:3], v_scale=vs[:3])
+    pre = torch.tensor([0, 9, 100], device=cuda)
+    got = ops.flash_prefill_chunk(qc, k[:3], v[:3], prefix=pre,
+                                  window=window, **sc)
+    want = ops.PLAIN.flash_prefill_chunk(qc, k[:3], v[:3], prefix=pre,
+                                         window=window, **sc)
+    assert got.dtype == dtype and _within_limit(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", NARROW_CASES)
+@pytest.mark.parametrize("d,c", [(16, 16), (128, 16), (128, 40)])
+def test_cuda_narrow_chunk_rows_bit_equal_decode(cuda, dtype, fmt, d, c):
+    """The chunk/decode bit pin per format: chunk row j == flash_decode at
+    pos = prefix + j over the same narrow arena and scales, bit for bit
+    (S = 300, G = 3, a 64-row tile crossing heads)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    s, kvh, h = 300, 2, 6
+    q = torch.randn((1, c, h, d), generator=gen, device=cuda).to(dtype)
+    k, v, ks, vs = _narrow_arena(gen, fmt, (1, s, kvh, d), cuda)
+    pre = 200
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    chunk = ops.flash_prefill_chunk(
+        q, k, v, prefix=torch.tensor([pre], device=cuda), **sc)
+    ex = {key: t.expand(c, *t.shape[1:]) for key, t in sc.items()}
+    dec = ops.flash_decode(q[0], k.expand(c, s, kvh, d),
+                           v.expand(c, s, kvh, d),
+                           lengths=pre + 1 + torch.arange(c, device=cuda),
+                           **ex)
+    assert torch.equal(chunk[0], dec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_cuda_scaled_kernels_count_and_repeat(cuda, fmt):
+    """A scaled call adds one to its kernel's launches and one to its
+    ``_scaled`` count; an unscaled call only to the first; repeated calls
+    give the same bits; a planted fault (V scaled by K's scales) leaves the
+    limit."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((4, 24, 128), generator=gen, device=cuda).bfloat16()
+    k, v, ks, vs = _narrow_arena(gen, fmt, (4, 1121, 8, 128), cuda)
+    lens = torch.tensor([1088, 832, PARKED, 1], device=cuda)
+    ops.reset_launch_counts()
+    a = ops.flash_decode(q, k, v, lengths=lens, k_scale=ks, v_scale=vs)
+    b = ops.flash_decode(q, k, v, lengths=lens, k_scale=ks, v_scale=vs)
+    ops.flash_decode(q, k.float().bfloat16(), v.float().bfloat16(),
+                     lengths=lens)
+    counts = ops.launch_counts()
+    assert counts["flash_decode"] == 3 and counts["flash_decode_scaled"] == 2
+    assert torch.equal(a, b)
+    rows = 4 * 8
+    assert int(fd.counters(q.device, rows)[:rows].abs().sum()) == 0
+    want = ops.PLAIN.flash_decode(q, k, v, lengths=lens, k_scale=ks,
+                                  v_scale=vs)
+    fault = ops.PLAIN.flash_decode(q, k, v, lengths=lens, k_scale=ks,
+                                   v_scale=ks)
+    assert _within_limit(a, want) and not _within_limit(a, fault)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("chunks", [None, (4, 8)])
+def test_cuda_narrow_engine_captured_equals_eager(cuda, dtype, fmt, chunks):
+    """The reduced llama3.2-3b served with a narrow arena: the captured
+    decode step gives the eager engine's streams; a scaled format's
+    flash_decode launches are all scaled (n_layers x (replays + the
+    warm-up step)), and so are its chunks' flash_prefill_chunk launches."""
+    model, params = _tiny("dense", dtype)
+    want = _graph_engine(model, params, decode_graph=False, kv_format=fmt,
+                         prefill_chunks=chunks).run()
+    ops.reset_launch_counts()
+    eng = _graph_engine(model, params, kv_format=fmt, prefill_chunks=chunks)
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    nl, replays = model.cfg.n_layers, eng.graph.replays
+    assert counts["flash_decode"] == nl * (replays + 1), counts
+    scaled = fmt != "bf16"
+    assert counts["flash_decode_scaled"] == (counts["flash_decode"]
+                                             if scaled else 0)
+    assert counts["flash_prefill_chunk_scaled"] == (
+        counts["flash_prefill_chunk"] if scaled else 0)
+    if chunks:
+        assert counts["flash_prefill_chunk"] == nl * eng.stats[
+            "prefill_chunks"] > 0
+    assert eng.cache_mgr.scale_sidecar_pages == 0
+
+
 @pytest.mark.gpu
 def test_cuda_bf16_views_not_16_byte_aligned(cuda):
     """bf16 operands whose base or strides are not 16-byte aligned (the

@@ -11,7 +11,10 @@ on the CPU, where nothing is captured: what capture relies on.
   * ``EngineConfig.decode_graph`` on the CPU: the step is always eager;
   * the same for the sampled step (``ServingEngine._decode_step_sampled``,
     the second graph): no host read, and its parked warm-up leaves the
-    arena, the slot vectors and the five sampling vectors bit for bit.
+    arena, the slot vectors and the five sampling vectors bit for bit;
+  * both steps over a narrow KV arena (bf16, int8, fp8): the quantized
+    row writes and the scale writes make no host read either, and the
+    warm-ups leave the scale leaves bit for bit.
 
 The captured graph itself runs on the card only (``tests/test_torch_cuda.py``).
 """
@@ -261,3 +264,51 @@ def test_sampled_step_is_eager_on_the_cpu(family):
         eng = _sampled_engine(tserving, tm, tm.cfg, tp, **kw)
         assert eng.sampled_graph is None
         assert eng._sampled_step == eng._decode_step_sampled
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+def test_narrow_arena_steps_capture_cleanly(fmt):
+    """A narrow KV arena in both captured steps: with live, parked and
+    never-used slots side by side, the greedy and the sampled step make no
+    host read (the quantized row writes and their scale writes included);
+    their parked warm-ups leave every arena leaf (the scale leaves
+    included), the slot vectors and the sampling vectors bit for bit; the
+    run then matches the JAX engine's streams in the same format."""
+    jm, jp, tm, tp = bridged(TINY)
+
+    def mixed():
+        eng = _sampled_engine(tserving, tm, tm.cfg, tp, kv_format=fmt)
+        for _ in range(50):
+            states = [st.status for st in eng.scheduler.running.values()]
+            if Status.RUNNING in states and Status.PREFILLING in states:
+                break
+            eng.step()
+        assert PARKED_POS in eng._pos.tolist()
+        return eng
+
+    eng = mixed()
+    assert ("k_scale" in eng._cache) == (fmt != "bf16")
+    for step in (eng._decode_step, eng._decode_step_sampled):
+        live = eng._active.clone() == 1
+        pos0 = eng._pos.clone()
+        with NoHostRead():
+            step()
+        assert torch.equal(eng._pos, pos0 + live.long())
+    eng = mixed()
+    for step in (eng._decode_step, eng._decode_step_sampled):
+        before = _snapshot(eng)
+        before.update({f"samp.{k}": v.clone().view(torch.uint8)
+                       for k, v in eng._samp.items()})
+        graphs.parked_warm_up(step, eng._tokens, eng._pos, eng._active)
+        after = _snapshot(eng)
+        after.update({f"samp.{k}": v.clone().view(torch.uint8)
+                      for k, v in eng._samp.items()})
+        for k in before:
+            assert torch.equal(before[k], after[k]), k
+    got = eng.run(max_steps=2000)
+    want = _sampled_engine(jserving, jm, TINY, jp,
+                           kv_format=fmt).run(max_steps=2000)
+    assert sorted(got) == sorted(want)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")

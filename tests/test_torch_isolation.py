@@ -114,7 +114,9 @@ def test_launch_counters_stay_zero_on_cpu():
                       torch.tensor([9, 9]))
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
-                                   "matmul": 0, "dotp": 0, "conv2d": 0}
+                                   "matmul": 0, "dotp": 0, "conv2d": 0,
+                                   "flash_decode_scaled": 0,
+                                   "flash_prefill_chunk_scaled": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_ssm():
@@ -132,7 +134,9 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
                       torch.tensor([9, 9]))
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
-                                   "matmul": 0, "dotp": 0, "conv2d": 0}
+                                   "matmul": 0, "dotp": 0, "conv2d": 0,
+                                   "flash_decode_scaled": 0,
+                                   "flash_prefill_chunk_scaled": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_vector_unit():
@@ -148,4 +152,6 @@ def test_launch_counters_stay_zero_on_cpu_vector_unit():
                       torch.ones(7, 7, 3, 8)).shape == (1, 3, 3, 8)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
-                                   "matmul": 0, "dotp": 0, "conv2d": 0}
+                                   "matmul": 0, "dotp": 0, "conv2d": 0,
+                                   "flash_decode_scaled": 0,
+                                   "flash_prefill_chunk_scaled": 0}

@@ -2,9 +2,9 @@
 
   * ``core/prng.py``: keys and 32-bit words equal ``jax.random``'s bit for
     bit over a grid of seeds and positions and vocabularies up to 128256;
-    uniforms bit for bit; Gumbels within ``GUMBEL_SPACINGS`` float32 steps
-    of max(|g|, 1) (XLA's float32 ``log`` is not always correctly rounded;
-    the port's is);
+    uniforms, XLA's float32 ``log`` (``xla_log``) and Gumbels bit for bit
+    (``GUMBEL_SPACINGS`` float32 steps of max(|g|, 1) is 0), and the
+    Gumbel-argmax draw on exact ties of the perturbed scores;
   * ``models/layers.py``: ``_monotone_key``, the float32 ``exp`` and sum
     order of the reference (``xla_exp``, ``tree_sum``) bit for bit;
     ``masked_logits``' kept set and kept values and ``sample_step``'s tokens
@@ -43,8 +43,8 @@ from test_torch_model import TINY, bridged  # noqa: E402
 from test_torch_ssm import TINY_SSM, ssm_bridged  # noqa: E402
 
 #: |gumbel_port - gumbel_jax| <= this many float32 steps at max(|g|, 1):
-#: each of the two logs may round differently from XLA's by an ulp
-GUMBEL_SPACINGS = 2
+#: none, both logs are XLA's own float32 log
+GUMBEL_SPACINGS = 0
 SEEDS = (0, 1, 5, 836201, 2**31 - 1)
 QS = (0, 1, 2, 2**20, 2**31 - 1, 2**32 - 1)
 VOCABS = (1, 31, 97, 50280, 128256)
@@ -102,6 +102,65 @@ def test_bits_uniform_gumbel_match_jax(v):
     step = np.spacing(np.maximum(np.abs(jg), 1).astype(np.float32))
     assert np.abs(tg - jg).max() <= GUMBEL_SPACINGS * step.max()
     assert (np.abs(tg - jg) <= GUMBEL_SPACINGS * step).all()
+    np.testing.assert_array_equal(tg, jg)
+
+
+def test_xla_log_bit_for_bit():
+    """Every float32 class: random bit patterns (normals, subnormals, both
+    signs, inf, NaN), the neighbourhood of 1 and of sqrt(1/2), and the
+    Gumbel's own range."""
+    rng = np.random.default_rng(7)
+    near1 = (np.float32(1) + np.arange(-4096, 4096, dtype=np.float32)
+             * np.float32(2.0 ** -24))
+    sqrthf = np.float32(0.70710677) + np.arange(
+        -512, 512, dtype=np.float32) * np.float32(2.0 ** -25)
+    x = np.concatenate([
+        rng.integers(-2**31, 2**31, 400_000).astype(np.int32).view(
+            np.float32),
+        rng.uniform(0, 1, 100_000).astype(np.float32),
+        np.exp(rng.uniform(-87.3, 88.7, 100_000)).astype(np.float32),
+        near1, sqrthf,
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, 1e-45, -1e-45,
+                  1e-40, np.finfo(np.float32).tiny,
+                  -np.finfo(np.float32).tiny, np.finfo(np.float32).max,
+                  1.0, 2.0, 0.5], np.float32)])
+    got = prng.xla_log(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jnp.log)(x))
+    np.testing.assert_array_equal(got.view(np.int32)[~np.isnan(want)],
+                                  want.view(np.int32)[~np.isnan(want)])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
+#: (seed, q) pairs: the ROADMAP's key fold_in(fold_in(0, 5), 7) among them
+GUMBEL_KEYS = ((5, 7), (0, 0), (1, 1), (836201, 2**20), (2**31 - 1, 3))
+
+
+@pytest.mark.parametrize("v", [50280, 128256])
+def test_gumbel_bit_for_bit_at_several_keys(v):
+    seeds, qs = zip(*GUMBEL_KEYS)
+    jg = np.asarray(jax.vmap(
+        lambda k: jax.random.gumbel(k, (v,), jnp.float32))(
+            _jkeys(seeds, qs)))
+    np.testing.assert_array_equal(prng.gumbel(_tkeys(seeds, qs),
+                                              (v,)).numpy(), jg)
+
+
+@pytest.mark.parametrize("v", [50280, 128256])
+def test_sample_step_on_exact_ties_matches_jax(v):
+    """Logits -g (g: jax's Gumbels at each row's key) make every perturbed
+    score 0 in float32, so the draw is decided by the last bit of each
+    Gumbel: a port whose Gumbel is one step above jax's anywhere draws
+    another token.  A second batch nudges half the logits one step up."""
+    seeds, qs = zip(*GUMBEL_KEYS)
+    jg = np.asarray(jax.vmap(
+        lambda k: jax.random.gumbel(k, (v,), jnp.float32))(
+            _jkeys(seeds, qs)))
+    knobs = [(1.0, 0, 1.0, 0.0)] * len(seeds)
+    nudge = np.random.default_rng(v).integers(0, 2, jg.shape).astype(bool)
+    for logits in (-jg, np.where(nudge, np.nextafter(-jg, np.float32(np.inf)),
+                                 -jg)):
+        want, got = _both_tokens(logits.astype(np.float32), knobs, seeds, qs)
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

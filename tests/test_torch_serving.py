@@ -72,8 +72,8 @@ def test_engine_preemption_recompute_matches_jax(models, chunks):
 
 def test_engine_rejects_unported_options(models):
     *_, tm, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserving.EngineConfig(kv_format="int8")
+    with pytest.raises(ValueError, match="unknown kv_format"):
+        tserving.EngineConfig(kv_format="int7")
     with pytest.raises(TypeError):
         tserving.EngineConfig(prefix_sharing=True)
     eng = tserving.ServingEngine(tm, tm.cfg, tp,
