@@ -27,7 +27,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      reject; kernel / plain / bound / library-call times; flash_decode's
      arrival counters read 0 after its calls, and its CTAs an SM;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
-     (bf16, full width); 3d: the fused-dequant branch of flash_decode and
+     (bf16, full width); flash_prefill_chunk over a whole layer arena with
+     a slot table (the captured chunk step's call) must equal it over the
+     slot's view bit for bit (3a f32, 3b bf16, 3d int8 / fp8), and a table
+     at the neighbour slot must fail the limit; 3d: the fused-dequant
+     branch of flash_decode and
      flash_prefill_chunk, small f32 shapes over bf16 / int8 / fp8 arenas
      and bf16 q over int8 / fp8 arenas at llama3.2-3b's full width, against
      the plain versions with planted faults (V scaled by K's scales), the
@@ -36,33 +40,42 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
      depth 2), monolithic then chunked, the decode step replayed as the
-     engine's captured CUDA graph (the default on the card), with each
-     kernel's launch count (replays included: flash_decode n_layers x
-     (replays + the warm-up step)), no sampled step and no sampled graph
-     in these greedy runs, and the graph's warm-up and capture time and
-     pool bytes; 4b: short runs under torch.profiler (device
-     time by kernel, the attention and ssd kernels' own line, device busy
-     share; captured in both prefill modes for llama3.2-3b and monolithic
-     for mamba2-2.7b, eager monolithic for both; in a captured run the
-     graph launches must equal the replays, and each kernel's counted
-     launches the ones the profile saw); 4c: the same requests
-     with the eager step (``--no-decode-graph``) and the captured one, 3
-     pairs a prefill mode in alternating order, token streams equal to
-     phase 4's, tok/s and wall ms per decode step; and ms per decode step
-     over decode-only windows (every prompt in, 32 steps synchronised at
-     both ends, 3 alternating pairs); 4d: the sampled decode step, the
+     engine's captured CUDA graph (the default on the card) and each
+     chunk as its length's captured chunk graph (one graph a chunk length
+     used, replays equal to the chunks), with each kernel's launch count
+     (replays included: flash_decode n_layers x (replays + the warm-up
+     step), the chunk kernel n_layers x (chunks + one warm-up a chunk
+     graph)), no sampled step and no sampled graph in these greedy runs,
+     and each graph's warm-up and capture time and pool bytes; 4b: short
+     runs under torch.profiler (device time by kernel, the attention and
+     ssd kernels' own line, device busy share; captured in both prefill
+     modes, and chunked with eager chunk steps; the graph
+     launches must equal the replays, and each attention kernel's counted
+     launches the ones the profile saw); 4c: the same requests with the
+     eager step (``--no-decode-graph``) and the captured one, one pair a
+     prefill mode, token streams equal to phase 4's, tok/s and wall ms per
+     decode step; chunked with eager and captured chunk steps (decode
+     captured), 3 alternating pairs, each run serving the requests twice
+     on one engine (the second wave finds its chunk graphs captured):
+     streams equal, tok/s, TTFT per request, ``host_blocked_s``, and a
+     planted stale device ``start`` that must change the streams; and ms
+     per decode step over decode-only windows (every prompt in, 32 steps
+     synchronised at both ends, one pair); 4d: the sampled decode step, the
      engine's second graph: ``sample_step`` on the card against the CPU at
      4 x 128256 and 4 x 50280 (keys, words, kept sets and tokens bit for
      bit; q + 1 must move the tokens), its device time alone, a
      chi-square of 20000 draws on the card; then phase 4's requests with
      half of them sampled (temperature 0.6, top-k 50, top-p 0.9, min-p
-     0.05), both prefill modes: captured streams equal to eager ones, the
-     greedy requests equal to phase 4's, a sampled request served alone
-     equal to its stream in the batch, and decode-only windows of the
-     greedy twin against the sampled graph (3 alternating pairs); 4e
+     0.05), both prefill modes: captured streams (the sampled graph and
+     the first-draw graph) equal to eager ones, the sampled requests'
+     TTFT, the greedy requests equal to phase 4's, a sampled request
+     served alone equal to its stream in the batch, the first draw alone
+     captured against eager, and decode-only windows of the greedy twin
+     against the sampled graph (one pair); 4e
      (llama3.2-3b): served with narrow KV arenas, bf16 (streams equal
      phase 4's), then int8 and fp8, both prefill modes captured and one
-     eager run (streams equal), every flash_decode launch scaled, the
+     eager run of each (eager decode steps; eager chunk steps), streams
+     equal, every flash_decode launch scaled, the
      chunked first-token logits of the kernel and the plain model within
      the phase 5 limit, kv_row_bytes and arena bytes beside fp32's, the
      token match against fp32 and one decode-only window pair;
@@ -206,8 +219,10 @@ SCALED_REPLACES = {
 PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_kernel",
                     "ssd_tc_kernel<false>", "ssd_tc_kernel<true>",
                     "ssd_f32_kernel")
-# the device kernel(s) of a wrapper that a captured decode step launches
-DEVICE_SYMBOL = {"flash_decode": re.compile(r"\bfd_(?:tc_)?kernel\b")}
+# the device kernel(s) of a wrapper that a captured step launches
+DEVICE_SYMBOL = {"flash_decode": re.compile(r"\bfd_(?:tc_)?kernel\b"),
+                 "flash_prefill_chunk": re.compile(
+                     r"\bfpc_(?:tc_)?kernel\b")}
 # a tensor-core kernel instantiated for an int8 (mangled "a") or fp8 arena
 NARROW_SYMBOL = re.compile(r"ILi\d+E(?:a|13__nv_fp8_e4m3)E")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
@@ -414,6 +429,39 @@ def exact_check(name, got, plain, exact, shares):
                              f"limit")
 
 
+def slot_table_check(torch, ops, label, q, k, v, ks=None, vs=None,
+                     prefix=512, slot=2, dtype_name="bfloat16"):
+    """Phases 3a / 3b / 3d: flash_prefill_chunk over a whole layer arena
+    (N, S, KVH, D) with the slot table [slot] (the captured chunk step's
+    call) against the kernel over the slot's own view, bit for bit (max
+    diff must read 0.0), and against its plain version within the limit;
+    the planted fault, the table at the neighbour slot, must fail that
+    limit.  Returns the max abs error."""
+    P = ops.PLAIN
+    dev = q.device
+    pf = torch.tensor([prefix], device=dev)
+    table = torch.tensor([slot], device=dev)
+    neighbour = torch.tensor([(slot + 1) % k.shape[0]], device=dev)
+    own = slice(slot, slot + 1)
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    got = ops.flash_prefill_chunk(q, k, v, prefix=pf, slots=table, **sc)
+    view = ops.flash_prefill_chunk(
+        q, k[own], v[own], prefix=pf,
+        **({} if ks is None else dict(k_scale=ks[own], v_scale=vs[own])))
+    diff = (got.float() - view.float()).abs().max().item()
+    print(f"  slot table ({label}): over the whole {k.shape[0]}-slot arena "
+          f"with table [{slot}] vs over the slot's view: max diff {diff} "
+          f"(must be 0.0)")
+    assert torch.equal(got, view), (label, diff)
+    return check(f"flash_prefill_chunk {label} slot table", got,
+                 P.flash_prefill_chunk(q, k, v, prefix=pf, slots=table,
+                                       **sc),
+                 dtype_name, f"(prefix {prefix})",
+                 fault=("the table at the neighbour slot",
+                        P.flash_prefill_chunk(q, k, v, prefix=pf,
+                                              slots=neighbour, **sc)))
+
+
 def kernel_checks(torch, ops, cfg):
     """Phase 3a/3b: the attention kernels.  Returns {kernel name:
     record}; the library call is ``F.scaled_dot_product_attention``."""
@@ -447,6 +495,8 @@ def kernel_checks(torch, ops, cfg):
               ops.flash_prefill_chunk(q, k[:2], v[:2], prefix=pre, window=w),
               P.flash_prefill_chunk(q, k[:2], v[:2], prefix=pre, window=w),
               "float32")
+    slot_table_check(torch, ops, "f32", q[:1], k, v, prefix=5, slot=1,
+                     dtype_name="float32")
     q = rn(2, 8, 64, 16, dtype=torch.float32)
     k, v = rn(2, 2, 64, 16, dtype=torch.float32), rn(2, 2, 64, 16,
                                                      dtype=torch.float32)
@@ -531,8 +581,16 @@ def kernel_checks(torch, ops, cfg):
           f"(bf16): {pin} (max diff "
           f"{(chunk_out[0].float() - dec_out.float()).abs().max().item()})")
     assert pin, "chunk/decode bit pin broken at full width"
+    errs.append(slot_table_check(torch, ops, "bf16", q, arena_k[0],
+                                 arena_v[0]))
+    # the main path's call: the whole layer arena and a slot table
+    table = torch.tensor([2], device=dev)
     ms = timed(lambda: flash_prefill_chunk.launch(
-        q, arena_k[nxt(), :1], arena_v[layer[0], :1], pf), 20)
+        q, arena_k[nxt()], arena_v[layer[0]], pf, slots=table), 20)
+    view_ms = timed(lambda: flash_prefill_chunk.launch(
+        q, arena_k[nxt(), 2:3], arena_v[layer[0], 2:3], pf), 20)
+    print(f"  flash_prefill_chunk C={c}: {ms:.4f} ms with the slot table, "
+          f"{view_ms:.4f} ms over the slot's view")
     plain_ms = timed(lambda: P.flash_prefill_chunk(
         q, arena_k[nxt(), :1], arena_v[layer[0], :1], prefix=pf), 5)
     qpos = 512 + torch.arange(c, device=dev)
@@ -697,9 +755,12 @@ def scaled_kernel_checks(torch, ops, cfg):
               f"{(chunk_out[0].float() - dec_out.float()).abs().max().item()}"
               f")")
         assert pin, f"chunk/decode bit pin broken at full width ({fmt})"
+        errs.append(slot_table_check(torch, ops, f"bf16/{fmt}", qc, ak[0],
+                                     av[0], aks[0], avs[0]))
+        table = torch.tensor([2], device=dev)
         ms_c = timed(lambda: flash_prefill_chunk.launch(
-            qc, ak[nxt(), :1], av[layer[0], :1], pf,
-            k_scale=aks[layer[0], :1], v_scale=avs[layer[0], :1]), 20)
+            qc, ak[nxt()], av[layer[0]], pf, k_scale=aks[layer[0]],
+            v_scale=avs[layer[0]], slots=table), 20)
         plain_c = timed(lambda: P.flash_prefill_chunk(
             qc, ak[nxt(), :1], av[layer[0], :1], prefix=pf,
             k_scale=aks[layer[0], :1], v_scale=avs[layer[0], :1]), 5)
@@ -885,8 +946,10 @@ def serving_runs(torch, ops, serve, arch, gen):
         g = eng.graph
         assert g is not None and g.replays == eng.stats["decode_steps"], \
             "the engine must replay its captured decode step"
-        # greedy traffic never captures or runs the sampled graph
+        # greedy traffic never captures or runs the sampled graphs
         assert eng.sampled_graph is None and eng.stats["sampled_steps"] == 0
+        assert eng.draw_graph is None
+        check_chunk_graphs(eng)
         print_graphs(f"  {mode}", eng)
         if cfg.family == "dense":
             # every replayed launch counted, plus the warm-up step's own
@@ -898,32 +961,62 @@ def serving_runs(torch, ops, serve, arch, gen):
         runs[mode] = (eng, out, dt, counts)
     (m_eng, _, _, mono), (c_eng, _, _, chunked) = (runs["monolithic"],
                                                    runs["chunked"])
+    # one launch per layer per prefill and per chunk, each chunk replayed
+    # from its length's graph, plus each chunk graph's parked warm-up (as
+    # flash_decode counts its decode graph's warm-up step)
+    nl = cfg.n_layers
+    chunk_kernel = "ssd" if cfg.family == "ssm" else "flash_prefill_chunk"
+    assert chunked[chunk_kernel] == nl * (c_eng.stats["prefill_chunks"]
+                                          + len(c_eng.chunk_graphs)) > 0, \
+        chunked
     if cfg.family == "ssm":
-        # one ssd launch per layer per prefill and per prefill chunk
-        nl = cfg.n_layers
         assert mono["ssd"] == nl * m_eng.stats["prefills"] > 0, mono
-        assert chunked["ssd"] == nl * c_eng.stats["prefill_chunks"] > 0, \
-            chunked
     else:
         assert mono["flash_attention"] > 0, mono
         assert mono["flash_decode"] > 0, mono
-        assert chunked["flash_prefill_chunk"] > 0, chunked
         assert chunked["flash_decode"] > 0, chunked
     return bundle, params, args, runs
 
 
+def check_chunk_graphs(eng):
+    """A chunked engine on the card replays one captured graph per chunk
+    length it used (``stats["prefill_shapes"]``), once a chunk; a
+    monolithic one holds none."""
+    graphs = eng.chunk_graphs
+    if eng.prefill_chunks is None:
+        assert not graphs, sorted(graphs)
+        return
+    assert sorted(graphs) == sorted(eng._chunk_inputs), sorted(graphs)
+    assert len(graphs) == eng.stats["prefill_shapes"] > 0, \
+        (sorted(graphs), eng.stats["prefill_shapes"])
+    assert sum(g.replays for g in graphs.values()) == \
+        eng.stats["prefill_chunks"], eng.stats["prefill_chunks"]
+
+
 def print_graphs(label, eng):
-    """Print (and check) the cost of the engine's decode graphs, the
-    sampled one where traffic sampled: built before the tok/s clock
-    starts."""
-    for name, g in (("greedy", eng.graph), ("sampled", eng.sampled_graph)):
+    """Print (and check) the cost of the engine's graphs: the decode
+    graphs (the sampled one and the first draw where traffic sampled),
+    built before the tok/s clock starts, and the chunk graphs, one a chunk
+    length, captured at its first chunk inside the run (sharing one pool:
+    a later capture reserves only what the pool cannot serve)."""
+    named = [("greedy decode", eng.graph),
+             ("sampled decode", eng.sampled_graph),
+             ("first draw", eng.draw_graph)]
+    named += [(f"chunk {c}", g) for c, g in sorted(eng.chunk_graphs.items())]
+    for name, g in named:
         if g is None:
             continue
-        assert g.pool_bytes > 0, (name, g.pool_bytes)
-        print(f"{label} {name} decode graph: warm-up {g.warmup_s * 1e3:.1f} "
+        if not name.startswith("chunk"):
+            assert g.pool_bytes > 0, (name, g.pool_bytes)
+        print(f"{label} {name} graph: warm-up {g.warmup_s * 1e3:.1f} "
               f"ms, capture {g.capture_s * 1e3:.1f} ms, pool "
               f"{g.pool_bytes / 1e6:.1f} MB; {g.replays} replays of "
               f"{g.launches}")
+    if eng.chunk_graphs:
+        pool = sum(g.pool_bytes for g in eng.chunk_graphs.values())
+        assert pool > 0, pool
+        print(f"{label} chunk graphs: {len(eng.chunk_graphs)} sharing one "
+              f"pool of {pool / 1e6:.1f} MB")
 
 
 def device_time(prof):
@@ -943,21 +1036,24 @@ def device_time(prof):
     return sorted(rows, reverse=True), graph_launches
 
 
-def profile_run(torch, ops, serve, bundle, params, mode, graph=True):
+def profile_run(torch, ops, serve, bundle, params, mode, chunk_graph=True):
     """Phase 4b: one short run in prefill ``mode`` (4 requests, prompts
-    1024/768, 16 new tokens), its decode step captured (``graph``) or
-    eager, under torch.profiler: device time by kernel, the attention and
-    ssd kernels' own line, and the device's busy share of the wall time
-    (the kernels' summed device time; profiler overhead included in the
-    wall).  The engine (and its graph) is built before the profile
-    starts.  Returns the busy share, or None when the profiler recorded no
-    device time."""
+    1024/768, 16 new tokens), its decode step captured, its chunks
+    (chunked mode) captured (``chunk_graph``) or eager, under
+    torch.profiler: device time by kernel, the attention and ssd kernels'
+    own line, and the device's busy share of the wall time (the kernels'
+    summed device time; profiler overhead included in the wall).  The
+    engine (and its decode graph) is built before the profile starts; its
+    chunk graphs are captured inside, at each length's first chunk.
+    Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(["--arch", bundle.name, "--gen", "16",
-                             "--prefill-mode", mode] + SERVE_ARGS
-                            + ([] if graph else ["--no-decode-graph"]))
+                             "--prefill-mode", mode] + SERVE_ARGS)
+    args.chunk_graph = chunk_graph
     eng = serve.engine(bundle, params, args)
-    label = f"{bundle.name} {mode} {'captured' if graph else 'eager'}"
+    label = (f"{bundle.name} {mode} captured"
+             + ("" if mode == "monolithic" or chunk_graph
+                else ", eager chunks"))
     before = ops.launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -969,13 +1065,9 @@ def profile_run(torch, ops, serve, bundle, params, mode, graph=True):
     counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
     rows, graph_launches = device_time(prof)
     busy = sum(r[0] for r in rows) / 1e3
-    if not rows:
-        # a captured run's replayed launches are counted, not seen: with no
-        # device events they cannot be held against the device
-        assert not graph, f"phase 4b: {label}: profiler saw no device time"
-        print(f"phase 4b: {label}: profiler recorded no device time (not "
-              f"measured)")
-        return None
+    # a captured run's replayed launches are counted, not seen: with no
+    # device events they cannot be held against the device
+    assert rows, f"phase 4b: {label}: profiler saw no device time"
     own = {}
     for us, n, key in rows:
         for kname in PROFILED_KERNELS:
@@ -986,21 +1078,22 @@ def profile_run(torch, ops, serve, bundle, params, mode, graph=True):
         print(f"phase 4b: {label}: the port's kernels' device "
               f"time: " + ", ".join(f"{k} {t:.3f} ms in {c} launches"
                                     for k, (t, c) in own.items()))
-    if graph:
-        # the counts each replay adds (``ops.add_launches``) against the
-        # kernels the device ran in the same run
-        print(f"phase 4b: {label}: {graph_launches} cudaGraphLaunch calls "
-              f"for {eng.graph.replays} replays")
-        assert graph_launches == eng.graph.replays, \
-            (graph_launches, eng.graph.replays)
-        for name in eng.graph.launches:
-            symbol = DEVICE_SYMBOL[name]
-            seen = sum(n for _, n, key in rows if symbol.search(key))
-            print(f"phase 4b: {label}: {name} kernels in the profile {seen} "
-                  f"of {counted[name]} counted"
-                  + ("; the profiler shows graph launches in place of their "
-                     "kernels" if not seen else ""))
-            assert seen == counted[name], (name, seen, counted[name])
+    # the counts each replay adds (``ops.add_launches``) against the
+    # kernels the device ran in the same run
+    graphs = [eng.graph, *eng.chunk_graphs.values()]
+    replays = sum(g.replays for g in graphs)
+    print(f"phase 4b: {label}: {graph_launches} cudaGraphLaunch calls for "
+          f"{replays} replays ({len(graphs)} graphs)")
+    assert graph_launches == replays, (graph_launches, replays)
+    for name in sorted({k for g in graphs for k in g.launches}
+                       & set(DEVICE_SYMBOL)):
+        symbol = DEVICE_SYMBOL[name]
+        seen = sum(n for _, n, key in rows if symbol.search(key))
+        print(f"phase 4b: {label}: {name} kernels in the profile {seen} of "
+              f"{counted[name]} counted"
+              + ("; the profiler shows graph launches in place of their "
+                 "kernels" if not seen else ""))
+        assert seen == counted[name], (name, seen, counted[name])
     print(f"phase 4b: {label} profiled run, "
           f"{eng.stats['decode_steps']} decode steps + "
           f"{eng.stats['prefills']} prefills "
@@ -1054,6 +1147,92 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
                   f"{[round(r[0], 1) for r in res[kind]]}, ms per decode "
                   f"step incl. prefill {[round(r[1], 2) for r in res[kind]]}")
     return table
+
+
+def chunk_pairs(torch, serve, bundle, params, runs, gen, pairs=3):
+    """Phase 4c (chunks): phase 4's chunked requests with eager chunk steps
+    (``chunk_graph = False``) and with the captured ones, the decode step
+    captured in both, ``pairs`` pairs in alternating order.  Each run
+    serves them twice on one engine: the first wave as phase 4 does (a
+    captured engine captures its chunk graphs inside it, at each length's
+    first chunk), then the same prompts again as new requests (the
+    graphs already captured).  Every wave's streams must equal phase 4's
+    chunked run's.  Then the planted fault: a captured run whose host
+    skips writing the chunk's device ``start`` (each replay reads a stale
+    one) must give other streams.  Returns {kind: {wave: [(tok/s, {uid:
+    TTFT s}, host_blocked_s), ...]}}."""
+    import numpy as np
+    from repro_torch.runtime.serving import Request
+    base = (["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+            + ["--prefill-mode", "chunked"])
+    want = runs["chunked"][1]
+    kinds = ("eager chunks", "captured chunks")
+    waves = ("first", "second")
+    res = {kind: {wave: [] for wave in waves} for kind in kinds}
+    for i in range(pairs):
+        for kind in (kinds if i % 2 == 0 else kinds[::-1]):
+            args = serve.parse_args(base)
+            args.chunk_graph = kind == "captured chunks"
+            eng, out, dt = serve.serve(bundle, params, args)
+            assert bool(eng.chunk_graphs) == args.chunk_graph
+            if args.chunk_graph:
+                check_chunk_graphs(eng)
+            assert same_streams(out, want), (kind, i)
+            st = eng.stats
+            total = sum(o.size for o in out.values())
+            res[kind]["first"].append((total / dt, dict(st["ttft_s"]),
+                                       st["host_blocked_s"]))
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, bundle.cfg.vocab, n)
+                       for n in serve.prompt_lengths(args)]
+            for uid, prompt in enumerate(prompts):
+                eng.submit(Request(uid=100 + uid, prompt=prompt,
+                                   max_new_tokens=gen))
+            blocked = st["host_blocked_s"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert all((again[100 + u] == want[u]).all() for u in want), \
+                (kind, i)
+            if args.chunk_graph:
+                check_chunk_graphs(eng)
+            res[kind]["second"].append((
+                total / dt, {u: st["ttft_s"][100 + u] for u in want},
+                st["host_blocked_s"] - blocked))
+            del eng, out, again
+    print(f"phase 4c: {bundle.name} chunked: token streams of {2 * pairs} "
+          f"runs (eager and captured chunk steps, alternating; decode "
+          f"captured), two waves each, equal phase 4's chunked run's")
+    for kind in kinds:
+        for wave in waves:
+            rows = res[kind][wave]
+            ttft = {u: statistics.median(r[1][u] for r in rows)
+                    for u in rows[0][1]}
+            print(f"  {kind:15s} {wave} wave: tok/s "
+                  f"{[round(r[0], 1) for r in rows]}; TTFT ms per request "
+                  f"(median of {pairs}) "
+                  f"{ {u: round(1e3 * t, 1) for u, t in sorted(ttft.items())} }"
+                  f"; host_blocked_s {[round(r[2], 4) for r in rows]}")
+    eng = serve.engine(bundle, params, serve.parse_args(base))
+    stage, inputs = eng._stage, eng._chunk_inputs
+
+    def skip_start(dst, values):
+        if any(dst is scalars for _, scalars in inputs.values()):
+            stage(dst[0:1], values[0:1])
+            stage(dst[2:3], values[2:3])
+        else:
+            stage(dst, values)
+
+    eng._stage = skip_start
+    bad = eng.run()
+    differ = [u for u in sorted(want) if not (bad[u] == want[u]).all()]
+    print(f"phase 4c: {bundle.name} planted fault (the host skips each "
+          f"chunk's start write, replays read a stale device start): "
+          f"streams of requests {differ} differ from phase 4's")
+    assert differ, "a stale chunk start went unseen"
+    return res
 
 
 def decode_window(torch, serve, bundle, params, kinds=None, pairs=3,
@@ -1279,12 +1458,17 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
         assert eng.sampled_graph.replays == st["sampled_steps"]
         assert eng.graph.replays + eng.sampled_graph.replays == \
             st["decode_steps"]
+        # one first draw a sampled admission, each a replay
+        assert eng.draw_graph.replays == st["sampled_requests"], \
+            eng.draw_graph.replays
+        check_chunk_graphs(eng)
         if cfg.family == "dense":
             assert counts["flash_decode"] == cfg.n_layers * (
                 st["decode_steps"] + 2), counts
         else:
             assert counts["ssd"] == cfg.n_layers * (
-                st["prefills"] + st["prefill_chunks"]) > 0, counts
+                st["prefills"] + st["prefill_chunks"]
+                + len(eng.chunk_graphs)) > 0, counts
         print(f"phase 4d: {bundle.name} {mode}, requests "
               f"{[i for i, sp in enumerate(plan) if not sp.is_greedy]} "
               f"sampled: {total} tokens in {dt:.3f} s = {total / dt:.1f} "
@@ -1294,8 +1478,17 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
         eargs = serve.parse_args(base + ["--prefill-mode", mode,
                                          "--no-decode-graph"])
         e_eng, e_out, e_dt = serve.serve(bundle, params, eargs)
-        assert e_eng.sampled_graph is None
+        assert e_eng.sampled_graph is None and e_eng.draw_graph is None
         assert same_streams(out, e_out), mode
+        sampled = [i for i, sp in enumerate(plan) if not sp.is_greedy]
+        print(f"phase 4d: {bundle.name} {mode}: TTFT ms of the sampled "
+              f"requests {sampled}, first draw captured "
+              f"{[round(1e3 * st['ttft_s'][u], 1) for u in sampled]}, eager "
+              f"{[round(1e3 * e_eng.stats['ttft_s'][u], 1) for u in sampled]}"
+              f"; of the greedy ones captured "
+              f"{[round(1e3 * st['ttft_s'][u], 1) for u in range(len(plan)) if u not in sampled]}")
+        if mode == "monolithic":
+            draw_times(torch, eng)
         want = runs[mode][1]
         greedy = [i for i, sp in enumerate(plan) if sp.is_greedy]
         for uid in greedy:
@@ -1322,6 +1515,27 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
         res[mode] = (total / dt, st["sampled_steps"], st["decode_steps"])
         del eng, e_eng, alone
     return res, all_counts
+
+
+def draw_times(torch, eng, n=20):
+    """Phase 4d: the first draw alone at the model's vocabulary, wall ms a
+    draw (synchronised), the captured graph's replay against the same step
+    run eagerly, in alternating windows of ``n``."""
+    ms = {"captured": [], "eager": []}
+    for i in range(4):
+        for kind in (("captured", "eager") if i % 2 == 0
+                     else ("eager", "captured")):
+            step = (eng.draw_graph.replay if kind == "captured"
+                    else eng._first_draw_step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            ms[kind].append(1e3 * (time.perf_counter() - t0) / n)
+    print(f"phase 4d: first draw alone at V={eng.cfg.vocab}, wall ms a "
+          f"draw: " + ", ".join(f"{k} {[round(x, 3) for x in v]}"
+                                for k, v in ms.items()))
 
 
 def narrow_logits(torch, ops, bundle, params, prompt, fmt):
@@ -1367,11 +1581,13 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
     nl = cfg.n_layers
     all_counts = []
 
-    def run(mode, fmt, eager=False):
+    def run(mode, fmt, eager=False, chunk_graph=True):
         args = serve.parse_args(base + ["--prefill-mode", mode]
                                 + (["--no-decode-graph", "--gen", "16"]
-                                   if eager else []))
+                                   if eager else [])
+                                + ([] if chunk_graph else ["--gen", "16"]))
         args.kv_format = fmt
+        args.chunk_graph = chunk_graph
         ops.reset_launch_counts()
         eng, out, dt = serve.serve(bundle, params, args)
         return eng, out, dt, ops.launch_counts()
@@ -1395,9 +1611,11 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
                 == nl * (steps + 1), counts
             assert counts["flash_prefill_chunk_scaled"] == \
                 counts["flash_prefill_chunk"], counts
+            check_chunk_graphs(eng)
             if mode == "chunked":
-                assert counts["flash_prefill_chunk_scaled"] == \
-                    nl * eng.stats["prefill_chunks"] > 0, counts
+                assert counts["flash_prefill_chunk_scaled"] == nl * (
+                    eng.stats["prefill_chunks"] + len(eng.chunk_graphs)) \
+                    > 0, counts
             assert eng.cache_mgr.free_pages == eng.cache_mgr.num_pages
             assert eng.cache_mgr.scale_sidecar_pages == 0
             report = tolerance.compare_streams(runs[mode][1], out)
@@ -1416,8 +1634,15 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
         head = {u: o[:16] for u, o in outs["monolithic"].items()}
         assert same_streams(head, e_out), fmt
         e_tok = sum(o.size for o in e_out.values()) / e_dt
+        c_eng, c_out, _, _ = run("chunked", fmt, chunk_graph=False)
+        assert not c_eng.chunk_graphs
+        head = {u: o[:16] for u, o in outs["chunked"].items()}
+        assert same_streams(head, c_out), fmt
         print(f"phase 4e: {fmt}: the captured monolithic streams' first 16 "
-              f"tokens equal the eager engine's ({e_tok:.1f} tok/s eager)")
+              f"tokens equal the eager engine's ({e_tok:.1f} tok/s eager); "
+              f"the captured chunked streams' first 16 equal those of eager "
+              f"chunk steps")
+        del e_eng, c_eng
         rng = np.random.default_rng(0)
         lens = serve.prompt_lengths(serve.parse_args(base))
         prompt = torch.as_tensor(rng.integers(0, cfg.vocab, lens[0]),
@@ -2009,6 +2234,11 @@ def main() -> int:
           f"{torch.version.cuda}, capability "
           f"{torch.cuda.get_device_capability(0)}")
 
+    start = time.perf_counter()
+
+    def stamp(what):
+        print(f"timing: {what} done at {time.perf_counter() - start:.1f} s")
+
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"phase 2: built {sorted(secs)} in "
@@ -2023,24 +2253,34 @@ def main() -> int:
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
     for name in sorted(rec):
         bound(rec[name])
+    stamp("phases 1-3")
     all_runs = []
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)
-        busy = {("monolithic", "eager"): profile_run(
-            torch, ops, serve, bundle, params, "monolithic", graph=False)}
-        for mode in (("monolithic",) if bundle.cfg.family == "ssm"
-                     else ("monolithic", "chunked")):
-            busy[(mode, "captured")] = profile_run(torch, ops, serve, bundle,
-                                                   params, mode)
-        pairs = eager_vs_captured(serve, bundle, params, runs, gen=64)
-        window, wbusy = decode_window(torch, serve, bundle, params)
+        stamp(f"{arch} phase 4")
+        # no eager-decode profile (its busy share is recorded in PERF.md):
+        # it holds the smoke's time with the chunk profiles added
+        busy = {(mode, "captured"): profile_run(torch, ops, serve, bundle,
+                                                params, mode)
+                for mode in ("monolithic", "chunked")}
+        busy[("chunked", "eager chunks")] = profile_run(
+            torch, ops, serve, bundle, params, "chunked", chunk_graph=False)
+        stamp(f"{arch} phase 4b")
+        # the decode-step timing pairs run once (their checks in full) to
+        # hold the smoke's time with the chunk pairs added
+        pairs = eager_vs_captured(serve, bundle, params, runs, gen=64,
+                                  pairs=1)
+        cpairs = chunk_pairs(torch, serve, bundle, params, runs, gen=64)
+        window, wbusy = decode_window(torch, serve, bundle, params, pairs=1)
+        stamp(f"{arch} phase 4c")
         mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params,
                                        runs)
         swindow, sbusy = decode_window(
-            torch, serve, bundle, params, same=False, phase="4d",
+            torch, serve, bundle, params, same=False, phase="4d", pairs=1,
             kinds={"greedy": [], "sampled": SAMPLE_ARGS
                    + ["--sampling-mix", "1.0"]})
+        stamp(f"{arch} phase 4d")
         print(f"phase 4d: {bundle.name} summary ({smi}): mixed runs "
               + "; ".join(f"{mode} {r[0]:.1f} tok/s ({r[1]} of {r[2]} steps "
                           f"sampled)" for mode, r in mixed.items())
@@ -2055,16 +2295,27 @@ def main() -> int:
             f"{kind} {statistics.median(ms):.3f} ms a step (device "
             f"{wbusy[kind][0]:.3f} ms)" for kind, ms in window.items())
             + "; device busy (4b) " + ", ".join(
-            f"{mode} {kind} " + ("not measured" if b is None
-                                 else f"{100 * b:.1f}%")
+            f"{mode} {kind} {100 * b:.1f}%"
             for (mode, kind), b in busy.items()))
+        print(f"phase 4c: {bundle.name} chunked summary ({smi}), medians: "
+              + "; ".join(
+                  f"{kind} {wave} wave "
+                  f"{statistics.median(r[0] for r in rows):.1f} tok/s, TTFT "
+                  f"{1e3 * statistics.median(t for r in rows for t in r[1].values()):.1f}"
+                  f" ms (all requests), host_blocked_s "
+                  f"{statistics.median(r[2] for r in rows):.4f}"
+                  for kind, by_wave in cpairs.items()
+                  for wave, rows in by_wave.items()))
         if bundle.cfg.family == "dense":
             all_runs += narrow_runs(torch, ops, serve, bundle, params, runs)
+            stamp(f"{arch} phase 4e")
         end_to_end(torch, ops, serve, bundle, params, args, runs)
+        stamp(f"{arch} phase 5")
         all_runs += [run[3] for run in runs.values()] + counts4d
         del bundle, params, runs
         torch.cuda.empty_cache()
     vu_rec, vu_counts = vector_unit_phase(torch, ops)
+    stamp("phase 6")
     for name in sorted(vu_rec):
         bound(vu_rec[name])
     rec.update(vu_rec)

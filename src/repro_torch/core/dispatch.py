@@ -8,10 +8,16 @@ copied ``non_blocking`` into pinned host memory and a CUDA event is
 recorded behind the copy; :meth:`Readback.wait` synchronises on that event
 only.  ``depth=0`` synchronises every step (the paper's blocking
 dispatcher).  On the CPU the copy is a plain clone and nothing waits.
+
+:class:`HostStaging` is the other direction: small host values (a chunk's
+tokens, a captured step's scalars) copied ``non_blocking`` from pinned
+memory into device buffers, so writing them never waits on the steps in
+flight.
 """
 from __future__ import annotations
 
 import collections
+import time
 from typing import Callable
 
 import numpy as np
@@ -66,3 +72,48 @@ class DispatchQueue:
     def drain(self) -> None:
         while self._inflight:
             self._inflight.popleft().wait()
+
+
+class HostStaging:
+    """Host-to-device writes of small values that do not wait on the device.
+
+    :meth:`write` puts ``values`` into device tensor ``dst`` in place: into
+    one of ``ring`` pinned staging buffers of ``nbytes`` bytes, then
+    ``dst.copy_(..., non_blocking=True)`` on the current stream, a CUDA
+    event recorded behind the copy.  A buffer is reused only once its
+    event has completed (the host waits on it then: with a ring much longer
+    than the copies a step makes, it has long completed; :meth:`write`
+    returns the seconds it waited).  A pageable copy would instead wait for
+    every step in flight on the stream.  For a CPU ``dst`` the values are
+    copied directly.
+    """
+
+    def __init__(self, device, *, nbytes: int, ring: int = 64):
+        self.device = torch.device(device)
+        self.nbytes = -(-nbytes // 16) * 16
+        self._next = 0
+        if self.device.type == "cuda":
+            self._host = torch.empty((ring, self.nbytes), dtype=torch.uint8,
+                                     pin_memory=True)
+            self._events = [torch.cuda.Event() for _ in range(ring)]
+
+    def write(self, dst: torch.Tensor, values) -> float:
+        src = torch.as_tensor(np.asarray(values), dtype=dst.dtype).reshape(
+            dst.shape)
+        if self.device.type != "cuda":
+            dst.copy_(src)
+            return 0.0
+        n = src.numel() * src.element_size()
+        if n > self.nbytes:
+            raise ValueError(f"{n} bytes to stage, buffers hold "
+                             f"{self.nbytes}")
+        i = self._next
+        self._next = (i + 1) % len(self._events)
+        t0 = time.perf_counter()
+        self._events[i].synchronize()
+        waited = time.perf_counter() - t0
+        buf = self._host[i, :n].view(dst.dtype).view(dst.shape)
+        buf.copy_(src)
+        dst.copy_(buf, non_blocking=True)
+        self._events[i].record(torch.cuda.current_stream(self.device))
+        return waited

@@ -98,7 +98,15 @@ struct Problem {
   const float* ks = nullptr;
   const float* vs = nullptr;
   long long ssb = 0, sss = 0, ssh = 0;
+  // slot table (flash_prefill_chunk over the whole arena): query batch b
+  // reads arena batch row slots[b] (K, V and their scales); null -> b
+  const int* slots = nullptr;
 };
+
+// The arena batch row that query batch b reads.
+__device__ __forceinline__ int arena_row(const Problem& p, int b) {
+  return p.slots ? p.slots[b] : b;
+}
 
 // Does query position qpos see key kpos?  Keys past Sk never: a parked
 // decode slot's position (~2^30) walks only [0, Sk).

@@ -21,6 +21,11 @@
 // So row j equals flash_decode at pos = prefix + j bit for bit, which
 // speculative verify relies on (transformer.py:703-713 in the reference).
 //
+// Slot table: given the whole arena (slots, Sk, KVH, D) and slots (B,) on
+// the device, query batch b reads arena row slots[b] (its K/V through the
+// TMA maps' batch coordinate, its scales by stride), so a captured chunk
+// step reads its slot as data.  It changes addressing only: the pin holds.
+//
 // Narrow arenas (the TPU kernel's scaled branch, flash_prefill_chunk.py:
 // 38-44,73-76): int8 or fp8 e4m3 K/V with (B, Sk, KVH) f32 scales, or bf16
 // under f32 queries, read and widened as flash_decode reads them (the same
@@ -48,7 +53,7 @@ __global__ void __launch_bounds__(NT) fpc_kernel(Problem p) {
     for (int w = 0; w < TT::DPT; ++w) A[v][w] = 0.f;
   for (int k0 = 0; k0 < p.Sk; k0 += SPLIT) {
     if (k0 > t.qlim[1]) break;      // causal: no row of the tile sees it
-    t.run_keys(p, b, kvh, k0, min(k0 + SPLIT, p.Sk));
+    t.run_keys(p, arena_row(p, b), kvh, k0, min(k0 + SPLIT, p.Sk));
     t.merge_into(A);
   }
   t.store(p, b, kvh, r0, A, t.GL);
@@ -83,18 +88,18 @@ fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   // (alpha 1, zero partial), as in flash_decode's combine
   constexpr int PER = SPLIT / BK;
   const int last = t.lim[1];
-  t.run(p, &mk, &mv, kvh, b * bmul, t.lim[0], last, [&](int n) {
+  t.run(p, &mk, &mv, kvh, t.b * bmul, t.lim[0], last, [&](int n) {
     if (n == last || (n + 1) % PER == 0) t.merge_into(A, GM, GL);
   });
   t.store(p, b, kvh, r0, A, GL);
 }
 
 template <int D, typename KT>
-static int fpc_tc_run(const Problem& p, int B, cudaStream_t st) {
+static int fpc_tc_run(const Problem& p, int B, int NA, cudaStream_t st) {
   if (!p.vec) return (int)cudaErrorInvalidValue;
   CUtensorMap mk, mv;
   int bmul;
-  int e = tc::make_maps(p, B, &mk, &mv, &bmul, D, (int)sizeof(KT));
+  int e = tc::make_maps(p, NA, &mk, &mv, &bmul, D, (int)sizeof(KT));
   if (e) return e;
   const size_t smem = tc::Cfg<D, KT>::smem;
   e = (int)allow_smem(fpc_tc_kernel<D, KT>, smem);
@@ -105,10 +110,11 @@ static int fpc_tc_run(const Problem& p, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// q (B, C, H, D), k/v (B, Sk, KVH, D), o (B, C, H, D) by strides; ks/vs
-// (B, Sk, KVH) f32 scales of an int8 / fp8 arena by strides (null for an
-// unscaled arena); prefix (B,) int32 rows live before the chunk.  Types as
-// fd_launch's.  bf16 needs vec.
+// q (B, C, H, D), k/v (NA, Sk, KVH, D), o (B, C, H, D) by strides; ks/vs
+// (NA, Sk, KVH) f32 scales of an int8 / fp8 arena by strides (null for an
+// unscaled arena); prefix (B,) int32 rows live before the chunk; slots (B,)
+// int32 arena rows of the query batches (null: NA == B, batch b reads row
+// b).  Types as fd_launch's.  bf16 needs vec.
 extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
                           const void* k, const void* v, const float* ks,
                           const float* vs, void* o,
@@ -117,9 +123,9 @@ extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
                           long long svb, long long svs, long long svh,
                           long long ssb, long long sss, long long ssh,
                           long long sob, long long sos, long long soh,
-                          int B, int KVH, int G, int C, int Sk,
-                          const int* prefix, int window, float scale,
-                          int vec, void* stream) {
+                          int B, int NA, int KVH, int G, int C, int Sk,
+                          const int* prefix, const int* slots, int window,
+                          float scale, int vec, void* stream) {
   Problem p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
@@ -128,7 +134,7 @@ extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
   p.sob = sob; p.sos = sos; p.soh = soh;
   p.ks = ks; p.vs = vs; p.ssb = ssb; p.sss = sss; p.ssh = ssh;
   p.KVH = KVH; p.G = G; p.C = C; p.Sk = Sk;
-  p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0;
+  p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0; p.slots = slots;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return dispatch_kv(
@@ -139,6 +145,6 @@ extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
       },
       [&](auto kt, auto d) {
         using KT = typename decltype(kt)::type;
-        return fpc_tc_run<decltype(d)::value, KT>(p, B, st);
+        return fpc_tc_run<decltype(d)::value, KT>(p, B, NA, st);
       });
 }

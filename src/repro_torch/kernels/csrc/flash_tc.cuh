@@ -323,7 +323,7 @@ struct TcTile {
   float m[2], l[2];     // split-local max / sum of this thread's two rows
   int qpos[2];
   int tid, lane, row0;  // this thread's rows: row0 and row0 + 8
-  int b;                // the batch row (its scales' index)
+  int b;                // the arena batch row (its scales' index)
 
   __device__ __forceinline__ void init(char* smem) {
     char* base = reinterpret_cast<char*>(
@@ -378,7 +378,7 @@ struct TcTile {
       *reinterpret_cast<uint4*>(q_s + (c / 8) * BOX_BYTES + r * 128
                                 + ((c % 8) ^ (r % 8)) * 16) = x;
     }
-    this->b = b;
+    this->b = arena_row(p, b);
     const int base = (p.qbase ? p.qbase[b] : p.qbase0) + p.qbase_add;
     for (int r = tid; r < ROWS; r += NT) {
       const int R = r0 + r;

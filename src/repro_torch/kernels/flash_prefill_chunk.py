@@ -13,7 +13,11 @@ prefix + i and sees ``kpos <= prefix + i``.  ``prefix`` is runtime data.
 
 Both take the fused-dequant branch of the TPU kernel (``_fpc_kernel``,
 flash_prefill_chunk.py:38-44,73-76): an int8 or fp8 arena with its (B, S,
-KVH) f32 scales, as flash_decode does.
+KVH) f32 scales, as flash_decode does.  Both also take a slot table
+``slots`` (B,) over the whole arena (N, S, KVH, hd): query batch b reads
+arena row ``slots[b]``, so a captured chunk step (the serving engine's
+chunk graphs) reads its slot as device data, where the reference traces a
+``dynamic_slice`` of the arena (transformer.py:588).
 """
 from __future__ import annotations
 
@@ -36,12 +40,20 @@ launches_scaled = 0
 
 
 def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
-                              bk: int = 512, k_scale=None, v_scale=None):
-    """q: (B, KVH, G, C, hd); k/v: (B, S, KVH, hd); prefix: (B,) rows live
-    before the chunk.  Strip-mined online softmax; chunk row i attends
+                              bk: int = 512, k_scale=None, v_scale=None,
+                              slots=None):
+    """q: (B, KVH, G, C, hd); k/v: (B, S, KVH, hd), or (N, S, KVH, hd)
+    with ``slots`` (B,) naming each batch's arena row; prefix: (B,) rows
+    live before the chunk.  Strip-mined online softmax; chunk row i attends
     ``kpos <= prefix + i`` (and ``> prefix + i - window``).  ``k_scale`` /
-    ``v_scale`` (B, S, KVH): strips widened and scaled as the reference's
-    ``_flash_prefill_chunk_ref`` does (ops.py:386-420)."""
+    ``v_scale`` (B or N, S, KVH): strips widened and scaled as the
+    reference's ``_flash_prefill_chunk_ref`` does (ops.py:386-420)."""
+    if slots is not None:
+        rows = slots.to(device=k.device, dtype=torch.int64)
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
+        if k_scale is not None:
+            k_scale = k_scale.index_select(0, rows)
+            v_scale = v_scale.index_select(0, rows)
     b, s, kvh, hd = k.shape
     g, c = q.shape[2], q.shape[3]
     scale = scale if scale is not None else hd ** -0.5
@@ -79,31 +91,50 @@ def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
 
 
 _ARGS = ([_build.I] * 3 + [_build.P] * 6 + [_build.LL] * 15
-         + [_build.I] * 5 + [_build.P, _build.I, _build.F, _build.I,
-                             _build.P])
+         + [_build.I] * 6 + [_build.P, _build.P, _build.I, _build.F,
+                             _build.I, _build.P])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            prefix: torch.Tensor, *, window: Optional[int] = None,
            scale: Optional[float] = None,
            k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           v_scale: Optional[torch.Tensor] = None,
+           slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CUDA kernel.  q: (B, C, H, D); k/v: (B, S, KVH, D) read in place by
-    strides; prefix: (B,) int rows live before the chunk; k_scale /
-    v_scale: (B, S, KVH) f32 for an int8 / fp8 arena, None otherwise.
-    Returns (B, C, H, D) in q's dtype."""
+    strides, or the whole arena (N, S, KVH, D) with ``slots`` (B,) int on
+    the device naming each batch's row (kept in [0, N) by the caller: the
+    kernel reads them on the device, unchecked); prefix: (B,) int rows live
+    before the chunk; k_scale / v_scale: (B or N, S, KVH) f32 for an int8 /
+    fp8 arena, None otherwise.  Returns (B, C, H, D) in q's dtype.
+
+    With a slot table the arena is read in place or not at all: an arena
+    the kernel could only read through a copy (``_build.arena_aligned``:
+    rows under 16 bytes) raises, as a copy would move every slot."""
     global launches, launches_scaled
-    _build.require_cuda(NAME, q, k, v, prefix, k_scale, v_scale)
+    _build.require_cuda(NAME, q, k, v, prefix, k_scale, v_scale, slots)
     b, c, h, d = q.shape
-    _, s, kvh, _ = k.shape
+    na, s, kvh, _ = k.shape
     if h % kvh:
         raise ValueError(f"n_heads={h} not divisible by kv_heads={kvh}")
+    if slots is None and na != b:
+        raise ValueError(f"{na} arena rows for {b} query batches and no "
+                         f"slot table")
+    if slots is not None and tuple(slots.shape) != (b,):
+        raise ValueError(f"slots {tuple(slots.shape)}, expected ({b},)")
     qt, kt = _build.kv_codes(q, k, v)
     _build.head_dim_ok(d)
     scaled = _build.scales(k, k_scale, v_scale)
+    given = (k.data_ptr(), v.data_ptr())
     q, k, v, vec = _build.arena_aligned(
         qt, kt, *(_build.inner_contiguous(t) for t in (q, k, v)))
+    if slots is not None and (k.data_ptr(), v.data_ptr()) != given:
+        raise ValueError(f"{NAME}: a slot table reads the arena in place; "
+                         f"this {tuple(k.shape)} {k.dtype} arena would be "
+                         f"copied (rows under 16 bytes or not unit-stride)")
     prefix = prefix.to(device=q.device, dtype=torch.int32).contiguous()
+    if slots is not None:
+        slots = slots.to(device=q.device, dtype=torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     fn = _build.bind(NAME, "fpc_launch", _ARGS)
@@ -114,8 +145,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               v.stride(0), v.stride(1), v.stride(2),
               *_build.scale_strides(k_scale),
               o.stride(0), o.stride(1), o.stride(2),
-              b, kvh, h // kvh, c, s, _build.ptr(prefix), int(window or 0),
-              float(scale), vec, _build.stream_of(q))
+              b, na, kvh, h // kvh, c, s, _build.ptr(prefix),
+              _build.ptr(slots), int(window or 0), float(scale), vec,
+              _build.stream_of(q))
     launches += 1
     launches_scaled += scaled
     _build.check(code, NAME)

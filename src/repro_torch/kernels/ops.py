@@ -201,7 +201,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
-                               bk=512, k_scale=None, v_scale=None):
+                               bk=512, k_scale=None, v_scale=None,
+                               slots=None):
     b, c, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -211,7 +212,8 @@ def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
     qg = q.transpose(1, 2).reshape(b, kvh, g, c, hd)
     out = _fpc.flash_prefill_chunk_plain(qg, k, v, prefix=prefix,
                                          window=window, scale=scale, bk=bk,
-                                         k_scale=k_scale, v_scale=v_scale)
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         slots=slots)
     return out.reshape(b, h, c, hd).transpose(1, 2)
 
 
@@ -219,20 +221,24 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, prefix: torch.Tensor,
                         window: Optional[int] = None,
                         scale: Optional[float] = None, bk: int = 512,
-                        k_scale=None, v_scale=None) -> torch.Tensor:
+                        k_scale=None, v_scale=None,
+                        slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunk-append prefill attention with a runtime causal boundary.
 
     q: (B, C, H, hd); k/v: (B, S, KVH, hd) with the chunk's K/V already at
     rows [prefix, prefix + C); prefix: (B,) rows live before the chunk.
     Returns (B, C, H, hd).  ``k_scale`` / ``v_scale``: as for
-    :func:`flash_decode`.
+    :func:`flash_decode`.  ``slots`` (B,) int: k/v (and the scales) are
+    the whole arena (N, S, KVH, hd) and batch b reads its row
+    ``slots[b]`` (None: row b of a (B, ...) arena).
     """
-    if not _on_cuda(q, k, v, prefix, k_scale, v_scale):
+    if not _on_cuda(q, k, v, prefix, k_scale, v_scale, slots):
         return _flash_prefill_chunk_plain(q, k, v, prefix=prefix,
                                           window=window, scale=scale, bk=bk,
-                                          k_scale=k_scale, v_scale=v_scale)
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          slots=slots)
     return _fpc.launch(q, k, v, prefix, window=window, scale=scale,
-                       k_scale=k_scale, v_scale=v_scale)
+                       k_scale=k_scale, v_scale=v_scale, slots=slots)
 
 
 # ---------------------------------------------------------------------------

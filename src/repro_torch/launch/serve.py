@@ -21,7 +21,9 @@ builds the published config (the reference's flag is ``store_true`` with
 ``default=True`` and so can never be switched off).  On the card the
 engine replays its decode steps (greedy and sampled) as captured CUDA
 graphs; ``--no-decode-graph`` runs them eagerly
-(``EngineConfig.decode_graph``).
+(``EngineConfig.decode_graph``).  Chunked prefill replays one captured
+graph per chunk length; ``EngineConfig.chunk_graph`` (the namespace's
+``chunk_graph``, no flag) runs the chunks eagerly.
 """
 from __future__ import annotations
 
@@ -92,6 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    action="store_false",
                    help="run the decode step eagerly on the card too "
                         "(default: replay it as a captured CUDA graph)")
+    # EngineConfig.chunk_graph has no flag; a caller may set the attribute
+    p.set_defaults(chunk_graph=True)
     return p.parse_args(argv)
 
 
@@ -124,7 +128,7 @@ def engine_config(args, lens) -> EngineConfig:
         depth=args.depth, page_size=args.page_size, num_pages=args.pages,
         prefill_chunks=chunks, prefill_budget=args.prefill_budget,
         kv_format=args.kv_format, base_seed=args.seed,
-        decode_graph=args.decode_graph)
+        decode_graph=args.decode_graph, chunk_graph=args.chunk_graph)
 
 
 def sampling_plan(n_requests: int, *, temperature: float, top_k: int,
@@ -200,9 +204,13 @@ def report_stats(eng: ServingEngine) -> None:
           f"(greedy={total - sampled}; {per_req}; keys fold "
           f"(seed, position) — batch/preemption invariant)")
     print("scheduler:", eng.scheduler.stats)
-    for name, g in (("greedy", eng.graph), ("sampled", eng.sampled_graph)):
+    graphs = [("greedy decode", eng.graph),
+              ("sampled decode", eng.sampled_graph),
+              ("first draw", eng.draw_graph)]
+    graphs += [(f"chunk {c}", g) for c, g in sorted(eng.chunk_graphs.items())]
+    for name, g in graphs:
         if g is not None:
-            print(f"{name} decode graph: warm-up {g.warmup_s * 1e3:.1f} ms, "
+            print(f"{name} graph: warm-up {g.warmup_s * 1e3:.1f} ms, "
                   f"capture {g.capture_s * 1e3:.1f} ms, pool "
                   f"{g.pool_bytes / 1e6:.1f} MB, {g.replays} replays of "
                   f"{g.launches} kernel launches")

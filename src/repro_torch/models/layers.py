@@ -160,27 +160,56 @@ def _scales(view: dict) -> dict:
     return {"k_scale": view.get("k_scale"), "v_scale": view.get("v_scale")}
 
 
-def attention_chunk(p: dict, cfg, x: torch.Tensor, slot_kv: dict,
-                    positions: torch.Tensor, start: int,
-                    prefix: torch.Tensor, *, window: Optional[int] = None,
-                    kops=ops) -> torch.Tensor:
-    """One prompt chunk: write its K/V rows (quantized to the arena's
-    format, with their scales) into the slot's arena view at rows [start,
-    start + C) (rows past max_seq dropped), then attend the slot's prefix +
-    the chunk with ``flash_prefill_chunk`` over the stored rows.
+def write_chunk_rows(arena: torch.Tensor, rows: torch.Tensor,
+                     slot: torch.Tensor, start: torch.Tensor) -> None:
+    """arena[slot, start + j] = rows[j] in place, for the j with start + j
+    < S: the chunk counterpart of :func:`write_rows`, with ``slot`` and
+    ``start`` 0-d int64 device tensors (the captured chunk step reads them
+    as data).
 
-    x: (B, C, d); ``slot_kv``: {"k", "v"} views (B, Smax, KVH, hd) of the
-    resident arena (+ {"k_scale", "v_scale"} (B, Smax, KVH) for a scaled
-    format); ``prefix``: (B,) int32 tensor holding ``start``.
+    arena: one layer's (N, S, ...) leaf (K/V rows (N, S, KVH, hd), or their
+    scales (N, S, KVH)); rows: (C, ...) with C <= S.  Row j goes to row
+    (start + j) mod S of the slot, keeping the old value where start + j >=
+    S: C consecutive rows mod S are distinct, so no two writes meet, and a
+    chunk at start = ``PARKED_POS`` (the captured step's warm-up) writes
+    every row back unchanged; the reference drops those rows with its
+    out-of-bounds scatter.  No host read, no boolean-mask index.
+    """
+    n, s = arena.shape[:2]
+    c = rows.shape[0]
+    if c > s:
+        raise ValueError(f"a chunk of {c} rows does not fit {s} arena rows")
+    pos = start + torch.arange(c, device=arena.device)
+    flat = arena.view(n * s, *arena.shape[2:])     # raises unless a view
+    idx = slot * s + pos % s
+    keep = flat.index_select(0, idx)
+    ok = (pos < s).view(c, *[1] * (rows.ndim - 1))
+    # index_put_, not index_copy_: the latter has no fp8 kernel on the CPU
+    flat.index_put_((idx,), torch.where(ok, rows.to(arena.dtype), keep))
+
+
+def attention_chunk(p: dict, cfg, x: torch.Tensor, layer_kv: dict,
+                    slot: torch.Tensor, positions: torch.Tensor,
+                    start: torch.Tensor, prefix: torch.Tensor, *,
+                    window: Optional[int] = None, kops=ops) -> torch.Tensor:
+    """One prompt chunk: write its K/V rows (quantized to the arena's
+    format, with their scales) into arena slot ``slot`` at rows [start,
+    start + C) (rows past max_seq dropped, :func:`write_chunk_rows`), then
+    attend the slot's prefix + the chunk with ``flash_prefill_chunk`` over
+    the stored rows, reading the slot through its slot table.
+
+    x: (1, C, d); ``layer_kv``: one layer's arena {"k", "v"} (N, Smax, KVH,
+    hd) (+ {"k_scale", "v_scale"} (N, Smax, KVH) for a scaled format);
+    ``slot`` / ``start``: 0-d int64 device tensors; ``prefix``: (1,) int32
+    holding ``start``.
     """
     b, c, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    n = max(0, min(c, slot_kv["k"].shape[1] - start))
-    for key, rows in _quantized(slot_kv, k, v).items():
-        slot_kv[key][:, start:start + n] = rows[:, :n]
-    o = kops.flash_prefill_chunk(q, slot_kv["k"], slot_kv["v"],
+    for key, rows in _quantized(layer_kv, k, v).items():
+        write_chunk_rows(layer_kv[key], rows[0], slot, start)
+    o = kops.flash_prefill_chunk(q, layer_kv["k"], layer_kv["v"],
                                  prefix=prefix, window=window,
-                                 **_scales(slot_kv))
+                                 slots=slot.view(1), **_scales(layer_kv))
     return _dot(o.reshape(b, c, -1), p["wo"], cfg.adtype)
 
 

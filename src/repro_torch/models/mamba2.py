@@ -97,7 +97,8 @@ def mamba_apply(p, cfg, x, *, kops=ops, initial_state=None, conv_tail=None,
 
     ``initial_state`` (B·nh, N, P) and ``conv_tail`` (B, W-1, di+2gn raw
     pre-conv inputs) carry the recurrence across prompt chunks (None at
-    sequence start).  ``nvalid`` (host int, None = S) marks the first
+    sequence start, the same as zeros).  ``nvalid`` (a host int or a 0-d
+    int device tensor, read on the device; None = S) marks the first
     ``nvalid`` positions as real: pad positions get x̄ = 0 and decay 1, so
     the returned state is the state after the real tokens alone.  The
     returned conv tail is the last W-1 raw inputs ending at ``nvalid``,
@@ -149,7 +150,8 @@ def mamba_apply(p, cfg, x, *, kops=ops, initial_state=None, conv_tail=None,
     hist = (F.pad(xbc_raw, (0, 0, wtail, 0)) if conv_tail is None
             else torch.cat([conv_tail.to(xbc_raw.dtype), xbc_raw], dim=1))
     end = seq if nvalid is None else nvalid
-    return out, (state, hist[:, end:end + wtail])
+    rows = end + torch.arange(wtail, device=x.device)
+    return out, (state, hist.index_select(1, rows))
 
 
 def mamba_decode_step(p, cfg, x_t, cache, *, kops=ops):
@@ -231,32 +233,53 @@ def ssm_prefill_layer(p, cfg, x, view_l, positions, *, kops=ops):
     return x + y
 
 
-def chunk_carry(view_l, start: int):
-    """The SSD carry-in for a prompt chunk at ``start`` (reference :268):
-    the slot's threaded (state, conv tail) on a continuation chunk, None
-    (zeros) on the first.  The reset is load-bearing: a slot's previous
-    occupant leaves its state behind, and a preemption replay restarts at
-    start 0."""
-    if start > 0:
-        return view_l["ssm"], view_l["conv"]
-    return None, None
+def _by_slot(layer_l):
+    """A layer's arena leaves with the slot as their leading axis: ssm
+    (slots, nh, N, P) and conv (slots, W-1, di+2gn), views."""
+    ssm, conv = layer_l["ssm"], layer_l["conv"]
+    return ssm.view(conv.shape[0], -1, *ssm.shape[1:]), conv
 
 
-def ssm_layer_chunk(p, cfg, x, view_l, positions, start, nvalid, prefix, *,
-                    kops=ops):
-    """One prompt chunk through an SSM layer (reference :283) against the
-    slot's view {"ssm": (nh, N, P), "conv": (1, W-1, di+2gn)}; the carried
-    state and conv tail are written back in place (the reference's
-    ``ssm_chunk_scatter``, :303).  ``nvalid`` keeps the final chunk's
-    padding out of the recurrence."""
+def chunk_carry(layer_l, slot, start):
+    """The SSD carry-in for a prompt chunk at ``start`` into arena slot
+    ``slot`` (reference :268), gathered by device index: the slot's
+    threaded (state (nh, N, P), conv tail (1, W-1, di+2gn)) on a
+    continuation chunk, zeros on the first.  The reset is a select on
+    ``start > 0``, not a multiply, so a previous occupant's NaN does not
+    survive it; it is load-bearing, since a slot's previous occupant
+    leaves its state behind and a preemption replay restarts at start 0.
+    Returns (state0, tail0, the slot's stored (state, tail))."""
+    ssm, conv = _by_slot(layer_l)
+    stored = (ssm.index_select(0, slot.view(1))[0],
+              conv.index_select(0, slot.view(1)))
+    go = start > 0
+    return (torch.where(go, stored[0], 0.0), torch.where(go, stored[1], 0),
+            stored)
+
+
+def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
+                    prefix, *, kops=ops):
+    """One prompt chunk through an SSM layer (reference :283) into arena
+    slot ``slot`` of the layer's {"ssm": (N·nh, N, P), "conv": (N, W-1,
+    di+2gn)}; the carried state and conv tail are written back by device
+    index (the reference's ``ssm_chunk_scatter``, :303), keep-masked on
+    ``start < PARKED_POS`` as :func:`ssm_rows_write` masks a parked decode
+    slot, so a parked chunk (the captured step's warm-up) writes the old
+    values back.  ``nvalid`` keeps the final chunk's padding out of the
+    recurrence.  The ssd kernel always gets an initial state (zeros on the
+    first chunk), as in the reference."""
     del positions, prefix
-    state0, tail0 = chunk_carry(view_l, start)
+    state0, tail0, stored = chunk_carry(layer_l, slot, start)
     h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
     y, (state, tail) = mamba_apply(p["mamba"], cfg, h, kops=kops,
                                    initial_state=state0, conv_tail=tail0,
                                    nvalid=nvalid, return_state=True)
-    view_l["ssm"].copy_(state)
-    view_l["conv"].copy_(tail)
+    live = start < L.PARKED_POS
+    ssm, conv = _by_slot(layer_l)
+    ssm.index_copy_(0, slot.view(1),
+                    torch.where(live, state, stored[0])[None])
+    conv.index_copy_(0, slot.view(1),
+                     torch.where(live, tail.to(conv.dtype), stored[1]))
     return x + y
 
 

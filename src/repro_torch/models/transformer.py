@@ -34,15 +34,15 @@ from repro_torch.models import layers as L
 # dense layer
 # ---------------------------------------------------------------------------
 
-def dense_layer_chunk(p, cfg, x, slot_kv, positions, start, nvalid, prefix,
-                      *, window=None, kops=ops):
-    """One prompt chunk through a dense layer (reference :74).  ``nvalid``
-    is unused: pad rows land past the prompt and are overwritten by decode
-    before any query attends them."""
+def dense_layer_chunk(p, cfg, x, layer_kv, slot, positions, start, nvalid,
+                      prefix, *, window=None, kops=ops):
+    """One prompt chunk through a dense layer (reference :74) into arena
+    slot ``slot``.  ``nvalid`` is unused: pad rows land past the prompt and
+    are overwritten by decode before any query attends them."""
     del nvalid
     h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
-    x = x + L.attention_chunk(p["attn"], cfg, h, slot_kv, positions, start,
-                              prefix, window=window, kops=kops)
+    x = x + L.attention_chunk(p["attn"], cfg, h, layer_kv, slot, positions,
+                              start, prefix, window=window, kops=kops)
     h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
     return x + L.mlp(p["mlp"], cfg, h)
 
@@ -139,8 +139,12 @@ class LayerSet:
       * ``recurrent``: the arena holds per-slot state with no sequence
         axis, so its size does not grow with max_seq;
       * ``prefill_layer(p, cfg, x, view_l, positions, *, kops)``;
-      * ``chunk_layer(p, cfg, x, view_l, positions, start, nvalid, prefix,
-        *, kops)``: ``nvalid`` real tokens, the rest padding;
+      * ``chunk_layer(p, cfg, x, layer_l, slot, positions, start, nvalid,
+        prefix, *, kops)``: one chunk into arena slot ``slot`` of the
+        layer's whole arena ``layer_l``, ``nvalid`` real tokens, the rest
+        padding; ``slot`` / ``start`` / ``nvalid`` are 0-d int64 device
+        tensors, read on the device only (the captured chunk step), and a
+        chunk at ``start = PARKED_POS`` must leave the arena untouched;
       * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops)``: slots parked
         at ``PARKED_POS`` must come out untouched.
     """
@@ -269,11 +273,15 @@ class LM:
         """Slot ``slot``'s rows of every arena leaf across all layers, as
         views (writes land in the arena): leaf (L, slots * f, ...) ->
         (L, f, ...) with the leaf's batch factor f (reference
-        ``_slot_view``, :588).  ``slot`` is a host int: the reference
-        clamps a traced index; here an out-of-range slot is an error."""
+        ``_slot_view``, :588).  Monolithic prefill and the tests take it;
+        ``slot`` is a host int, and an out-of-range slot is an error.  The
+        chunk step reads its slot as device data instead
+        (:meth:`prefill_chunk`), as the reference's traced one does."""
         nslots = self.num_slots(cache)
         if not (isinstance(slot, int) and 0 <= slot < nslots):
-            raise ValueError(f"slot {slot!r} outside [0, {nslots})")
+            raise ValueError(f"slot {slot!r}: a slot view takes a host int "
+                             f"in [0, {nslots}) (a chunk takes its slot "
+                             f"as a device tensor)")
         factors = self.layers.factors(self.cfg)
         return {key: leaf[:, slot * factors[key]:(slot + 1) * factors[key]]
                 for key, leaf in cache.items()}
@@ -301,7 +309,7 @@ class LM:
         return head_logits(h[:, -1], self.head(params))
 
     def prefill_chunk(self, params, tokens: torch.Tensor, cache: dict,
-                      slot: int, start: int, last_idx: int) -> torch.Tensor:
+                      slot, start, last_idx) -> torch.Tensor:
         """Ingest one prompt chunk into slot ``slot`` of the arena.
 
         tokens: (1, C); the chunk occupies rows [start, start + C) of the
@@ -309,26 +317,38 @@ class LM:
         dropped; recurrent: the slot's state is carried from ``start`` — reset
         at start 0 — and only the ``last_idx + 1`` real tokens enter it).
         Returns the logits (1, V) f32 at the chunk's last real token
-        ``last_idx``.  ``slot``/``start``/``last_idx`` are host ints.
+        ``last_idx``.
+
+        ``slot``, ``start`` and ``last_idx`` are 0-d int64 tensors on the
+        model's device, read there only, so one captured step serves every
+        chunk of its length (the reference traces all three, engine.py:
+        328-339); host ints are turned into such tensors here (a host
+        ``slot`` out of range raises).  A chunk at ``start = PARKED_POS``
+        writes nothing (the captured step's warm-up).
         """
+        if isinstance(slot, int):
+            self.slot_view(cache, slot)             # range check
+        dev = tokens.device
+        slot, start, last_idx = (torch.as_tensor(t, dtype=torch.int64,
+                                                 device=dev)
+                                 for t in (slot, start, last_idx))
         h = self._chunk_hidden(params, tokens, cache, slot, start,
                                last_idx + 1)
-        return head_logits(h[:, last_idx], self.head(params))
+        last = h.index_select(1, last_idx.view(1))[:, 0]
+        return head_logits(last, self.head(params))
 
-    def _chunk_hidden(self, params, tokens, cache, slot: int, start: int,
-                      nvalid: int):
+    def _chunk_hidden(self, params, tokens, cache, slot, start, nvalid):
         cfg = self.cfg
-        view = self.slot_view(cache, slot)
         b, c = tokens.shape
         x = L.embed_lookup(params["embed"], tokens)
         positions = (start + torch.arange(c, device=x.device))[None]
         positions = positions.expand(b, c)
-        prefix = torch.full((b,), start, dtype=torch.int32, device=x.device)
+        prefix = start.to(torch.int32).expand(b)
         for i in range(cfg.n_layers):
             x = self.layers.chunk_layer(
                 layer_params(params["layers"], i), cfg, x,
-                self._layer_view(view, i), positions, start, nvalid, prefix,
-                kops=self.kops)
+                self._layer_view(cache, i), slot, positions, start, nvalid,
+                prefix, kops=self.kops)
         return L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
 
     def decode_step(self, params, token_t: torch.Tensor, cache: dict,

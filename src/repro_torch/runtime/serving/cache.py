@@ -8,8 +8,10 @@ the pool.  For a scaled KV format (int8, fp8) each page out of the pool
 also holds a scale sidecar: the f32 scale rows beside its quantized K/V
 rows, taken with the page and released exactly when the page returns.
 The prefix index, ``fork`` and ``cache_insert`` are not ported: prefill
-writes the slot's arena rows in place, and prefix sharing is a later
-slice (ROADMAP Open items 1.7.1).
+writes the slot's arena rows in place (monolithic prefill through a slot
+view, each chunk by device index, its slot and start read as data by the
+captured chunk step), and prefix sharing is a later slice (ROADMAP Open
+items 1.7.1), whose shared chunk step takes that path too.
 """
 from __future__ import annotations
 

@@ -30,9 +30,15 @@ class EngineConfig:
     ``base_seed``       run-level sampling seed: a sampled request with
                         ``seed=None`` samples with it
     ``decode_graph``    on the card, replay the decode step as one
-                        captured CUDA graph (the reference's compiled step);
-                        False runs it eagerly there too.  On the CPU the
-                        step is always eager
+                        captured CUDA graph (the reference's compiled step),
+                        and a sampled request's first draw as another;
+                        False runs them eagerly there too.  On the CPU the
+                        steps are always eager
+    ``chunk_graph``     on the card, replay each chunk of chunked prefill
+                        as the captured graph of its chunk length (the
+                        reference's compiled chunk step); False runs the
+                        chunks eagerly there too.  On the CPU they are
+                        always eager
     """
     max_slots: int = 8
     max_seq: int = 256
@@ -44,6 +50,7 @@ class EngineConfig:
     kv_format: str = "fp32"
     base_seed: int = 0
     decode_graph: bool = True
+    chunk_graph: bool = True
 
     def __post_init__(self):
         kvf.get(self.kv_format)

@@ -19,18 +19,31 @@ over the whole slot batch.  As in the reference:
      the fused SSD state), chunked prefill writes each chunk's rows or
      carried state, decode writes one row (or the new state) per slot per
      layer; the reference gets the same effect from buffer donation.
-  4. **Two captured steps.**  On the card each decode step is captured
+  4. **Captured steps.**  On the card each decode step is captured
      once as a CUDA graph (``graphs.DecodeGraph``) and replayed: the
      counterpart of the reference's compiled steps, always the same shape.
      As in the reference (engine.py:167-216) there are two: the sampled
      step (decode + ``sample_step`` over the five per-slot sampling
      vectors) and its pure-argmax twin.  The twin is captured at
      construction, the sampled step at the first sampled submit (the
-     reference compiles it at its first call).  A step whose RUNNING slots
-     are all greedy replays the twin, so greedy traffic pays nothing for
-     sampling (``stats["sampled_steps"]`` counts the others).
-     ``EngineConfig.decode_graph=False`` asks for eager steps; on the CPU
-     the steps always run eagerly.
+     reference compiles it at its first call), and beside it the sampled
+     first draw (``sample_step`` over one static logits row and six device
+     scalars), which serves both prefill modes.  A step whose RUNNING
+     slots are all greedy replays the twin, so greedy traffic pays nothing
+     for sampling (``stats["sampled_steps"]`` counts the others).  Each
+     chunk of chunked prefill replays one ``graphs.ChunkGraph`` per chunk
+     length, captured at the first chunk of that length (the reference's
+     ``_compiled_prefill_chunk`` compiles per length, its slot, start and
+     last index traced): its tokens and (slot, start, last_idx) are
+     device buffers written in place through pinned memory
+     (``core.dispatch.HostStaging``), so no write waits on the steps in
+     flight; the chunk graphs share one private pool and replay one at a
+     time on one stream.  Monolithic prefill stays eager: it has one shape
+     per prompt length, and a graph per length seen would hold a pool per
+     length.  ``EngineConfig.decode_graph=False`` asks for eager decode
+     steps and first draws, ``chunk_graph=False`` for eager chunk steps
+     (through the same device buffers); on the CPU every step runs
+     eagerly.
   5. **Keys fold (seed, position) only.**  A sampled slot's token at cache
      row q is drawn with ``fold_in(fold_in(PRNGKey(0), seed), q)``; the
      first token at q = prompt_len, off the prefill logits.  So a stream
@@ -56,12 +69,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import kv_format as kvf
-from repro_torch.core.dispatch import DispatchQueue, Readback
+from repro_torch.core.dispatch import DispatchQueue, HostStaging, Readback
+from repro_torch.models import layers as L
 from repro_torch.models.layers import PARKED_POS
 from repro_torch.runtime.serving import chunking, sampling
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.config import EngineConfig
-from repro_torch.runtime.serving.graphs import DecodeGraph
+from repro_torch.runtime.serving.graphs import (CapturedStep, ChunkGraph,
+                                                DecodeGraph)
 from repro_torch.runtime.serving.request import Request, RequestState, Status
 from repro_torch.runtime.serving.scheduler import Scheduler
 
@@ -137,6 +152,27 @@ class ServingEngine:
                              else self._decode_step)
         self._sampled_step = (None if self._capture
                               else self._decode_step_sampled)
+        # the first draw of a sampled request: its static (1, V) logits
+        # row, (seed, q, top_k) int64 and (temperature, top_p, min_p) f32
+        self._draw_logits = torch.zeros((1, cfg.vocab), dtype=torch.float32,
+                                        device=dev)
+        self._draw_ints = torch.zeros(3, dtype=torch.int64, device=dev)
+        self._draw_floats = torch.zeros(3, dtype=torch.float32, device=dev)
+        #: the captured first draw: None until the first sampled submit
+        #: (and always None for eager steps)
+        self.draw_graph = None
+        self._draw_step = None if self._capture else self._first_draw_step
+        self._chunk_capture = (config.chunk_graph and dev.type == "cuda"
+                               and self.prefill_chunks is not None)
+        self._chunk_pool = (torch.cuda.graph_pool_handle()
+                            if self._chunk_capture else None)
+        #: {chunk length: (static tokens (1, C), (slot, start, last_idx))}
+        self._chunk_inputs: dict[int, tuple] = {}
+        #: {chunk length: ChunkGraph}, captured at the first chunk of each
+        #: length (empty for eager chunk steps)
+        self.chunk_graphs: dict[int, ChunkGraph] = {}
+        self._staging = HostStaging(
+            dev, nbytes=8 * max(max(self.prefill_chunks or (0,)), 3))
         self._queue = DispatchQueue(depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
@@ -187,6 +223,29 @@ class ServingEngine:
         self._pos.add_(self._active)
         return sampled
 
+    def _first_draw_step(self) -> torch.Tensor:
+        """The first token of a sampled request (``sampling.sample_first``)
+        off the static logits row, with its key at q and its knobs read from
+        the static scalars; what the first-draw graph captures (no host
+        read).  Returns (1,) int64."""
+        i, f = self._draw_ints, self._draw_floats
+        return L.sample_step(self._draw_logits, i[0:1], i[1:2], f[0:1],
+                             i[2:3], f[1:2], f[2:3])
+
+    def _chunk_step(self, tokens: torch.Tensor,
+                    scalars: torch.Tensor) -> torch.Tensor:
+        """One prompt chunk: the static ``tokens`` (1, C) into arena slot
+        ``scalars[0]`` at ``start = scalars[1]``, logits (1, V) at its last
+        real token ``scalars[2]``; what a chunk graph captures (no host
+        read)."""
+        return self.model.prefill_chunk(self.params, tokens, self._cache,
+                                        scalars[0], scalars[1], scalars[2])
+
+    def _stage(self, dst: torch.Tensor, values) -> None:
+        """Write host ``values`` into device buffer ``dst`` in place,
+        without waiting on the steps in flight."""
+        self.stats["host_blocked_s"] += self._staging.write(dst, values)
+
     def _read_now(self, value: torch.Tensor) -> np.ndarray:
         t0 = time.perf_counter()
         host = Readback(value).wait()
@@ -232,6 +291,12 @@ class ServingEngine:
                     self._decode_step_sampled, self._tokens, self._pos,
                     self._active)
                 self._sampled_step = self.sampled_graph.replay
+                # a pure function of its static inputs: running it is its
+                # own trace-free warm-up
+                self.draw_graph = CapturedStep(
+                    self._first_draw_step, self._first_draw_step,
+                    self.device, kind="first draw")
+                self._draw_step = self.draw_graph.replay
         self._results[request.uid] = st
         return st
 
@@ -271,7 +336,11 @@ class ServingEngine:
         if sp.is_greedy:
             token0 = torch.argmax(logits[0]).reshape(1)
         else:
-            token0 = sampling.sample_first(logits, seed, pos0, sp)
+            self._draw_logits.copy_(logits)
+            self._stage(self._draw_ints, [seed, pos0, sp.top_k])
+            self._stage(self._draw_floats,
+                        [sp.temperature, sp.top_p, sp.min_p])
+            token0 = self._draw_step()
         sampling.write_slot(self._samp, slot, sp, seed)
         tok = int(self._read_now(token0)[0])
         self._first_token(st)
@@ -321,6 +390,23 @@ class ServingEngine:
                 self._prefill_one_chunk(st, size)
                 spent += size
 
+    def _chunk_runner(self, size: int):
+        """(static tokens, static scalars, step) of chunk length ``size``:
+        the step replays its chunk graph (captured here at the first chunk
+        of the length) or runs :meth:`_chunk_step` eagerly."""
+        if size not in self._chunk_inputs:
+            self._chunk_inputs[size] = (
+                torch.zeros((1, size), dtype=torch.int64, device=self.device),
+                torch.zeros(3, dtype=torch.int64, device=self.device))
+        tokens, scalars = self._chunk_inputs[size]
+        if not self._chunk_capture:
+            return tokens, scalars, lambda: self._chunk_step(tokens, scalars)
+        if size not in self.chunk_graphs:
+            self.chunk_graphs[size] = ChunkGraph(
+                lambda: self._chunk_step(tokens, scalars), scalars,
+                pool=self._chunk_pool)
+        return tokens, scalars, self.chunk_graphs[size].replay
+
     def _prefill_one_chunk(self, st: RequestState, size: int) -> None:
         req = st.request
         plen = st.prompt_len
@@ -329,9 +415,10 @@ class ServingEngine:
         real = min(size, plen - start)
         chunk[:real] = req.prompt[start:start + real]
         is_last = st.chunk_idx == len(st.chunk_plan) - 1
-        logits = self.model.prefill_chunk(
-            self.params, torch.as_tensor(chunk, device=self.device)[None, :],
-            self._cache, st.slot, start, real - 1)
+        tokens, scalars, step = self._chunk_runner(size)
+        self._stage(tokens, chunk)
+        self._stage(scalars, [st.slot, start, real - 1])
+        logits = step()
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_rows"] += size
         self._note_prefill_shape(("chunk", size))

@@ -167,6 +167,78 @@ def test_cuda_narrow_chunk_rows_bit_equal_decode(cuda, dtype, fmt, d, c):
     assert torch.equal(chunk[0], dec)
 
 
+# (q dtype, arena format) of the slot-table tests: "fp32" stores at q's
+# dtype (the unscaled tiles), the rest as NARROW_CASES
+SLOT_CASES = [(torch.float32, "fp32"), (torch.bfloat16, "fp32")] + \
+    NARROW_CASES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", SLOT_CASES)
+@pytest.mark.parametrize("d", [16, 128])
+def test_cuda_slot_table_equals_slot_view(cuda, dtype, fmt, d):
+    """flash_prefill_chunk over a 4-slot arena with a slot table (the
+    captured chunk step's form) equals the kernel over the slot's own view
+    bit for bit, one batch a slot and two batches on slots 3 and 1 (S = 300,
+    G = 3, prefixes 200 and 9), and its plain version within the limit; a
+    table pointing at the neighbour slot gives other values."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, s, kvh, h, c = 4, 300, 2, 6, 40
+    if fmt == "fp32":
+        k, v = (torch.randn((n, s, kvh, d), generator=gen,
+                            device=cuda).to(dtype) for _ in range(2))
+        ks = vs = None
+    else:
+        k, v, ks, vs = _narrow_arena(gen, fmt, (n, s, kvh, d), cuda)
+    q = torch.randn((2, c, h, d), generator=gen, device=cuda).to(dtype)
+    pre = torch.tensor([200, 9], device=cuda)
+
+    def rows(t, idx):
+        return None if t is None else t[idx]
+
+    sc = dict(k_scale=ks, v_scale=vs)
+    for slot in range(n):
+        slots, own = torch.tensor([slot], device=cuda), slice(slot, slot + 1)
+        view = ops.flash_prefill_chunk(q[:1], k[own], v[own], prefix=pre[:1],
+                                       k_scale=rows(ks, own),
+                                       v_scale=rows(vs, own))
+        got = ops.flash_prefill_chunk(q[:1], k, v, prefix=pre[:1],
+                                      slots=slots, **sc)
+        assert torch.equal(got, view), slot
+        plain = ops.PLAIN.flash_prefill_chunk(q[:1], k, v, prefix=pre[:1],
+                                              slots=slots, **sc)
+        assert _within_limit(got, plain), slot
+        wrong = ops.flash_prefill_chunk(q[:1], k, v, prefix=pre[:1],
+                                        slots=(slots + 1) % n, **sc)
+        assert not torch.equal(wrong, view), slot
+    pick = torch.tensor([3, 1], device=cuda)
+    got = ops.flash_prefill_chunk(q, k, v, prefix=pre, slots=pick,
+                                  k_scale=ks, v_scale=vs)
+    view = ops.flash_prefill_chunk(q, k[pick], v[pick], prefix=pre,
+                                   k_scale=rows(ks, pick),
+                                   v_scale=rows(vs, pick))
+    assert torch.equal(got, view)
+
+
+@pytest.mark.gpu
+def test_cuda_slot_table_refuses_a_copied_arena(cuda):
+    """With a slot table the arena is read in place: an int8 arena of
+    8-byte rows under bf16 q (which the kernel reads only through a padded
+    copy) raises rather than copying every slot; without a table it takes
+    the copy as before."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k, v, ks, vs = _narrow_arena(gen, "int8", (3, 64, 2, 8), cuda)
+    q = torch.randn((1, 8, 4, 8), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    pre = torch.tensor([9], device=cuda)
+    with pytest.raises(ValueError, match="in place"):
+        ops.flash_prefill_chunk(q, k, v, prefix=pre, k_scale=ks, v_scale=vs,
+                                slots=torch.tensor([1], device=cuda))
+    out = ops.flash_prefill_chunk(q, k[1:2], v[1:2], prefix=pre,
+                                  k_scale=ks[1:2], v_scale=vs[1:2])
+    assert torch.isfinite(out.float()).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 def test_cuda_scaled_kernels_count_and_repeat(cuda, fmt):
@@ -221,8 +293,9 @@ def test_cuda_narrow_engine_captured_equals_eager(cuda, dtype, fmt, chunks):
     assert counts["flash_prefill_chunk_scaled"] == (
         counts["flash_prefill_chunk"] if scaled else 0)
     if chunks:
-        assert counts["flash_prefill_chunk"] == nl * eng.stats[
-            "prefill_chunks"] > 0
+        # every chunk replayed, plus each chunk graph's parked warm-up
+        assert counts["flash_prefill_chunk"] == nl * (
+            eng.stats["prefill_chunks"] + len(eng.chunk_graphs)) > 0
     assert eng.cache_mgr.scale_sidecar_pages == 0
 
 
@@ -613,7 +686,9 @@ def test_cuda_decode_graph_streams_equal_eager(cuda, family, dtype, chunks):
         assert counts["flash_decode"] == nl * (replays + 1), counts
     else:
         assert eng.graph.launches == {}
-        prefills = eng.stats["prefills"] + eng.stats["prefill_chunks"]
+        # each prefill and chunk, and each chunk graph's parked warm-up
+        prefills = eng.stats["prefills"] + eng.stats["prefill_chunks"] \
+            + len(eng.chunk_graphs)
         assert counts["ssd"] == nl * prefills, counts
 
 
@@ -862,3 +937,121 @@ def test_cuda_sampled_graph_captured_at_first_sampled_submit(cuda, family):
     assert eng.sampled_graph is None
     assert _same_streams(feed(eng, True), want)
     assert eng.sampled_graph.replays == eng.stats["sampled_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# captured chunk steps and the first-draw graph
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s", [(6, 1), (6, 200), (80, 64), (80, 1000)])
+def test_cuda_ssd_zero_initial_state_equals_none(cuda, dtype, bh, s):
+    """The chunk step always hands ssd an initial state, zeros on a
+    prompt's first chunk: y and the final state equal ssd's without one,
+    bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    p, n = 64, 128
+    x = torch.randn((bh, s, p), generator=gen, device=cuda).to(dtype)
+    log_a = -torch.rand((bh, s), generator=gen, device=cuda) * 0.1
+    B = torch.randn((1, s, n), generator=gen, device=cuda).to(dtype)
+    C = torch.randn((1, s, n), generator=gen, device=cuda).to(dtype)
+    y0, st0 = ops.ssd(x, log_a, B, C)
+    y1, st1 = ops.ssd(x, log_a, B, C,
+                      initial_state=torch.zeros((bh, n, p), device=cuda))
+    assert torch.equal(y0, y1) and torch.equal(st0, st1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_cuda_chunk_graphs_streams_equal_eager(cuda, family, dtype, sampled):
+    """Chunked prefill with an undersized page pool (preemption and
+    recompute): the engine replaying one captured graph per chunk length
+    (and, with sampled requests, the first-draw graph) gives the streams of
+    the engine whose chunks, decode steps and draws all run eagerly; one
+    chunk graph per chunk length used, replays equal to the chunks, every
+    chunk's kernel launch counted (plus each graph's parked warm-up), the
+    first-draw graph replayed once a sampled admission."""
+    model, params = _tiny(family, dtype)
+    plan = _mixed_plan() if sampled else None
+    kw = dict(prefill_chunks=(4, 8), page_size=4, num_pages=9, plan=plan)
+    want_eng = _graph_engine(model, params, decode_graph=False,
+                             chunk_graph=False, **kw)
+    want = want_eng.run()
+    assert want_eng.chunk_graphs == {} and want_eng.draw_graph is None
+    ops.reset_launch_counts()
+    eng = _graph_engine(model, params, **kw)
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    st, nl = eng.stats, model.cfg.n_layers
+    assert eng.scheduler.stats["preempted"] > 0
+    assert sorted(eng.chunk_graphs) == sorted(eng._chunk_inputs) == [4, 8]
+    assert st["prefill_shapes"] == len(eng.chunk_graphs)
+    assert sum(g.replays for g in eng.chunk_graphs.values()) == \
+        st["prefill_chunks"] > 0
+    name = "flash_prefill_chunk" if family == "dense" else "ssd"
+    assert counts[name] == nl * (st["prefill_chunks"]
+                                 + len(eng.chunk_graphs)), counts
+    assert all(g.launches == {name: nl} for g in eng.chunk_graphs.values())
+    assert (eng.draw_graph is not None) == sampled
+    if sampled:
+        assert eng.draw_graph.replays >= st["sampled_requests"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_cuda_chunk_graph_capture_leaves_the_arena(cuda, fmt):
+    """Capturing a chunk graph on a mid-run engine (its parked warm-up, its
+    scalars pointing at a live slot) leaves every arena leaf and the slot
+    vectors bit for bit, and the run goes on to the eager streams."""
+    from repro_torch.runtime.serving.graphs import ChunkGraph
+    model, params = _tiny("dense", torch.bfloat16)
+    kw = dict(prefill_chunks=(4, 8), kv_format=fmt)
+    want = _graph_engine(model, params, chunk_graph=False, **kw).run()
+    eng = _graph_engine(model, params, **kw)
+    for _ in range(6):
+        eng.step()
+    state = {**{f"cache.{k}": v for k, v in eng._cache.items()},
+             "tokens": eng._tokens, "pos": eng._pos, "active": eng._active}
+    before = {k: v.clone() for k, v in state.items()}
+    tokens = torch.zeros((1, 16), dtype=torch.int64, device=cuda)
+    scalars = torch.tensor([1, 4, 15], device=cuda)
+    ChunkGraph(lambda: eng._chunk_step(tokens, scalars), scalars)
+    assert scalars.tolist() == [1, 4, 15]
+    for k, v in state.items():
+        assert torch.equal(v.view(torch.uint8),
+                           before[k].view(torch.uint8)), k
+    assert _same_streams(eng.run(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_cuda_first_draw_graph_equals_eager_draw(cuda, family):
+    """The captured first draw (captured at the first sampled submit) over
+    its static logits row and scalars equals ``sampling.sample_first`` run
+    eagerly on the same logits, at several knob sets (every filter on,
+    each off) and positions."""
+    from repro_torch.runtime import serving
+    from repro_torch.runtime.serving import sampling
+    model, params = _tiny(family, torch.bfloat16)
+    v = model.cfg.vocab
+    eng = _graph_engine(model, params, lens=(5,), gens=(2,),
+                        plan=[_mixed_plan()[1]])
+    graph = eng.draw_graph
+    assert graph is not None and graph.pool_bytes > 0
+    gen = torch.Generator(device=cuda).manual_seed(v)
+    knobs = ((0.6, 50, 0.9, 0.05, 3, 1025), (1.0, 0, 1.0, 0.0, 11, 769),
+             (1.3, 7, 1.0, 0.0, 0, 1), (0.8, 0, 0.5, 0.2, 123, 40))
+    for temp, top_k, top_p, min_p, seed, q in knobs:
+        logits = torch.randn((1, v), generator=gen, device=cuda) * 3
+        sp = serving.SamplingParams(temperature=temp, top_k=top_k,
+                                    top_p=top_p, min_p=min_p, seed=seed)
+        eng._draw_logits.copy_(logits)
+        eng._stage(eng._draw_ints, [seed, q, top_k])
+        eng._stage(eng._draw_floats, [temp, top_p, min_p])
+        got = graph.replay().clone()
+        want = sampling.sample_first(logits, seed, q, sp)
+        assert torch.equal(got, want), (sp, q)
