@@ -35,7 +35,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      flash_prefill_chunk, small f32 shapes over bf16 / int8 / fp8 arenas
      and bf16 q over int8 / fp8 arenas at llama3.2-3b's full width, against
      the plain versions with planted faults (V scaled by K's scales), the
-     bit pin per format, times against the byte bound;
+     bit pin per format, times against the byte bound; 3b / 3d (donor
+     table, prefix sharing): the kernels with a donor table (rows [0,
+     share_len) of a query batch from another arena row) at small f32
+     shapes over f32 / bf16 / int8 / fp8 arenas and at llama3.2-3b's width
+     over bf16 / int8 / fp8 (decode with three slots forked onto one at
+     share_len 512 and 528, the chunk C = 512 at prefix 512): bit for bit
+     against the call without a table over equal donor rows (the own rows
+     poisoned with NaN), against the plain versions with a planted fault
+     (share_len one page short, > 10x), the pin under the table, times
+     with and without the table in alternating pairs;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -78,7 +87,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      equal, every flash_decode launch scaled, the
      chunked first-token logits of the kernel and the plain model within
      the phase 5 limit, kv_row_bytes and arena bytes beside fp32's, the
-     token match against fp32 and one decode-only window pair;
+     token match against fp32 and one decode-only window pair; 4f: the
+     reference's shared-prefix mix (4 requests of 1024 tokens, the first
+     512 common; chunks 512 / 256, pages of 16) with prefix sharing on
+     and off in alternating pairs, llama3.2-3b over its fp32-format and
+     int8 arenas and mamba2-2.7b: streams equal, 3 forks of 512 tokens,
+     prefill_rows 1536 lower, every decode and chunk attention launch
+     with the donor table, every page drained; the forks' TTFT, tok/s,
+     the chunk steps' device time, the graph pools, mamba2's snapshot
+     bytes and copy time, and a snapshot taken one chunk early (planted)
+     changing a fork's stream;
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -209,7 +227,13 @@ DESIGN = {
     "flash_prefill_chunk_scaled": "int8 / fp8 arena + f32 scales: TMA at one "
                                   "byte an element, widened to bf16 in shared "
                                   "memory, wgmma; scales on the scores and "
-                                  "on P"}
+                                  "on P",
+    **{k + "_donor": "donor table (prefix sharing): strips below share_len "
+                     "by TMA from the donor row, at or above from the own "
+                     "row, the straddling strip copied by rows (cp.async, "
+                     "issued where the ring refills its stage) into the "
+                     "same layout; f32: a row select per key"
+       for k in ("flash_decode", "flash_prefill_chunk")}}
 # the TPU kernels' scaled branch each scaled row replaces
 SCALED_REPLACES = {
     "flash_decode_scaled": "src/repro/kernels/flash_decode.py:39",
@@ -793,6 +817,321 @@ def scaled_kernel_checks(torch, ops, cfg):
               f"{out['fp8'][name]['ms']:.4f}; plain ms int8 "
               f"{out['int8'][name]['plain_ms']:.4f}, fp8 "
               f"{out['fp8'][name]['plain_ms']:.4f}")
+    return rec
+
+
+# The donor table's share lengths at full width (phases 3b / 3d): a
+# multiple of the 64-key strip, and one page (16 rows) past it, so one
+# strip straddles the length (loaded by rows)
+SHARE_LENS = (512, 528)
+PAGE = 16
+
+
+def donor_checks(torch, ops, cfg):
+    """Phases 3b / 3d, the donor table of flash_decode and
+    flash_prefill_chunk (prefix sharing: query batch b reads rows [0,
+    share_len[b]) from arena row share_src[b]).  Small f32 shapes over f32,
+    bf16, int8 and fp8 arenas (the CUDA-core tile), then bf16 q over bf16,
+    int8 and fp8 arenas at llama3.2-3b's width (H 24 / KVH 8, hd 128, 4
+    slots x 1121 rows): flash_decode with slots 1-3 forked onto slot 0 at
+    share_len 512 and 528, flash_prefill_chunk C = 512 at prefix 512 in
+    slot 2 with (src 0, len 512).  Each: against its plain version within
+    the limit, a planted fault (share_len one page short) failing it by
+    more than FAULT_MARGIN; bit for bit against the call without a table
+    over an arena whose donor rows equal the own rows, the own rows [0, L)
+    of the table call poisoned (NaN; int8 the largest value under NaN
+    scales), so a read of them would show; the chunk/decode pin under the
+    table.  Times with and without the table, in alternating pairs.
+    Returns the two donor records (times of the bf16 arena; int8's and
+    fp8's under ``formats``)."""
+    from repro_torch.core import kv_format as kvf
+    from repro_torch.kernels import flash_decode, flash_prefill_chunk
+    P = ops.PLAIN
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def arena(fmt, shape, dtype=torch.bfloat16):
+        k = torch.randn(shape, generator=gen, device=dev)
+        v = torch.randn(shape, generator=gen, device=dev)
+        if fmt in ("fp32", "bf16"):
+            dt = dtype if fmt == "fp32" else torch.bfloat16
+            return k.to(dt), v.to(dt), None, None
+        (kq, ks), (vq, vs) = (kvf.quantize(kvf.get(fmt), t) for t in (k, v))
+        return kq, vq, ks, vs
+
+    def sc(ks, vs):
+        return {} if ks is None else dict(k_scale=ks, v_scale=vs)
+
+    def shared(ts, owners, src, length):
+        """Copies of ``ts`` whose rows [0, length) of each owner are the
+        donor's (the reference arena of the bit check)."""
+        out = []
+        for t in ts:
+            if t is not None:
+                t = t.clone()
+                for o in owners:
+                    t[o, :length] = t[src, :length]
+            out.append(t)
+        return out
+
+    def poisoned(ts, owners, length):
+        out = []
+        for t in ts:
+            if t is not None:
+                t = t.clone()
+                for o in owners:
+                    if t.dtype == torch.int8:
+                        t[o, :length] = 127
+                    else:
+                        t[o, :length] = float("nan")
+            out.append(t)
+        return out
+
+    def table(n, owners, src, length):
+        """The donor table of ``n`` query batches: each of ``owners``
+        reads rows [0, length) from arena row ``src``, the rest their own
+        (the identity)."""
+        s, ln = list(range(n)), [0] * n
+        for o in owners:
+            s[o], ln[o] = src, length
+        return dict(share_src=torch.tensor(s, dtype=torch.int32, device=dev),
+                    share_len=torch.tensor(ln, dtype=torch.int32,
+                                           device=dev))
+
+    def unique_rows(lens, tab):
+        """The arena rows the decode batches of ``lens`` read under
+        ``tab``, each (slot, row) once: batch b reads [0, min(len,
+        share_len)) of its donor and [share_len, len) of its own slot, so
+        rows shared by several forks count once."""
+        pos = torch.arange(int(lens.max()), device=dev)
+        seen = torch.zeros((lens.numel(), pos.numel()), dtype=torch.bool,
+                           device=dev)
+        for b in range(lens.numel()):
+            n = int(lens[b])
+            src, ln = int(tab["share_src"][b]), int(tab["share_len"][b])
+            seen[src] |= pos < min(n, ln)
+            seen[b] |= (pos >= ln) & (pos < n)
+        return int(seen.sum())
+
+    def bit_check(label, fn, ts, owners, src, length):
+        """fn(arena, table or None): with the table over the poisoned
+        arena == without it over the shared arena, bit for bit."""
+        want = fn(shared(ts, owners, src, length), None)
+        got = fn(poisoned(shared(ts, owners, src, length), owners, length),
+                 (owners, src, length))
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"  donor table ({label}): with the table over poisoned own "
+              f"rows vs without over equal rows: max diff {diff} (must be "
+              f"0.0)")
+        assert torch.equal(got, want), (label, diff)
+
+    print("phase 3b/3d: donor table, small float32 shapes over f32, bf16, "
+          "int8 and fp8 arenas (4 x 300 rows, hd 16)")
+    n, s, kvh, h, d, c = 4, 300, 2, 6, 16, 40
+    q = torch.randn((n, h, d), generator=gen, device=dev)
+    qc = torch.randn((1, c, h, d), generator=gen, device=dev)
+    lens = torch.tensor([17, 250, PARKED_POS + 1, 1], device=dev)
+    pf, slot = torch.tensor([200], device=dev), torch.tensor([1], device=dev)
+    for fmt in ("fp32", "bf16", "int8", "fp8"):
+        ts = arena(fmt, (n, s, kvh, d), torch.float32)
+        for length in (12, 64, 100):
+            def dec(a, tab, length=length):
+                kw = {} if tab is None else table(n, *tab)
+                return ops.flash_decode(q, a[0], a[1], lengths=lens,
+                                        **sc(a[2], a[3]), **kw)
+
+            def chk(a, tab):
+                kw = {} if tab is None else table(1, [0], tab[1], tab[2])
+                return ops.flash_prefill_chunk(
+                    qc, a[0], a[1], prefix=pf, slots=slot,
+                    **sc(a[2], a[3]), **kw)
+            bit_check(f"f32/{fmt} decode L={length}", dec, ts, [1], 3,
+                      length)
+            bit_check(f"f32/{fmt} chunk L={length}", chk, ts, [1], 3,
+                      length)
+            tab = table(n, [1], 3, length)
+            bad = table(n, [1], 3, max(0, length - PAGE))
+            check(f"flash_decode f32/{fmt} donor L={length}",
+                  ops.flash_decode(q, ts[0], ts[1], lengths=lens,
+                                   **sc(ts[2], ts[3]), **tab),
+                  P.flash_decode(q, ts[0], ts[1], lengths=lens,
+                                 **sc(ts[2], ts[3]), **tab), "float32",
+                  fault=("share_len one page short", P.flash_decode(
+                      q, ts[0], ts[1], lengths=lens, **sc(ts[2], ts[3]),
+                      **bad)))
+            tab1 = table(1, [0], 3, length)
+            bad1 = table(1, [0], 3, max(0, length - PAGE))
+            check(f"flash_prefill_chunk f32/{fmt} donor L={length}",
+                  ops.flash_prefill_chunk(qc, ts[0], ts[1], prefix=pf,
+                                          slots=slot, **sc(ts[2], ts[3]),
+                                          **tab1),
+                  P.flash_prefill_chunk(qc, ts[0], ts[1], prefix=pf,
+                                        slots=slot, **sc(ts[2], ts[3]),
+                                        **tab1), "float32",
+                  fault=("share_len one page short", P.flash_prefill_chunk(
+                      qc, ts[0], ts[1], prefix=pf, slots=slot,
+                      **sc(ts[2], ts[3]), **bad1)))
+
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots, smax, nl, c = 4, 1121, 8, 512
+    print(f"phase 3b/3d: donor table at full width, bf16 q over bf16, int8 "
+          f"and fp8 arenas (H={h}, KVH={kvh}, D={d}, slots={slots}, "
+          f"max_seq={smax}; slots 1-3 forked onto slot 0 at share_len "
+          f"{SHARE_LENS}; chunk C={c} at prefix 512 in slot 2, (0, 512))")
+    q = torch.randn((slots, h, d), generator=gen, device=dev).bfloat16()
+    qc = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
+    lens = torch.tensor([1088, 1060, 832, 1024], device=dev)
+    pf, slot = torch.tensor([512], device=dev), torch.tensor([2], device=dev)
+    live = int(lens.sum())
+    rows = 512 + c
+    qpos = 512 + torch.arange(c, device=dev)
+    pairs = int((torch.arange(smax, device=dev)[None, :]
+                 <= qpos[:, None]).sum())
+    out = {}
+    for fmt in ("bf16", "int8", "fp8"):
+        layers = [arena(fmt, (slots, smax, kvh, d)) for _ in range(nl)]
+        A = [None if t[0] is None else torch.stack(t)
+             for t in zip(*layers)]
+        del layers
+        ts = [None if t is None else t[0] for t in A]
+        errs_d, errs_c = [], []
+        for length in SHARE_LENS:
+            owners = [1, 2, 3]
+
+            def dec(a, tab):
+                kw = {} if tab is None else table(slots, *tab)
+                return ops.flash_decode(q, a[0], a[1], lengths=lens,
+                                        **sc(a[2], a[3]), **kw)
+            bit_check(f"bf16/{fmt} decode L={length}", dec, ts, owners, 0,
+                      length)
+            tab = table(slots, owners, 0, length)
+            bad = table(slots, owners, 0, length - PAGE)
+            errs_d.append(check(
+                f"flash_decode bf16/{fmt} donor L={length}",
+                ops.flash_decode(q, ts[0], ts[1], lengths=lens,
+                                 **sc(ts[2], ts[3]), **tab),
+                P.flash_decode(q, ts[0], ts[1], lengths=lens,
+                               **sc(ts[2], ts[3]), **tab),
+                "bfloat16", "(lengths 1088/1060/832/1024)",
+                fault=("share_len one page short", P.flash_decode(
+                    q, ts[0], ts[1], lengths=lens, **sc(ts[2], ts[3]),
+                    **bad)), margin=FAULT_MARGIN))
+
+        def chk(a, tab):
+            kw = {} if tab is None else table(1, [0], tab[1], tab[2])
+            return ops.flash_prefill_chunk(qc, a[0], a[1], prefix=pf,
+                                           slots=slot, **sc(a[2], a[3]),
+                                           **kw)
+        bit_check(f"bf16/{fmt} chunk L=512", chk, ts, [2], 0, 512)
+        tab1, bad1 = table(1, [0], 0, 512), table(1, [0], 0, 512 - PAGE)
+        got = ops.flash_prefill_chunk(qc, ts[0], ts[1], prefix=pf,
+                                      slots=slot, **sc(ts[2], ts[3]), **tab1)
+        errs_c.append(check(
+            f"flash_prefill_chunk bf16/{fmt} donor", got,
+            P.flash_prefill_chunk(qc, ts[0], ts[1], prefix=pf, slots=slot,
+                                  **sc(ts[2], ts[3]), **tab1),
+            "bfloat16", f"(C={c}, prefix 512)",
+            fault=("share_len one page short", P.flash_prefill_chunk(
+                qc, ts[0], ts[1], prefix=pf, slots=slot,
+                **sc(ts[2], ts[3]), **bad1)), margin=FAULT_MARGIN))
+        # the pin under the table: chunk row j == flash_decode at pos 512 +
+        # j over a (c + 1)-row arena, rows 0..c-1 slot 2, row c the donor
+        big = [None if t is None else torch.cat(
+            (t[2:3].expand(c, *t.shape[1:]), t[0:1])) for t in ts]
+        dec = ops.flash_decode(
+            torch.cat((qc[0], qc[0, :1])), big[0], big[1],
+            lengths=torch.cat((qpos + 1, torch.ones(1, dtype=torch.int64,
+                                                    device=dev))),
+            **sc(big[2], big[3]), **table(c + 1, range(c), c, 512))
+        pin = bool(torch.equal(got[0], dec[:c]))
+        print(f"  pin under the table ({fmt}): chunk row j == flash_decode "
+              f"at pos 512 + j, bit for bit: {pin} (max diff "
+              f"{(got[0].float() - dec[:c].float()).abs().max().item()})")
+        assert pin, f"chunk/decode bit pin broken under the table ({fmt})"
+        del big, dec
+        layer = [0]
+
+        def nxt():
+            layer[0] = (layer[0] + 1) % nl
+            return layer[0]
+
+        def dcall(tab):
+            i = nxt()
+            return lambda: flash_decode.launch(
+                q, A[0][i], A[1][i], lens,
+                **sc(None if A[2] is None else A[2][i],
+                     None if A[3] is None else A[3][i]), **tab)
+
+        def ccall(tab):
+            i = nxt()
+            return lambda: flash_prefill_chunk.launch(
+                qc, A[0][i], A[1][i], pf, slots=slot,
+                **sc(None if A[2] is None else A[2][i],
+                     None if A[3] is None else A[3][i]), **tab)
+
+        def rotating(make, tab, iters):
+            calls = [make(tab) for _ in range(nl)]
+            it = [0]
+
+            def fn():
+                it[0] = (it[0] + 1) % nl
+                calls[it[0]]()
+            return timed(fn, iters)
+
+        tab528 = table(slots, [1, 2, 3], 0, SHARE_LENS[-1])
+        read = unique_rows(lens, tab528)
+        times = {"decode": {"table": [], "none": []},
+                 "chunk": {"table": [], "none": []}}
+        for i in range(2):
+            for kind in (("none", "table") if i % 2 == 0
+                         else ("table", "none")):
+                t = tab528 if kind == "table" else {}
+                times["decode"][kind].append(rotating(dcall, t, 50))
+                times["chunk"][kind].append(rotating(
+                    ccall, tab1 if kind == "table" else {}, 20))
+        plain_d = timed(lambda: P.flash_decode(
+            q, ts[0], ts[1], lengths=lens, **sc(ts[2], ts[3]), **tab528), 5)
+        plain_c = timed(lambda: P.flash_prefill_chunk(
+            qc, ts[0], ts[1], prefix=pf, slots=slot, **sc(ts[2], ts[3]),
+            **tab1), 5)
+        esize = A[0].element_size()
+        scale_bytes = 0 if A[2] is None else 4
+        out[fmt] = {
+            "flash_decode_donor": dict(
+                err=max(errs_d), ms=statistics.mean(times["decode"]["table"]),
+                none_ms=statistics.mean(times["decode"]["none"]),
+                plain_ms=plain_d,
+                bytes=2 * 2 * q.numel()
+                + 2 * read * kvh * (d * esize + scale_bytes),
+                flops=4 * live * h * d),
+            "flash_prefill_chunk_donor": dict(
+                err=max(errs_c), ms=statistics.mean(times["chunk"]["table"]),
+                none_ms=statistics.mean(times["chunk"]["none"]),
+                plain_ms=plain_c,
+                bytes=2 * 2 * qc.numel()
+                + 2 * rows * kvh * (d * esize + scale_bytes),
+                flops=4 * pairs * h * d)}
+        for name, r in out[fmt].items():
+            print(f"  {name} ({fmt}): {r['ms']:.4f} ms with the table vs "
+                  f"{r['none_ms']:.4f} ms without (2 alternating pairs: "
+                  f"decode {[round(x, 4) for x in times['decode']['table']]}"
+                  f" / {[round(x, 4) for x in times['decode']['none']]}, "
+                  f"chunk {[round(x, 4) for x in times['chunk']['table']]}"
+                  f" / {[round(x, 4) for x in times['chunk']['none']]}); "
+                  f"plain {r['plain_ms']:.4f} ms")
+        del A, ts
+    rec = {}
+    for name, module in (("flash_decode_donor", flash_decode),
+                         ("flash_prefill_chunk_donor", flash_prefill_chunk)):
+        b16 = out["bf16"][name]
+        rec[name] = dict(
+            module=module, label=name, max_abs_err=max(
+                out[f][name]["err"] for f in out),
+            ms=b16["ms"], plain_ms=b16["plain_ms"], library_ms=None,
+            bytes=b16["bytes"], flops=b16["flops"], pin=True,
+            formats={f: {k: out[f][name][k]
+                         for k in ("ms", "none_ms", "plain_ms")}
+                     for f in out})
     return rec
 
 
@@ -1662,6 +2001,234 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
     return all_counts
 
 
+# Phase 4f: the reference's shared-prefix mix (serve.py:324-334): 4
+# requests of 1024 tokens whose first 512 are common, chunks of 512 / 256
+# (one 512 chunk a half), pages of 16
+SHARED_ARGS = ["--requests", "4", "--prompt-len", "1024", "--prompt-mix",
+               "shared-prefix", "--slots", "4", "--depth", "2",
+               "--prefill-mode", "chunked", "--chunk-buckets", "256,512",
+               "--page-size", "16", "--no-reduced", "--device", "cuda"]
+
+
+def chunk_timer(torch, eng):
+    """Bracket each of ``eng``'s chunk steps with CUDA events on the
+    current stream (the captured chunk graphs replay there, in order with
+    the decode steps); returns the list the event pairs go into."""
+    runner = eng._chunk_runner
+    marks = []
+
+    def timed_runner(size):
+        tokens, scalars, step = runner(size)
+
+        def bracketed():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step()
+            e1.record()
+            marks.append((e0, e1))
+            return out
+        return tokens, scalars, bracketed
+
+    eng._chunk_runner = timed_runner
+    return marks
+
+
+def early_snapshots(torch, model):
+    """The planted fault of phase 4f: ``model``'s snapshots taken one chunk
+    early (each the slot's state before the chunk that ends at its page,
+    zeros for the first).  Returns the function to put back."""
+    extract = model.extract_slot_state
+    held = {}
+
+    def early(cache, slot):
+        now = extract(cache, slot)
+        before = held.get(slot, [torch.zeros_like(t) for t in now])
+        held[slot] = now
+        return before
+
+    model.extract_slot_state = early
+    return lambda: delattr(model, "extract_slot_state")
+
+
+def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
+    """Phase 4f: the shared-prefix mix served at full width with prefix
+    sharing on and off (alternating pairs, ``pairs`` of them), decode and
+    chunks captured: llama3.2-3b over its fp32-format arena and int8,
+    mamba2-2.7b.  Each run serves the requests twice on one engine: a first
+    wave (which captures the chunk graph inside it, as phase 4c's) and a
+    second of the same prompts as new requests (the graphs exist; with no
+    chain cap the first wave's chains went with their holders, so it forks
+    afresh).  Held: the greedy streams of every wave equal (sharing only
+    moves where a fork's prefix rows come from); with sharing, each wave
+    forks 3 requests of 512 shared tokens and ingests 1536 fewer prefill
+    rows than without; every flash_decode and flash_prefill_chunk launch
+    with a donor table (their counts set to 0 just before the run, read
+    just after); every page back in the pool and no region pinned at the
+    end; for mamba2, a snapshot taken one chunk early (the planted fault)
+    must change a fork's stream.  Printed: the forks' TTFT, tok/s and the
+    chunk steps' device time per wave, the snapshot bytes and copy time
+    (mamba2), the graph pools with sharing on and off.  Returns [launch
+    counts of each sharing run]."""
+    from repro_torch.runtime.serving import Request
+    t_phase = time.perf_counter()
+    cfg = bundle.cfg
+    dense = cfg.family == "dense"
+    base = ["--arch", bundle.name, "--gen", str(gen)] + SHARED_ARGS
+    shared = serve.shared_prefix_len(serve.parse_args(base))
+    n_req = serve.parse_args(base).requests
+    forks = n_req - 1
+    waves = ("first", "second")
+    all_counts = []
+    summary = []
+    for fmt in (("fp32", "int8") if dense else ("fp32",)):
+        want = None
+        res = {kind: {w: [] for w in waves} for kind in ("off", "on")}
+        engines = {}
+        for i in range(pairs):
+            for kind in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                args = serve.parse_args(
+                    base + ["--kv-format", fmt]
+                    + (["--prefix-sharing"] if kind == "on" else []))
+                eng = serve.engine(bundle, params, args)
+                marks = chunk_timer(torch, eng)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                before = {k: 0 for k in ("forks", "shared_prompt_tokens",
+                                         "prefill_rows")}
+                for w, wave in enumerate(waves):
+                    if w:
+                        for uid, prompt in enumerate(
+                                serve.prompts(args, cfg.vocab)):
+                            eng.submit(Request(uid=100 + uid, prompt=prompt,
+                                               max_new_tokens=gen))
+                    n_marks = len(marks)
+                    t0 = time.perf_counter()
+                    out = eng.run()
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    out = {u % 100: o for u, o in out.items()
+                           if u // 100 == w}
+                    st = eng.stats
+                    if want is None:
+                        want = out
+                    if not same_streams(out, want):
+                        differ = [u for u in sorted(want)
+                                  if not (out[u] == want[u]).all()]
+                        print(f"phase 4f: {bundle.name} {fmt} sharing "
+                              f"{kind} {wave} wave: streams of requests "
+                              f"{differ} differ from the first run's")
+                        raise AssertionError("shared-prefix streams differ")
+                    now = {k: st[k] for k in before}
+                    got = {k: now[k] - before[k] for k in before}
+                    before = now
+                    assert got["forks"] == (forks if kind == "on" else 0), \
+                        got
+                    assert got["shared_prompt_tokens"] == (
+                        forks * shared if kind == "on" else 0), got
+                    total = sum(o.size for o in out.values())
+                    res[kind][wave].append(dict(
+                        tok_s=total / dt,
+                        ttft=[st["ttft_s"][100 * w + u]
+                              for u in range(n_req)],
+                        rows=got["prefill_rows"],
+                        chunk_ms=sum(a.elapsed_time(b)
+                                     for a, b in marks[n_marks:]),
+                        chunks=len(marks) - n_marks))
+                counts = ops.launch_counts()
+                m = eng.cache_mgr
+                assert m.free_pages == m.num_pages, m.free_pages
+                assert not any(m.region_pinned(s)
+                               for s in range(eng.max_slots))
+                check_chunk_graphs(eng)
+                if dense:
+                    for name in ("flash_decode", "flash_prefill_chunk"):
+                        assert counts[name] > 0, counts
+                        assert counts[name + "_donor"] == (
+                            counts[name] if kind == "on" else 0), counts
+                if kind == "on":
+                    all_counts.append(counts)
+                if i == 0:
+                    engines[kind] = eng
+                else:
+                    del eng
+        label = f"{bundle.name} {fmt}"
+        for wave in waves:
+            rows = {kind: {r["rows"] for r in res[kind][wave]}
+                    for kind in res}
+            assert len(rows["off"]) == len(rows["on"]) == 1, rows
+            saved = rows["off"].pop() - rows["on"].pop()
+            assert saved == forks * shared, (wave, saved)
+        print(f"phase 4f: {label}: streams of {2 * pairs} runs x 2 waves "
+              f"(sharing off / on, alternating) equal; each wave with "
+              f"sharing forks {forks} requests of {shared} shared tokens "
+              f"and ingests {forks * shared} fewer prefill rows; every page "
+              f"back in the pool, no region pinned")
+        for kind in ("off", "on"):
+            for wave in waves:
+                rs = res[kind][wave]
+                print(f"  sharing {kind:3s} {wave:6s} wave: tok/s "
+                      f"{[round(r['tok_s'], 1) for r in rs]}; TTFT ms "
+                      f"(donor, forks) "
+                      f"{[[round(1e3 * t, 1) for t in r['ttft']] for r in rs]}"
+                      f"; chunk steps' device ms "
+                      f"{[round(r['chunk_ms'], 3) for r in rs]} over "
+                      f"{rs[0]['chunks']} chunks")
+        for kind, eng in engines.items():
+            print_graphs(f"  sharing {kind}", eng)
+        if not dense:
+            eng = engines["on"]
+            nbytes = eng.stats["snapshot_bytes"]
+            snap_ms = timed(lambda: eng.model.extract_slot_state(
+                eng._cache, 0), 5)
+            print(f"phase 4f: {label}: {eng.stats['snapshots']} state "
+                  f"snapshots in 2 waves, each {nbytes} bytes "
+                  f"({nbytes / 1e6:.1f} MB: SSD state + conv tail, "
+                  f"{cfg.n_layers} layers); one copy {snap_ms:.4f} ms on the "
+                  f"card (bound {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms:"
+                  f" read and write once)")
+            summary.append(f"snapshot {nbytes / 1e6:.1f} MB, "
+                           f"{snap_ms:.4f} ms a copy")
+            args = serve.parse_args(base + ["--prefix-sharing"])
+            eng = serve.engine(bundle, params, args)
+            restore = early_snapshots(torch, eng.model)
+            try:
+                bad = eng.run()
+            finally:
+                restore()
+            differ = [u for u in sorted(want)
+                      if not (bad[u] == want[u]).all()]
+            print(f"phase 4f: {label} planted fault (each snapshot taken "
+                  f"one chunk early): streams of requests {differ} differ")
+            assert differ and 0 not in differ, differ
+            assert eng.stats["forks"] == forks
+            del eng, bad
+        pools = {kind: sum(g.pool_bytes for g in
+                           [e.graph, *e.chunk_graphs.values()])
+                 for kind, e in engines.items()}
+
+        def med(kind, wave, key, pick=lambda r, k: r[k]):
+            return statistics.median(pick(r, key)
+                                     for r in res[kind][wave])
+        fork_ttft = {(kind, wave): 1e3 * statistics.median(
+            t for r in res[kind][wave] for t in r["ttft"][1:])
+            for kind in res for wave in waves}
+        summary.append(f"{fmt}: " + "; ".join(
+            f"{wave} wave tok/s off {med('off', wave, 'tok_s'):.1f} / on "
+            f"{med('on', wave, 'tok_s'):.1f}, forks' TTFT ms off "
+            f"{fork_ttft[('off', wave)]:.1f} / on "
+            f"{fork_ttft[('on', wave)]:.1f}, chunk steps' device ms off "
+            f"{med('off', wave, 'chunk_ms'):.3f} / on "
+            f"{med('on', wave, 'chunk_ms'):.3f}" for wave in waves)
+            + f"; graph pools MB off {pools['off'] / 1e6:.1f} / on "
+            f"{pools['on'] / 1e6:.1f}")
+        del engines
+    print(f"phase 4f: {bundle.name} summary, medians of {pairs}: "
+          + "; ".join(summary)
+          + f"; phase time {time.perf_counter() - t_phase:.1f} s")
+    return all_counts
+
+
 def prefill_logits(model, params, prompt):
     cache = model.init_cache(1, prompt.shape[1] + 1)
     return model.prefill(params, prompt, cache)[0]
@@ -2250,6 +2817,7 @@ def main() -> int:
     rec = kernel_checks(torch, ops, registry.config("llama3.2-3b"))
     rec.update(scaled_kernel_checks(torch, ops,
                                     registry.config("llama3.2-3b")))
+    rec.update(donor_checks(torch, ops, registry.config("llama3.2-3b")))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
     for name in sorted(rec):
         bound(rec[name])
@@ -2309,6 +2877,8 @@ def main() -> int:
         if bundle.cfg.family == "dense":
             all_runs += narrow_runs(torch, ops, serve, bundle, params, runs)
             stamp(f"{arch} phase 4e")
+        all_runs += shared_prefix_runs(torch, ops, serve, bundle, params)
+        stamp(f"{arch} phase 4f")
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         stamp(f"{arch} phase 5")
         all_runs += [run[3] for run in runs.values()] + counts4d
@@ -2339,7 +2909,7 @@ def main() -> int:
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "
           f"{'holds' if rec['flash_prefill_chunk']['pin'] else 'broken'}"
-          f" (bf16), holds (int8, fp8)")
+          f" (bf16), holds (int8, fp8, and under the donor table)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -320,6 +320,24 @@ def arena_aligned(qt: int, kt: int, q, k, v):
     return q, k, v, 1
 
 
+def donor_table(name: str, b: int, share_src, share_len):
+    """The arena kernels' donor table as they take it: (share_src,
+    share_len) (b,) int32 contiguous on the device, or (None, None);
+    raises unless both or neither are given, each of shape (b,)."""
+    if share_src is None and share_len is None:
+        return None, None
+    if share_src is None or share_len is None:
+        raise ValueError(f"{name}: share_src and share_len go together")
+    import torch
+    out = []
+    for t in (share_src, share_len):
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"{name}: donor table {tuple(t.shape)}, "
+                             f"expected ({b},)")
+        out.append(t.to(dtype=torch.int32).contiguous())
+    return tuple(out)
+
+
 def stream_of(t) -> P:
     import torch
     return P(torch.cuda.current_stream(t.device).cuda_stream)

@@ -33,7 +33,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Problem p) {
   const int r0 = blockIdx.x * FA_ROWS, bkv = blockIdx.y;
   const int b = bkv / p.KVH, kvh = bkv % p.KVH;
   t.load_q(p, b, kvh, r0);
-  t.run_keys(p, b, kvh, 0, p.Sk);
+  t.run_keys(p, kvh, 0, p.Sk);
   t.store(p, b, kvh, r0, t.acc, t.Ls);
 }
 
@@ -58,7 +58,7 @@ fa_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   tc::tile_of(p, blockIdx.x, &bkv, &r0);
   const int b = bkv / p.KVH, kvh = bkv % p.KVH;
   t.load_q(p, b, kvh, r0);
-  t.run(p, &mk, &mv, kvh, b * bmul, t.lim[0], t.lim[1], [](int) {});
+  t.run(p, &mk, &mv, kvh, bmul, t.lim[0], t.lim[1], [](int) {});
   t.store(p, b, kvh, r0, t.o, t.l);
 }
 

@@ -29,6 +29,15 @@
 // Explicit __f*_rn intrinsics keep nvcc from contracting differently in the
 // two kernels.
 //
+// Donor table (prefix sharing).  flash_decode and flash_prefill_chunk may
+// take a per-query-batch donor entry (Problem::share_src / share_len): key
+// rows [0, share_len[b]) come from arena row share_src[b], the rest from
+// the batch's own row (Rows).  The f32 tile picks the row per key as it
+// loads the strip; the tensor-core tile per strip, and by row for the one
+// strip that straddles share_len (flash_tc.cuh).  Only addressing
+// changes: the strips, the splits and the order of every sum stay, so
+// over donor rows equal to the own rows the result is the same bits.
+//
 // Narrow arenas.  flash_decode and flash_prefill_chunk also read a K/V
 // arena narrower than q (the TPU kernels' fused-dequant branch,
 // src/repro/kernels/flash_decode.py:39-44,72-75 and
@@ -101,11 +110,39 @@ struct Problem {
   // slot table (flash_prefill_chunk over the whole arena): query batch b
   // reads arena batch row slots[b] (K, V and their scales); null -> b
   const int* slots = nullptr;
+  // donor table (prefix sharing): query batch b reads key rows
+  // [0, share_len[b]) from arena batch row share_src[b], the rows after
+  // from its own row (K, V and their scales alike); null -> no table
+  const int* share_src = nullptr;
+  const int* share_len = nullptr;
 };
 
 // The arena batch row that query batch b reads.
 __device__ __forceinline__ int arena_row(const Problem& p, int b) {
   return p.slots ? p.slots[b] : b;
+}
+
+// The arena batch rows one query batch reads: key row kpos comes from the
+// donor row ``src`` below ``len``, from its own row ``own`` from there on
+// (src = own, len = 0 without a donor table).  Reads only: no kernel
+// writes the arena.
+struct Rows {
+  int own, src, len;
+  __device__ __forceinline__ int at(int kpos) const {
+    return kpos < len ? src : own;
+  }
+  // Does strip [j0, j0 + BK) take rows from both?
+  __device__ __forceinline__ bool straddles(int j0) const {
+    return j0 < len && j0 + BK > len;
+  }
+};
+
+__device__ __forceinline__ Rows rows_of(const Problem& p, int b) {
+  Rows r;
+  r.own = arena_row(p, b);
+  r.src = p.share_src ? p.share_src[b] : r.own;
+  r.len = p.share_src ? p.share_len[b] : 0;
+  return r;
 }
 
 // Does query position qpos see key kpos?  Keys past Sk never: a parked
@@ -162,6 +199,7 @@ struct Tile {
   int* qlim;          // [0] = min qpos of the tile's rows, [1] = max
   float acc[RPV][DPT];
   int tid;
+  Rows rw;            // the arena rows the tile's query batch reads
 
   __device__ void init(char* smem) {
     float* f = reinterpret_cast<float*>(smem);
@@ -202,6 +240,7 @@ struct Tile {
       }
       Qs[r * DP + d] = __fmul_rn(x, p.scale);
     }
+    rw = rows_of(p, b);
     const int base = (p.qbase ? p.qbase[b] : p.qbase0) + p.qbase_add;
     for (int r = tid; r < ROWS; r += NT) {
       const int R = r0 + r;
@@ -234,18 +273,20 @@ struct Tile {
   }
 
   // K/V rows [j0, j0 + BK) widened to f32 (times their scales for a
-  // scaled arena), zeros past Sk.
-  __device__ void load_kv(const Problem& p, int b, int kvh, int j0) {
+  // scaled arena), zeros past Sk; each row from the arena row ``rw``
+  // names for it.
+  __device__ void load_kv(const Problem& p, int kvh, int j0) {
     const KT* k = reinterpret_cast<const KT*>(p.k);
     const KT* v = reinterpret_cast<const KT*>(p.v);
-    const long long kb = b * p.skb + kvh * p.skh;
-    const long long vb = b * p.svb + kvh * p.svh;
-    const long long sb = b * p.ssb + kvh * p.ssh;
     constexpr int VEC = 16 / sizeof(KT);
     if (p.vec && D % VEC == 0) {
       constexpr int NV = D / VEC;
       for (int e = tid; e < BK * NV; e += NT) {
         const int j = e / NV, c = e % NV, kpos = j0 + j;
+        const long long b = rw.at(kpos);
+        const long long kb = b * p.skb + kvh * p.skh;
+        const long long vb = b * p.svb + kvh * p.svh;
+        const long long sb = b * p.ssb + kvh * p.ssh;
         if (kpos < p.Sk) {
           const uint4 ku = *reinterpret_cast<const uint4*>(
               k + kb + kpos * p.sks + c * VEC);
@@ -276,6 +317,10 @@ struct Tile {
     } else {
       for (int e = tid; e < BK * D; e += NT) {
         const int j = e / D, d = e % D, kpos = j0 + j;
+        const long long b = rw.at(kpos);
+        const long long kb = b * p.skb + kvh * p.skh;
+        const long long vb = b * p.svb + kvh * p.svh;
+        const long long sb = b * p.ssb + kvh * p.ssh;
         const bool in = kpos < p.Sk;
         float kx = in ? to_f(k[kb + kpos * p.sks + d]) : 0.f;
         float vx = in ? to_f(v[vb + kpos * p.svs + d]) : 0.f;
@@ -381,10 +426,10 @@ struct Tile {
   }
 
   // Run every live strip of keys [k0, k1) into the split-local state.
-  __device__ void run_keys(const Problem& p, int b, int kvh, int k0, int k1) {
+  __device__ void run_keys(const Problem& p, int kvh, int k0, int k1) {
     for (int j0 = k0; j0 < k1; j0 += BK) {
       if (!strip_live(p, j0)) continue;
-      load_kv(p, b, kvh, j0);
+      load_kv(p, kvh, j0);
       __syncthreads();
       strip(p, j0);
     }

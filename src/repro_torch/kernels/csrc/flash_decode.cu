@@ -41,6 +41,13 @@
 // pos = prefix + j bit for bit.  K/V come in by TMA.  f32 split CTAs run
 // flash_common.cuh's CUDA-core tile.
 //
+// Donor table (prefix sharing, the reference's composed share view,
+// src/repro/models/transformer.py:495-530): slot b reads its key rows
+// [0, share_len[b]) from slot share_src[b] of the same arena, the rest
+// from its own (flash_common.cuh's Rows, flash_tc.cuh's issue_rows for the
+// strip that straddles share_len).  Writes never go through it; an
+// unshared slot passes (b, 0).
+//
 // Narrow arenas (the TPU kernel's scaled branch, _fd_kernel scaled=True,
 // flash_decode.py:39-44,72-75): the arena may be int8 or fp8 e4m3 with
 // (B, Sk, KVH) f32 scales read in place, under bf16 or f32 queries, or
@@ -134,7 +141,7 @@ fd_kernel(Problem p, float* part, int* count, int nsplit) {
   const int b = bkv / p.KVH, kvh = bkv % p.KVH;
   t.load_q(p, b, kvh, 0);
   const int k0 = split * SPLIT;
-  t.run_keys(p, b, kvh, k0, min(k0 + SPLIT, p.Sk));
+  t.run_keys(p, kvh, k0, min(k0 + SPLIT, p.Sk));
   const int G = p.G;
   float* base = part + ((long long)bkv * nsplit + split) * G * (D + 2);
   for (int r = threadIdx.x; r < G; r += NT) {
@@ -167,7 +174,7 @@ fd_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   const int b = bkv / p.KVH, kvh = bkv % p.KVH;
   t.load_q(p, b, kvh, 0);
   constexpr int PER = SPLIT / BK;
-  t.run(p, &mk, &mv, kvh, b * bmul, max(t.lim[0], split * PER),
+  t.run(p, &mk, &mv, kvh, bmul, max(t.lim[0], split * PER),
         min(t.lim[1], split * PER + PER - 1), [](int) {});
   const int G = p.G, cq = 2 * (t.lane % 4);
   float* base = part + ((long long)bkv * nsplit + split) * G * (D + 2);
@@ -254,7 +261,8 @@ static int fd_tc_occ(const Problem& p, int* blocks) {
 // q (B, H, D), k/v (B, Sk, KVH, D), o (B, H, D) by strides; ks/vs (B, Sk,
 // KVH) f32 scales of an int8 / fp8 arena by strides (ssb, sss, ssh; null
 // for an unscaled arena); lengths (B,) int32 live rows per slot (null: all
-// Sk live).  qtype 0 float32 / 1 bfloat16; kvtype 0 float32, 1 bfloat16,
+// Sk live); share_src / share_len (B,) int32 the donor table (null: none).
+// qtype 0 float32 / 1 bfloat16; kvtype 0 float32, 1 bfloat16,
 // 2 int8, 3 fp8 e4m3 (bf16 q: 1-3).  part: scratch of B * KVH * nsplit *
 // G * (D + 2) floats, nsplit = ceil(Sk / 128); count: B * KVH int32
 // arrival counters, 0 on entry and left 0.  Returns cudaGetLastError()
@@ -268,6 +276,7 @@ extern "C" int fd_launch(int qtype, int kvtype, int hd, const void* q,
                          long long ssb, long long sss, long long ssh,
                          long long sob, long long soh,
                          int B, int KVH, int G, int Sk, const int* lengths,
+                         const int* share_src, const int* share_len,
                          int window, float scale, int nsplit, int vec,
                          void* stream) {
   Problem p;
@@ -279,6 +288,7 @@ extern "C" int fd_launch(int qtype, int kvtype, int hd, const void* q,
   p.ks = ks; p.vs = vs; p.ssb = ssb; p.sss = sss; p.ssh = ssh;
   p.KVH = KVH; p.G = G; p.C = 1; p.Sk = Sk;
   p.qbase = lengths; p.qbase0 = Sk; p.qbase_add = -1;
+  p.share_src = share_src; p.share_len = share_len;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return dispatch_kv(

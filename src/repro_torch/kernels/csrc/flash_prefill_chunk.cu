@@ -26,6 +26,12 @@
 // TMA maps' batch coordinate, its scales by stride), so a captured chunk
 // step reads its slot as data.  It changes addressing only: the pin holds.
 //
+// Donor table (prefix sharing): beside the slot table, query batch b reads
+// its key rows [0, share_len[b]) from arena row share_src[b] (a fork reads
+// its donor's prefix in place), the rest from slots[b] (flash_common.cuh's
+// Rows; flash_tc.cuh loads the strip that straddles share_len by rows).
+// Addressing again: the pin holds under the table.
+//
 // Narrow arenas (the TPU kernel's scaled branch, flash_prefill_chunk.py:
 // 38-44,73-76): int8 or fp8 e4m3 K/V with (B, Sk, KVH) f32 scales, or bf16
 // under f32 queries, read and widened as flash_decode reads them (the same
@@ -53,7 +59,7 @@ __global__ void __launch_bounds__(NT) fpc_kernel(Problem p) {
     for (int w = 0; w < TT::DPT; ++w) A[v][w] = 0.f;
   for (int k0 = 0; k0 < p.Sk; k0 += SPLIT) {
     if (k0 > t.qlim[1]) break;      // causal: no row of the tile sees it
-    t.run_keys(p, arena_row(p, b), kvh, k0, min(k0 + SPLIT, p.Sk));
+    t.run_keys(p, kvh, k0, min(k0 + SPLIT, p.Sk));
     t.merge_into(A);
   }
   t.store(p, b, kvh, r0, A, t.GL);
@@ -88,7 +94,7 @@ fpc_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   // (alpha 1, zero partial), as in flash_decode's combine
   constexpr int PER = SPLIT / BK;
   const int last = t.lim[1];
-  t.run(p, &mk, &mv, kvh, t.b * bmul, t.lim[0], last, [&](int n) {
+  t.run(p, &mk, &mv, kvh, bmul, t.lim[0], last, [&](int n) {
     if (n == last || (n + 1) % PER == 0) t.merge_into(A, GM, GL);
   });
   t.store(p, b, kvh, r0, A, GL);
@@ -114,7 +120,8 @@ static int fpc_tc_run(const Problem& p, int B, int NA, cudaStream_t st) {
 // (NA, Sk, KVH) f32 scales of an int8 / fp8 arena by strides (null for an
 // unscaled arena); prefix (B,) int32 rows live before the chunk; slots (B,)
 // int32 arena rows of the query batches (null: NA == B, batch b reads row
-// b).  Types as fd_launch's.  bf16 needs vec.
+// b); share_src / share_len (B,) int32 the donor table (null: none).
+// Types as fd_launch's.  bf16 needs vec.
 extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
                           const void* k, const void* v, const float* ks,
                           const float* vs, void* o,
@@ -124,8 +131,9 @@ extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
                           long long ssb, long long sss, long long ssh,
                           long long sob, long long sos, long long soh,
                           int B, int NA, int KVH, int G, int C, int Sk,
-                          const int* prefix, const int* slots, int window,
-                          float scale, int vec, void* stream) {
+                          const int* prefix, const int* slots,
+                          const int* share_src, const int* share_len,
+                          int window, float scale, int vec, void* stream) {
   Problem p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
@@ -135,6 +143,7 @@ extern "C" int fpc_launch(int qtype, int kvtype, int hd, const void* q,
   p.ks = ks; p.vs = vs; p.ssb = ssb; p.sss = sss; p.ssh = ssh;
   p.KVH = KVH; p.G = G; p.C = C; p.Sk = Sk;
   p.qbase = prefix; p.qbase0 = 0; p.qbase_add = 0; p.slots = slots;
+  p.share_src = share_src; p.share_len = share_len;
   p.causal = 1; p.window = window; p.scale = scale; p.vec = vec;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return dispatch_kv(

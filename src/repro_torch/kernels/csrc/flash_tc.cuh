@@ -49,6 +49,22 @@
 // transpose bit).  K/V are read in place from the arena's strides through
 // a 4-D tensor map (D, position, head, batch) built on the host per launch.
 //
+// Donor table (prefix sharing; flash_common.cuh's Rows).  A strip below
+// the donor length comes in by TMA from the donor row (the maps' batch
+// coordinate), one at or above it from the own row.  The strip that
+// straddles the length (share_len is a multiple of the page size, rarely
+// of BK) is loaded by rows: thread 0 arrives on its stage barrier with no
+// copy, and every thread issues 16-byte cp.async copies of its rows, each
+// from the row ``Rows::at`` names, into the layout TMA would have made
+// (bf16: the 128-byte swizzle; narrow: raw rows of ROW_BYTES), zeros
+// where TMA fills zeros (past Sk, past D).  They are issued where the
+// ring refills the stage, so they fly under the strips before it, and
+// waited for and fenced for the async proxy when the ring reaches the
+// strip (a first version loaded them synchronously there, which cost the
+// CTAs that hold the strip a round trip to memory per load).  The scales follow their rows per key.  The
+// products see the same shared memory either way, so the order of every
+// sum stays, and over donor rows equal to the own rows the bits do.
+//
 // Narrow arenas (int8 / fp8 e4m3 with one f32 scale per row and KV head:
 // the TPU kernels' fused-dequant branch).  TMA brings each strip in at its
 // own byte width (a row of D bytes, no swizzle) into the ring; the scales
@@ -142,6 +158,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
@@ -323,7 +343,7 @@ struct TcTile {
   float m[2], l[2];     // split-local max / sum of this thread's two rows
   int qpos[2];
   int tid, lane, row0;  // this thread's rows: row0 and row0 + 8
-  int b;                // the arena batch row (its scales' index)
+  Rows rw;              // the arena rows the tile's query batch reads
 
   __device__ __forceinline__ void init(char* smem) {
     char* base = reinterpret_cast<char*>(
@@ -378,7 +398,7 @@ struct TcTile {
       *reinterpret_cast<uint4*>(q_s + (c / 8) * BOX_BYTES + r * 128
                                 + ((c % 8) ^ (r % 8)) * 16) = x;
     }
-    this->b = arena_row(p, b);
+    rw = rows_of(p, b);
     const int base = (p.qbase ? p.qbase[b] : p.qbase0) + p.qbase_add;
     for (int r = tid; r < ROWS; r += NT) {
       const int R = r0 + r;
@@ -407,10 +427,17 @@ struct TcTile {
   }
 
   // Thread 0: strip n's K and V boxes (narrow: its raw K and V rows)
-  // into stage st.
+  // into stage st, from the donor row or the own row (bmul 0: a broadcast
+  // batch, coordinate 0); a strip that straddles the donor length only
+  // arrives (every thread copies its rows: issue_rows).
   __device__ __forceinline__ void load_strip(const CUtensorMap* mk,
                                              const CUtensorMap* mv, int n,
-                                             int st, int kvh, int bb) {
+                                             int st, int kvh, int bmul) {
+    if (rw.straddles(n * BK)) {
+      mbar_arrive(&bar[st]);
+      return;
+    }
+    const int bb = rw.at(n * BK) * bmul;
     char* ks = kv_s + st * CF::STAGE_BYTES;
     mbar_expect_tx(&bar[st], CF::STAGE_BYTES);
     if constexpr (NARROW) {
@@ -433,9 +460,54 @@ struct TcTile {
                                               int st, int kvh) {
     const int j = tid % BK;
     const int kpos = min(n * BK + j, p.Sk - 1);
-    const float* src = (tid < BK ? p.ks : p.vs) + b * p.ssb
+    const float* src = (tid < BK ? p.ks : p.vs) + rw.at(kpos) * p.ssb
                        + (long long)kpos * p.sss + (long long)kvh * p.ssh;
     cp_async4_arrive(sc_s + st * 2 * BK + tid, src, &bar[st]);
+  }
+
+  // Every thread: issue strip n's rows (a strip that straddles the donor
+  // length) into stage st as 16-byte cp.async copies, each row from the
+  // arena row rw names for it, in the layout load_strip's TMA boxes have
+  // (a copy of 0 bytes fills zeros past Sk and past D; 8 bytes and zeros
+  // for a narrow row of D = 8).  Issued where the ring refills the stage,
+  // so the copies fly under the strips before it; rows_landed waits.
+  __device__ __forceinline__ void issue_rows(const Problem& p, int n, int st,
+                                             int kvh) {
+    char* stage = kv_s + st * CF::STAGE_BYTES;
+    const char* base[2] = {reinterpret_cast<const char*>(p.k),
+                           reinterpret_cast<const char*>(p.v)};
+    const long long sb[2] = {p.skb, p.svb}, ss[2] = {p.sks, p.svs},
+                    sh[2] = {p.skh, p.svh};
+    constexpr long long ES = sizeof(KT);
+    // 16-byte chunks a row: narrow max(D, 16) bytes; bf16 64 columns a box
+    constexpr int CH = NARROW ? CF::ROW_BYTES / 16 : CF::NB * 8;
+    for (int e = tid; e < 2 * BK * CH; e += NT) {
+      const int which = e / (BK * CH), j = (e / CH) % BK, c = e % CH;
+      const int kpos = n * BK + j;
+      const bool in = kpos < p.Sk && (NARROW || c * 8 < D);
+      const char* src = base[which];
+      if (in)
+        src += ES * (rw.at(kpos) * sb[which] + kpos * ss[which]
+                     + kvh * sh[which]) + 16 * c;
+      const int bytes = in ? (NARROW && D < 16 ? 8 : 16) : 0;
+      char* dst;
+      if constexpr (NARROW)
+        dst = stage + which * CF::RAW_BYTES + j * CF::ROW_BYTES + c * 16;
+      else
+        dst = stage + which * CF::NB * BOX_BYTES + (c / 8) * BOX_BYTES
+              + j * 128 + ((c % 8) ^ (j % 8)) * 16;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+    }
+  }
+
+  // Every thread: wait for its row copies (issue_rows), then fence them
+  // for the async proxy (the products, and TMA's next write to the stage)
+  // and the CTA.
+  __device__ __forceinline__ void rows_landed() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
   }
 
   // Every thread (narrow only): stage st's raw K and V strips widened into
@@ -562,20 +634,24 @@ struct TcTile {
   }
 
   // Every strip n in [n0, n1] through the ring; after(n) once strip n is
-  // folded in (every thread is past the stage by then).
+  // folded in (every thread is past the stage by then).  ``bmul``: the
+  // maps' batch multiplier (make_maps).
   template <typename After>
   __device__ __forceinline__ void run(const Problem& p, const CUtensorMap* mk,
-                      const CUtensorMap* mv, int kvh, int bb, int n0, int n1,
-                      After after) {
+                      const CUtensorMap* mv, int kvh, int bmul, int n0,
+                      int n1, After after) {
     if (tid == 0)
       for (int i = 0; i < NST && n0 + i <= n1; ++i)
-        load_strip(mk, mv, n0 + i, i, kvh, bb);
+        load_strip(mk, mv, n0 + i, i, kvh, bmul);
+    for (int i = 0; i < NST && n0 + i <= n1; ++i)
+      if (rw.straddles((n0 + i) * BK)) issue_rows(p, n0 + i, i, kvh);
     if constexpr (NARROW)
       for (int i = 0; i < NST && n0 + i <= n1; ++i)
         load_scales(p, n0 + i, i, kvh);
     for (int n = n0; n <= n1; ++n) {
       const int u = n - n0, st = u % NST;
       mbar_wait(&bar[st], (u / NST) & 1);
+      if (rw.straddles(n * BK)) rows_landed();
       if constexpr (NARROW) widen(st);
       strip(p, n * BK, st);
       __syncthreads();
@@ -584,8 +660,10 @@ struct TcTile {
           // the stage was last read through the generic proxy (widen)
           if constexpr (NARROW)
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          load_strip(mk, mv, n + NST, st, kvh, bb);
+          load_strip(mk, mv, n + NST, st, kvh, bmul);
         }
+        if (rw.straddles((n + NST) * BK))
+          issue_rows(p, n + NST, st, kvh);
         if constexpr (NARROW) load_scales(p, n + NST, st, kvh);
       }
       after(n);

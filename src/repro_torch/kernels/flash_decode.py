@@ -15,7 +15,11 @@ kernel at :96).  Two versions of one function live here:
 Both take the fused-dequant branch of the TPU kernel (``_fd_kernel``,
 ``scaled=True``, flash_decode.py:39-44,72-75): an int8 or fp8 arena with
 its (B, S, KVH) f32 scales, each row widened and scaled before it enters
-the products.
+the products.  Both also take a donor table ``share_src`` / ``share_len``
+(B,) (prefix sharing, the reference's composed share view,
+``repro/models/transformer.py:495-530``): slot b reads its rows [0,
+share_len[b]) from slot share_src[b] (K, V and the scales alike); an
+unshared slot passes (b, 0).
 
 ``ops.flash_decode`` picks between them by the tensors' device.
 """
@@ -40,6 +44,8 @@ MAX_GROUP = 16
 launches = 0
 #: the scaled ones among them (an int8 / fp8 arena with its scales)
 launches_scaled = 0
+#: the ones with a donor table (prefix sharing)
+launches_donor = 0
 
 #: {(device index, owner, rows): int32 arrival counters}; the owner is the
 #: current stream's handle, or the name given to :func:`owned_counters`
@@ -47,14 +53,40 @@ _COUNTERS: dict[tuple[int, int | str, int], torch.Tensor] = {}
 _OWNER: Optional[str] = None
 
 
+def share_rows(own: torch.Tensor, arena: torch.Tensor,
+               share_src: torch.Tensor, share_len: torch.Tensor):
+    """``own`` (B, S, ...) with batch b's rows [0, share_len[b]) taken from
+    ``arena[share_src[b]]`` (the reference's ``_share_view`` select, bit
+    for bit: the select moves raw bits, so a NaN in the rows it replaces
+    never reaches the result).  None for None."""
+    if own is None:
+        return None
+    b, s = own.shape[:2]
+    donor = arena.index_select(0, share_src.to(device=own.device,
+                                               dtype=torch.int64))
+    take = (torch.arange(s, device=own.device)[None, :]
+            < share_len.to(device=own.device)[:, None])
+    take = take.view(b, s, *[1] * (own.ndim - 2))
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        own.element_size()]
+    return torch.where(take, donor.view(bits), own.view(bits)).view(
+        own.dtype)
+
+
 def flash_decode_plain(q, k, v, *, lengths, window=None, scale=None,
-                       bk: int = 512, k_scale=None, v_scale=None):
+                       bk: int = 512, k_scale=None, v_scale=None,
+                       share_src=None, share_len=None):
     """q: (B, KVH, G, hd); k/v: (B, S, KVH, hd); lengths: (B,) live rows.
     Strip-mined online softmax over ``bk``-row KV strips with the per-slot
     tail mask ``kpos < min(lengths, S)`` (and ``kpos >= lengths - window``).
     ``k_scale`` / ``v_scale`` (B, S, KVH): each strip is widened to f32
     and multiplied by its scale strip before the products, as the
-    reference's ``_flash_decode_ref`` does (ops.py:254-300)."""
+    reference's ``_flash_decode_ref`` does (ops.py:254-300).
+    ``share_src`` / ``share_len`` (B,): K, V and the scales composed per
+    slot first (:func:`share_rows`), then the same loop."""
+    if share_src is not None:
+        k, v, k_scale, v_scale = (share_rows(t, t, share_src, share_len)
+                                  for t in (k, v, k_scale, v_scale))
     b, s, kvh, hd = k.shape
     g = q.shape[2]
     scale = scale if scale is not None else hd ** -0.5
@@ -172,22 +204,28 @@ def occupancy(dtype: torch.dtype, head_dim: int, group: int,
 
 
 _ARGS = ([_build.I] * 3 + [_build.P] * 8 + [_build.LL] * 13
-         + [_build.I] * 4 + [_build.P, _build.I, _build.F, _build.I,
-                             _build.I, _build.P])
+         + [_build.I] * 4 + [_build.P] * 3 + [_build.I, _build.F, _build.I,
+                                              _build.I, _build.P])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lengths: Optional[torch.Tensor], *, window: Optional[int] = None,
            scale: Optional[float] = None,
            k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           v_scale: Optional[torch.Tensor] = None,
+           share_src: Optional[torch.Tensor] = None,
+           share_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CUDA kernel.  q: (B, H, D); k/v: (B, S, KVH, D) (any strides with a
     unit last axis — an arena layer view is read in place); lengths: (B,)
     live rows per slot or None (all S); k_scale / v_scale: (B, S, KVH) f32
-    for an int8 / fp8 arena (read in place by strides), None otherwise.
-    Returns (B, H, D) in q's dtype."""
-    global launches, launches_scaled
-    _build.require_cuda(NAME, q, k, v, lengths, k_scale, v_scale)
+    for an int8 / fp8 arena (read in place by strides), None otherwise;
+    share_src / share_len: the donor table, (B,) int on the device (slot b
+    reads rows [0, share_len[b]) of slot share_src[b], kept in [0, B) by
+    the caller: the kernel reads the table on the device, unchecked), or
+    None.  Returns (B, H, D) in q's dtype."""
+    global launches, launches_scaled, launches_donor
+    _build.require_cuda(NAME, q, k, v, lengths, k_scale, v_scale, share_src,
+                        share_len)
     b, h, d = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -202,6 +240,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qt, kt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     if lengths is not None:
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    share_src, share_len = _build.donor_table(NAME, b, share_src, share_len)
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     nsplit = -(-s // SPLIT)
@@ -217,9 +256,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               v.stride(0), v.stride(1), v.stride(2),
               *_build.scale_strides(k_scale),
               o.stride(0), o.stride(1),
-              b, kvh, g, s, _build.ptr(lengths), int(window or 0),
+              b, kvh, g, s, _build.ptr(lengths), _build.ptr(share_src),
+              _build.ptr(share_len), int(window or 0),
               float(scale), nsplit, vec, _build.stream_of(q))
     launches += 1
     launches_scaled += scaled
+    launches_donor += share_src is not None
     _build.check(code, NAME)
     return o

@@ -65,18 +65,24 @@ KERNEL_MODULES = (_fa, _fd, _fpc, _ssd, _mm, _dp, _cv)
 #: the kernels with a fused-dequant branch: their scaled launches (over an
 #: int8 / fp8 arena) are also counted apart, as ``<name>_scaled``
 SCALED_MODULES = (_fd, _fpc)
+#: the kernels with a donor table (prefix sharing): the launches with one
+#: are also counted apart, as ``<name>_donor``
+DONOR_MODULES = (_fd, _fpc)
 
 
 def _counters():
     """(count name, module, attribute) of every launch counter."""
     return ([(m.NAME, m, "launches") for m in KERNEL_MODULES]
             + [(m.NAME + "_scaled", m, "launches_scaled")
-               for m in SCALED_MODULES])
+               for m in SCALED_MODULES]
+            + [(m.NAME + "_donor", m, "launches_donor")
+               for m in DONOR_MODULES])
 
 
 def launch_counts() -> dict[str, int]:
-    """{kernel name: launches since the last reset}, and {``<name>_scaled``:
-    the scaled ones among them} for the kernels of ``SCALED_MODULES``."""
+    """{kernel name: launches since the last reset}, {``<name>_scaled``:
+    the scaled ones among them} for the kernels of ``SCALED_MODULES`` and
+    {``<name>_donor``: those with a donor table} for ``DONOR_MODULES``."""
     return {name: getattr(m, attr) for name, m, attr in _counters()}
 
 
@@ -158,7 +164,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def _flash_decode_plain(q, k, v, *, lengths=None, window=None, scale=None,
-                        bk=512, k_scale=None, v_scale=None):
+                        bk=512, k_scale=None, v_scale=None, share_src=None,
+                        share_len=None):
     b, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -168,7 +175,8 @@ def _flash_decode_plain(q, k, v, *, lengths=None, window=None, scale=None,
     qg = q.reshape(b, kvh, h // kvh, hd)
     out = _fd.flash_decode_plain(qg, k, v, lengths=lengths, window=window,
                                  scale=scale, bk=bk, k_scale=k_scale,
-                                 v_scale=v_scale)
+                                 v_scale=v_scale, share_src=share_src,
+                                 share_len=share_len)
     return out.reshape(b, h, hd)
 
 
@@ -176,7 +184,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  lengths: Optional[torch.Tensor] = None,
                  window: Optional[int] = None,
                  scale: Optional[float] = None, bk: int = 512,
-                 k_scale=None, v_scale=None) -> torch.Tensor:
+                 k_scale=None, v_scale=None, share_src=None,
+                 share_len=None) -> torch.Tensor:
     """One-token decode attention with per-sequence length masking.
 
     q: (B, H, hd); k/v: (B, S, KVH, hd); lengths: (B,) live KV rows per
@@ -187,13 +196,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     arena (int8 or fp8 K/V, ``core/kv_format.py``): each K/V row is
     widened and multiplied by its scale inside the kernel, so the arena is
     never widened in memory (reference ops.py:324-360).
+
+    ``share_src`` / ``share_len``: (B,) int donor table (prefix sharing):
+    slot b reads rows [0, share_len[b]) of K, V and the scales from slot
+    ``share_src[b]``, the rest from its own (an unshared slot: (b, 0));
+    None reads every slot's own rows.  Writes never go through it.
     """
-    if not _on_cuda(q, k, v, lengths, k_scale, v_scale):
+    if not _on_cuda(q, k, v, lengths, k_scale, v_scale, share_src,
+                    share_len):
         return _flash_decode_plain(q, k, v, lengths=lengths, window=window,
                                    scale=scale, bk=bk, k_scale=k_scale,
-                                   v_scale=v_scale)
+                                   v_scale=v_scale, share_src=share_src,
+                                   share_len=share_len)
     return _fd.launch(q, k, v, lengths, window=window, scale=scale,
-                      k_scale=k_scale, v_scale=v_scale)
+                      k_scale=k_scale, v_scale=v_scale, share_src=share_src,
+                      share_len=share_len)
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +219,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
                                bk=512, k_scale=None, v_scale=None,
-                               slots=None):
+                               slots=None, share_src=None, share_len=None):
     b, c, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if h % kvh:
@@ -213,7 +230,8 @@ def _flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
     out = _fpc.flash_prefill_chunk_plain(qg, k, v, prefix=prefix,
                                          window=window, scale=scale, bk=bk,
                                          k_scale=k_scale, v_scale=v_scale,
-                                         slots=slots)
+                                         slots=slots, share_src=share_src,
+                                         share_len=share_len)
     return out.reshape(b, h, c, hd).transpose(1, 2)
 
 
@@ -222,7 +240,10 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None,
                         scale: Optional[float] = None, bk: int = 512,
                         k_scale=None, v_scale=None,
-                        slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        slots: Optional[torch.Tensor] = None,
+                        share_src: Optional[torch.Tensor] = None,
+                        share_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Chunk-append prefill attention with a runtime causal boundary.
 
     q: (B, C, H, hd); k/v: (B, S, KVH, hd) with the chunk's K/V already at
@@ -230,15 +251,20 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, C, H, hd).  ``k_scale`` / ``v_scale``: as for
     :func:`flash_decode`.  ``slots`` (B,) int: k/v (and the scales) are
     the whole arena (N, S, KVH, hd) and batch b reads its row
-    ``slots[b]`` (None: row b of a (B, ...) arena).
+    ``slots[b]`` (None: row b of a (B, ...) arena).  ``share_src`` /
+    ``share_len`` (B,) int: the donor table, as for :func:`flash_decode`
+    (batch b's rows [0, share_len[b]) from arena row ``share_src[b]``).
     """
-    if not _on_cuda(q, k, v, prefix, k_scale, v_scale, slots):
+    if not _on_cuda(q, k, v, prefix, k_scale, v_scale, slots, share_src,
+                    share_len):
         return _flash_prefill_chunk_plain(q, k, v, prefix=prefix,
                                           window=window, scale=scale, bk=bk,
                                           k_scale=k_scale, v_scale=v_scale,
-                                          slots=slots)
+                                          slots=slots, share_src=share_src,
+                                          share_len=share_len)
     return _fpc.launch(q, k, v, prefix, window=window, scale=scale,
-                       k_scale=k_scale, v_scale=v_scale, slots=slots)
+                       k_scale=k_scale, v_scale=v_scale, slots=slots,
+                       share_src=share_src, share_len=share_len)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ ssm: ``--arch mamba2-2.7b``).  Runs on the card unless ``--device cpu``.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
 reference always draws them from ``PRNGKey(0)``); prompts come from
 ``numpy.random.default_rng(0)`` as in the reference (odd requests get a
-25%-shorter prompt, or ``--prompt-mix`` cycles given lengths).
+25%-shorter prompt, or ``--prompt-mix`` cycles given lengths, or
+``--prompt-mix shared-prefix`` gives every request a common page-aligned
+half of ``--prompt-len`` and a tail of its own, reference serve.py:324-334).
+``--prefix-sharing`` (chunked prefill only) turns the copy-on-write prefix
+cache on: later requests fork onto the first one's pages and ingest only
+their tails.
 
 Sampling as in the reference: ``--temperature`` > 0 makes a
 ``--sampling-mix`` fraction of the requests sample (spread evenly over
@@ -62,7 +67,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(default: largest bucket)")
     p.add_argument("--prompt-mix", default=None,
                    help="comma-separated prompt lengths cycled over the "
-                        "requests; overrides --prompt-len")
+                        "requests, or 'shared-prefix' for a common prefix of "
+                        "half --prompt-len (page-aligned) plus distinct "
+                        "tails; overrides --prompt-len")
+    p.add_argument("--prefix-sharing", action="store_true",
+                   help="copy-on-write prefix cache: fork repeated "
+                        "page-aligned prompt prefixes onto shared pages "
+                        "(requires --prefill-mode chunked)")
     p.add_argument("--kv-format", choices=["fp32", "bf16", "int8"],
                    default="fp32",
                    help="KV-arena storage format (fp32 = stored at the "
@@ -96,7 +107,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(default: replay it as a captured CUDA graph)")
     # EngineConfig.chunk_graph has no flag; a caller may set the attribute
     p.set_defaults(chunk_graph=True)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.prefix_sharing and args.prefill_mode != "chunked":
+        p.error("--prefix-sharing requires --prefill-mode chunked")
+    return args
 
 
 def build(args):
@@ -107,13 +121,41 @@ def build(args):
     return bundle, bundle.model.init(0)
 
 
+SHARED_PREFIX = "shared-prefix"
+
+
+def shared_prefix_len(args) -> int:
+    """The common prefix of the shared-prefix mix: half ``--prompt-len``
+    cut to whole pages, at least one page."""
+    ps = args.page_size
+    return max(ps, args.prompt_len // 2 // ps * ps)
+
+
 def prompt_lengths(args) -> list[int]:
+    if args.prompt_mix == SHARED_PREFIX:
+        n = shared_prefix_len(args) + max(1, args.prompt_len
+                                          - shared_prefix_len(args))
+        return [n] * args.requests
     if args.prompt_mix:
         mix = [int(x) for x in args.prompt_mix.split(",")]
         return [mix[i % len(mix)] for i in range(args.requests)]
     return [args.prompt_len if i % 2 == 0
             else max(1, args.prompt_len * 3 // 4)
             for i in range(args.requests)]
+
+
+def prompts(args, vocab: int) -> list[np.ndarray]:
+    """The run's prompts, drawn from ``numpy.random.default_rng(0)`` as
+    the reference draws them: the shared-prefix mix's common head first,
+    then each tail; otherwise one prompt of each length in turn."""
+    rng = np.random.default_rng(0)
+    lens = prompt_lengths(args)
+    if args.prompt_mix == SHARED_PREFIX:
+        shared = shared_prefix_len(args)
+        head = rng.integers(0, vocab, shared)
+        return [np.concatenate([head, rng.integers(0, vocab, n - shared)])
+                for n in lens]
+    return [rng.integers(0, vocab, n) for n in lens]
 
 
 def engine_config(args, lens) -> EngineConfig:
@@ -127,6 +169,7 @@ def engine_config(args, lens) -> EngineConfig:
         max_seq=max(lens) + args.gen + pad_slack + 1,
         depth=args.depth, page_size=args.page_size, num_pages=args.pages,
         prefill_chunks=chunks, prefill_budget=args.prefill_budget,
+        prefix_sharing=args.prefix_sharing,
         kv_format=args.kv_format, base_seed=args.seed,
         decode_graph=args.decode_graph, chunk_graph=args.chunk_graph)
 
@@ -154,17 +197,15 @@ def engine(bundle, params, args) -> ServingEngine:
     submitted, sampled as :func:`sampling_plan` says (on the card its
     greedy decode graph captured, and its sampled one if a request
     samples)."""
-    rng = np.random.default_rng(0)
-    lens = prompt_lengths(args)
-    prompts = [rng.integers(0, bundle.cfg.vocab, n) for n in lens]
+    reqs = prompts(args, bundle.cfg.vocab)
     eng = ServingEngine(bundle.model, bundle.cfg, params,
-                        config=engine_config(args, lens))
+                        config=engine_config(args, [p.size for p in reqs]))
     plan = sampling_plan(args.requests, temperature=args.temperature,
                          top_k=args.top_k, top_p=args.top_p,
                          min_p=args.min_p, seed=args.seed,
                          mix=args.sampling_mix)
     for i in range(args.requests):
-        eng.submit(Request(uid=i, prompt=prompts[i],
+        eng.submit(Request(uid=i, prompt=reqs[i],
                            max_new_tokens=args.gen, sampling=plan[i]))
     return eng
 
@@ -204,6 +245,16 @@ def report_stats(eng: ServingEngine) -> None:
           f"(greedy={total - sampled}; {per_req}; keys fold "
           f"(seed, position) — batch/preemption invariant)")
     print("scheduler:", eng.scheduler.stats)
+    if eng.prefix_sharing:
+        ps = eng.cache_mgr.stats
+        print(f"prefix cache: forks={stats['forks']} "
+              f"shared_prompt_tokens={stats['shared_prompt_tokens']} "
+              f"prefill_rows={stats['prefill_rows']} "
+              f"(pages: registered={ps['registered_pages']} "
+              f"shared={ps['shared_pages']} max_ref={ps['max_page_ref']}"
+              + (f"; {stats['snapshots']} state snapshots of "
+                 f"{stats['snapshot_bytes']} bytes"
+                 if stats["snapshots"] else "") + ")")
     graphs = [("greedy decode", eng.graph),
               ("sampled decode", eng.sampled_graph),
               ("first draw", eng.draw_graph)]

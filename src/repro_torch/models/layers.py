@@ -188,10 +188,19 @@ def write_chunk_rows(arena: torch.Tensor, rows: torch.Tensor,
     flat.index_put_((idx,), torch.where(ok, rows.to(arena.dtype), keep))
 
 
+def _donor(share, n: int) -> dict:
+    """The kernels' donor-table arguments of ``share`` ((src, len) device
+    tensors, each ``n`` entries), none for None."""
+    if share is None:
+        return {}
+    return {"share_src": share[0].reshape(n), "share_len": share[1].reshape(n)}
+
+
 def attention_chunk(p: dict, cfg, x: torch.Tensor, layer_kv: dict,
                     slot: torch.Tensor, positions: torch.Tensor,
                     start: torch.Tensor, prefix: torch.Tensor, *,
-                    window: Optional[int] = None, kops=ops) -> torch.Tensor:
+                    window: Optional[int] = None, kops=ops,
+                    share=None) -> torch.Tensor:
     """One prompt chunk: write its K/V rows (quantized to the arena's
     format, with their scales) into arena slot ``slot`` at rows [start,
     start + C) (rows past max_seq dropped, :func:`write_chunk_rows`), then
@@ -201,7 +210,11 @@ def attention_chunk(p: dict, cfg, x: torch.Tensor, layer_kv: dict,
     x: (1, C, d); ``layer_kv``: one layer's arena {"k", "v"} (N, Smax, KVH,
     hd) (+ {"k_scale", "v_scale"} (N, Smax, KVH) for a scaled format);
     ``slot`` / ``start``: 0-d int64 device tensors; ``prefix``: (1,) int32
-    holding ``start``.
+    holding ``start``.  ``share``: (share_src, share_len) 0-d device
+    tensors or None: the slot reads its rows [0, share_len) from arena
+    slot share_src (a fork reads its donor's prefix in place; reference
+    ``_share_slot_view``, transformer.py:532); the chunk's writes go to
+    its own slot at rows >= start >= share_len.
     """
     b, c, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -209,26 +222,30 @@ def attention_chunk(p: dict, cfg, x: torch.Tensor, layer_kv: dict,
         write_chunk_rows(layer_kv[key], rows[0], slot, start)
     o = kops.flash_prefill_chunk(q, layer_kv["k"], layer_kv["v"],
                                  prefix=prefix, window=window,
-                                 slots=slot.view(1), **_scales(layer_kv))
+                                 slots=slot.view(1), **_scales(layer_kv),
+                                 **_donor(share, 1))
     return _dot(o.reshape(b, c, -1), p["wo"], cfg.adtype)
 
 
 def attention_decode_rows(p: dict, cfg, x_t: torch.Tensor, layer_kv: dict,
                           pos: torch.Tensor, *,
                           window: Optional[int] = None,
-                          kops=ops) -> torch.Tensor:
+                          kops=ops, share=None) -> torch.Tensor:
     """One decode step: write the token's K/V row (quantized to the
     arena's format, with its scales) at ``pos`` into the arena layer view
     (masked to pos < max_seq), then ``flash_decode`` over it with
     ``lengths = pos + 1``.  x_t: (B, d); layer_kv: {"k", "v"} of (B, Smax,
-    KVH, hd) (+ scales (B, Smax, KVH)).  Returns (B, d)."""
+    KVH, hd) (+ scales (B, Smax, KVH)).  ``share``: (share_src, share_len)
+    (B,) device tensors or None: slot b reads rows [0, share_len[b]) from
+    slot share_src[b] (reference ``_share_view``, transformer.py:495); the
+    row write still targets slot b's own row.  Returns (B, d)."""
     b, _ = x_t.shape
     q, k_t, v_t = _decode_qkv(p, cfg, x_t, pos, True)
     for key, rows in _quantized(layer_kv, k_t[:, 0], v_t[:, 0]).items():
         write_rows(layer_kv[key], rows, pos)
     o = kops.flash_decode(q[:, 0], layer_kv["k"], layer_kv["v"],
                           lengths=pos + 1, window=window,
-                          **_scales(layer_kv))
+                          **_scales(layer_kv), **_donor(share, b))
     return _dot(o.reshape(b, cfg.n_heads * cfg.hd), p["wo"], cfg.adtype)
 
 

@@ -258,7 +258,7 @@ def chunk_carry(layer_l, slot, start):
 
 
 def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
-                    prefix, *, kops=ops):
+                    prefix, *, kops=ops, share=None):
     """One prompt chunk through an SSM layer (reference :283) into arena
     slot ``slot`` of the layer's {"ssm": (N·nh, N, P), "conv": (N, W-1,
     di+2gn)}; the carried state and conv tail are written back by device
@@ -267,8 +267,11 @@ def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
     slot, so a parked chunk (the captured step's warm-up) writes the old
     values back.  ``nvalid`` keeps the final chunk's padding out of the
     recurrence.  The ssd kernel always gets an initial state (zeros on the
-    first chunk), as in the reference."""
-    del positions, prefix
+    first chunk), as in the reference.  ``share`` is unused: the state has
+    no sequence axis, so a fork's share of it was spliced into the slot
+    before its first chunk (at ``start = share_len > 0``, which
+    :func:`chunk_carry` carries)."""
+    del positions, prefix, share
     state0, tail0, stored = chunk_carry(layer_l, slot, start)
     h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
     y, (state, tail) = mamba_apply(p["mamba"], cfg, h, kops=kops,
@@ -297,8 +300,11 @@ def ssm_rows_write(view_l, new, pos) -> None:
         leaf.copy_(torch.where(m, new[key].to(leaf.dtype), leaf))
 
 
-def ssm_layer_decode_rows(p, cfg, x_t, view_l, pos, *, kops=ops):
-    """One decode step through an SSM layer (reference :226)."""
+def ssm_layer_decode_rows(p, cfg, x_t, view_l, pos, *, kops=ops,
+                          share=None):
+    """One decode step through an SSM layer (reference :226); ``share`` is
+    unused (no sequence axis)."""
+    del share
     h = L.rmsnorm(p["ln"], x_t, cfg.rms_eps)
     y, new = mamba_decode_step(p["mamba"], cfg, h, view_l, kops=kops)
     ssm_rows_write(view_l, new, pos)

@@ -35,24 +35,26 @@ from repro_torch.models import layers as L
 # ---------------------------------------------------------------------------
 
 def dense_layer_chunk(p, cfg, x, layer_kv, slot, positions, start, nvalid,
-                      prefix, *, window=None, kops=ops):
+                      prefix, *, window=None, kops=ops, share=None):
     """One prompt chunk through a dense layer (reference :74) into arena
     slot ``slot``.  ``nvalid`` is unused: pad rows land past the prompt and
     are overwritten by decode before any query attends them."""
     del nvalid
     h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
     x = x + L.attention_chunk(p["attn"], cfg, h, layer_kv, slot, positions,
-                              start, prefix, window=window, kops=kops)
+                              start, prefix, window=window, kops=kops,
+                              share=share)
     h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
     return x + L.mlp(p["mlp"], cfg, h)
 
 
 def dense_layer_decode_rows(p, cfg, x_t, layer_kv, pos, *, window=None,
-                            kops=ops):
+                            kops=ops, share=None):
     """One decode step through a dense layer (reference :90)."""
     h = L.rmsnorm(p["ln1"], x_t, cfg.rms_eps)
     x_t = x_t + L.attention_decode_rows(p["attn"], cfg, h, layer_kv, pos,
-                                        window=window, kops=kops)
+                                        window=window, kops=kops,
+                                        share=share)
     h = L.rmsnorm(p["ln2"], x_t, cfg.rms_eps)
     return x_t + L.mlp(p["mlp"], cfg, h)
 
@@ -140,13 +142,17 @@ class LayerSet:
         axis, so its size does not grow with max_seq;
       * ``prefill_layer(p, cfg, x, view_l, positions, *, kops)``;
       * ``chunk_layer(p, cfg, x, layer_l, slot, positions, start, nvalid,
-        prefix, *, kops)``: one chunk into arena slot ``slot`` of the
-        layer's whole arena ``layer_l``, ``nvalid`` real tokens, the rest
-        padding; ``slot`` / ``start`` / ``nvalid`` are 0-d int64 device
-        tensors, read on the device only (the captured chunk step), and a
-        chunk at ``start = PARKED_POS`` must leave the arena untouched;
-      * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops)``: slots parked
-        at ``PARKED_POS`` must come out untouched.
+        prefix, *, kops, share)``: one chunk into arena slot ``slot`` of
+        the layer's whole arena ``layer_l``, ``nvalid`` real tokens, the
+        rest padding; ``slot`` / ``start`` / ``nvalid`` are 0-d int64
+        device tensors, read on the device only (the captured chunk step),
+        and a chunk at ``start = PARKED_POS`` must leave the arena
+        untouched; ``share`` (0-d (src, len) or None): sequence rows [0,
+        len) are read from slot src (a recurrent layer has none: its
+        share was spliced into the slot's state at the fork);
+      * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops, share)``: slots
+        parked at ``PARKED_POS`` must come out untouched; ``share``: (B,)
+        (src, len) or None, as for the chunk.
     """
     init_params: Callable
     init_cache: Callable
@@ -264,6 +270,50 @@ class LM:
         return self.layers.init_cache(self.cfg, batch, max_seq, kv_format,
                                       self.device)
 
+    @property
+    def has_recurrent_state(self) -> bool:
+        """The arena holds per-slot state with no sequence axis (reference
+        :487): those leaves cannot be shared by position, so a fork needs
+        a snapshot of the donor's state at the divergence boundary."""
+        return self.layers.recurrent
+
+    #: prefix sharing composes the chunk path (a fork's ingestion resumes
+    #: at the divergence boundary) with the arena decode path (the donor
+    #: table reads its rows in place); every ported family has both
+    #: (reference :329-332)
+    supports_prefix_sharing = True
+
+    def _state_leaves(self, cache: dict):
+        """(key, leaf, factor) of the arena leaves with no sequence axis
+        (reference ``_seq_axes`` < 0): all of a recurrent family's, none
+        of the dense family's."""
+        if not self.layers.recurrent:
+            return []
+        factors = self.layers.factors(self.cfg)
+        return [(key, leaf, factors[key]) for key, leaf in cache.items()]
+
+    def extract_slot_state(self, cache: dict, slot: int) -> list:
+        """A copy of slot ``slot``'s recurrent-state leaves, a list in
+        arena-leaf order (reference :549): the SSD state and the conv
+        tail, (L, f, ...) each.  The serving engine checkpoints a prefix
+        donor's state with it at page boundaries, so a later fork resumes
+        the recurrence there.  Runs on the current stream, after whatever
+        was enqueued before it."""
+        return [leaf[:, slot * f:(slot + 1) * f].clone()
+                for _, leaf, f in self._state_leaves(cache)]
+
+    def splice_slot_state(self, cache: dict, state: list, slot: int) -> None:
+        """Write a snapshot of :meth:`extract_slot_state` into slot
+        ``slot``'s recurrent-state leaves in place (reference :569); the
+        snapshot itself is not changed, so one serves every fork of its
+        prefix."""
+        leaves = self._state_leaves(cache)
+        if len(state) != len(leaves):
+            raise ValueError(f"a snapshot of {len(state)} leaves for "
+                             f"{len(leaves)} recurrent arena leaves")
+        for (_, leaf, f), piece in zip(leaves, state):
+            leaf[:, slot * f:(slot + 1) * f].copy_(piece)
+
     def num_slots(self, cache: dict) -> int:
         factors = self.layers.factors(self.cfg)
         key = next(iter(cache))
@@ -309,7 +359,8 @@ class LM:
         return head_logits(h[:, -1], self.head(params))
 
     def prefill_chunk(self, params, tokens: torch.Tensor, cache: dict,
-                      slot, start, last_idx) -> torch.Tensor:
+                      slot, start, last_idx, share_src=None,
+                      share_len=None) -> torch.Tensor:
         """Ingest one prompt chunk into slot ``slot`` of the arena.
 
         tokens: (1, C); the chunk occupies rows [start, start + C) of the
@@ -325,6 +376,13 @@ class LM:
         328-339); host ints are turned into such tensors here (a host
         ``slot`` out of range raises).  A chunk at ``start = PARKED_POS``
         writes nothing (the captured step's warm-up).
+
+        ``share_src`` / ``share_len`` (0-d, optional; host ints are turned
+        into device tensors too): prefix sharing, the slot reads sequence
+        rows [0, share_len) from slot ``share_src`` (reference
+        :612-661); a fork's chunks all start at ``start >= share_len``,
+        so the writes still go to the slot's own rows.  None keeps
+        today's path, unchanged.
         """
         if isinstance(slot, int):
             self.slot_view(cache, slot)             # range check
@@ -332,12 +390,19 @@ class LM:
         slot, start, last_idx = (torch.as_tensor(t, dtype=torch.int64,
                                                  device=dev)
                                  for t in (slot, start, last_idx))
+        share = None
+        if share_src is not None:
+            # int32, as the kernels read the table: converted once a chunk,
+            # not once a layer
+            share = tuple(torch.as_tensor(t, dtype=torch.int32, device=dev)
+                          for t in (share_src, share_len))
         h = self._chunk_hidden(params, tokens, cache, slot, start,
-                               last_idx + 1)
+                               last_idx + 1, share)
         last = h.index_select(1, last_idx.view(1))[:, 0]
         return head_logits(last, self.head(params))
 
-    def _chunk_hidden(self, params, tokens, cache, slot, start, nvalid):
+    def _chunk_hidden(self, params, tokens, cache, slot, start, nvalid,
+                      share=None):
         cfg = self.cfg
         b, c = tokens.shape
         x = L.embed_lookup(params["embed"], tokens)
@@ -348,36 +413,47 @@ class LM:
             x = self.layers.chunk_layer(
                 layer_params(params["layers"], i), cfg, x,
                 self._layer_view(cache, i), slot, positions, start, nvalid,
-                prefix, kops=self.kops)
+                prefix, kops=self.kops, share=share)
         return L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
 
     def decode_step(self, params, token_t: torch.Tensor, cache: dict,
-                    pos: torch.Tensor) -> torch.Tensor:
+                    pos: torch.Tensor, share=None) -> torch.Tensor:
         """token_t: (B,) int; pos: (B,) row to write per slot.  Updates
         each layer's arena slice in place (parked slots, pos =
-        PARKED_POS, untouched) and returns logits (B, V) f32."""
+        PARKED_POS, untouched) and returns logits (B, V) f32.  ``share``:
+        (share_src, share_len) (B,) device tensors or None (reference
+        :756-778): slot b reads rows [0, share_len[b]) from slot
+        share_src[b] (identity (b, 0) for an unshared slot), its writes
+        still target its own rows."""
         cfg = self.cfg
+        if share is not None:
+            # int32, as the kernels read the table: converted once a step,
+            # not once a layer
+            share = tuple(t.to(torch.int32) for t in share)
         x_t = L.embed_lookup(params["embed"], token_t)
-        x_t = self._decode_rows(params, cfg, x_t, cache, pos)
+        x_t = self._decode_rows(params, cfg, x_t, cache, pos, share)
         h = L.rmsnorm(params["final_norm"], x_t, cfg.rms_eps)
         return head_logits(h, self.head(params))
 
     def decode_and_sample(self, params, token_t: torch.Tensor, cache: dict,
-                          pos: torch.Tensor, samp: dict) -> torch.Tensor:
+                          pos: torch.Tensor, samp: dict,
+                          share=None) -> torch.Tensor:
         """One decode step, then on-device sampling (reference
         transformer.py:785), shared by every family: the (B, V) logits stay
         on the device and the (B,) int64 tokens come out.  ``samp`` is the
         engine's per-slot vectors (``temp`` / ``top_p`` / ``min_p`` float32,
         ``top_k`` / ``seed`` int); the token drawn here will occupy row
         ``pos + 1``, so its key folds ``(seed, pos + 1)``.  Slots with
-        ``temp <= 0`` take the argmax, bit for bit."""
-        logits = self.decode_step(params, token_t, cache, pos)
+        ``temp <= 0`` take the argmax, bit for bit.  ``share``: as for
+        :meth:`decode_step`."""
+        logits = self.decode_step(params, token_t, cache, pos, share)
         return L.sample_step(logits, samp["seed"], pos + 1, samp["temp"],
                              samp["top_k"], samp["top_p"], samp["min_p"])
 
-    def _decode_rows(self, params, cfg, x_t, cache, pos):
+    def _decode_rows(self, params, cfg, x_t, cache, pos, share=None):
         for i in range(cfg.n_layers):
             x_t = self.layers.decode_layer(
                 layer_params(params["layers"], i), cfg, x_t,
-                self._layer_view(cache, i), pos, kops=self.kops)
+                self._layer_view(cache, i), pos, kops=self.kops,
+                share=share)
         return x_t

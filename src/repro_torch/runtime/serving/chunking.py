@@ -1,5 +1,5 @@
 """Length bucketing + chunk planning for stripmined prefill (a copy of
-``repro/runtime/serving/chunking.py`` minus the prefix-sharing tail plan).
+``repro/runtime/serving/chunking.py``).
 
 The paper's stripmining loop cuts an arbitrary application vector into
 hardware-vector-length chunks so the lanes never see a new shape; here the
@@ -63,3 +63,21 @@ def chunk_plan(prompt_len: int, buckets=DEFAULT_BUCKETS) -> list[int]:
             f"buckets={bs} -> {plan} (all-pad trailing chunk)")
     return plan
 
+
+
+def tail_plan(prompt_len: int, shared_len: int,
+              buckets=DEFAULT_BUCKETS) -> list[int]:
+    """Chunk plan for the *unshared tail* of a prefix-sharing fork.
+
+    The first ``shared_len`` prompt tokens were mapped onto existing
+    prefix pages by reference — no ingestion — so only the remaining
+    ``prompt_len - shared_len`` tokens are stripmined.  The fork's chunk
+    cursor starts at ``shared_len`` (the divergence boundary), and the
+    engine caps ``shared_len < prompt_len`` at fork time, so the tail is
+    never empty: every fork ingests at least one real token to produce its
+    first logits.
+    """
+    if not 0 <= shared_len < prompt_len:
+        raise ValueError(
+            f"shared_len={shared_len} outside [0, prompt_len={prompt_len})")
+    return chunk_plan(prompt_len - shared_len, buckets)

@@ -1,9 +1,11 @@
 """EngineConfig: the serving engine's construction surface (the subset of
 ``repro/runtime/serving/config.py`` that this port serves).
 
-Fields not listed here (prefix sharing, speculative decoding, faults,
-health, admission caps, donation) belong to later slices: passing one
-raises ``TypeError``.  An unknown KV format raises ``ValueError``.
+Fields not listed here (speculative decoding, faults, health, the
+admission caps, donation) belong to later slices:
+passing one raises ``TypeError``.  An unknown KV format, or an invalid
+prefix-sharing setting, raises ``ValueError`` (reference :84-85,
+:119-131).
 """
 from __future__ import annotations
 
@@ -24,6 +26,13 @@ class EngineConfig:
     ``prefill_chunks``  bucket sizes for chunked prefill; None = monolithic
     ``prefill_budget``  prompt tokens ingested per engine step; None =
                         largest bucket
+    ``prefix_sharing``  copy-on-write prefix cache: a request whose prompt
+                        starts with a registered page-aligned prefix forks
+                        onto the donor's pages and ingests only its tail
+                        (needs chunked prefill)
+    ``prefix_chain_cap`` None = a chain lives while a slot holds it; an int
+                        keeps up to that many orphaned chains forkable
+                        (needs ``prefix_sharing``, >= 1)
     ``kv_format``       KV-arena storage format (``core/kv_format.py``):
                         "fp32" (stores at the activation dtype), "bf16",
                         "int8" or "fp8" (the last two with per-row scales)
@@ -47,6 +56,8 @@ class EngineConfig:
     num_pages: Optional[int] = None
     prefill_chunks: Optional[tuple[int, ...]] = None
     prefill_budget: Optional[int] = None
+    prefix_sharing: bool = False
+    prefix_chain_cap: Optional[int] = None
     kv_format: str = "fp32"
     base_seed: int = 0
     decode_graph: bool = True
@@ -71,6 +82,19 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.prefill_budget must be >= 1 or None, "
                 f"got {self.prefill_budget}")
+        if self.prefix_sharing and self.prefill_chunks is None:
+            raise ValueError(
+                "EngineConfig.prefix_sharing requires chunked prefill "
+                "(prefill_chunks): forks resume ingestion at the divergence "
+                "boundary, which monolithic prefill cannot express")
+        if self.prefix_chain_cap is not None:
+            if not self.prefix_sharing:
+                raise ValueError(
+                    "EngineConfig.prefix_chain_cap requires prefix_sharing")
+            if self.prefix_chain_cap < 1:
+                raise ValueError(
+                    f"EngineConfig.prefix_chain_cap must be >= 1 or None, "
+                    f"got {self.prefix_chain_cap}")
 
     def replace(self, **changes) -> "EngineConfig":
         """A copy with ``changes`` applied (validated again)."""

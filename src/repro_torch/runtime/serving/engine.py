@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (port of ``repro/runtime/serving/
 engine.py``'s ``ServingEngine``: greedy and sampled decode over any KV
-storage format, ``EngineConfig.kv_format``).
+storage format, ``EngineConfig.kv_format``, with the copy-on-write prefix
+cache, ``EngineConfig.prefix_sharing``).
 
 The host runs scheduling and admission; the device runs one decode step
 over the whole slot batch.  As in the reference:
@@ -58,6 +59,25 @@ a per-step token budget).  A slot being chunk-prefilled parks its position
 at ``PARKED_POS``: in-flight decode steps then leave its rows untouched
 (the row write is masked to ``pos < max_seq``; a recurrent state write is
 keep-masked on ``pos < PARKED_POS``).
+
+Prefix sharing (chunked prefill only, reference engine.py:1046-1149): each
+pure slot's ingested pages are registered in the cache manager's
+hash-consed index as its chunks land; a later request whose prompt starts
+with a registered chain *forks* onto it at its first chunk (its first k
+private pages swapped for the chain's, refcounted) and ingests only its
+tail, its chunk cursor starting at the divergence boundary.  The fork
+reads the donor's rows in place, on the device: its chunks pass (donor
+slot, shared length) as two more device scalars of the chunk graph, and
+the decode graphs read two engine-owned (slots,) vectors, the donor table
+of ``flash_decode`` and ``flash_prefill_chunk`` (the identity (slot, 0)
+for an unshared slot).  Writes never go through it.  A recurrent family
+has no rows to share: the donor's state and conv tail are copied into a
+snapshot at each page-aligned chunk end (eager copies on the stream the
+chunk graphs replay on, after the chunk), and the fork splices the
+snapshot into its own slot before its first tail chunk.  Left out, as in
+the reference's exclusions or later slices: speculative decoding (which
+the reference refuses together with sharing), the fault injector and
+health (whose fault sites skip prefix donors), replicas and the router.
 """
 from __future__ import annotations
 
@@ -73,7 +93,7 @@ from repro_torch.core.dispatch import DispatchQueue, HostStaging, Readback
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PARKED_POS
 from repro_torch.runtime.serving import chunking, sampling
-from repro_torch.runtime.serving.cache import PagedKVCacheManager
+from repro_torch.runtime.serving.cache import PagedKVCacheManager, PrefixMatch
 from repro_torch.runtime.serving.config import EngineConfig
 from repro_torch.runtime.serving.graphs import (CapturedStep, ChunkGraph,
                                                 DecodeGraph)
@@ -81,13 +101,22 @@ from repro_torch.runtime.serving.request import Request, RequestState, Status
 from repro_torch.runtime.serving.scheduler import Scheduler
 
 
+def _common_prefix_len(a: np.ndarray, b: np.ndarray) -> int:
+    n = min(len(a), len(b))
+    if n == 0:
+        return 0
+    neq = np.nonzero(a[:n] != b[:n])[0]
+    return int(neq[0]) if neq.size else n
+
+
 class ServingEngine:
     """Continuous-batching generation (greedy or sampled, per request) over
     a decoder-only LM.
 
     ``model`` exposes ``init_cache`` / ``slot_view`` / ``prefill`` /
-    ``prefill_chunk`` / ``decode_step`` / ``decode_and_sample`` and
-    ``layers.recurrent``
+    ``prefill_chunk`` / ``decode_step`` / ``decode_and_sample``,
+    ``layers.recurrent`` and, for prefix sharing, ``has_recurrent_state`` /
+    ``extract_slot_state`` / ``splice_slot_state``
     (``models.transformer.LM``, any ported family); ``params`` live on the
     model's device, which is where the engine keeps its state.
     """
@@ -111,6 +140,11 @@ class ServingEngine:
                                      if self.prefill_chunks else 0))
         self.kv_format = config.kv_format
         self.base_seed = int(config.base_seed)
+        self.prefix_sharing = bool(config.prefix_sharing)
+        # a recurrent family forks only at boundaries where the donor's
+        # state was checkpointed
+        self._needs_state_snapshot = (self.prefix_sharing
+                                      and model.has_recurrent_state)
         # resident arena bytes of one token row, all layers (reference
         # engine.py:516-518)
         self.kv_row_bytes = kvf.bytes_per_row(
@@ -120,8 +154,8 @@ class ServingEngine:
         if num_pages is None:
             num_pages = max_slots * -(-max_seq // config.page_size)
         self.cache_mgr = PagedKVCacheManager(
-            num_pages, config.page_size, kv_format=self.kv_format,
-            row_bytes=self.kv_row_bytes)
+            num_pages, config.page_size, max_chains=config.prefix_chain_cap,
+            kv_format=self.kv_format, row_bytes=self.kv_row_bytes)
         self.scheduler = Scheduler(max_slots, self.cache_mgr,
                                    max_len=max_seq,
                                    chunked=self.prefill_chunks is not None)
@@ -131,6 +165,16 @@ class ServingEngine:
         self._active = torch.zeros(max_slots, dtype=torch.int64, device=dev)
         #: per-slot sampling vectors (greedy until a sampled admission)
         self._samp = sampling.init_slot_state(max_slots, dev)
+        #: the donor table under prefix sharing, (share_src, share_len)
+        #: (slots,) int64, read in place by the decode steps: slot b reads
+        #: rows [0, share_len[b]) of slot share_src[b]; the identity (b, 0)
+        #: for an unshared, parked or dead slot.  None with sharing off
+        #: (the decode steps take today's path)
+        self._share = ((torch.arange(max_slots, dtype=torch.int64,
+                                     device=dev),
+                        torch.zeros(max_slots, dtype=torch.int64,
+                                    device=dev))
+                       if self.prefix_sharing else None)
         self._cache = model.init_cache(max_slots, max_seq,
                                        kv_format=self.kv_format)
         self.arena_bytes = sum(t.numel() * t.element_size()
@@ -166,13 +210,16 @@ class ServingEngine:
                                and self.prefill_chunks is not None)
         self._chunk_pool = (torch.cuda.graph_pool_handle()
                             if self._chunk_capture else None)
-        #: {chunk length: (static tokens (1, C), (slot, start, last_idx))}
+        #: {chunk length: (static tokens (1, C), (slot, start, last_idx),
+        #: and with prefix sharing (..., share_src, share_len))}
         self._chunk_inputs: dict[int, tuple] = {}
+        self._n_scalars = 5 if self.prefix_sharing else 3
         #: {chunk length: ChunkGraph}, captured at the first chunk of each
         #: length (empty for eager chunk steps)
         self.chunk_graphs: dict[int, ChunkGraph] = {}
         self._staging = HostStaging(
-            dev, nbytes=8 * max(max(self.prefill_chunks or (0,)), 3))
+            dev, nbytes=8 * max(max(self.prefill_chunks or (0,)),
+                                self._n_scalars))
         self._queue = DispatchQueue(depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
@@ -186,6 +233,9 @@ class ServingEngine:
                       "prefill_shapes": 0, "prefill_rows": 0,
                       "tokens_out": 0, "requests": 0,
                       "sampled_requests": 0, "sampled_steps": 0,
+                      "forks": 0, "shared_prompt_tokens": 0,
+                      "prefix_hits": 0, "prefix_deferrals": 0,
+                      "snapshots": 0, "snapshot_bytes": 0,
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
                       **({"state_bytes_per_slot": self.arena_unit_bytes}
@@ -201,7 +251,8 @@ class ServingEngine:
         graph captures: it makes no host read, and the tensors it touches
         are never rebound (host writes to the slot vectors are in place)."""
         logits = self.model.decode_step(self.params, self._tokens,
-                                        self._cache, self._pos)
+                                        self._cache, self._pos,
+                                        share=self._share)
         return self._advance(torch.argmax(logits, dim=-1))
 
     def _decode_step_sampled(self) -> torch.Tensor:
@@ -211,7 +262,7 @@ class ServingEngine:
         argmax).  What the sampled decode graph captures."""
         sampled = self.model.decode_and_sample(self.params, self._tokens,
                                                self._cache, self._pos,
-                                               self._samp)
+                                               self._samp, share=self._share)
         return self._advance(sampled)
 
     def _advance(self, sampled: torch.Tensor) -> torch.Tensor:
@@ -236,10 +287,14 @@ class ServingEngine:
                     scalars: torch.Tensor) -> torch.Tensor:
         """One prompt chunk: the static ``tokens`` (1, C) into arena slot
         ``scalars[0]`` at ``start = scalars[1]``, logits (1, V) at its last
-        real token ``scalars[2]``; what a chunk graph captures (no host
-        read)."""
+        real token ``scalars[2]``, and with prefix sharing reading rows [0,
+        ``scalars[4]``) from slot ``scalars[3]`` (a pure slot: its own, 0);
+        what a chunk graph captures (no host read)."""
+        share = ((scalars[3], scalars[4]) if self.prefix_sharing
+                 else (None, None))
         return self.model.prefill_chunk(self.params, tokens, self._cache,
-                                        scalars[0], scalars[1], scalars[2])
+                                        scalars[0], scalars[1], scalars[2],
+                                        *share)
 
     def _stage(self, dst: torch.Tensor, values) -> None:
         """Write host ``values`` into device buffer ``dst`` in place,
@@ -278,6 +333,13 @@ class ServingEngine:
                     f"request {request.uid!r}: padded chunk plan {plan} "
                     f"needs {sum(plan)} rows but a slot holds "
                     f"max_seq={self.max_seq}")
+        if self.prefix_sharing:
+            # advisory: admission keeps its full-prompt reservation (the
+            # fork happens at the first chunk, against the pages live then)
+            if self.cache_mgr.lookup(
+                    request.prompt, request.prompt.shape[0] - 1,
+                    require_snapshot=self._needs_state_snapshot):
+                self.stats["prefix_hits"] += 1
         st = self.scheduler.submit(request, chunk_plan=plan)
         st.submitted_at = self._clock()
         self.stats["requests"] += 1
@@ -342,6 +404,13 @@ class ServingEngine:
                         [sp.temperature, sp.top_p, sp.min_p])
             token0 = self._draw_step()
         sampling.write_slot(self._samp, slot, sp, seed)
+        if self.prefix_sharing:
+            # the slot's donor entry before it joins the decode batch: a
+            # fork reads its shared rows from the donor's region, anyone
+            # else gets the identity (reference engine.py:950-957)
+            src = st.share_src if st.share_src is not None else slot
+            self._stage(self._share[0][slot:slot + 1], [src])
+            self._stage(self._share[1][slot:slot + 1], [st.share_len])
         tok = int(self._read_now(token0)[0])
         self._first_token(st)
         self._tokens[slot] = tok
@@ -349,7 +418,15 @@ class ServingEngine:
         self._active[slot] = 1
         self.stats["tokens_out"] += 1
         for dslot, _ in self.scheduler.on_token(slot, tok):
-            self._active[dslot] = 0
+            self._deactivate(dslot)
+
+    def _deactivate(self, slot: int) -> None:
+        """A departed slot leaves the decode batch; its donor entry goes
+        back to the identity."""
+        self._active[slot] = 0
+        if self.prefix_sharing:
+            self._share[0][slot] = slot
+            self._share[1][slot] = 0
 
     # -- chunked prefill -------------------------------------------------------
     def _advance_prefill(self) -> None:
@@ -373,6 +450,9 @@ class ServingEngine:
             if not states:
                 return
             oldest = min(states, key=lambda s: s.seq)
+            # the oldest PREFILLING slot never defers (deferral waits on a
+            # strictly older pure prefill), so this can only fork
+            self._maybe_fork(oldest)
             size = oldest.chunk_plan[oldest.chunk_idx]
             self._prefill_one_chunk(oldest, size)
             spent += size
@@ -381,14 +461,127 @@ class ServingEngine:
                             key=lambda s: (s.prefill_pos, s.seq))
             if not states:
                 return
+            progressed = False
             for st in states:
                 if st.status != Status.PREFILLING or st.slot is None:
                     continue        # departed via an earlier activation
+                if self._maybe_fork(st):
+                    continue        # deferred: an older donor is still
+                    #                 publishing this slot's prefix
                 size = st.chunk_plan[st.chunk_idx]
                 if spent and spent + size > budget:
                     return
                 self._prefill_one_chunk(st, size)
                 spent += size
+                progressed = True
+            if not progressed:
+                return              # everything left is deferred
+
+    def _maybe_fork(self, st: RequestState) -> bool:
+        """At a slot's first chunk under prefix sharing: remap its leading
+        pages onto a registered chain (a copy-on-write fork with no
+        ingestion) and re-cut its plan to the tail.  Returns True if the
+        slot should *defer* this round: a strictly older pure prefill is
+        still publishing a longer usable prefix of this prompt (it
+        progresses every step, so the wait is bounded).  Reference
+        engine.py:1046-1111."""
+        if (not self.prefix_sharing or st.prefill_pos or st.share_len
+                or st.share_src is not None):
+            return False
+        mgr = self.cache_mgr
+        ps = mgr.page_size
+        plen = st.prompt_len
+        prompt = st.request.prompt
+        limit = plen - 1        # every fork ingests >= 1 real token
+        m = mgr.lookup(prompt, limit,
+                       require_snapshot=self._needs_state_snapshot)
+        m = self._trim_match(m, plen)
+        got = m.shared_len if m else 0
+        best_pending = 0
+        for other in self.scheduler.running.values():
+            if (other is st or other.status != Status.PREFILLING
+                    or other.slot is None or other.seq >= st.seq
+                    or other.share_len or other.share_src is not None):
+                continue
+            p = _common_prefix_len(other.request.prompt, prompt)
+            p = min(p, limit, other.prompt_len // ps * ps) // ps * ps
+            best_pending = max(best_pending, p)
+        if best_pending > got:
+            self.stats["prefix_deferrals"] += 1
+            return True
+        if not m:
+            return False
+        # the fork swaps its first k private pages for the chain's k and
+        # may need more tail pages where the re-cut plan's padding lands
+        # further: the pool must cover that before committing
+        rows = m.shared_len + sum(chunking.tail_plan(plen, m.shared_len,
+                                                     self.prefill_chunks))
+        k = len(m.entries)
+        held = len(mgr.page_table(st.slot))
+        new_len = max(rows, mgr.length(st.slot))
+        extra = mgr.pages_for(new_len) - held
+        if extra > mgr.free_pages + k:
+            return False        # pool too tight to re-cut: ingest normally
+        res = mgr.fork(st.slot, m)
+        if not res:
+            return False
+        if extra > 0:
+            mgr.extend(st.slot, new_len)
+        if m.snapshot is not None:
+            # resume the recurrence from the donor's checkpoint: eager
+            # copies on this stream, before the fork's first chunk
+            self.model.splice_slot_state(self._cache, m.snapshot, st.slot)
+        st.share_src = res.src_slot
+        st.share_len = res.shared_len
+        st.chunk_plan = chunking.tail_plan(plen, res.shared_len,
+                                           self.prefill_chunks)
+        st.chunk_idx = 0
+        st.prefill_pos = res.shared_len
+        self.stats["forks"] += 1
+        self.stats["shared_prompt_tokens"] += res.shared_len
+        return False
+
+    def _trim_match(self, m: Optional[PrefixMatch],
+                    plen: int) -> Optional[PrefixMatch]:
+        """Cut a match back until the shared pages plus the re-cut tail
+        plan fit the slot arena (the tail's padding can land past the
+        full plan's); a recurrent family re-trims to a snapshot
+        boundary (reference engine.py:1113-1136)."""
+        if m is None:
+            return None
+        entries = list(m.entries)
+        ps = self.cache_mgr.page_size
+        while entries:
+            sl = len(entries) * ps
+            rows = sl + sum(chunking.tail_plan(plen, sl,
+                                               self.prefill_chunks))
+            if rows <= self.max_seq:
+                break
+            entries.pop()
+            if self._needs_state_snapshot:
+                while entries and entries[-1].snapshot is None:
+                    entries.pop()
+        if not entries:
+            return None
+        return PrefixMatch(entries=tuple(entries), src_slot=m.src_slot,
+                           shared_len=len(entries) * ps)
+
+    def _register_prefix(self, st: RequestState) -> None:
+        """Publish a pure slot's ingested pages into the index; a
+        recurrent family checkpoints the slot's state at page-aligned
+        chunk ends, the only points a fork can resume from (reference
+        engine.py:1138-1149).  The snapshot is an eager copy on this
+        stream, after the chunk that produced the state."""
+        upto = min(st.prefill_pos, st.prompt_len)
+        snap = None
+        if (self._needs_state_snapshot and upto
+                and upto % self.cache_mgr.page_size == 0):
+            snap = self.model.extract_slot_state(self._cache, st.slot)
+            self.stats["snapshots"] += 1
+            self.stats["snapshot_bytes"] = sum(
+                t.numel() * t.element_size() for t in snap)
+        self.cache_mgr.register_prefix(st.slot, st.request.prompt, upto,
+                                       snapshot=snap)
 
     def _chunk_runner(self, size: int):
         """(static tokens, static scalars, step) of chunk length ``size``:
@@ -397,7 +590,8 @@ class ServingEngine:
         if size not in self._chunk_inputs:
             self._chunk_inputs[size] = (
                 torch.zeros((1, size), dtype=torch.int64, device=self.device),
-                torch.zeros(3, dtype=torch.int64, device=self.device))
+                torch.zeros(self._n_scalars, dtype=torch.int64,
+                            device=self.device))
         tokens, scalars = self._chunk_inputs[size]
         if not self._chunk_capture:
             return tokens, scalars, lambda: self._chunk_step(tokens, scalars)
@@ -417,13 +611,19 @@ class ServingEngine:
         is_last = st.chunk_idx == len(st.chunk_plan) - 1
         tokens, scalars, step = self._chunk_runner(size)
         self._stage(tokens, chunk)
-        self._stage(scalars, [st.slot, start, real - 1])
+        values = [st.slot, start, real - 1]
+        if self.prefix_sharing:
+            values += [st.share_src if st.share_src is not None
+                       else st.slot, st.share_len]
+        self._stage(scalars, values)
         logits = step()
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_rows"] += size
         self._note_prefill_shape(("chunk", size))
         st.prefill_pos = start + size
         st.chunk_idx += 1
+        if self.prefix_sharing and st.share_src is None:
+            self._register_prefix(st)
         if not is_last:
             return
         self.scheduler.finish_prefill(st.slot)
@@ -470,7 +670,7 @@ class ServingEngine:
                 self.stats["tokens_out"] += 1
                 for dslot, _ in self.scheduler.on_token(
                         slot, int(host_tokens[slot])):
-                    self._active[dslot] = 0
+                    self._deactivate(dslot)
 
     def run(self, *, max_steps: Optional[int] = None) -> dict:
         """Drive until every submitted request finishes.  Returns

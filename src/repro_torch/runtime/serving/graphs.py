@@ -18,8 +18,9 @@ with its Python dispatch (and each kernel call its ctypes call and, in
 bf16, a host-side TMA-map encode).  What makes that valid:
 
   * the step reads and writes only tensors whose addresses never change:
-    the engine's slot vectors, its arena, its parameters and the graph's
-    static inputs, all written in place; everything else it allocates
+    the engine's slot vectors (and, under prefix sharing, its donor
+    table), its arena, its parameters and the graph's static inputs, all
+    written in place; everything else it allocates
     comes from the graph's private pool and keeps its address across
     replays (the TMA maps the bf16 attention kernels encode at capture
     stay valid for that reason; the chunk kernel reads its slot through a
@@ -76,10 +77,11 @@ def parked_warm_up(step: Callable[[], torch.Tensor], tokens: torch.Tensor,
 def parked_chunk_warm_up(step: Callable[[], torch.Tensor],
                          scalars: torch.Tensor) -> None:
     """Run chunk ``step`` once at ``start = PARKED_POS``, then put its
-    (slot, start, last_idx) scalars back.  Parked, the chunk writes no
-    arena row (dense rows past max_seq are written back unchanged) and no
-    recurrent state (keep-masked on ``start < PARKED_POS``), so the
-    engine's state is bit for bit what it was."""
+    scalars (slot, start, last_idx, and under prefix sharing share_src,
+    share_len) back.  Parked, the chunk writes no arena row (dense rows
+    past max_seq are written back unchanged; the donor table is read
+    only) and no recurrent state (keep-masked on ``start < PARKED_POS``),
+    so the engine's state is bit for bit what it was."""
     saved = scalars.clone()
     scalars[1] = PARKED_POS
     step()
@@ -182,7 +184,9 @@ class ChunkGraph(CapturedStep):
     """One captured chunk step of length C: ``step()`` ingests a static
     (1, C) int64 token buffer into arena slot ``scalars[0]`` at ``start =
     scalars[1]`` with its last real token at ``scalars[2]`` (``scalars``:
-    (3,) int64 on the device) and returns the (1, V) f32 logits there.  The
+    (3,) int64 on the device; (5,) under prefix sharing, rows [0,
+    ``scalars[4]``) read from slot ``scalars[3]``, so one graph a length
+    serves pure slots and forks) and returns the (1, V) f32 logits there.  The
     caller writes both buffers in place before each replay.  It warms up
     parked (:func:`parked_chunk_warm_up`); ``pool``: the private pool the
     engine's chunk graphs share (they replay one at a time, on one

@@ -1,5 +1,6 @@
 """Serving request objects (copy of ``repro/runtime/serving/request.py``
-without the fault, deadline and prefix-sharing fields).
+without the fault and deadline fields, which belong with the fault
+injector and health, ROADMAP 1.7.3).
 
 A :class:`Request` is immutable user input; :class:`RequestState` is the
 scheduler's mutable bookkeeping for it.  States are host-only — device
@@ -55,9 +56,26 @@ class RequestState:
     chunk_plan: Optional[list] = None
     chunk_idx: int = 0
     prefill_pos: int = 0
+    # prefix-sharing bookkeeping (engine-owned).  A *forked* request reads
+    # its first ``share_len`` cache rows from slot ``share_src``'s arena
+    # region (the donor's refcounted prefix pages); its chunk plan is
+    # re-cut to the unshared tail.  ``base_chunk_plan`` keeps the full
+    # plan so preemption can rewind to an unforked state (re-admission
+    # re-forks against whatever prefix pages are live *then*).
+    share_src: Optional[int] = None       # donor region (None = unshared)
+    share_len: int = 0                    # tokens read via shared pages
+    base_chunk_plan: Optional[list] = None
     # service-time bookkeeping (engine-owned)
     submitted_at: Optional[float] = None
     ttft_s: Optional[float] = None
+
+    def reset_share(self) -> None:
+        """Rewind to the unforked state (preemption): the full-prompt
+        chunk plan is restored, the share mapping cleared."""
+        self.share_src = None
+        self.share_len = 0
+        if self.base_chunk_plan is not None:
+            self.chunk_plan = self.base_chunk_plan
 
     @property
     def prompt_len(self) -> int:

@@ -1,15 +1,17 @@
 """Continuous-batching scheduler (port of ``repro/runtime/serving/
-scheduler.py``'s ``Scheduler`` without the fault, health and prefix-share
-hooks).
+scheduler.py``'s ``Scheduler`` without the fault and health hooks, which
+belong with the fault injector, ROADMAP 1.7.3).
 
 Keeps the decode batch full every step: finished sequences retire and
 release their slot + pages, waiting requests are admitted into free slots
 as soon as pages exist for their prompt, and when cache growth runs out of
 pages the **youngest** running sequence is preempted (pages freed, request
 requeued in arrival order, deterministic recompute on re-admission:
-greedy or sampled, the draws fold only (seed, position)).
-Victim-is-youngest is the progress guarantee: the oldest running sequence
-is never evicted.  Pure host logic.
+greedy or sampled, the draws fold only (seed, position)).  Pages are
+freed by refcount, so a departing fork drops only its references to a
+donor's shared prefix pages, and a region still hosting shared pages is
+skipped at admission.  Victim-is-youngest is the progress guarantee:
+the oldest running sequence is never evicted.  Pure host logic.
 """
 from __future__ import annotations
 
@@ -18,6 +20,10 @@ import heapq
 
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.request import Request, RequestState, Status
+
+# orphaned prefix chains reclaimed per placement attempt before the head of
+# the line waits a step (reference scheduler.py:53)
+ADMISSION_RECLAIM_CAP = 8
 
 
 class Scheduler:
@@ -57,7 +63,8 @@ class Scheduler:
             raise ValueError(
                 f"request {request.uid!r} needs {worst} cache rows but a "
                 f"slot holds max_seq={self.max_len}")
-        st = RequestState(request, seq=self._next_seq, chunk_plan=chunk_plan)
+        st = RequestState(request, seq=self._next_seq, chunk_plan=chunk_plan,
+                          base_chunk_plan=chunk_plan)
         self._next_seq += 1
         self.waiting.append(st)
         return st
@@ -72,17 +79,36 @@ class Scheduler:
         cache pages last; returns the newly admitted states (RUNNING, or
         PREFILLING under chunked prefill).  Admission reserves pages for
         prompt + the first generated token, and under chunked prefill at
-        least the padded chunk plan."""
+        least the padded chunk plan.  A slot whose region is pinned (it
+        hosts live shared prefix pages of a departed donor) is skipped;
+        when every candidate is refused, the least recently forked
+        orphaned chain is reclaimed and the placement retried, at most
+        ``ADMISSION_RECLAIM_CAP`` times (reference scheduler.py:155-200)."""
         admitted = []
         while self.waiting and self._free_slots:
             st = self.waiting[0]
             need = st.prompt_len + 1
             if st.chunk_plan is not None:
                 need = max(need, sum(st.chunk_plan))
-            slot = self._free_slots[0]
-            if not self.cache.allocate(slot, need):
+            slot = None
+            reclaims = 0
+            while slot is None:
+                for cand in sorted(self._free_slots):
+                    res = self.cache.allocate(cand, need)
+                    if res:
+                        slot = cand
+                        break
+                    if res.reason != "region-pinned":
+                        break              # no pages yet
+                if slot is None:
+                    if reclaims >= ADMISSION_RECLAIM_CAP \
+                            or not self.cache.reclaim_orphan():
+                        break
+                    reclaims += 1
+            if slot is None:
                 break                      # head-of-line blocks
-            heapq.heappop(self._free_slots)
+            self._free_slots.remove(slot)
+            heapq.heapify(self._free_slots)
             self.waiting.popleft()
             st.slot = slot
             st.status = Status.PREFILLING if self.chunked else Status.RUNNING
@@ -138,13 +164,17 @@ class Scheduler:
     def _preempt(self, st: RequestState) -> tuple[int, RequestState]:
         """Out of pages: drop the slot, requeue in arrival order.  Greedy
         decode is deterministic, so the recompute replays the same tokens;
-        a victim caught mid-prefill rewinds its chunk cursor to 0."""
+        a victim caught mid-prefill rewinds its chunk cursor to 0, and a
+        forked one to the unforked state (its shared-page references went
+        with the release; re-admission re-forks against whatever chains
+        are live then)."""
         slot = st.slot
         self._release(st)
         st.status = Status.WAITING
         st.generated.clear()
         st.chunk_idx = 0
         st.prefill_pos = 0
+        st.reset_share()
         idx = 0
         for w in self.waiting:
             if w.seq > st.seq:

@@ -1055,3 +1055,153 @@ def test_cuda_first_draw_graph_equals_eager_draw(cuda, family):
         got = graph.replay().clone()
         want = sampling.sample_first(logits, seed, q, sp)
         assert torch.equal(got, want), (sp, q)
+
+
+# ---------------------------------------------------------------------------
+# the donor table of the arena kernels (prefix sharing)
+# ---------------------------------------------------------------------------
+
+def _donor_arena(gen, dtype, fmt, shape, device):
+    """(k, v, k_scale, v_scale) of a random arena: ``fmt`` "fp32" stores at
+    q's ``dtype`` (no scales), the rest as :func:`_narrow_arena`."""
+    if fmt == "fp32":
+        k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        return k, v, None, None
+    return _narrow_arena(gen, fmt, shape, device)
+
+
+def _poison(t, slot, rows):
+    """Rows [0, rows) of ``slot`` made unreadable: NaN where the type has
+    one (f32, bf16, fp8 and the scales), else the largest value (int8,
+    whose scale rows are NaN beside it)."""
+    if t is None:
+        return
+    if t.dtype == torch.int8:
+        t[slot, :rows] = 127
+    else:
+        t[slot, :rows] = float("nan")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", SLOT_CASES)
+@pytest.mark.parametrize("d", [8, 16, 128])
+@pytest.mark.parametrize("share_len", [0, 12, 64, 100, 128])
+def test_cuda_donor_table_bit_equal_no_table(cuda, dtype, fmt, d, share_len):
+    """The donor table changes only where rows come from: slot a's rows
+    [0, L) copied into slot d (the arena then the reference) and then
+    poisoned in slot a (NaN, or int8's
+    largest value under NaN scales), flash_decode and flash_prefill_chunk
+    with the table (a -> (d, L), every other slot the identity) equal the
+    calls without a table over the original arena bit for bit, and nothing
+    reads the poison; L a multiple of 64, not one (the straddling strip
+    loaded by rows), and 0.  The chunk/decode pin holds under the table.
+    An int8 / fp8 arena of 8-byte rows under bf16 q is read only through a
+    copy: the chunk kernel refuses a table there (decode takes the copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + share_len)
+    n, s, kvh, h, c = 4, 300, 2, 6, 40
+    a, donor, pre = 1, 3, 200
+    k, v, ks, vs = _donor_arena(gen, dtype, fmt, (n, s, kvh, d), cuda)
+    for t in (k, v, ks, vs):
+        if t is not None:
+            t[donor, :share_len] = t[a, :share_len]
+    orig = [None if t is None else t.clone() for t in (k, v, ks, vs)]
+    for t in (k, v, ks, vs):
+        _poison(t, a, share_len)
+    src = torch.tensor([0, donor, 2, 3], device=cuda)
+    ln = torch.tensor([0, share_len, 0, 0], device=cuda)
+    q = torch.randn((n, h, d), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([17, 250, PARKED, 1], device=cuda)
+    got = ops.flash_decode(q, k, v, lengths=lens, k_scale=ks, v_scale=vs,
+                           share_src=src, share_len=ln)
+    want = ops.flash_decode(q, orig[0], orig[1], lengths=lens,
+                            k_scale=orig[2], v_scale=orig[3])
+    assert torch.equal(got, want)
+    assert torch.isfinite(got[1].float()).all()
+    qc = torch.randn((1, c, h, d), generator=gen, device=cuda).to(dtype)
+    pf = torch.tensor([pre], device=cuda)
+    slot = torch.tensor([a], device=cuda)
+    table = dict(share_src=torch.tensor([donor], device=cuda),
+                 share_len=torch.tensor([share_len], device=cuda))
+    if d == 8 and dtype == torch.bfloat16 and fmt != "fp32":
+        with pytest.raises(ValueError, match="in place"):
+            ops.flash_prefill_chunk(qc, k, v, prefix=pf, k_scale=ks,
+                                    v_scale=vs, slots=slot, **table)
+        return
+    got = ops.flash_prefill_chunk(qc, k, v, prefix=pf, k_scale=ks,
+                                  v_scale=vs, slots=slot, **table)
+    want = ops.flash_prefill_chunk(qc, orig[0], orig[1], prefix=pf,
+                                   k_scale=orig[2], v_scale=orig[3],
+                                   slots=slot)
+    assert torch.equal(got, want)
+    plain = ops.PLAIN.flash_prefill_chunk(qc, k, v, prefix=pf, k_scale=ks,
+                                          v_scale=vs, slots=slot, **table)
+    assert _within_limit(got, plain)
+    # the pin under the table: chunk row j == flash_decode at pos pre + j
+    # over a (c + 1)-slot arena whose rows 0..c-1 are slot a and whose
+    # last row is the donor, every row's table entry (c, L)
+    big = [None if t is None else torch.cat(
+        (t[a:a + 1].expand(c, *t.shape[1:]), t[donor:donor + 1]))
+        for t in (k, v, ks, vs)]
+    qd = qc[0]
+    dec = ops.flash_decode(
+        torch.cat((qd, qd[:1])), big[0].contiguous(), big[1].contiguous(),
+        lengths=torch.cat((pre + 1 + torch.arange(c, device=cuda),
+                           torch.tensor([1], device=cuda))),
+        k_scale=None if big[2] is None else big[2].contiguous(),
+        v_scale=None if big[3] is None else big[3].contiguous(),
+        share_src=torch.full((c + 1,), c, device=cuda),
+        share_len=torch.cat((torch.full((c,), share_len, device=cuda),
+                             torch.zeros(1, dtype=torch.int64,
+                                         device=cuda))))
+    assert torch.equal(got[0], dec[:c])
+
+
+def _shared_prefix_engine(model, params, **kw):
+    """A port engine with prefix sharing on and four requests whose
+    prompts share their first 16 tokens (page size 4), tails 3..9."""
+    import numpy as np
+    from repro_torch.runtime import serving
+    eng = serving.ServingEngine(model, model.cfg, params,
+                                config=serving.EngineConfig(
+                                    **{"max_slots": 4, "max_seq": 64,
+                                       "page_size": 4,
+                                       "prefill_chunks": (4, 8, 16),
+                                       "prefix_sharing": True, **kw}))
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, model.cfg.vocab, 16)
+    for i, tail in enumerate((3, 9, 5, 7)):
+        prompt = np.concatenate([head, rng.integers(0, model.cfg.vocab,
+                                                    tail)])
+        eng.submit(serving.Request(uid=i, prompt=prompt,
+                                   max_new_tokens=8 + i))
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,fmt", [("dense", "fp32"), ("dense", "int8"),
+                                        ("ssm", "fp32")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_shared_prefix_captured_equals_eager(cuda, family, fmt, dtype):
+    """With prefix sharing on, the engine replaying its captured decode and
+    chunk graphs (the forks' donor table read in place by both) gives the
+    streams of the engine whose steps all run eagerly; three forks of 16
+    shared tokens each, one chunk graph a length, every page back in the
+    pool and no region pinned at the end."""
+    model, params = _tiny(family, dtype)
+    want_eng = _shared_prefix_engine(model, params, kv_format=fmt,
+                                     decode_graph=False, chunk_graph=False)
+    want = want_eng.run()
+    eng = _shared_prefix_engine(model, params, kv_format=fmt)
+    got = eng.run()
+    assert _same_streams(got, want)
+    for e in (eng, want_eng):
+        assert e.stats["forks"] == 3
+        assert e.stats["shared_prompt_tokens"] == 3 * 16
+        m = e.cache_mgr
+        assert m.free_pages == m.num_pages
+        assert not any(m.region_pinned(s) for s in range(e.max_slots))
+    assert sorted(eng.chunk_graphs) == sorted(eng._chunk_inputs)
+    assert eng.stats["prefill_shapes"] == len(eng.chunk_graphs)
+    if family == "ssm":
+        assert eng.stats["snapshots"] > 0

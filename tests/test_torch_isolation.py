@@ -116,7 +116,9 @@ def test_launch_counters_stay_zero_on_cpu():
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
-                                   "flash_prefill_chunk_scaled": 0}
+                                   "flash_prefill_chunk_scaled": 0,
+                                   "flash_decode_donor": 0,
+                                   "flash_prefill_chunk_donor": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_ssm():
@@ -136,7 +138,9 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
-                                   "flash_prefill_chunk_scaled": 0}
+                                   "flash_prefill_chunk_scaled": 0,
+                                   "flash_decode_donor": 0,
+                                   "flash_prefill_chunk_donor": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_vector_unit():
@@ -154,4 +158,6 @@ def test_launch_counters_stay_zero_on_cpu_vector_unit():
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
-                                   "flash_prefill_chunk_scaled": 0}
+                                   "flash_prefill_chunk_scaled": 0,
+                                   "flash_decode_donor": 0,
+                                   "flash_prefill_chunk_donor": 0}

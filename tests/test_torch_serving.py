@@ -75,6 +75,8 @@ def test_engine_rejects_unported_options(models):
     with pytest.raises(ValueError, match="unknown kv_format"):
         tserving.EngineConfig(kv_format="int7")
     with pytest.raises(TypeError):
+        tserving.EngineConfig(speculative=None)
+    with pytest.raises(ValueError, match="chunked prefill"):
         tserving.EngineConfig(prefix_sharing=True)
     eng = tserving.ServingEngine(tm, tm.cfg, tp,
                                  config=tserving.EngineConfig(max_seq=32))
@@ -116,6 +118,18 @@ def test_serve_cli_runs_on_cpu(capsys):
                        "--chunk-buckets", "4,8"]) == 0
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out
+    assert "prefix cache" not in out
+    assert serve.main(["--arch", "llama3.2-3b", "--device", "cpu",
+                       "--requests", "3", "--prompt-len", "20", "--gen", "4",
+                       "--slots", "3", "--prefill-mode", "chunked",
+                       "--chunk-buckets", "4,8", "--page-size", "4",
+                       "--prompt-mix", "shared-prefix",
+                       "--prefix-sharing"]) == 0
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out
+    assert "prefix cache: forks=2 shared_prompt_tokens=16" in out
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--arch", "llama3.2-3b", "--prefix-sharing"])
     assert serve.parse_args(["--arch", "llama3.2-3b",
                              "--no-reduced"]).reduced is False
     assert serve.parse_args(["--arch", "llama3.2-3b"]).reduced is True
