@@ -27,7 +27,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      reject; kernel / plain / bound / library-call times; flash_decode's
      arrival counters read 0 after its calls, and its CTAs an SM;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
-     (bf16, full width); flash_prefill_chunk over a whole layer arena with
+     (bf16, full width), and at the speculative verify shape (C = 4 rows
+     at prefix 1088 through the slot table; kernel / plain / SDPA times,
+     the row ``flash_prefill_chunk_verify``); flash_prefill_chunk over a
+     whole layer arena with
      a slot table (the captured chunk step's call) must equal it over the
      slot's view bit for bit (3a f32, 3b bf16, 3d int8 / fp8), and a table
      at the neighbour slot must fail the limit; 3d: the fused-dequant
@@ -96,7 +99,19 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      with the donor table, every page drained; the forks' TTFT, tok/s,
      the chunk steps' device time, the graph pools, mamba2's snapshot
      bytes and copy time, and a snapshot taken one chunk early (planted)
-     changing a fork's stream;
+     changing a fork's stream; 4g (llama3.2-3b): speculative decoding on
+     phase 4's chunked requests: the target as its own draft (same seed,
+     k = 4 = max_slots) gives phase 4's, 4d's and 4e's int8 captured
+     streams bit for bit with acceptance exactly 1.0 (greedy, sampled),
+     a verify start one row late must change them; a 2-layer draft
+     (adaptive k) greedy and at temperature 8.0, token match against
+     plain decode, and one live request against plain decode in
+     alternating pairs (each engine's first and second wave); acceptance,
+     rounds, tokens a round, k, device ms of a round's draft steps and
+     verify passes, wall ms a token, each draft and verify graph's
+     warm-up / capture ms and pool bytes, and every flash_prefill_chunk /
+     flash_decode launch held to the verify, draft and chunk graphs'
+     replays (the verify launches also by their own counter);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -221,6 +236,11 @@ DESIGN = {
               "thread and 2 consumer warpgroups; f32: cuda-core fmaf, "
               "cp.async 4-stage ring, 2 blocks an SM",
     "dotp": "cuda-core f32", "conv2d": "cuda-core f32",
+    "flash_prefill_chunk_verify": "the flash_prefill_chunk kernel at the "
+                                  "speculative verify shape: C = 4 rows "
+                                  "(G x C = 12 query rows of a 64-row "
+                                  "wgmma tile) at prefix 1088, the slot "
+                                  "read through the slot table",
     "flash_decode_scaled": "int8 / fp8 arena + f32 scales: TMA at one byte "
                            "an element, widened to bf16 in shared memory, "
                            "wgmma; scales on the scores and on P",
@@ -630,6 +650,8 @@ def kernel_checks(torch, ops, cfg):
         plain_ms=plain_ms, library_ms=lib_ms,
         bytes=2 * (2 * q.numel() + 2 * rows * kvh * d),
         flops=4 * pairs * h * d, pin=pin)
+    rec["flash_prefill_chunk_verify"] = verify_shape_check(
+        torch, ops, h, arena_k, arena_v, nxt)
 
     # -- flash_attention at monolithic prefill's shapes ----------------------
     s = 1024
@@ -650,6 +672,78 @@ def kernel_checks(torch, ops, cfg):
         flops=4 * h * d * s * (s + 1) // 2)
     del arena_k, arena_v
     return rec
+
+
+# Phase 3b (verify): the speculative verify pass's call, C = k = 4 rows at
+# a slot's prefix 1088 (phase 4's longest prompt plus its first tokens),
+# read through the slot table
+VERIFY_C, VERIFY_PREFIX = 4, 1088
+
+
+def verify_shape_check(torch, ops, h, arena_k, arena_v, nxt):
+    """flash_prefill_chunk at the verify shape (bf16, full width; the row
+    ``flash_prefill_chunk_verify``): against its plain version with a
+    planted fault (prefix + 1), the pin (row j == flash_decode at pos =
+    prefix + j, bit for bit), and kernel / plain / SDPA times over the
+    slot's 1092 K/V rows (``arena_k`` / ``arena_v``: (layers, slots, S,
+    KVH, hd); ``nxt()`` picks the next layer, so the timed calls read past
+    L2)."""
+    from repro_torch.kernels import flash_prefill_chunk
+    P = ops.PLAIN
+    _, _, smax, kvh, d = arena_k.shape
+    c, p0, slot = VERIFY_C, VERIFY_PREFIX, 1
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q = torch.randn((1, c, h, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pf = torch.tensor([p0], device="cuda")
+    table = torch.tensor([slot], device="cuda")
+    ks, vs = arena_k[0], arena_v[0]
+    own_k, own_v = ks[slot:slot + 1], vs[slot:slot + 1]
+    err = check(f"flash_prefill_chunk verify C={c} prefix={p0}",
+                ops.flash_prefill_chunk(q, ks, vs, prefix=pf, slots=table),
+                P.flash_prefill_chunk(q, own_k, own_v, prefix=pf),
+                "bfloat16", "(slot table)",
+                fault=("prefix + 1", P.flash_prefill_chunk(
+                    q, own_k, own_v, prefix=pf + 1)))
+    chunk = ops.flash_prefill_chunk(q, ks, vs, prefix=pf, slots=table)
+    dec = ops.flash_decode(q[0], own_k.expand(c, smax, kvh, d),
+                           own_v.expand(c, smax, kvh, d),
+                           lengths=p0 + 1 + torch.arange(c, device="cuda"))
+    pin = bool(torch.equal(chunk[0], dec))
+    print(f"  pin at the verify shape: chunk row j == flash_decode at pos "
+          f"{p0} + j, bit for bit (bf16, C={c}, slot table): {pin}")
+    assert pin, "chunk/decode bit pin broken at the verify shape"
+
+    def layer_pair():
+        i = nxt()
+        return arena_k[i], arena_v[i]
+
+    def kernel():
+        k, v = layer_pair()
+        return flash_prefill_chunk.launch(q, k, v, pf, slots=table)
+
+    def plain():
+        k, v = layer_pair()
+        return P.flash_prefill_chunk(q, k[slot:slot + 1], v[slot:slot + 1],
+                                     prefix=pf)
+
+    kpos = torch.arange(smax, device="cuda")
+    cmask = kpos[None, :] <= (p0 + torch.arange(c, device="cuda"))[:, None]
+    qt = q.transpose(1, 2)
+
+    def library():
+        k, v = layer_pair()
+        return sdpa(qt, k[slot:slot + 1].transpose(1, 2),
+                    v[slot:slot + 1].transpose(1, 2), attn_mask=cmask)
+
+    ms, plain_ms, lib_ms = timed(kernel, 50), timed(plain, 5), \
+        timed(library, 50)
+    rows = p0 + c
+    return dict(module=flash_prefill_chunk, label=f"fpc verify C={c}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                bytes=2 * (2 * q.numel() + 2 * rows * kvh * d),
+                flops=4 * int(cmask.sum()) * h * d, pin=pin)
 
 
 def scaled_kernel_checks(torch, ops, cfg):
@@ -1774,7 +1868,8 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
     depend on its batch-mates); a sampled request served alone (same slots
     and arena) equal to its stream in the batch; the sampled graph replayed
     once a sampled step.  Returns ({mode: (tok/s, sampled steps, decode
-    steps)}, [launch counts of each captured run])."""
+    steps, the captured run's streams)}, [launch counts of each captured
+    run])."""
     import numpy as np
     from repro_torch.runtime.serving import Request, ServingEngine
     base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS \
@@ -1851,7 +1946,8 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
               f"served alone equals its stream in the batch; {n_diff} of "
               f"{len(out) - len(greedy)} sampled streams differ from phase "
               f"4's greedy ones")
-        res[mode] = (total / dt, st["sampled_steps"], st["decode_steps"])
+        res[mode] = (total / dt, st["sampled_steps"], st["decode_steps"],
+                     out)
         del eng, e_eng, alone
     return res, all_counts
 
@@ -1911,8 +2007,9 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
     model vs plain model, within LOGIT_TOL.  Printed: kv_row_bytes and arena
     bytes beside fp32's, the greedy token match against phase 4's fp32
     streams (``tolerance``), and one decode-only window each of fp32, int8
-    and fp8 (device ms a step; reported, not gated).  Returns [launch
-    counts of each captured run]."""
+    and fp8 (device ms a step; reported, not gated).  Returns ([launch
+    counts of each captured run], {format: {mode: the captured run's
+    streams}})."""
     import numpy as np
     from repro_torch.runtime.serving import tolerance
     base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
@@ -1937,8 +2034,9 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
         eng.arena_bytes == runs["monolithic"][0].arena_bytes
     print("phase 4e: llama3.2-3b bf16 arena (the fp32 format's for this "
           "bf16 model): streams equal phase 4's, no scaled launch")
+    streams = {}
     for fmt in ("int8", "fp8"):
-        outs = {}
+        outs = streams[fmt] = {}
         for mode in ("monolithic", "chunked"):
             eng, out, dt, counts = run(mode, fmt)
             all_counts.append(counts)
@@ -1998,7 +2096,7 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
     print(f"phase 4e: {bundle.name} decode only, one window each: "
           + ", ".join(f"{k} {window[k][0]:.3f} ms wall, device "
                       f"{wbusy[k][0]:.3f} ms a step" for k in window))
-    return all_counts
+    return all_counts, streams
 
 
 # Phase 4f: the reference's shared-prefix mix (serve.py:324-334): 4
@@ -2226,6 +2324,303 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
     print(f"phase 4f: {bundle.name} summary, medians of {pairs}: "
           + "; ".join(summary)
           + f"; phase time {time.perf_counter() - t_phase:.1f} s")
+    return all_counts
+
+
+# Phase 4g: speculative decoding on llama3.2-3b at full width, chunked
+# (phase 4's requests and chunks of 512 / 256), 64 new tokens, 4 slots.
+# Temperature 8.0: the reference's traffic under preemption
+# (tests/test_speculative.py), where the shared Gumbel noise lets an
+# uncorrelated draft land proposals
+HOT_ARGS = ["--temperature", "8.0", "--sampling-mix", "1.0"]
+
+
+def match_prefix(got, want) -> dict:
+    """{uid: how many leading tokens of ``got`` equal ``want``'s}."""
+    import numpy as np
+    out = {}
+    for u in sorted(want):
+        g, w = got[u], want[u]
+        neq = np.nonzero(g[:len(w)] != w[:len(g)])[0]
+        out[u] = int(neq[0]) if neq.size else min(len(g), len(w))
+    return out
+
+
+def spec_launches(eng, counts):
+    """Hold a speculative run's attention launches to its replays: the
+    verify graphs launch flash_prefill_chunk n_layers x (replays + one
+    warm-up each), the draft's micro-step graphs flash_decode
+    draft-layers x (replays + warm-ups), the chunk graphs of both models
+    flash_prefill_chunk per chunk (and warm-up); nothing else launches
+    them, and the replays equal the round's counted steps; the wrapper's
+    own count of verify launches (``flash_prefill_chunk_verify``) equals
+    the verify graphs' share."""
+    st, nl = eng.stats, eng.cfg.n_layers
+    nd = eng.spec.draft_cfg.n_layers
+    verify = list(eng.verify_graphs.values())
+    drafts = [g for g in (eng.draft_graph, eng.sampled_draft_graph)
+              if g is not None]
+    assert eng.graph is None and eng.sampled_graph is None
+    assert len(verify) == st["spec_verify_compiles"] > 0
+    assert sum(g.replays for g in verify) == st["spec_verify_calls"] > 0
+    assert sum(g.replays for g in drafts) == st["spec_draft_steps"] > 0
+    assert all(g.launches.get("flash_prefill_chunk") == nl
+               and g.launches.get("flash_prefill_chunk_verify") == nl
+               for g in verify)
+    assert all(g.launches == {"flash_decode": nd} for g in drafts)
+    check_chunk_graphs(eng)
+    assert sorted(eng.draft_chunk_graphs) == sorted(eng.chunk_graphs)
+    chunks = st["prefill_chunks"]
+    v_launches = nl * sum(g.replays + 1 for g in verify)
+    assert counts["flash_prefill_chunk"] == v_launches + nl * (
+        chunks + len(eng.chunk_graphs)) + nd * (
+        chunks + len(eng.draft_chunk_graphs)), counts
+    assert counts["flash_decode"] == nd * sum(g.replays + 1
+                                              for g in drafts), counts
+    assert counts["flash_prefill_chunk_verify"] == v_launches, counts
+    assert counts["flash_attention"] == 0, counts
+
+
+def spec_report(label, eng, dt, plain_dt=None):
+    """Print a speculative engine's acceptance, rounds, tokens committed a
+    round, final k, verify graphs, host time blocked a round and wall ms a
+    token over its ``dt`` seconds of runs (beside plain decode's, where
+    given)."""
+    st, sp = eng.stats, eng.spec
+    outs = [s.output() for s in eng._results.values()]
+    total = sum(o.size for o in outs)
+    committed = total - len(outs)       # less each request's first token
+    rounds = st["spec_rounds"]
+    print(f"phase 4g: {label}: acceptance {sp.acceptance_rate:.4f} "
+          f"({sp.stats['accepted']}/{sp.stats['proposed']}), {rounds} "
+          f"rounds, {committed / rounds:.2f} tokens committed a round (all "
+          f"slots), k {sp.k} at the end ({sp.stats['k_changes']} changes), "
+          f"spec_verify_compiles {st['spec_verify_compiles']}, "
+          f"host_blocked_s a round {st['host_blocked_s'] / rounds:.5f}; "
+          f"{total} tokens in {dt:.3f} s, wall {1e3 * dt / total:.3f} ms a "
+          f"token" + (f" (plain decode {1e3 * plain_dt / total:.3f})"
+                      if plain_dt is not None else ""))
+
+
+def spec_graphs(label, eng):
+    """Print each speculative graph's warm-up / capture ms, pool bytes
+    and replays."""
+    from repro_torch.launch import serve
+    for name, g in serve.named_graphs(eng):
+        if g is None or not ("draft" in name or "verify" in name):
+            continue
+        print(f"  {label} {name} graph: warm-up {g.warmup_s * 1e3:.1f} ms, "
+              f"capture {g.capture_s * 1e3:.1f} ms, pool "
+              f"{g.pool_bytes / 1e6:.1f} MB; {g.replays} replays of "
+              f"{g.launches}")
+
+
+def round_device_ms(torch, eng, k, n=4):
+    """Device ms of one round's parts over 4 live slots at prefix
+    VERIFY_PREFIX (after the run, on the engine's own graphs): k greedy
+    draft micro-steps, and the greedy verify of rung k for each slot.
+    torch.profiler, device events only.  Returns (draft ms, verify ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    b = eng.max_slots
+    pos = [VERIFY_PREFIX] * b
+
+    def device_ms(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows, _ = device_time(prof)
+        assert rows, "phase 4g: the profiler saw no device time"
+        return sum(r[0] for r in rows) / 1e3 / n
+
+    def draft():
+        eng._stage(eng._dtok, [1] * b)
+        eng._stage(eng._dpos, pos)
+        for _ in range(k):
+            eng.draft_graph.replay()
+
+    assert (k, False) in eng.verify_graphs
+    _, verify = eng._verify_runner(k, False)
+
+    def verify_all():
+        for slot in range(b):
+            eng._stage(eng._vscalars, [slot, VERIFY_PREFIX])
+            verify()
+
+    return device_ms(draft), device_ms(verify_all)
+
+
+def speculative_runs(torch, ops, serve, bundle, params, runs, sampled_out,
+                     int8_out, gen=64, pairs=4):
+    """Phase 4g: speculative decoding on phase 4's chunked requests.
+
+    (a) Self-draft: the draft is the target's own config from the target's
+    parameter seed (a weight leaf must equal the target's), k = 4 =
+    max_slots fixed.  Greedy and phase 4d's sampled mix: streams equal
+    phase 4's and 4d's captured chunked streams bit for bit with
+    acceptance exactly 1.0; over an int8 target arena, phase 4e's int8
+    streams; a planted fault (every verify's device start one row late)
+    must change the streams.  (b) A cheap draft: the target cut to 2
+    layers (every width and the vocab kept, another seed), the
+    reference's adaptive defaults (k 4, k_max 8): greedy (acceptance near
+    0, k walks down) and temperature 8.0, token-match prefix against plain
+    decode; then one live request at temperature 8.0 on the 4-slot
+    engine against plain captured decode of it, ``pairs`` alternating
+    pairs (each engine's first wave, which captures its graphs, and its
+    second, which finds them).  Every run holds its launches to its
+    replays (:func:`spec_launches`).  Returns [launch counts of each
+    run]."""
+    from repro_torch.runtime.serving import SpecConfig
+    cfg = bundle.cfg
+    base = (["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+            + ["--prefill-mode", "chunked"])
+    all_counts = []
+
+    def timed_run(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run(extra, spec, fmt="fp32", stage=None, again=False):
+        """One engine's run of phase 4's requests (``extra`` flags,
+        ``spec``); ``again``: then the same prompts once more as new
+        requests (uid + 100), the graphs all captured, whose streams must
+        equal the first wave's.  Returns (engine, streams, seconds[,
+        second wave's seconds])."""
+        args = serve.parse_args(base + extra)
+        args.kv_format = fmt
+        ops.reset_launch_counts()
+        eng = serve.engine(bundle, params, args, speculative=spec)
+        if stage is not None:
+            eng._stage = stage(eng)
+        out, dt = timed_run(eng)
+        if again:
+            for st in list(eng._results.values()):
+                r = st.request
+                eng.submit(dataclasses.replace(r, uid=100 + r.uid))
+            out2, dt2 = timed_run(eng)
+            assert all((out2[100 + u] == out[u]).all() for u in out)
+        counts = ops.launch_counts()
+        if spec is not None:
+            spec_launches(eng, counts)
+        all_counts.append(counts)
+        return (eng, out, dt, dt2) if again else (eng, out, dt)
+
+    t_start = time.perf_counter()
+    want = runs["chunked"][1]
+    # plain decode's two waves (the second finds its graphs captured)
+    _, _, plain_dt, plain_dt2 = run([], None, again=True)
+    own = SpecConfig(draft=cfg, k=4, adaptive=False, draft_seed=0)
+    eng, out, dt, dt2 = run([], own, again=True)
+    leaf = eng._draft_params["layers"]["attn"]["wq"]
+    assert torch.equal(leaf, params["layers"]["attn"]["wq"]), \
+        "the self-draft's weights differ from the target's"
+    assert same_streams(out, want), "self-draft streams != phase 4's"
+    assert eng.spec.acceptance_rate == 1.0, eng.spec.stats
+    spec_report("self-draft greedy (k=4=max_slots), two waves", eng,
+                dt + dt2, plain_dt + plain_dt2)
+    total = sum(o.size for o in out.values())
+    print(f"phase 4g: second wave (every graph captured): self-draft "
+          f"{1e3 * dt2 / total:.3f} ms a token, plain decode "
+          f"{1e3 * plain_dt2 / total:.3f}; first wave {1e3 * dt / total:.3f}"
+          f" / {1e3 * plain_dt / total:.3f}")
+    spec_graphs("self-draft greedy", eng)
+    d_ms, v_ms = round_device_ms(torch, eng, 4)
+    print(f"phase 4g: self-draft device ms a round at 4 live slots, prefix "
+          f"{VERIFY_PREFIX} (torch.profiler, device events): 4 draft steps "
+          f"{d_ms:.3f} + 4 verify passes {v_ms:.3f} = {d_ms + v_ms:.3f}")
+    del eng
+    eng, out, dt = run(SAMPLE_ARGS, own)
+    assert same_streams(out, sampled_out), "self-draft sampled != 4d's"
+    assert eng.spec.acceptance_rate == 1.0, eng.spec.stats
+    assert sorted(eng._verify_keys) == [(4, False), (4, True)]
+    spec_report("self-draft sampled mix (phase 4d's knobs)", eng, dt)
+    spec_graphs("self-draft sampled", eng)
+    del eng
+    eng, out, dt = run([], own, fmt="int8")
+    assert same_streams(out, int8_out), "self-draft int8 != 4e's"
+    # every verify launch reads the int8 arena (the scaled branch)
+    assert all_counts[-1]["flash_prefill_chunk_scaled"] == \
+        cfg.n_layers * (sum(g.replays + 1 for g in eng.verify_graphs.values())
+                        + eng.stats["prefill_chunks"]
+                        + len(eng.chunk_graphs)), all_counts[-1]
+    spec_report("self-draft over an int8 target arena (fp32-format draft "
+                "arena)", eng, dt)
+    del eng
+
+    def late_start(eng):
+        stage = eng._stage
+
+        def staged(dst, values):
+            if dst is eng._vscalars:
+                values = [values[0], values[1] + 1]
+            stage(dst, values)
+        return staged
+
+    _, bad, _ = run(["--gen", "16"], own, stage=late_start)
+    differ = [u for u in sorted(want) if not (bad[u] == want[u][:16]).all()]
+    print(f"phase 4g: planted fault (each verify's device start one row "
+          f"late): streams of requests {differ} differ from phase 4's")
+    assert differ, "a late verify start went unseen"
+
+    cheap = dataclasses.replace(cfg, name=f"{cfg.name}-2-layer-draft",
+                                n_layers=2)
+    cheap_spec = SpecConfig(draft=cheap, draft_seed=1)
+    eng, out, dt = run([], cheap_spec)
+    spec_report("2-layer draft, greedy", eng, dt, plain_dt)
+    print(f"phase 4g: 2-layer draft, greedy: token-match prefix against "
+          f"plain decode {match_prefix(out, want)} of {gen}")
+    spec_graphs("2-layer draft", eng)
+    d_ms, v_ms = round_device_ms(torch, eng, 4)
+    print(f"phase 4g: 2-layer draft device ms a round at k=4, 4 live "
+          f"slots, prefix {VERIFY_PREFIX}: 4 draft steps {d_ms:.3f} + 4 "
+          f"verify passes {v_ms:.3f} = {d_ms + v_ms:.3f}")
+    del eng
+    _, hot_plain, hot_dt = run(HOT_ARGS, None)
+    eng, out, dt = run(HOT_ARGS, cheap_spec)
+    spec_report("2-layer draft, temperature 8.0", eng, dt, hot_dt)
+    print(f"phase 4g: 2-layer draft, temperature 8.0: token-match prefix "
+          f"against plain decode {match_prefix(out, hot_plain)} of {gen}")
+    del eng
+    one = HOT_ARGS + ["--requests", "1"]
+    # {kind: {wave: [ms a token of each engine]}}: the first wave captures
+    # the engine's chunk graphs (and a speculative engine's verify graph of
+    # each rung its walk visits), the second finds them all
+    res = {kind: {"first": [], "second": []}
+           for kind in ("speculative", "plain")}
+    streams = {}
+    for i in range(pairs):
+        for kind in (("speculative", "plain") if i % 2 == 0
+                     else ("plain", "speculative")):
+            eng, out, dt, dt2 = run(one, cheap_spec if kind == "speculative"
+                                    else None, again=True)
+            res[kind]["first"].append(1e3 * dt / out[0].size)
+            res[kind]["second"].append(1e3 * dt2 / out[0].size)
+            streams[kind] = out
+            if kind == "speculative":
+                acc, k_end = eng.spec.acceptance_rate, eng.spec.k
+            del eng
+    for wave in ("second", "first"):
+        spec_ms, plain_ms = (res[kind][wave]
+                             for kind in ("speculative", "plain"))
+        print(f"phase 4g: one live request at temperature 8.0 on the 4-slot "
+              f"engine, {wave} wave of each engine (prefill included), "
+              f"wall ms a token, {pairs} alternating pairs: speculative "
+              f"(2-layer draft, acceptance {acc:.4f}, k {k_end} at the end) "
+              f"{[round(x, 3) for x in spec_ms]}, plain "
+              f"{[round(x, 3) for x in plain_ms]}; median ratio "
+              f"{statistics.median(spec_ms) / statistics.median(plain_ms):.3f}"
+              f", plain's spread {min(plain_ms):.3f}-{max(plain_ms):.3f}")
+    print(f"phase 4g: one live request, token-match prefix "
+          f"{match_prefix(streams['speculative'], streams['plain'])}")
+    print(f"phase 4g: {len(all_counts)} runs in "
+          f"{time.perf_counter() - t_start:.1f} s; verify launches of "
+          f"flash_prefill_chunk (its wrapper's count) "
+          f"{sum(c['flash_prefill_chunk_verify'] for c in all_counts)}")
     return all_counts
 
 
@@ -2875,10 +3270,17 @@ def main() -> int:
                   for kind, by_wave in cpairs.items()
                   for wave, rows in by_wave.items()))
         if bundle.cfg.family == "dense":
-            all_runs += narrow_runs(torch, ops, serve, bundle, params, runs)
+            counts4e, narrow = narrow_runs(torch, ops, serve, bundle, params,
+                                           runs)
+            all_runs += counts4e
             stamp(f"{arch} phase 4e")
         all_runs += shared_prefix_runs(torch, ops, serve, bundle, params)
         stamp(f"{arch} phase 4f")
+        if bundle.cfg.family == "dense":
+            all_runs += speculative_runs(
+                torch, ops, serve, bundle, params, runs,
+                mixed["chunked"][3], narrow["int8"]["chunked"])
+            stamp(f"{arch} phase 4g")
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         stamp(f"{arch} phase 5")
         all_runs += [run[3] for run in runs.values()] + counts4d

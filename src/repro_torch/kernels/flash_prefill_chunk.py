@@ -25,6 +25,7 @@ reference's ``_share_slot_view`` (transformer.py:532-547) composes them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -43,6 +44,22 @@ launches = 0
 launches_scaled = 0
 #: the ones with a donor table (prefix sharing)
 launches_donor = 0
+#: the ones made inside :func:`verify_pass` (a speculative verify)
+launches_verify = 0
+_verifying = False
+
+
+@contextlib.contextmanager
+def verify_pass():
+    """Count the launches made inside also as ``launches_verify``
+    (``LM.verify_chunk``: a speculative verify pass is a chunk step at k
+    rows)."""
+    global _verifying
+    outer, _verifying = _verifying, True
+    try:
+        yield
+    finally:
+        _verifying = outer
 
 
 def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,
@@ -131,7 +148,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at all: an arena the kernel could only read through a copy
     (``_build.arena_aligned``: rows under 16 bytes) raises, as a copy would
     move every slot."""
-    global launches, launches_scaled, launches_donor
+    global launches, launches_scaled, launches_donor, launches_verify
     _build.require_cuda(NAME, q, k, v, prefix, k_scale, v_scale, slots,
                         share_src, share_len)
     b, c, h, d = q.shape
@@ -175,5 +192,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     launches_scaled += scaled
     launches_donor += share_src is not None
+    launches_verify += _verifying
     _build.check(code, NAME)
     return o

@@ -68,6 +68,10 @@ SCALED_MODULES = (_fd, _fpc)
 #: the kernels with a donor table (prefix sharing): the launches with one
 #: are also counted apart, as ``<name>_donor``
 DONOR_MODULES = (_fd, _fpc)
+#: the kernel of a speculative verify pass: its launches inside
+#: ``verify_pass()`` are also counted apart, as ``<name>_verify``
+VERIFY_MODULES = (_fpc,)
+verify_pass = _fpc.verify_pass
 
 
 def _counters():
@@ -76,13 +80,16 @@ def _counters():
             + [(m.NAME + "_scaled", m, "launches_scaled")
                for m in SCALED_MODULES]
             + [(m.NAME + "_donor", m, "launches_donor")
-               for m in DONOR_MODULES])
+               for m in DONOR_MODULES]
+            + [(m.NAME + "_verify", m, "launches_verify")
+               for m in VERIFY_MODULES])
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches since the last reset}, {``<name>_scaled``:
-    the scaled ones among them} for the kernels of ``SCALED_MODULES`` and
-    {``<name>_donor``: those with a donor table} for ``DONOR_MODULES``."""
+    the scaled ones among them} for the kernels of ``SCALED_MODULES``,
+    {``<name>_donor``: those with a donor table} for ``DONOR_MODULES`` and
+    {``<name>_verify``: those of a verify pass} for ``VERIFY_MODULES``."""
     return {name: getattr(m, attr) for name, m, attr in _counters()}
 
 

@@ -21,6 +21,14 @@ arrival order, the rest greedy) with ``--top-k`` / ``--top-p`` /
 ``--min-p``; ``--seed`` is the run's base sampling seed and request i
 samples with ``--seed + i``, so a rerun replays the same streams.
 
+``--speculative draft=<arch>:k=<n>[:k-max=<n>][:adaptive=0|1]`` turns on
+speculative decoding: the registry arch, built reduced as in the reference,
+proposes k tokens a round and the target verifies them in one chunk-shaped
+pass; the streams stay those of plain decode.  A reduced draft has the
+reduced vocabulary, so against a ``--no-reduced`` target the vocab check
+refuses it; a full-width draft goes through ``EngineConfig(speculative=
+SpecConfig(draft=<ArchConfig>))``.
+
 ``--reduced`` (the default) builds the smoke-test width; ``--no-reduced``
 builds the published config (the reference's flag is ``store_true`` with
 ``default=True`` and so can never be switched off).  On the card the
@@ -42,7 +50,34 @@ from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime.serving import (DEFAULT_BUCKETS, GREEDY,
                                          EngineConfig, Request,
-                                         SamplingParams, ServingEngine)
+                                         SamplingParams, ServingEngine,
+                                         SpecConfig)
+
+
+def parse_speculative(text: str) -> SpecConfig:
+    """Parse ``--speculative draft=<arch>:k=<n>[:k-max=<n>][:adaptive=0|1]``
+    (and ``window`` / ``draft-seed`` / ``low`` / ``high`` / ``ema``) into a
+    :class:`SpecConfig` (reference serve.py:82-104)."""
+    fields: dict = {}
+    for part in text.split(":"):
+        key, sep, val = part.partition("=")
+        if not sep:
+            raise ValueError(f"--speculative: expected key=value, got "
+                             f"{part!r}")
+        key = key.replace("-", "_")
+        if key == "draft":
+            fields[key] = val
+        elif key in ("k", "k_max", "window", "draft_seed"):
+            fields[key] = int(val)
+        elif key == "adaptive":
+            fields[key] = bool(int(val))
+        elif key in ("low", "high", "ema"):
+            fields[key] = float(val)
+        else:
+            raise ValueError(f"--speculative: unknown key {key!r}")
+    if "draft" not in fields:
+        raise ValueError("--speculative requires draft=<arch>")
+    return SpecConfig(**fields)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -96,6 +131,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sampling-mix", type=float, default=1.0,
                    help="fraction of requests that sample (evenly spread); "
                         "the rest decode greedily")
+    p.add_argument("--speculative", default=None, metavar="SPEC",
+                   help="speculative decoding: draft=<arch>:k=<n>"
+                        "[:k-max=<n>][:adaptive=0|1]; a reduced registry "
+                        "arch proposes k tokens a round, the target "
+                        "verifies them in one chunk-shaped pass; the "
+                        "streams stay those of plain decode")
     p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="smoke-test width (default); --no-reduced builds "
@@ -170,6 +211,8 @@ def engine_config(args, lens) -> EngineConfig:
         depth=args.depth, page_size=args.page_size, num_pages=args.pages,
         prefill_chunks=chunks, prefill_budget=args.prefill_budget,
         prefix_sharing=args.prefix_sharing,
+        speculative=(parse_speculative(args.speculative)
+                     if args.speculative else None),
         kv_format=args.kv_format, base_seed=args.seed,
         decode_graph=args.decode_graph, chunk_graph=args.chunk_graph)
 
@@ -192,14 +235,15 @@ def sampling_plan(n_requests: int, *, temperature: float, top_k: int,
     ]
 
 
-def engine(bundle, params, args) -> ServingEngine:
+def engine(bundle, params, args, **changes) -> ServingEngine:
     """The engine for ``args`` with the ``args.requests`` requests
     submitted, sampled as :func:`sampling_plan` says (on the card its
     greedy decode graph captured, and its sampled one if a request
-    samples)."""
+    samples).  ``changes``: EngineConfig fields set past what the flags
+    say (e.g. ``speculative`` with a full-width draft)."""
     reqs = prompts(args, bundle.cfg.vocab)
-    eng = ServingEngine(bundle.model, bundle.cfg, params,
-                        config=engine_config(args, [p.size for p in reqs]))
+    config = engine_config(args, [p.size for p in reqs]).replace(**changes)
+    eng = ServingEngine(bundle.model, bundle.cfg, params, config=config)
     plan = sampling_plan(args.requests, temperature=args.temperature,
                          top_k=args.top_k, top_p=args.top_p,
                          min_p=args.min_p, seed=args.seed,
@@ -255,11 +299,16 @@ def report_stats(eng: ServingEngine) -> None:
               + (f"; {stats['snapshots']} state snapshots of "
                  f"{stats['snapshot_bytes']} bytes"
                  if stats["snapshots"] else "") + ")")
-    graphs = [("greedy decode", eng.graph),
-              ("sampled decode", eng.sampled_graph),
-              ("first draw", eng.draw_graph)]
-    graphs += [(f"chunk {c}", g) for c, g in sorted(eng.chunk_graphs.items())]
-    for name, g in graphs:
+    if eng.spec is not None:
+        sp = eng.spec.stats
+        print(f"speculative: k={eng.spec.k} "
+              f"accepted={sp['accepted']}/{sp['proposed']} proposals "
+              f"(rate={eng.spec.acceptance_rate:.3f}) "
+              f"rounds={sp['rounds']} resamples={sp['resamples']} "
+              f"k_changes={sp['k_changes']} "
+              f"verify_compiles={stats['spec_verify_compiles']} "
+              f"draft_steps={stats['spec_draft_steps']}")
+    for name, g in named_graphs(eng):
         if g is not None:
             print(f"{name} graph: warm-up {g.warmup_s * 1e3:.1f} ms, "
                   f"capture {g.capture_s * 1e3:.1f} ms, pool "
@@ -270,6 +319,25 @@ def report_stats(eng: ServingEngine) -> None:
               f"p50={_percentile(ttft, 50):.4f} "
               f"p90={_percentile(ttft, 90):.4f} "
               f"max={max(ttft):.4f} (n={len(ttft)})")
+
+
+def named_graphs(eng) -> list:
+    """(name, graph) of every graph the engine may hold (None where it
+    holds none): the decode steps, the first draw, the chunk steps, and
+    under speculative decoding the draft's micro-steps and chunk steps and
+    the verify steps."""
+    graphs = [("greedy decode", eng.graph),
+              ("sampled decode", eng.sampled_graph),
+              ("first draw", eng.draw_graph)]
+    graphs += [(f"chunk {c}", g) for c, g in sorted(eng.chunk_graphs.items())]
+    if eng.spec is not None:
+        graphs += [("greedy draft", eng.draft_graph),
+                   ("sampled draft", eng.sampled_draft_graph)]
+        graphs += [(f"draft chunk {c}", g)
+                   for c, g in sorted(eng.draft_chunk_graphs.items())]
+        graphs += [(f"verify k={k} {'sampled' if smp else 'greedy'}", g)
+                   for (k, smp), g in sorted(eng.verify_graphs.items())]
+    return graphs
 
 
 def main(argv=None):

@@ -3,7 +3,8 @@
 Port of ``repro/models/transformer.py``: the dense layer functions
 (:55-101), ``attention_prefill`` (:169) and the ``LM`` driver (:245) with
 ``init``, ``init_cache``, ``prefill``, ``prefill_chunk`` / ``_chunk_hidden``,
-``decode_step`` / ``_decode_rows`` and ``decode_and_sample``.  As in the
+``verify_chunk``, ``decode_step`` / ``_decode_rows`` and
+``decode_and_sample``.  As in the
 reference the driver is family-pluggable: a :class:`LayerSet` bundles one
 family's layer functions and arena (:data:`DENSE` here, ``mamba2.SSM`` for
 the ssm family), and the driver runs any of them.
@@ -400,6 +401,43 @@ class LM:
                                last_idx + 1, share)
         last = h.index_select(1, last_idx.view(1))[:, 0]
         return head_logits(last, self.head(params))
+
+    def verify_chunk(self, params, tokens: torch.Tensor, cache: dict,
+                     slot, start) -> torch.Tensor:
+        """The speculative verify pass (reference :703-740): C tokens
+        already proposed (the slot's current token, then C - 1 draft
+        proposals; never padded, so all C rows are real) through slot
+        ``slot`` exactly as a prompt chunk at rows [start, start + C), with
+        the logits of *every* row.  Row j predicts position ``start + 1 +
+        j``; by the chunk/decode bit pin it is what a decode step at ``pos
+        = start + j`` would give.  The chunk's rows are written in place
+        (``layers.write_chunk_rows``): a row at or past max_seq keeps its
+        old value (a verify chunk overruns the slot by at most C - 1 rows),
+        and a row past the accepted prefix is dead until the next round's
+        chunk overwrites it.
+
+        ``slot`` / ``start``: 0-d int64 device tensors, read on the device
+        only (the captured verify step), or host ints (a host ``slot`` out
+        of range raises).  Returns (1, C, V) f32.  Its flash_prefill_chunk
+        launches also count as ``flash_prefill_chunk_verify``
+        (``ops.verify_pass``).
+        """
+        if self.layers.chunk_layer is None:
+            raise NotImplementedError(
+                f"speculative verify not supported for family "
+                f"{self.cfg.family!r} (needs the chunked-prefill hooks)")
+        if isinstance(slot, int):
+            self.slot_view(cache, slot)             # range check
+        dev = tokens.device
+        slot, start = (torch.as_tensor(t, dtype=torch.int64, device=dev)
+                       for t in (slot, start))
+        c = tokens.shape[1]
+        with ops.verify_pass():
+            h = self._chunk_hidden(params, tokens, cache, slot, start,
+                                   start.new_full((), c))
+        b, _, d = h.shape
+        return head_logits(h.reshape(b * c, d),
+                           self.head(params)).reshape(b, c, -1)
 
     def _chunk_hidden(self, params, tokens, cache, slot, start, nvalid,
                       share=None):

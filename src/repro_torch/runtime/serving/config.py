@@ -1,11 +1,11 @@
 """EngineConfig: the serving engine's construction surface (the subset of
 ``repro/runtime/serving/config.py`` that this port serves).
 
-Fields not listed here (speculative decoding, faults, health, the
-admission caps, donation) belong to later slices:
-passing one raises ``TypeError``.  An unknown KV format, or an invalid
-prefix-sharing setting, raises ``ValueError`` (reference :84-85,
-:119-131).
+Fields not listed here (faults, health, the admission caps, donation)
+belong to later slices or have no counterpart: passing one raises
+``TypeError``.  An unknown KV format, an invalid prefix-sharing setting, or
+a ``speculative`` that is not a ``SpecConfig`` or comes with
+``prefix_sharing``, raises ``ValueError`` (reference :84-85, :119-141).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Optional
 
 from repro_torch.core import kv_format as kvf
 from repro_torch.runtime.serving.chunking import validate_buckets
+from repro_torch.runtime.serving.speculative import SpecConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +37,9 @@ class EngineConfig:
     ``kv_format``       KV-arena storage format (``core/kv_format.py``):
                         "fp32" (stores at the activation dtype), "bf16",
                         "int8" or "fp8" (the last two with per-row scales)
+    ``speculative``     a ``SpecConfig``: draft-propose / chunk-verify
+                        decoding (dense family; not with
+                        ``prefix_sharing``); None = plain decode
     ``base_seed``       run-level sampling seed: a sampled request with
                         ``seed=None`` samples with it
     ``decode_graph``    on the card, replay the decode step as one
@@ -59,6 +63,7 @@ class EngineConfig:
     prefix_sharing: bool = False
     prefix_chain_cap: Optional[int] = None
     kv_format: str = "fp32"
+    speculative: Optional[SpecConfig] = None
     base_seed: int = 0
     decode_graph: bool = True
     chunk_graph: bool = True
@@ -95,6 +100,17 @@ class EngineConfig:
                 raise ValueError(
                     f"EngineConfig.prefix_chain_cap must be >= 1 or None, "
                     f"got {self.prefix_chain_cap}")
+        if self.speculative is not None:
+            if not isinstance(self.speculative, SpecConfig):
+                raise ValueError(
+                    f"EngineConfig.speculative must be a SpecConfig or "
+                    f"None, got {type(self.speculative).__name__}")
+            if self.prefix_sharing:
+                raise ValueError(
+                    "EngineConfig.speculative is unsupported with "
+                    "prefix_sharing: the verify chunk would need the "
+                    "composed share view threaded through the draft arena "
+                    "as well")
 
     def replace(self, **changes) -> "EngineConfig":
         """A copy with ``changes`` applied (validated again)."""

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine (port of ``repro/runtime/serving/
 engine.py``'s ``ServingEngine``: greedy and sampled decode over any KV
 storage format, ``EngineConfig.kv_format``, with the copy-on-write prefix
-cache, ``EngineConfig.prefix_sharing``).
+cache, ``EngineConfig.prefix_sharing``, or speculative decoding,
+``EngineConfig.speculative``).
 
 The host runs scheduling and admission; the device runs one decode step
 over the whole slot batch.  As in the reference:
@@ -38,8 +39,9 @@ over the whole slot batch.  As in the reference:
      last index traced): its tokens and (slot, start, last_idx) are
      device buffers written in place through pinned memory
      (``core.dispatch.HostStaging``), so no write waits on the steps in
-     flight; the chunk graphs share one private pool and replay one at a
-     time on one stream.  Monolithic prefill stays eager: it has one shape
+     flight; the chunk graphs (and a speculative engine's draft chunk and
+     verify graphs) share one private pool and replay one at a time on
+     one stream.  Monolithic prefill stays eager: it has one shape
      per prompt length, and a graph per length seen would hold a pool per
      length.  ``EngineConfig.decode_graph=False`` asks for eager decode
      steps and first draws, ``chunk_graph=False`` for eager chunk steps
@@ -74,10 +76,30 @@ for an unshared slot).  Writes never go through it.  A recurrent family
 has no rows to share: the donor's state and conv tail are copied into a
 snapshot at each page-aligned chunk end (eager copies on the stream the
 chunk graphs replay on, after the chunk), and the fork splices the
-snapshot into its own slot before its first tail chunk.  Left out, as in
-the reference's exclusions or later slices: speculative decoding (which
-the reference refuses together with sharing), the fault injector and
-health (whose fault sites skip prefix donors), replicas and the router.
+snapshot into its own slot before its first tail chunk.
+
+Speculative decoding (``EngineConfig.speculative``, the dense family,
+every KV format; reference engine.py:601-633, :1205-1348): a draft LM in a
+second slot arena (fp32 format) with the target's slot indices proposes k
+tokens a slot, and the target verifies each RUNNING slot's proposals in
+one chunk-shaped pass (``LM.verify_chunk``); the engine commits the
+accepted run and the target's draw at the first mismatch
+(``Scheduler.on_tokens``), so the stream is the target's own, bit for
+bit.  Prefill mirrors every prompt (monolithic, eager) and every chunk
+(the draft's chunk graph of that length) into the draft arena.  A round is
+synchronous: k replays of the draft's micro-step graph, whose tokens and
+positions are fed back on the device, then one replay of the verify graph
+of rung k a slot (greedy or sampled twin; captured at its first use), then
+one host sync.  A speculative engine captures no decode-step graph.  With
+no health ladder in this port a speculative engine always runs rounds;
+the reference's spec-to-queue resync and its ``draft`` fault site wait
+for the fault injector and health (ROADMAP 1.7.3).  A slot whose verify
+logits go non-finite is quarantined (``Status.FAILED``).
+
+Left out, as in the reference's exclusions or later slices: speculative
+decoding together with prefix sharing (the reference refuses the pair),
+the fault injector and health (whose fault sites skip prefix donors),
+replicas and the router.
 """
 from __future__ import annotations
 
@@ -99,6 +121,7 @@ from repro_torch.runtime.serving.graphs import (CapturedStep, ChunkGraph,
                                                 DecodeGraph)
 from repro_torch.runtime.serving.request import Request, RequestState, Status
 from repro_torch.runtime.serving.scheduler import Scheduler
+from repro_torch.runtime.serving.speculative import SpecController
 
 
 def _common_prefix_len(a: np.ndarray, b: np.ndarray) -> int:
@@ -185,16 +208,22 @@ class ServingEngine:
         self.arena_unit_bytes = self.arena_bytes // (
             max_slots if recurrent else max_slots * max_seq)
         self._capture = config.decode_graph and dev.type == "cuda"
+        #: the speculative controller (None: plain decode)
+        self.spec: Optional[SpecController] = None
+        if config.speculative is not None:
+            self._init_spec(config.speculative)
+        # a speculative engine runs rounds, never the decode steps
+        plain_capture = self._capture and self.spec is None
         #: the captured greedy decode step (None: eager steps)
         self.graph = (DecodeGraph(self._decode_step, self._tokens,
                                   self._pos, self._active)
-                      if self._capture else None)
+                      if plain_capture else None)
         #: the captured sampled step: None until the first sampled submit
         #: (and always None for eager steps)
         self.sampled_graph = None
-        self._greedy_step = (self.graph.replay if self._capture
+        self._greedy_step = (self.graph.replay if plain_capture
                              else self._decode_step)
-        self._sampled_step = (None if self._capture
+        self._sampled_step = (None if plain_capture
                               else self._decode_step_sampled)
         # the first draw of a sampled request: its static (1, V) logits
         # row, (seed, q, top_k) int64 and (temperature, top_p, min_p) f32
@@ -208,8 +237,11 @@ class ServingEngine:
         self._draw_step = None if self._capture else self._first_draw_step
         self._chunk_capture = (config.chunk_graph and dev.type == "cuda"
                                and self.prefill_chunks is not None)
+        # the private pool of the chunk graphs, the draft's chunk graphs
+        # and the speculative verify graphs: they replay one at a time on
+        # one stream, and each replay's output is read before the next
         self._chunk_pool = (torch.cuda.graph_pool_handle()
-                            if self._chunk_capture else None)
+                            if dev.type == "cuda" else None)
         #: {chunk length: (static tokens (1, C), (slot, start, last_idx),
         #: and with prefix sharing (..., share_src, share_len))}
         self._chunk_inputs: dict[int, tuple] = {}
@@ -219,7 +251,7 @@ class ServingEngine:
         self.chunk_graphs: dict[int, ChunkGraph] = {}
         self._staging = HostStaging(
             dev, nbytes=8 * max(max(self.prefill_chunks or (0,)),
-                                self._n_scalars))
+                                self._n_scalars, max_slots))
         self._queue = DispatchQueue(depth=self.depth)
         # readbacks of in-flight steps with the slot -> (state, generation)
         # map seen at submit: a token is credited only if its slot still
@@ -242,6 +274,66 @@ class ServingEngine:
                          if recurrent else
                          {"kv_row_bytes": self.kv_row_bytes}),
                       "arena_bytes": self.arena_bytes}
+        if self.spec is not None:
+            # rounds = verify rounds (the speculative decode_steps),
+            # draft_steps = draft micro-steps, verify_calls = per-slot
+            # verify passes, verify_compiles = the verify steps touched,
+            # one per (ladder rung, greedy / sampled twin): on the card
+            # the verify graphs captured (reference engine.py:683-691,
+            # which counts rungs).  Per-request acceptance lives on
+            # ``self.spec.stats``.
+            self.stats.update({"spec_rounds": 0, "spec_draft_steps": 0,
+                               "spec_verify_calls": 0,
+                               "spec_verify_compiles": 0,
+                               "quarantined": 0, "failed": 0})
+
+    def _init_spec(self, spec) -> None:
+        """The draft side of speculative decoding (reference engine.py:
+        601-633): the draft model (built on this engine's device with its
+        kernels), its parameters from ``spec.draft_seed``, its own arena
+        (fp32 format: the activation dtype), the round's device buffers,
+        and on the card the draft's greedy micro-step captured (its sampled
+        twin at the first sampled submit, the verify graphs at their first
+        round)."""
+        model, dev, b = self.model, self.device, self.max_slots
+        self.spec = SpecController(self.cfg, spec, device=dev,
+                                   kernels=model.kops)
+        dm = self.draft_model = self.spec.draft_model
+        self._draft_params = dm.init(spec.draft_seed)
+        self._draft_cache = dm.init_cache(b, self.max_seq)
+        k_max = max(spec.ladder())
+        #: the draft micro-step's token and position vectors: staged once a
+        #: round, then fed back and advanced on the device
+        self._dtok = torch.zeros(b, dtype=torch.int64, device=dev)
+        self._dpos = torch.zeros(b, dtype=torch.int64, device=dev)
+        #: row 0: each slot's current token; row j: its j-th proposal
+        self._chain = torch.zeros((k_max + 1, b), dtype=torch.int64,
+                                  device=dev)
+        #: the verify steps' (slot, start), and their outputs, one row a
+        #: verified slot: the draws at the k positions and the finite flag
+        self._vscalars = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._vdraws = torch.zeros((b, k_max), dtype=torch.int64,
+                                   device=dev)
+        self._vok = torch.zeros(b, dtype=torch.bool, device=dev)
+        #: {k: static (1, k) verify tokens}
+        self._vtokens: dict[int, torch.Tensor] = {}
+        #: the (k, sampled) verify steps touched
+        self._verify_keys: set = set()
+        #: {(k, sampled): captured verify graph}, in the chunk graphs' pool
+        #: (each verify's outputs are copied out before the next replay)
+        self.verify_graphs: dict[tuple, ChunkGraph] = {}
+        #: the draft's captured greedy micro-step (None: eager) and its
+        #: sampled twin (None until the first sampled submit)
+        self.draft_graph = (DecodeGraph(self._draft_step, self._dtok,
+                                        self._dpos, kind="draft")
+                            if self._capture else None)
+        self.sampled_draft_graph = None
+        self._draft_greedy = (self.draft_graph.replay if self._capture
+                              else self._draft_step)
+        self._draft_sampled = (None if self._capture
+                               else self._draft_step_sampled)
+        #: {chunk length: the draft's captured chunk graph}
+        self.draft_chunk_graphs: dict[int, ChunkGraph] = {}
 
     # -- the device steps ----------------------------------------------------
     def _decode_step(self) -> torch.Tensor:
@@ -296,16 +388,54 @@ class ServingEngine:
                                         scalars[0], scalars[1], scalars[2],
                                         *share)
 
+    def _draft_step(self) -> torch.Tensor:
+        """One greedy draft micro-step over every slot (reference
+        ``_compiled_draft_propose_greedy``): decode the draft tokens at the
+        draft positions over the draft arena, feed the argmax back as the
+        next tokens and advance every position by one; what the draft
+        graph captures (no host read)."""
+        logits = self.draft_model.decode_step(self._draft_params, self._dtok,
+                                              self._draft_cache, self._dpos)
+        return self._draft_advance(torch.argmax(logits, dim=-1))
+
+    def _draft_step_sampled(self) -> torch.Tensor:
+        """The sampled twin of :meth:`_draft_step` (reference
+        ``_compiled_draft_propose``): it draws with the *target's* per-slot
+        sampling vectors, proposal j + 1 with the slot's (seed, pos + j +
+        1) key, the key the target's Gumbel replay uses there, so the
+        noise is shared and only the logits differ."""
+        sampled = self.draft_model.decode_and_sample(
+            self._draft_params, self._dtok, self._draft_cache, self._dpos,
+            self._samp)
+        return self._draft_advance(sampled)
+
+    def _draft_advance(self, sampled: torch.Tensor) -> torch.Tensor:
+        self._dtok.copy_(sampled)
+        self._dpos.add_(1)
+        return sampled
+
+    def _verify_step(self, tokens: torch.Tensor, sampled: bool):
+        """One slot's verify pass (reference ``_compiled_verify`` /
+        ``_greedy``): the static ``tokens`` (1, k) through
+        ``LM.verify_chunk`` at (slot, start) = ``self._vscalars``, then the
+        target's draw at each of the k positions (the Gumbel replay, or the
+        argmax for a greedy slot) and whether every logit is finite, so the
+        (k, V) logits never leave the device.  What a verify graph captures
+        (no host read).  Returns (draws (k,) int64, ok 0-d bool)."""
+        slot, start = self._vscalars[0], self._vscalars[1]
+        logits = self.model.verify_chunk(self.params, tokens, self._cache,
+                                         slot, start)[0]
+        draws = (sampling.verify_draws(logits, slot, start, self._samp)
+                 if sampled else torch.argmax(logits, dim=-1))
+        return draws, torch.isfinite(logits).all()
+
     def _stage(self, dst: torch.Tensor, values) -> None:
         """Write host ``values`` into device buffer ``dst`` in place,
         without waiting on the steps in flight."""
         self.stats["host_blocked_s"] += self._staging.write(dst, values)
 
     def _read_now(self, value: torch.Tensor) -> np.ndarray:
-        t0 = time.perf_counter()
-        host = Readback(value).wait()
-        self.stats["host_blocked_s"] += time.perf_counter() - t0
-        return host
+        return self._wait(Readback(value))
 
     def _note_prefill_shape(self, key) -> None:
         self._prefill_shapes.add(key)
@@ -345,14 +475,21 @@ class ServingEngine:
         self.stats["requests"] += 1
         if not request.sampling.is_greedy:
             self.stats["sampled_requests"] += 1
-            if self._sampled_step is None:
+            if self._capture and self.draw_graph is None:
                 # the reference compiles its sampled step at its first
                 # call; here it is captured at the first sampled request,
-                # so greedy-only traffic never pays for it
-                self.sampled_graph = DecodeGraph(
-                    self._decode_step_sampled, self._tokens, self._pos,
-                    self._active)
-                self._sampled_step = self.sampled_graph.replay
+                # so greedy-only traffic never pays for it (a speculative
+                # engine captures the draft's sampled micro-step instead)
+                if self.spec is None:
+                    self.sampled_graph = DecodeGraph(
+                        self._decode_step_sampled, self._tokens, self._pos,
+                        self._active)
+                    self._sampled_step = self.sampled_graph.replay
+                else:
+                    self.sampled_draft_graph = DecodeGraph(
+                        self._draft_step_sampled, self._dtok, self._dpos,
+                        kind="draft")
+                    self._draft_sampled = self.sampled_draft_graph.replay
                 # a pure function of its static inputs: running it is its
                 # own trace-free warm-up
                 self.draw_graph = CapturedStep(
@@ -380,6 +517,13 @@ class ServingEngine:
             logits = self.model.prefill(
                 self.params, prompt, self.model.slot_view(self._cache,
                                                           st.slot))
+            if self.spec is not None:
+                # mirror the prompt into the draft arena (logits dropped):
+                # both arenas hold rows [0, prompt_len), and a preemption's
+                # recompute re-runs both (reference engine.py:908-916)
+                dm = self.draft_model
+                dm.prefill(self._draft_params, prompt,
+                           dm.slot_view(self._draft_cache, st.slot))
             self.stats["prefills"] += 1
             self._note_prefill_shape(("prefill", int(prompt.shape[1])))
             self._activate_slot(st, logits)
@@ -593,13 +737,41 @@ class ServingEngine:
                 torch.zeros(self._n_scalars, dtype=torch.int64,
                             device=self.device))
         tokens, scalars = self._chunk_inputs[size]
+        step = self._capture_chunk(self.chunk_graphs, size,
+                                   lambda: self._chunk_step(tokens, scalars),
+                                   scalars)
+        if self.spec is None:
+            return tokens, scalars, step
+        draft = self._capture_chunk(
+            self.draft_chunk_graphs, size,
+            lambda: self._draft_chunk_step(tokens, scalars), scalars)
+
+        def both():
+            # lockstep draft ingestion (reference engine.py:1181-1186):
+            # the same chunk into the draft arena, its logits dropped.  It
+            # replays first, so no other replay of the shared pool comes
+            # between the target's chunk and the read of its logits
+            draft()
+            return step()
+
+        return tokens, scalars, both
+
+    def _capture_chunk(self, graphs: dict, size: int, step, scalars):
+        """``step`` as a replay of its chunk graph in ``graphs`` (captured
+        here at the first chunk of length ``size``), or eager."""
         if not self._chunk_capture:
-            return tokens, scalars, lambda: self._chunk_step(tokens, scalars)
-        if size not in self.chunk_graphs:
-            self.chunk_graphs[size] = ChunkGraph(
-                lambda: self._chunk_step(tokens, scalars), scalars,
-                pool=self._chunk_pool)
-        return tokens, scalars, self.chunk_graphs[size].replay
+            return step
+        if size not in graphs:
+            graphs[size] = ChunkGraph(step, scalars, pool=self._chunk_pool)
+        return graphs[size].replay
+
+    def _draft_chunk_step(self, tokens: torch.Tensor,
+                          scalars: torch.Tensor) -> torch.Tensor:
+        """The draft's counterpart of :meth:`_chunk_step` over the draft
+        arena (no prefix sharing under speculation)."""
+        return self.draft_model.prefill_chunk(
+            self._draft_params, tokens, self._draft_cache, scalars[0],
+            scalars[1], scalars[2])
 
     def _prefill_one_chunk(self, st: RequestState, size: int) -> None:
         req = st.request
@@ -631,17 +803,135 @@ class ServingEngine:
         self._slot_gen[st.slot] += 1
         self._activate_slot(st, logits)
 
+    # -- speculative rounds ---------------------------------------------------
+    def _verify_runner(self, k: int, sampled: bool):
+        """(static (1, k) tokens, step) of the verify step of rung ``k`` and
+        twin ``sampled``: the step replays its verify graph (captured here
+        at its first use) or runs :meth:`_verify_step` eagerly."""
+        if k not in self._vtokens:
+            self._vtokens[k] = torch.zeros((1, k), dtype=torch.int64,
+                                           device=self.device)
+        tokens = self._vtokens[k]
+        key = (k, sampled)
+        self._verify_keys.add(key)
+        self.stats["spec_verify_compiles"] = len(self._verify_keys)
+
+        def step():
+            return self._verify_step(tokens, sampled)
+
+        if not self._capture:
+            return tokens, step
+        if key not in self.verify_graphs:
+            self.verify_graphs[key] = ChunkGraph(
+                step, self._vscalars, pool=self._chunk_pool, kind="verify")
+        return tokens, self.verify_graphs[key].replay
+
+    def _spec_round(self) -> None:
+        """One draft-propose / chunk-verify / commit round over the RUNNING
+        slots, in place of a decode step (reference engine.py:1205-1311).
+
+        (1) The draft runs k micro-steps over the whole slot batch, fed
+        each slot's current token and then its own proposals, writing
+        draft rows [pos, pos + k) and drawing proposal j + 1 with the
+        slot's (seed, pos + j + 1) key: the tokens and positions are
+        staged once, then fed back and advanced on the device.  (2) Each
+        RUNNING slot gets one verify pass over [current, d_1 .. d_{k-1}]
+        at rows [pos, pos + k), its tokens copied on the device from the
+        proposals, with the target's draws at all k positions.  (3) One
+        host sync reads the proposals, draws and finite flags; the host
+        accepts the longest leading run of proposals equal to the draws
+        and commits them, plus the draw at the first mismatch.  Rejected
+        rows in both arenas are dead, so rollback is the position cursor
+        alone.  Non-RUNNING slots draft at ``PARKED_POS`` and write
+        nothing.
+        """
+        running = [st for st in self.scheduler.running.values()
+                   if st.status == Status.RUNNING]
+        if not running:
+            return
+        k = self.spec.k
+        tok0 = np.zeros(self.max_slots, np.int64)
+        pos0 = np.full(self.max_slots, PARKED_POS, np.int64)
+        for st in running:
+            # the slot's current token (committed, not yet in the arena)
+            # and the row it will occupy
+            tok0[st.slot] = st.generated[-1]
+            pos0[st.slot] = st.prompt_len + len(st.generated) - 1
+        all_greedy = all(st.request.sampling.is_greedy for st in running)
+        draft = self._draft_greedy if all_greedy else self._draft_sampled
+        self._stage(self._dtok, tok0)
+        self._stage(self._dpos, pos0)
+        self._chain[0].copy_(self._dtok)
+        for j in range(k):
+            draft()
+            self._chain[j + 1].copy_(self._dtok)
+        self.stats["spec_draft_steps"] += k
+        slots = [st.slot for st in running]
+        for i, st in enumerate(running):
+            tokens, verify = self._verify_runner(
+                k, not st.request.sampling.is_greedy)
+            tokens.copy_(self._chain[:k, st.slot].view(1, k))
+            self._stage(self._vscalars, [st.slot, pos0[st.slot]])
+            draws, ok = verify()
+            self._vdraws[i, :k].copy_(draws)
+            self._vok[i].copy_(ok)
+        self.stats["spec_verify_calls"] += len(running)
+        # the round's one host sync
+        n = len(running)
+        reads = [Readback(t) for t in (self._chain[1:k + 1],
+                                       self._vdraws[:n, :k], self._vok[:n])]
+        props, draws, oks = (self._wait(r) for r in reads)
+        outcomes = []
+        for i, (st, slot) in enumerate(zip(running, slots)):
+            if st.status != Status.RUNNING or st.slot != slot:
+                continue    # preempted by an earlier commit this round:
+                #             its stream was rewound, and the recompute
+                #             replays it; this round's draws are void
+            if not oks[i]:
+                # non-finite verify logits: quarantine the slot, none of
+                # its tokens commit (the others are untouched: the fault
+                # lives in the slot's own arena rows)
+                self.stats["quarantined"] += 1
+                self.stats["failed"] += 1
+                self._deactivate(self.scheduler.fail(st, "nan-logits"))
+                continue
+            a, committed = sampling.accept_tokens(props[:, slot], draws[i])
+            n_done, departures = self.scheduler.on_tokens(slot, committed)
+            self.stats["tokens_out"] += n_done
+            for dslot, _ in departures:
+                self._deactivate(dslot)
+            outcomes.append((st.request.uid, a, k))
+        self.spec.observe_round(outcomes)
+        self.stats["spec_rounds"] += 1
+        self.stats["decode_steps"] += 1
+        if not all_greedy:
+            self.stats["sampled_steps"] += 1
+
+    def _wait(self, read: Readback) -> np.ndarray:
+        t0 = time.perf_counter()
+        host = read.wait()
+        self.stats["host_blocked_s"] += time.perf_counter() - t0
+        return host
+
     # -- the continuous-batching loop ----------------------------------------
     def step(self) -> None:
         """One engine iteration: retire lagged outputs, admit, ingest
         prompt chunks, submit one decode step: the sampled one if a RUNNING
-        slot samples, else its greedy twin."""
+        slot samples, else its greedy twin.  A speculative engine runs one
+        synchronous draft / verify / commit round instead (reference
+        engine.py:1313-1348; with no health ladder in this port, always)."""
         self._drain_pending(limit=self.depth)
         self._admit()
         self._advance_prefill()
         running = [st for st in self.scheduler.running.values()
                    if st.status == Status.RUNNING]
         if not running:
+            return
+        if self.spec is not None:
+            if self._pending:
+                self._queue.drain()
+                self._drain_pending(limit=0)
+            self._spec_round()
             return
         if any(not st.request.sampling.is_greedy for st in running):
             self.stats["sampled_steps"] += 1

@@ -9,7 +9,12 @@ counterpart of one of the reference's compiled steps
     any start (``_compiled_prefill_chunk``, :328-339, whose slot, start and
     last index are traced: the only compile key is the chunk length);
   * :class:`CapturedStep` — what both share, and the sampled first draw's
-    graph itself (the reference draws it inside its compiled prefill).
+    graph itself (the reference draws it inside its compiled prefill);
+  * under speculative decoding, the draft's micro-step (a
+    :class:`DecodeGraph` over the draft arena, ``_compiled_draft_propose``
+    / ``_greedy``, :255-284) and the verify step of each ladder rung (a
+    :class:`ChunkGraph` of kind "verify", ``_compiled_verify`` /
+    ``_greedy``, :287-317), each in a greedy and a sampled twin.
 
 The reference traces a step once and replays the compiled program; here a
 step is captured once as a ``torch.cuda.CUDAGraph`` and replayed, so it
@@ -32,8 +37,9 @@ bf16, a host-side TMA-map encode).  What makes that valid:
     attributes, encodes the TMA maps once, and allocates what lives
     outside the pool (cuBLAS's workspace on that stream, and the graph's
     own flash_decode arrival counters), none of which may happen under
-    capture.  A decode step warms up with every slot parked, a chunk step
-    at ``start = PARKED_POS``: neither writes the arena.
+    capture.  A decode (or draft) step warms up with every slot parked, a
+    chunk (or verify) step at ``start = PARKED_POS``: neither writes the
+    arena.
 
 The pinned readback and its event (``core/dispatch.py``) stay outside the
 graph: ``DispatchQueue.submit`` enqueues the copy of the static output on
@@ -45,7 +51,7 @@ from __future__ import annotations
 import gc
 import itertools
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -56,7 +62,8 @@ _GRAPH_IDS = itertools.count()
 
 
 def parked_warm_up(step: Callable[[], torch.Tensor], tokens: torch.Tensor,
-                   pos: torch.Tensor, active: torch.Tensor) -> None:
+                   pos: torch.Tensor,
+                   active: Optional[torch.Tensor] = None) -> None:
     """Run ``step`` once with every slot parked, then put the slot vectors
     back as they were.
 
@@ -64,13 +71,17 @@ def parked_warm_up(step: Callable[[], torch.Tensor], tokens: torch.Tensor,
     row (dense row writes are masked to ``pos < max_seq``), no recurrent
     state (keep-masked on ``pos < PARKED_POS``), no token (kept where not
     active) and no position (``pos += active``); the vectors are restored
-    all the same, so the engine's state is bit for bit what it was.
+    all the same, so the engine's state is bit for bit what it was.  A
+    step with no ``active`` vector (the draft micro-step, which moves every
+    slot's token and position) writes them, and they are restored too.
     """
-    saved = [t.clone() for t in (tokens, pos, active)]
+    vectors = [t for t in (tokens, pos, active) if t is not None]
+    saved = [t.clone() for t in vectors]
     pos.fill_(PARKED_POS)
-    active.zero_()
+    if active is not None:
+        active.zero_()
     step()
-    for t, s in zip((tokens, pos, active), saved):
+    for t, s in zip(vectors, saved):
         t.copy_(s)
 
 
@@ -170,14 +181,20 @@ class DecodeGraph(CapturedStep):
     """One captured decode step over the slot batch: ``step()`` reads and
     writes the slot vectors ``tokens``, ``pos``, ``active`` in place and
     returns the vector the host reads back; it warms up with every slot
-    parked (:func:`parked_warm_up`)."""
+    parked (:func:`parked_warm_up`).  ``kind="draft"``: the speculative
+    draft's micro-step (the reference's ``_compiled_draft_propose`` /
+    ``_greedy``, engine.py:255-284) over the draft arena, which feeds its
+    proposal back into ``tokens`` and advances every ``pos`` by one (no
+    ``active``), so the k micro-steps of a round are k replays with no
+    host write between them."""
 
     def __init__(self, step: Callable[[], torch.Tensor],
                  tokens: torch.Tensor, pos: torch.Tensor,
-                 active: torch.Tensor):
+                 active: Optional[torch.Tensor] = None, *,
+                 kind: str = "decode"):
         super().__init__(step,
                          lambda: parked_warm_up(step, tokens, pos, active),
-                         pos.device, kind="decode")
+                         pos.device, kind=kind)
 
 
 class ChunkGraph(CapturedStep):
@@ -190,9 +207,13 @@ class ChunkGraph(CapturedStep):
     caller writes both buffers in place before each replay.  It warms up
     parked (:func:`parked_chunk_warm_up`); ``pool``: the private pool the
     engine's chunk graphs share (they replay one at a time, on one
-    stream)."""
+    stream).  ``kind="verify"``: the speculative verify step of one
+    ladder rung k (the reference's ``_compiled_verify`` / ``_greedy``,
+    engine.py:287-317): ``LM.verify_chunk`` over a static (1, k) token
+    buffer at (slot, start) = ``scalars``, then the draws at all k
+    positions and the finite flag, returned as a (draws, ok) pair."""
 
     def __init__(self, step: Callable[[], torch.Tensor],
-                 scalars: torch.Tensor, *, pool=None):
+                 scalars: torch.Tensor, *, pool=None, kind: str = "chunk"):
         super().__init__(step, lambda: parked_chunk_warm_up(step, scalars),
-                         scalars.device, kind="chunk", pool=pool)
+                         scalars.device, kind=kind, pool=pool)

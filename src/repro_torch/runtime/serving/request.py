@@ -22,6 +22,8 @@ class Status(enum.Enum):
     PREFILLING = "prefilling"  # owns a slot; prompt chunks being ingested
     RUNNING = "running"        # owns a slot; in the decode batch
     FINISHED = "finished"      # hit EOS or max_new_tokens; slot released
+    FAILED = "failed"          # quarantined (non-finite verify logits);
+    #                            partial output kept, slot released
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +51,8 @@ class RequestState:
     slot: Optional[int] = None
     generated: list = dataclasses.field(default_factory=list)
     prefills: int = 0                     # >1 => recomputed after preemption
-    finish_reason: Optional[str] = None   # "eos" | "max_new_tokens"
+    finish_reason: Optional[str] = None   # "eos" | "max_new_tokens" |
+    #                                       "nan-logits"
     seq: int = 0                          # arrival order (scheduler-assigned)
     # chunked-prefill cursor (engine-owned; rewound to 0 on preemption so
     # recompute replays the identical chunk sequence)

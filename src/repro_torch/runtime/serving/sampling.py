@@ -17,7 +17,7 @@ driver; this module owns the plumbing around it:
     final chunk) logits at q = prompt_len, so monolithic and chunked
     prefill draw the same token;
   * ``verify_draws`` / ``accept_tokens``: the speculative engine's Gumbel
-    replay and acceptance rule (the engine itself is not ported yet);
+    replay and acceptance rule;
   * ``reference_probs``: the numpy oracle of the distribution drawn from,
     and ``chi2_gof``, the statistical tests' goodness of fit against it.
 """
@@ -125,18 +125,23 @@ def sample_first(logits: torch.Tensor, seed: int, q: int,
 # speculative verify: the Gumbel replay
 # ---------------------------------------------------------------------------
 
-def verify_draws(logits: torch.Tensor, slot: int, start: int,
+def verify_draws(logits: torch.Tensor, slot, start,
                  samp: dict) -> torch.Tensor:
     """The target's draws at every verify position of one slot (reference
     sampling.py:141): row j of ``logits`` (C, V) predicts cache position
     ``start + 1 + j`` and draws with the key decode folds there, so each
     draw equals the token decode would sample one position at a time.
-    Greedy slots take the argmax.  Returns (C,) int64."""
+    Greedy slots take the argmax.  ``slot`` / ``start``: 0-d int64 device
+    tensors, read on the device only (the captured verify step), or host
+    ints.  Returns (C,) int64."""
     c = logits.shape[0]
-    q = start + 1 + torch.arange(c, dtype=torch.int64, device=logits.device)
+    dev = logits.device
+    slot, start = (torch.as_tensor(t, dtype=torch.int64, device=dev)
+                   for t in (slot, start))
+    q = start + 1 + torch.arange(c, dtype=torch.int64, device=dev)
 
     def rep(v):
-        return v[slot].expand(c)
+        return v.index_select(0, slot.view(1)).expand(c)
 
     return L.sample_step(logits, rep(samp["seed"]), q, rep(samp["temp"]),
                          rep(samp["top_k"]), rep(samp["top_p"]),

@@ -152,6 +152,41 @@ class Scheduler:
                 break
         return departures
 
+    def on_tokens(self, slot: int,
+                  tokens) -> tuple[int, list[tuple[int, RequestState]]]:
+        """Commit a speculative round's tokens for ``slot`` in order,
+        stopping at the first departure (reference scheduler.py:251-275):
+        EOS or ``max_new_tokens`` retires the request, and a page-growth
+        preemption of this slot (preempting another keeps the commit going)
+        sends it back to WAITING for a recompute.  Tokens past the
+        departure are dropped, so the stream ends where plain decode would
+        end it.  Returns ``(n_committed, departures)``, the departures of
+        every committed token as :meth:`on_token` gives them."""
+        st = self.running.get(slot)
+        departures: list[tuple[int, RequestState]] = []
+        n = 0
+        for token in tokens:
+            if st is None or st.slot != slot \
+                    or st.status != Status.RUNNING:
+                break
+            departures.extend(self.on_token(slot, int(token)))
+            n += 1
+            if self.running.get(slot) is not st:
+                break
+        return n, departures
+
+    def fail(self, st: RequestState, reason: str) -> int:
+        """Take a resident request out of service as FAILED, keeping what
+        it generated (the resident branch of the reference's ``depart``,
+        scheduler.py:286-317: the speculative engine's quarantine of a
+        slot whose verify logits went non-finite).  Returns the released
+        slot."""
+        slot = st.slot
+        self._release(st)
+        st.status = Status.FAILED
+        st.finish_reason = reason
+        return slot
+
     def _finish(self, st: RequestState,
                 reason: str) -> tuple[int, RequestState]:
         slot = st.slot

@@ -366,3 +366,57 @@ def test_first_chunk_reset_drops_a_previous_occupants_nan(models):
     for k in clean:
         assert torch.equal(tm.slot_view(dirty, 1)[k],
                            tm.slot_view(clean, 1)[k]), k
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "int8", "fp8"])
+def test_verify_step_makes_no_host_read(models, fmt, sampled):
+    """The speculative verify step of one rung (what a verify graph
+    captures: ``LM.verify_chunk`` at the device (slot, start), then the
+    draws and the finite flag) makes no host read beside parked and
+    never-used slots, writes only rows [start, start + k) of its slot and
+    returns (k,) draws and a 0-d flag; its parked warm-up (start =
+    PARKED_POS) leaves both arenas and its scalars bit for bit."""
+    _, (_, _, tm, tp) = models["dense"]
+    eng = _engine(tserving, tm, tm.cfg, tp, kv_format=fmt,
+                  speculative=tserving.SpecConfig(draft=tm.cfg, k=3))
+    for _ in range(50):
+        running = [st for st in eng.scheduler.running.values()
+                   if st.status == Status.RUNNING]
+        if running and any(st.status == Status.PREFILLING
+                           for st in eng.scheduler.running.values()):
+            break
+        eng.step()
+    st = running[0]
+    if sampled:
+        sampling.write_slot(eng._samp, st.slot, tserving.SamplingParams(
+            temperature=0.8, top_k=20, top_p=0.9, seed=3), 3)
+    start = st.prompt_len + len(st.generated) - 1
+    tokens, step = eng._verify_runner(3, sampled)
+    eng._stage(tokens, [[st.generated[-1], 5, 7]])
+    eng._stage(eng._vscalars, [st.slot, start])
+    model = eng.model
+    before = {s: _slot_rows(model, eng._cache, s)
+              for s in range(eng.max_slots)}
+    with NoHostRead():
+        draws, ok = step()
+    assert draws.shape == (3,) and draws.dtype == torch.int64
+    assert ok.shape == () and bool(ok)
+    for s, rows in before.items():
+        for k, v in _slot_rows(model, eng._cache, s).items():
+            if s == st.slot:
+                v, rows_k = v[:, :, :start], rows[k][:, :, :start]
+            else:
+                rows_k = rows[k]
+            assert torch.equal(v.view(torch.uint8),
+                               rows_k.view(torch.uint8)), (s, k)
+    state = {**{f"cache.{k}": v for k, v in eng._cache.items()},
+             **{f"draft.{k}": v for k, v in eng._draft_cache.items()},
+             "scalars": eng._vscalars}
+    snap = {k: v.clone().view(torch.uint8) for k, v in state.items()}
+    graphs.parked_chunk_warm_up(step, eng._vscalars)
+    for k, v in state.items():
+        assert torch.equal(v.view(torch.uint8), snap[k]), k
+    assert (3, sampled) in eng._verify_keys and not eng.verify_graphs
+    with pytest.raises(ValueError, match="CUDA"):
+        graphs.ChunkGraph(step, eng._vscalars, kind="verify")

@@ -1205,3 +1205,152 @@ def test_cuda_shared_prefix_captured_equals_eager(cuda, family, fmt, dtype):
     assert eng.stats["prefill_shapes"] == len(eng.chunk_graphs)
     if family == "ssm":
         assert eng.stats["snapshots"] > 0
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify shapes and the captured rounds
+# ---------------------------------------------------------------------------
+
+# the verify pin's arena depth and starts: a start just below and on a
+# 64-row strip edge, one deep in the arena, and the last row (a chunk of
+# C > 1 there overruns the slot by C - 1 rows)
+VERIFY_S = 1090
+VERIFY_STARTS = (63, 64, 1087, VERIFY_S - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", SLOT_CASES)
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_cuda_verify_rows_bit_equal_decode(cuda, dtype, fmt, d, c):
+    """The chunk/decode pin at the verify shapes: a chunk of C = 1, 2, 4 or
+    8 rows (G x C = 3 .. 24 query rows of a 64-row tile) read through the
+    slot table (slot 1 of 3) at starts 63, 64, 1087 and S - 1, each row j
+    equal to flash_decode at pos = start + j over the same slot, bit for
+    bit, in every arena format, rows past S included (both read the S
+    rows there is)."""
+    gen = torch.Generator(device=cuda).manual_seed(c * d)
+    n, kvh, h, s = 3, 2, 6, VERIFY_S
+    if fmt == "fp32":
+        k, v = (torch.randn((n, s, kvh, d), generator=gen,
+                            device=cuda).to(dtype) for _ in range(2))
+        ks = vs = None
+    else:
+        k, v, ks, vs = _narrow_arena(gen, fmt, (n, s, kvh, d), cuda)
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    slot = torch.tensor([1], device=cuda)
+    for start in VERIFY_STARTS:
+        q = torch.randn((1, c, h, d), generator=gen, device=cuda).to(dtype)
+        chunk = ops.flash_prefill_chunk(
+            q, k, v, prefix=torch.tensor([start], device=cuda), slots=slot,
+            **sc)
+        one = {key: t[1:2].expand(c, *t.shape[1:]) for key, t in sc.items()}
+        dec = ops.flash_decode(
+            q[0], k[1:2].expand(c, s, kvh, d), v[1:2].expand(c, s, kvh, d),
+            lengths=start + 1 + torch.arange(c, device=cuda), **one)
+        assert torch.equal(chunk[0], dec), start
+
+
+def _spec_engine(model, params, spec, n=4, **kw):
+    """A 4-slot engine with ``spec`` (None: plain) and four requests, two
+    of them sampled."""
+    import numpy as np
+    from repro_torch.runtime import serving
+    plan = [serving.GREEDY, serving.SamplingParams(temperature=0.8,
+                                                   top_k=20, seed=3),
+            serving.GREEDY, serving.SamplingParams(temperature=1.1,
+                                                   top_p=0.9, seed=4)]
+    eng = serving.ServingEngine(model, model.cfg, params,
+                                config=serving.EngineConfig(
+                                    **{"max_slots": 4, "max_seq": 96,
+                                       "speculative": spec, **kw}))
+    rng = np.random.default_rng(6)
+    for i, plen in enumerate((9, 20, 13, 30)[:n]):
+        eng.submit(serving.Request(
+            uid=i, prompt=rng.integers(0, model.cfg.vocab, plen),
+            max_new_tokens=24, sampling=plan[i]))
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [None, (8, 16)])
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_cuda_speculative_self_draft_equals_plain(cuda, chunks, fmt):
+    """The tiny dense model in bf16 as its own draft (the same weights,
+    from the same seed) at
+    k = max_slots = 4: the captured speculative engine's streams equal the
+    plain captured engine's bit for bit, greedy and sampled, with every
+    proposal accepted (an fp32-format draft arena against an int8 target
+    arena need not accept all); the verify graphs are captured once a
+    (rung, twin) and the draft graphs once a twin, then replayed; with
+    monolithic prefill flash_prefill_chunk runs only in the verify graphs
+    (n_layers x (replays + warm-ups)) and flash_decode only in the draft
+    graphs."""
+    from repro_torch.runtime import serving
+    model, params = _tiny("dense", torch.bfloat16)
+    want = _spec_engine(model, params, None, prefill_chunks=chunks,
+                        kv_format=fmt).run()
+    # the target's own seed: the draft's weights are the target's
+    spec = serving.SpecConfig(draft=model.cfg, k=4, adaptive=False,
+                              draft_seed=0)
+    ops.reset_launch_counts()
+    eng = _spec_engine(model, params, spec, prefill_chunks=chunks,
+                       kv_format=fmt)
+    assert torch.equal(eng._draft_params["layers"]["attn"]["wq"],
+                       params["layers"]["attn"]["wq"])
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    if fmt == "fp32":
+        assert eng.spec.acceptance_rate == 1.0
+    assert eng.graph is None and eng.sampled_graph is None
+    assert sorted(eng.verify_graphs) == [(4, False), (4, True)]
+    assert eng.stats["spec_verify_compiles"] == 2
+    vg = list(eng.verify_graphs.values())
+    dg = [eng.draft_graph, eng.sampled_draft_graph]
+    assert sum(g.replays for g in vg) == eng.stats["spec_verify_calls"]
+    assert sum(g.replays for g in dg) == eng.stats["spec_draft_steps"]
+    # the greedy draft graph (captured at construction) may see no round
+    # with only greedy slots
+    assert all(g.replays > 0 for g in vg)
+    assert eng.sampled_draft_graph.replays > 0
+    nl = model.cfg.n_layers
+    # the wrapper counts each verify launch apart, and a replay adds what
+    # its capture counted
+    assert all(g.launches["flash_prefill_chunk_verify"] == nl for g in vg)
+    assert counts["flash_prefill_chunk_verify"] == nl * sum(
+        g.replays + 1 for g in vg), counts
+    if chunks is None:
+        assert counts["flash_prefill_chunk"] == nl * sum(
+            g.replays + 1 for g in vg), counts
+        assert counts["flash_decode"] == nl * sum(
+            g.replays + 1 for g in dg), counts
+    else:
+        assert sorted(eng.draft_chunk_graphs) == sorted(eng.chunk_graphs)
+
+
+@pytest.mark.gpu
+def test_cuda_speculative_cheap_draft_captured_equals_eager(cuda):
+    """A one-layer draft at the target's widths and vocab (another seed):
+    the captured speculative engine, the eager one and the plain captured
+    engine give the same streams, chunked, with k walking the ladder."""
+    import dataclasses
+    from repro_torch.runtime import serving
+    model, params = _tiny("dense", torch.bfloat16)
+    draft = dataclasses.replace(model.cfg, name="tiny-draft", n_layers=1)
+    spec = serving.SpecConfig(draft=draft, k=2, k_max=4, window=2,
+                              draft_seed=7)
+    want = _spec_engine(model, params, None, prefill_chunks=(8, 16)).run()
+    eager = _spec_engine(model, params, spec, prefill_chunks=(8, 16),
+                         decode_graph=False, chunk_graph=False)
+    ops.reset_launch_counts()
+    e_out = eager.run()
+    # an eager verify pass launches flash_prefill_chunk once a layer
+    assert ops.launch_counts()["flash_prefill_chunk_verify"] == (
+        model.cfg.n_layers * eager.stats["spec_verify_calls"])
+    eng = _spec_engine(model, params, spec, prefill_chunks=(8, 16))
+    got = eng.run()
+    assert _same_streams(got, want) and _same_streams(e_out, want)
+    assert not eager.verify_graphs and eager.draft_graph is None
+    assert eng.spec.stats == eager.spec.stats
+    assert len(eng.verify_graphs) == eng.stats["spec_verify_compiles"]

@@ -312,3 +312,71 @@ def test_narrow_arena_steps_capture_cleanly(fmt):
     for uid in want:
         np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
                                       err_msg=f"request {uid}")
+
+
+def _spec_engine(fmt="fp32"):
+    """A speculative port engine (the target as its own draft) over the
+    mixed requests, stepped until a sampled slot runs beside a prefilling
+    one and an unused slot; the draft's token and position vectors staged
+    as a round stages them (parked for every slot but the running ones)."""
+    _, _, tm, tp = bridged(TINY)
+    eng = _sampled_engine(tserving, tm, tm.cfg, tp, kv_format=fmt,
+                          speculative=tserving.SpecConfig(draft=tm.cfg, k=3))
+    for _ in range(50):
+        states = {st.status: st for st in eng.scheduler.running.values()}
+        if Status.RUNNING in states and Status.PREFILLING in states:
+            break
+        eng.step()
+    running = [st for st in eng.scheduler.running.values()
+               if st.status == Status.RUNNING]
+    assert running and len(eng.scheduler.running) < eng.max_slots
+    tok = np.zeros(eng.max_slots, np.int64)
+    pos = np.full(eng.max_slots, PARKED_POS, np.int64)
+    for st in running:
+        tok[st.slot] = st.generated[-1]
+        pos[st.slot] = st.prompt_len + len(st.generated) - 1
+    eng._stage(eng._dtok, tok)
+    eng._stage(eng._dpos, pos)
+    return eng
+
+
+def _draft_state(eng) -> dict:
+    state = {f"draft.{k}": v for k, v in eng._draft_cache.items()}
+    state.update({f"cache.{k}": v for k, v in eng._cache.items()})
+    state.update({f"samp.{k}": v for k, v in eng._samp.items()})
+    state.update(dtok=eng._dtok, dpos=eng._dpos)
+    return {k: v.detach().clone().view(torch.uint8)
+            for k, v in state.items()}
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_draft_step_makes_no_host_read(fmt, sampled):
+    """The speculative draft's micro-step, greedy and sampled (what the
+    draft graphs capture), makes no host read with running, parked and
+    never-used slots side by side, feeds its proposals back and advances
+    every position by one; its parked warm-up leaves both arenas, the
+    sampling vectors and the draft's vectors bit for bit; the run then
+    still equals the plain engine's streams."""
+    eng = _spec_engine(fmt)
+    step = eng._draft_step_sampled if sampled else eng._draft_step
+    pos0 = eng._dpos.clone()
+    with NoHostRead():
+        out = step()
+    assert out.shape == (eng.max_slots,) and torch.equal(eng._dtok, out)
+    assert torch.equal(eng._dpos, pos0 + 1)
+    before = _draft_state(eng)
+    graphs.parked_warm_up(step, eng._dtok, eng._dpos)
+    after = _draft_state(eng)
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    got = eng.run(max_steps=2000)
+    _, _, tm, tp = bridged(TINY)
+    want = _sampled_engine(tserving, tm, tm.cfg, tp,
+                           kv_format=fmt).run(max_steps=2000)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid],
+                                      err_msg=f"request {uid}")
+    assert eng.draft_graph is None and eng.sampled_draft_graph is None
+    assert eng._draft_greedy == eng._draft_step
+    assert eng._draft_sampled == eng._draft_step_sampled

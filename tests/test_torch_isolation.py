@@ -26,6 +26,7 @@ sys.path.insert(0, {repo!r})
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.runtime.serving.speculative" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -118,7 +119,8 @@ def test_launch_counters_stay_zero_on_cpu():
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,
                                    "flash_decode_donor": 0,
-                                   "flash_prefill_chunk_donor": 0}
+                                   "flash_prefill_chunk_donor": 0,
+                                   "flash_prefill_chunk_verify": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_ssm():
@@ -140,7 +142,8 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,
                                    "flash_decode_donor": 0,
-                                   "flash_prefill_chunk_donor": 0}
+                                   "flash_prefill_chunk_donor": 0,
+                                   "flash_prefill_chunk_verify": 0}
 
 
 def test_launch_counters_stay_zero_on_cpu_vector_unit():
@@ -160,4 +163,28 @@ def test_launch_counters_stay_zero_on_cpu_vector_unit():
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,
                                    "flash_decode_donor": 0,
-                                   "flash_prefill_chunk_donor": 0}
+                                   "flash_prefill_chunk_donor": 0,
+                                   "flash_prefill_chunk_verify": 0}
+
+
+def test_launch_counters_stay_zero_on_cpu_speculative():
+    """A CPU speculative engine (draft micro-steps, verify chunks, the
+    draft's prefill mirror, both prefill modes) takes the plain versions:
+    no launch; its draft is built on the CPU with the target's kernels."""
+    from repro_torch.runtime import serving
+    bundle = registry.build("llama3.2-3b", reduced=True, device="cpu")
+    params = bundle.model.init(0)
+    ops.reset_launch_counts()
+    for chunks in (None, (4, 8)):
+        eng = serving.ServingEngine(
+            bundle.model, bundle.cfg, params,
+            config=serving.EngineConfig(
+                max_slots=2, max_seq=48, prefill_chunks=chunks,
+                speculative=serving.SpecConfig(draft="llama3.2-3b", k=2)))
+        assert eng.draft_model.device.type == "cpu"
+        assert eng.draft_model.kops is bundle.model.kops
+        eng.submit(serving.Request(uid=0, prompt=np.arange(9) % 256,
+                                   max_new_tokens=5))
+        assert eng.run()[0].shape == (5,)
+        assert eng.stats["spec_rounds"] > 0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()

@@ -618,7 +618,8 @@ def test_config_accepts_sharing_and_still_refuses_later_slices():
                                 prefix_chain_cap=3)
     assert cfg.prefill_chunks == (4, 8) and cfg.prefix_chain_cap == 3
     assert cfg.replace(prefix_chain_cap=None).prefix_sharing
-    for name in ("speculative", "faults", "health", "preempt_cap",
+    assert tserving.EngineConfig(speculative=None).speculative is None
+    for name in ("faults", "health", "preempt_cap", "donate",
                  "admission_reclaim_cap"):
         with pytest.raises(TypeError):
             tserving.EngineConfig(**{name: None})

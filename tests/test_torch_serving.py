@@ -75,7 +75,7 @@ def test_engine_rejects_unported_options(models):
     with pytest.raises(ValueError, match="unknown kv_format"):
         tserving.EngineConfig(kv_format="int7")
     with pytest.raises(TypeError):
-        tserving.EngineConfig(speculative=None)
+        tserving.EngineConfig(faults=None)
     with pytest.raises(ValueError, match="chunked prefill"):
         tserving.EngineConfig(prefix_sharing=True)
     eng = tserving.ServingEngine(tm, tm.cfg, tp,
