@@ -67,7 +67,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      eager step (``--no-decode-graph``) and the captured one, one pair a
      prefill mode, token streams equal to phase 4's, tok/s and wall ms per
      decode step; chunked with eager and captured chunk steps (decode
-     captured), 3 alternating pairs, each run serving the requests twice
+     captured), 2 alternating pairs, each run serving the requests twice
      on one engine (the second wave finds its chunk graphs captured):
      streams equal, tok/s, TTFT per request, ``host_blocked_s``, and a
      planted stale device ``start`` that must change the streams; and ms
@@ -111,7 +111,22 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      verify passes, wall ms a token, each draft and verify graph's
      warm-up / capture ms and pool bytes, and every flash_prefill_chunk /
      flash_decode launch held to the verify, draft and chunk graphs'
-     replays (the verify launches also by their own counter);
+     replays (the verify launches also by their own counter); 4h: phase
+     4's chunked requests under a fixed fault plan over alloc, chunk,
+     decode and logits (NaN into one slot's arena region), two waves an
+     engine, both models: the survivors equal phase 4's captured streams
+     bit for bit, the victims keep a prefix, each poison is quarantined,
+     a second faulted run repeats streams and fire counts, faulted
+     against fault-free tok/s and TTFT in alternating pairs, poison and
+     scrub ms; llama3.2-3b also over its int8 arena and monolithic, two
+     planted faults the check must catch (the scrub skipped, the flag
+     forced true), the finite flag's device ms a captured step, the
+     self-draft under the health ladder (DEGRADED and back: queue decode
+     with its graph captured at the first degraded step, streams equal
+     plain decode's), and 8 requests over 2 replicas under each
+     placement policy and with a mid-run drain and migration (streams
+     equal one engine's; tok/s; device memory a replica beside the
+     shared weights);
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -2624,6 +2639,383 @@ def speculative_runs(torch, ops, serve, bundle, params, runs, sampled_out,
     return all_counts
 
 
+# Phase 4h: phase 4's requests (chunked, captured, 4 slots, depth 2)
+# under one fixed fault plan over alloc, chunk, decode and logits.  Its
+# fault interleaving is a function of the traffic's shape only (prompt
+# lengths, new tokens, slots, chunks, pages), not of any token: for this
+# traffic it poisons two requests in the first wave, each quarantined
+# before a poisoned token commits, and fires every site (the same
+# interleaving as the reduced model's on the CPU)
+FAULT_PLAN = dict(seed=0, alloc=0.02, chunk=0.1, decode=0.05,
+                  logits=(0.03, 2))
+
+
+def fault_plan():
+    from repro_torch.runtime.serving import FaultPlan, FaultSpec
+    kw = dict(FAULT_PLAN)
+    rate, cap = kw.pop("logits")
+    return FaultPlan.of(**kw, logits=FaultSpec(rate, max_fires=cap))
+
+
+def fault_problems(eng, out, clean) -> list:
+    """What breaks the survivor contract (empty: it holds): every request
+    terminal; a FINISHED one equal to its fault-free stream (``clean``,
+    uid mod 100), any other FAILED "nan-logits" with a prefix of it; one
+    quarantine for each poison and for nothing else; every page and the
+    scale sidecar back."""
+    from repro_torch.runtime.serving import Status
+    bad = []
+    for uid, st in eng._results.items():
+        want, got = clean[uid % 100], out[uid]
+        if st.status == Status.FINISHED:
+            if not (got.shape == want.shape and (got == want).all()):
+                bad.append(f"request {uid} finished with another stream")
+        elif (st.status, st.finish_reason) == (Status.FAILED, "nan-logits"):
+            if not (got == want[:got.size]).all():
+                bad.append(f"request {uid} failed without a clean prefix")
+        else:
+            bad.append(f"request {uid} ended {st.status} "
+                       f"({st.finish_reason})")
+    st = eng.stats
+    if not st["quarantined"] == st["poisoned"] >= 1:
+        bad.append(f"{st['poisoned']} poisons, {st['quarantined']} "
+                   f"quarantined")
+    mgr = eng.cache_mgr
+    if mgr.free_pages != mgr.num_pages or mgr.scale_sidecar_pages:
+        bad.append("pages not drained")
+    return bad
+
+
+def fault_run(torch, serve, bundle, params, args, plan, patch=None,
+              waves=2):
+    """Phase 4's requests on one engine (``plan`` or fault-free), then the
+    same prompts again as new requests (uid + 100) when ``waves`` is 2, so
+    every slot, a quarantined victim's included, takes a new resident.
+    ``patch(eng)`` (a planted fault) runs before the first step.  Returns
+    (engine, streams, wave-1 seconds, wave-1 TTFTs)."""
+    eng = serve.engine(bundle, params, args, faults=plan)
+    if patch is not None:
+        patch(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(max_steps=20000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ttft = list(eng.stats["ttft_s"].values())
+    if waves == 2:
+        for uid in list(out):
+            r = eng._results[uid].request
+            eng.submit(dataclasses.replace(r, uid=100 + uid))
+        out = eng.run(max_steps=20000)
+    return eng, out, dt, ttft
+
+
+def flag_cost(torch, serve, bundle, params, n=40):
+    """The device ms the finite flag adds to a captured decode step: on an
+    engine with phase 4's 4 requests all decoding, each twin (greedy,
+    sampled) captured twice, as the engine builds it and as it was before
+    the flag (the raw token vector returned, no reduction, no stack), and
+    replayed ``n`` times each in alternating order from the same slot
+    vectors (put back after each replay), timed with CUDA events around
+    each replay.  Returns {twin: (median ms with flag, without)}."""
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serving import Status, graphs
+    args = serve.parse_args(["--arch", bundle.name, "--gen", "48"]
+                            + SERVE_ARGS + SAMPLE_ARGS
+                            + ["--sampling-mix", "1.0"])
+    eng = serve.engine(bundle, params, args)
+    while eng.scheduler.waiting or any(
+            st.status != Status.RUNNING
+            for st in eng.scheduler.running.values()):
+        eng.step()
+    eng._queue.drain()
+    eng._drain_pending(limit=0)
+
+    def old_greedy():
+        logits = eng.model.decode_step(eng.params, eng._tokens, eng._cache,
+                                       eng._pos, share=eng._share)
+        return old_advance(torch.argmax(logits, dim=-1))
+
+    def old_sampled():
+        return old_advance(eng.model.decode_and_sample(
+            eng.params, eng._tokens, eng._cache, eng._pos, eng._samp,
+            share=eng._share))
+
+    def old_advance(sampled):
+        eng._tokens.copy_(torch.where(eng._active == 1, sampled,
+                                      eng._tokens))
+        eng._pos.add_(eng._active)
+        return sampled
+
+    vec = (eng._tokens, eng._pos, eng._active)
+    out = {}
+    for twin, new, old in (("greedy", eng._decode_step, old_greedy),
+                           ("sampled", eng._decode_step_sampled,
+                            old_sampled)):
+        pair = [graphs.DecodeGraph(fn, *vec) for fn in (new, old)]
+        assert pair[0].out.shape == (2, eng.max_slots)
+        saved = [t.clone() for t in vec]
+        ms = ([], [])
+        for i in range(n):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                pair[j].replay()
+                t1.record()
+                for t, s in zip(vec, saved):
+                    t.copy_(s)
+                torch.cuda.synchronize()
+                ms[j].append(t0.elapsed_time(t1))
+        out[twin] = tuple(statistics.median(m) for m in ms)
+        del pair
+    logits = torch.randn((eng.max_slots, bundle.cfg.vocab), device="cuda")
+    alone = timed(lambda: L.finite_rows(logits), 200)
+    print(f"phase 4h: {bundle.name} the finite flag on a captured decode "
+          f"step (4 live slots, {n} replays each, alternating, CUDA events "
+          f"around each replay), median device ms with / without: "
+          + ", ".join(f"{k} {a:.4f} / {b:.4f} (+{a - b:.4f})"
+                      for k, (a, b) in out.items())
+          + f"; the reduction alone over {eng.max_slots} x "
+            f"{bundle.cfg.vocab} f32 logits {alone:.4f} ms")
+    del eng
+    return out
+
+
+def fill_times(torch, eng):
+    """Device ms of one poison (NaN into every floating leaf of a slot's
+    region) and one scrub (zeros into every leaf), CUDA events over 20
+    calls each, on a slot the engine does not use."""
+    slot = eng.max_slots - 1
+    poison = timed(lambda: eng._fill_slot(slot, float("nan"),
+                                          floating_only=True), 20)
+    scrub = timed(lambda: eng._fill_slot(slot, 0.0, floating_only=False),
+                  20)
+    return poison, scrub
+
+
+def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
+                pairs=2):
+    """Phase 4h: phase 4's chunked requests under :data:`FAULT_PLAN`, the
+    decode and chunk steps captured, two waves an engine (the second
+    reuses every slot, a quarantined one after its scrub).
+
+    Both families: fault-free and faulted runs in ``pairs`` alternating
+    pairs; the faulted runs' survivors equal phase 4's captured chunked
+    streams bit for bit, victims keep a prefix, each poison is
+    quarantined (:func:`fault_problems`), and the two faulted runs repeat
+    each other's streams and fire counts exactly; tok/s and TTFT medians
+    of the first wave against the fault-free run's; one poison's and one
+    scrub's device ms.  The faulted path's kernels launch: the counts are
+    set to 0 before the first faulted run and read after it.
+
+    llama3.2-3b also: the int8 arena faulted (phase 4e's int8 streams);
+    two planted faults that the check must catch (the scrub skipped, the
+    finite flag forced true); the flag's device cost (:func:`flag_cost`);
+    the self-draft (k = 4 = max_slots) with the health ladder, a burst of
+    three dropped rounds moving it to DEGRADED (queue decode, its decode
+    graph captured there) and back, streams equal to plain decode's; and
+    8 requests over 2 replicas under each placement policy and with a
+    drain and migration of replica 0 mid-run, streams equal to one
+    engine's, tok/s and the device memory each replica adds against the
+    weights' bytes.  Returns [launch counts of the faulted run]."""
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serving import (FaultPlan, FaultSpec,
+                                             HealthConfig, SpecConfig)
+    t_start = time.perf_counter()
+    name = bundle.name
+    base = (["--arch", name, "--gen", "64"] + SERVE_ARGS
+            + ["--prefill-mode", "chunked"])
+    args = serve.parse_args(base)
+    clean = runs["chunked"][1]
+    plan = fault_plan()
+    rows = {"clean": [], "faulted": []}
+    faulted = []
+    counts = None
+    for i in range(pairs):
+        for kind in (("clean", "faulted") if i % 2 == 0
+                     else ("faulted", "clean")):
+            if kind == "faulted" and counts is None:
+                ops.reset_launch_counts()
+            eng, out, dt, ttft = fault_run(
+                torch, serve, bundle, params, args,
+                plan if kind == "faulted" else None)
+            if kind == "faulted" and counts is None:
+                counts = ops.launch_counts()
+            wave1 = sum(out[u].size for u in clean)
+            rows[kind].append((wave1 / dt, statistics.median(ttft)))
+            if kind == "clean":
+                assert same_streams({u: out[u] for u in clean}, clean)
+                continue
+            bad = fault_problems(eng, out, clean)
+            assert not bad, (name, bad)
+            faulted.append((out, dict(eng.stats["faults"]),
+                            eng.stats["poisoned"]))
+            if len(faulted) == 1:
+                victims = sorted(u for u, st in eng._results.items()
+                                 if st.status.value != "finished")
+                poison_ms, scrub_ms = fill_times(torch, eng)
+                print(f"phase 4h: {name} faulted (plan {FAULT_PLAN}): "
+                      f"fired {eng.stats['faults']}, poisoned "
+                      f"{eng.stats['poisoned']}, quarantined "
+                      f"{eng.stats['quarantined']}, victims {victims} "
+                      f"(outputs prefixes), the others equal phase 4's "
+                      f"streams in both waves; preempted "
+                      f"{eng.scheduler.stats['preempted']}; poison "
+                      f"{poison_ms:.4f} ms, scrub {scrub_ms:.4f} ms a slot "
+                      f"(device, arena {eng.arena_bytes / 1e6:.1f} MB)")
+            del eng
+    assert len(faulted) == pairs >= 2
+    for out, fired, _ in faulted[1:]:
+        assert fired == faulted[0][1] and same_streams(out, faulted[0][0])
+    nl = bundle.cfg.n_layers
+    kernels = (("ssd",) if bundle.cfg.family == "ssm"
+               else ("flash_decode", "flash_prefill_chunk"))
+    assert all(counts[k] > 0 for k in kernels), counts
+    print(f"phase 4h: {name} faulted run's launches {counts} ({nl} layers)")
+    print(f"phase 4h: {name} medians of {pairs} alternating pairs, first "
+          f"wave: " + "; ".join(
+              f"{kind} {statistics.median(r[0] for r in rs):.1f} tok/s, "
+              f"TTFT {1e3 * statistics.median(r[1] for r in rs):.1f} ms"
+              for kind, rs in rows.items())
+          + "; the faulted runs repeat each other's streams and fire "
+            "counts")
+    if bundle.cfg.family != "dense":
+        print(f"phase 4h: {name} done in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return [counts]
+    # the int8 arena under the same plan: phase 4e's int8 streams
+    i8 = serve.parse_args(base + ["--kv-format", "int8"])
+    eng, out, _, _ = fault_run(torch, serve, bundle, params, i8, plan)
+    bad = fault_problems(eng, out, int8_out)
+    assert not bad, ("int8", bad)
+    poison_ms, scrub_ms = fill_times(torch, eng)
+    print(f"phase 4h: {name} int8 arena faulted: fired "
+          f"{eng.stats['faults']}, poisoned {eng.stats['poisoned']}, "
+          f"quarantined {eng.stats['quarantined']}; survivors equal phase "
+          f"4e's int8 streams; poison {poison_ms:.4f} ms (scales only), "
+          f"scrub {scrub_ms:.4f} ms a slot")
+    del eng
+    # monolithic prefill (flash_attention) under the same plan, one wave
+    mono = serve.parse_args(["--arch", name, "--gen", "64"] + SERVE_ARGS)
+    ops.reset_launch_counts()
+    eng, out, _, _ = fault_run(torch, serve, bundle, params, mono, plan,
+                               waves=1)
+    mcounts = ops.launch_counts()
+    bad = fault_problems(eng, out, runs["monolithic"][1])
+    assert not bad, ("monolithic", bad)
+    assert mcounts["flash_attention"] > 0 and mcounts["flash_decode"] > 0
+    print(f"phase 4h: {name} monolithic faulted: fired "
+          f"{eng.stats['faults']}, poisoned {eng.stats['poisoned']}, "
+          f"quarantined {eng.stats['quarantined']}; survivors equal phase "
+          f"4's monolithic streams; launches {mcounts}")
+    del eng
+
+    # planted faults: each must break the survivor contract
+    def skip_scrub(eng):
+        eng._scrub_slot = eng._poisoned_slots.discard
+
+    real = L.finite_rows
+    for label, patch in (("the scrub skipped", skip_scrub),
+                         ("the finite flag forced true", None)):
+        if patch is None:
+            L.finite_rows = lambda x: torch.ones(
+                x.shape[0], dtype=torch.bool, device=x.device)
+        try:
+            eng, out, _, _ = fault_run(torch, serve, bundle, params, args,
+                                       plan, patch=patch)
+        finally:
+            L.finite_rows = real
+        bad = fault_problems(eng, out, clean)
+        assert bad, f"phase 4h: planted fault ({label}) not caught"
+        print(f"phase 4h: planted fault ({label}) caught: {bad[:3]}")
+        del eng
+    flag_cost(torch, serve, bundle, params)
+
+    # the ladder under speculation: rounds -> queue decode -> rounds
+    own = SpecConfig(draft=bundle.cfg, k=4, adaptive=False, draft_seed=0)
+    eng = serve.engine(
+        bundle, params, args, speculative=own,
+        faults=FaultPlan.of(seed=4, decode=FaultSpec(1.0, max_fires=3)),
+        health=HealthConfig(fault_degraded=2, fault_shedding=8,
+                            fault_draining=12, recover_after=2,
+                            shed_steps_draining=None))
+    assert eng.graph is None
+    out = eng.run(max_steps=20000)
+    assert same_streams(out, clean), "spec under the ladder != phase 4's"
+    trans = [(t[1], t[2]) for t in eng.health.transitions]
+    assert ("HEALTHY", "DEGRADED") in trans and \
+        ("DEGRADED", "HEALTHY") in trans, trans
+    g = eng.graph
+    queue = eng.stats["decode_steps"] - eng.stats["spec_rounds"]
+    assert g is not None and g.replays == queue > 0, (g, queue)
+    print(f"phase 4h: {name} self-draft k=4 under the ladder: transitions "
+          f"{eng.health.transitions}; {eng.stats['spec_rounds']} rounds, "
+          f"{queue} queue decode steps; streams equal phase 4's; decode "
+          f"graph captured at the first degraded step: warm-up "
+          f"{g.warmup_s * 1e3:.1f} ms, capture {g.capture_s * 1e3:.1f} ms, "
+          f"pool {g.pool_bytes / 1e6:.1f} MB")
+    del eng, g
+
+    # replicas on the one card, 8 requests (4 slots each)
+    eight = base + ["--requests", "8"]
+    one, want, one_dt = serve.serve(bundle, params, serve.parse_args(eight))
+    assert same_streams({u: want[u] for u in clean}, clean)
+    one_tok = sum(o.size for o in want.values()) / one_dt
+    del one
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(params))
+    for policy in ("least-pressure", "round-robin", "affinity"):
+        fargs = serve.parse_args(eight + ["--replicas", "2", "--placement",
+                                          policy])
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(),
+                  torch.cuda.memory_reserved())
+        fleet, got, dt = serve.serve_fleet(bundle, params, fargs)
+        after = (torch.cuda.memory_allocated(),
+                 torch.cuda.memory_reserved())
+        assert same_streams(got, want), policy
+        engines = [r.engine for r in fleet.replicas.values()]
+        assert all(e.params is params for e in engines)
+        per = [(a - b) / 2 for a, b in zip(after, before)]
+        assert per[0] < weights / 2, (per, weights)
+        pools = [sum(g.pool_bytes for _, g in serve.named_graphs(e) if g)
+                 for e in engines]
+        print(f"phase 4h: {name} 2 replicas ({policy}), 8 requests: "
+              f"{sum(o.size for o in got.values()) / dt:.1f} tok/s (one "
+              f"4-slot engine {one_tok:.1f}); placed "
+              f"{fleet.stats['placed']}; streams equal one engine's; "
+              f"device memory a replica: allocated {per[0] / 1e6:.1f} MB, "
+              f"reserved {per[1] / 1e6:.1f} MB (arena "
+              f"{engines[0].arena_bytes / 1e6:.1f} MB, graph pools "
+              f"{[round(p / 1e6, 1) for p in pools]} MB) against "
+              f"{weights / 1e9:.2f} GB of weights, shared")
+        del fleet, engines
+    fleet = serve.router(bundle, params, serve.parse_args(
+        eight + ["--replicas", "2"]))
+    for _ in range(6):
+        fleet.step()
+    moved = fleet.drain(0, migrate=True)
+    got = fleet.run()
+    assert moved and same_streams(got, want), moved
+    assert all(fleet.owner_of(u) == 1 for u in moved)
+    assert fleet.replicas[0].engine.stats["migrated"] == len(moved)
+    print(f"phase 4h: {name} drain of replica 0 with migration after 6 "
+          f"steps: requests {moved} moved to replica 1, streams equal one "
+          f"engine's; replica rows {fleet.replica_stats()}")
+    del fleet
+    print(f"phase 4h: {name} done in {time.perf_counter() - t_start:.1f} s")
+    return [counts, mcounts]
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def prefill_logits(model, params, prompt):
     cache = model.init_cache(1, prompt.shape[1] + 1)
     return model.prefill(params, prompt, cache)[0]
@@ -3234,7 +3626,8 @@ def main() -> int:
         # hold the smoke's time with the chunk pairs added
         pairs = eager_vs_captured(serve, bundle, params, runs, gen=64,
                                   pairs=1)
-        cpairs = chunk_pairs(torch, serve, bundle, params, runs, gen=64)
+        cpairs = chunk_pairs(torch, serve, bundle, params, runs, gen=64,
+                             pairs=2)
         window, wbusy = decode_window(torch, serve, bundle, params, pairs=1)
         stamp(f"{arch} phase 4c")
         mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params,
@@ -3281,6 +3674,11 @@ def main() -> int:
                 torch, ops, serve, bundle, params, runs,
                 mixed["chunked"][3], narrow["int8"]["chunked"])
             stamp(f"{arch} phase 4g")
+        all_runs += fault_phase(
+            torch, ops, serve, bundle, params, runs,
+            narrow["int8"]["chunked"] if bundle.cfg.family == "dense"
+            else None)
+        stamp(f"{arch} phase 4h")
         end_to_end(torch, ops, serve, bundle, params, args, runs)
         stamp(f"{arch} phase 5")
         all_runs += [run[3] for run in runs.values()] + counts4d

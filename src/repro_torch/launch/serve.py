@@ -29,6 +29,18 @@ reduced vocabulary, so against a ``--no-reduced`` target the vocab check
 refuses it; a full-width draft goes through ``EngineConfig(speculative=
 SpecConfig(draft=<ArchConfig>))``.
 
+Robustness as in the reference (serve.py:291-315): ``--deadline-ms``
+gives every request a deadline (a request still in flight past it departs
+TIMED_OUT with its partial output); ``--fault-plan site:rate[:seed],...``
+injects deterministic faults over the sites alloc / chunk / decode /
+logits / draft, seeded by ``--seed`` unless a site says otherwise;
+``--health`` turns the degradation ladder on (default thresholds).  The
+stats then end with a robustness line and the ladder's transitions.
+``--replicas N`` (> 1) serves through the router over N engines on the
+one card, sharing the model and its weights, placed by ``--placement``
+(least-pressure, round-robin, affinity; request i has session
+``s{i mod 2N}``); it prints the router's stats and one line a replica.
+
 ``--reduced`` (the default) builds the smoke-test width; ``--no-reduced``
 builds the published config (the reference's flag is ``store_true`` with
 ``default=True`` and so can never be switched off).  On the card the
@@ -49,9 +61,11 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime.serving import (DEFAULT_BUCKETS, GREEDY,
-                                         EngineConfig, Request,
-                                         SamplingParams, ServingEngine,
-                                         SpecConfig)
+                                         PLACEMENT_POLICIES, EngineConfig,
+                                         HealthConfig, Request, Router,
+                                         RouterConfig, SamplingParams,
+                                         ServingEngine, SpecConfig,
+                                         parse_fault_plan)
 
 
 def parse_speculative(text: str) -> SpecConfig:
@@ -137,6 +151,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "arch proposes k tokens a round, the target "
                         "verifies them in one chunk-shaped pass; the "
                         "streams stay those of plain decode")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request wall-clock deadline; a request still "
+                        "in flight past it departs TIMED_OUT with its "
+                        "partial output")
+    p.add_argument("--fault-plan", default=None, metavar="PLAN",
+                   help="deterministic fault injection: comma-separated "
+                        "site:rate[:seed] entries over the sites "
+                        "alloc/chunk/decode/logits/draft, e.g. "
+                        "'alloc:0.05,logits:0.01:7'; seeded by --seed "
+                        "unless a site gives its own, so a rerun replays "
+                        "the same failure interleaving")
+    p.add_argument("--health", action="store_true",
+                   help="the degradation ladder (HEALTHY -> DEGRADED -> "
+                        "SHEDDING -> DRAINING) at the default HealthConfig "
+                        "thresholds; transitions print with the stats")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="engine replicas behind the router (1 = a bare "
+                        "engine); replicas share the model and its weights "
+                        "on the one card")
+    p.add_argument("--placement", choices=list(PLACEMENT_POLICIES),
+                   default="least-pressure",
+                   help="router placement policy (with --replicas > 1); "
+                        "the streams are the same under every policy")
     p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="smoke-test width (default); --no-reduced builds "
@@ -151,6 +188,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.prefix_sharing and args.prefill_mode != "chunked":
         p.error("--prefix-sharing requires --prefill-mode chunked")
+    if args.replicas < 1:
+        p.error("--replicas must be >= 1")
     return args
 
 
@@ -214,6 +253,9 @@ def engine_config(args, lens) -> EngineConfig:
         speculative=(parse_speculative(args.speculative)
                      if args.speculative else None),
         kv_format=args.kv_format, base_seed=args.seed,
+        faults=(parse_fault_plan(args.fault_plan, seed=args.seed)
+                if args.fault_plan else None),
+        health=HealthConfig() if args.health else None,
         decode_graph=args.decode_graph, chunk_graph=args.chunk_graph)
 
 
@@ -235,23 +277,51 @@ def sampling_plan(n_requests: int, *, temperature: float, top_k: int,
     ]
 
 
-def engine(bundle, params, args, **changes) -> ServingEngine:
-    """The engine for ``args`` with the ``args.requests`` requests
-    submitted, sampled as :func:`sampling_plan` says (on the card its
-    greedy decode graph captured, and its sampled one if a request
-    samples).  ``changes``: EngineConfig fields set past what the flags
-    say (e.g. ``speculative`` with a full-width draft)."""
-    reqs = prompts(args, bundle.cfg.vocab)
-    config = engine_config(args, [p.size for p in reqs]).replace(**changes)
-    eng = ServingEngine(bundle.model, bundle.cfg, params, config=config)
+def requests(args, vocab: int, *, sessions: int = 0) -> list[Request]:
+    """The run's requests: :func:`prompts`, sampled as
+    :func:`sampling_plan` says, each with ``--deadline-ms``; ``sessions``
+    > 0 gives request i the session ``s{i mod sessions}``."""
+    reqs = prompts(args, vocab)
     plan = sampling_plan(args.requests, temperature=args.temperature,
                          top_k=args.top_k, top_p=args.top_p,
                          min_p=args.min_p, seed=args.seed,
                          mix=args.sampling_mix)
-    for i in range(args.requests):
-        eng.submit(Request(uid=i, prompt=reqs[i],
-                           max_new_tokens=args.gen, sampling=plan[i]))
+    return [Request(uid=i, prompt=reqs[i], max_new_tokens=args.gen,
+                    sampling=plan[i], deadline_ms=args.deadline_ms,
+                    session=f"s{i % sessions}" if sessions else None)
+            for i in range(args.requests)]
+
+
+def engine(bundle, params, args, **changes) -> ServingEngine:
+    """The engine for ``args`` with the ``args.requests`` requests
+    submitted (on the card its greedy decode graph captured, and its
+    sampled one if a request samples).  ``changes``: EngineConfig fields
+    set past what the flags say (e.g. ``speculative`` with a full-width
+    draft)."""
+    reqs = requests(args, bundle.cfg.vocab)
+    config = engine_config(
+        args, [r.prompt.size for r in reqs]).replace(**changes)
+    eng = ServingEngine(bundle.model, bundle.cfg, params, config=config)
+    for r in reqs:
+        eng.submit(r)
     return eng
+
+
+def router(bundle, params, args, **changes) -> Router:
+    """``args.replicas`` engines behind a :class:`Router` (placement
+    ``--placement``), sharing ``bundle.model`` and ``params``, with the
+    run's requests submitted; sessions cycle over twice the fleet so the
+    affinity policy has pins to keep (reference serve.py:380-390)."""
+    reqs = requests(args, bundle.cfg.vocab, sessions=2 * args.replicas)
+    config = engine_config(
+        args, [r.prompt.size for r in reqs]).replace(**changes)
+    fleet = Router(bundle.model, bundle.cfg, params,
+                   config=RouterConfig(replicas=args.replicas,
+                                       placement=args.placement,
+                                       engine=config))
+    for r in reqs:
+        fleet.submit(r)
+    return fleet
 
 
 def serve(bundle, params, args):
@@ -319,6 +389,19 @@ def report_stats(eng: ServingEngine) -> None:
               f"p50={_percentile(ttft, 50):.4f} "
               f"p90={_percentile(ttft, 90):.4f} "
               f"max={max(ttft):.4f} (n={len(ttft)})")
+    if eng._injector is not None or eng.health is not None:
+        # what the fault plan did and where the ladder ended up
+        fired = dict(stats.get("faults", {}))
+        overruns = stats.get("deadline_overrun_s", {})
+        print(f"robustness: health={stats.get('health', 'n/a')} "
+              f"transitions={stats.get('health_transitions', 0)} "
+              f"faults={fired} poisoned={stats['poisoned']} "
+              f"quarantined={stats['quarantined']} "
+              f"timed_out={stats['timed_out']} failed={stats['failed']} "
+              f"deadline_overruns={len(overruns)}")
+        if eng.health is not None:
+            for step, frm, to, why in eng.health.transitions:
+                print(f"  health step {step}: {frm} -> {to} ({why})")
 
 
 def named_graphs(eng) -> list:
@@ -340,10 +423,40 @@ def named_graphs(eng) -> list:
     return graphs
 
 
+def serve_fleet(bundle, params, args):
+    """Serve ``args.requests`` requests through ``args.replicas`` replicas;
+    returns (router, {uid: tokens}, wall seconds), clocked as
+    :func:`serve`."""
+    fleet = router(bundle, params, args)
+    cuda = bundle.model.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(bundle.model.device)
+    t0 = time.perf_counter()
+    out = fleet.run()
+    if cuda:
+        torch.cuda.synchronize(bundle.model.device)
+    return fleet, out, time.perf_counter() - t0
+
+
 def main(argv=None):
     args = parse_args(argv)
     bundle, params = build(args)
     ops.reset_launch_counts()
+    if args.replicas > 1:
+        fleet, out, dt = serve_fleet(bundle, params, args)
+        total = sum(o.size for o in out.values())
+        slots = fleet.config.engine.max_slots
+        print(f"{args.arch}: {args.requests} requests over "
+              f"{args.replicas} replicas ({args.placement}), {total} "
+              f"tokens in {dt:.2f}s = {total / dt:.1f} tok/s "
+              f"(device={args.device}, depth={args.depth}, "
+              f"slots={slots}/replica, prefill={args.prefill_mode})")
+        print("router:", fleet.stats)
+        for row in fleet.replica_stats():
+            print("  replica:", row)
+        print("kernel launches:", ops.launch_counts())
+        print("first request:", out[0][:16], "...")
+        return 0
     eng, out, dt = serve(bundle, params, args)
     total = sum(o.size for o in out.values())
     print(f"{args.arch}: {args.requests} requests, {total} tokens in "

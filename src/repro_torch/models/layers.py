@@ -317,6 +317,12 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+def finite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: row b of ``logits`` (B, V) holds no NaN or Inf (the
+    serving engine's per-slot finite flag, reference engine.py:212)."""
+    return torch.isfinite(logits).all(dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # stochastic sampling (temperature / top-k / top-p / min-p)
 # ---------------------------------------------------------------------------

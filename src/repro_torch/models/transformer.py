@@ -474,8 +474,8 @@ class LM:
         return head_logits(h, self.head(params))
 
     def decode_and_sample(self, params, token_t: torch.Tensor, cache: dict,
-                          pos: torch.Tensor, samp: dict,
-                          share=None) -> torch.Tensor:
+                          pos: torch.Tensor, samp: dict, share=None,
+                          with_flags: bool = False):
         """One decode step, then on-device sampling (reference
         transformer.py:785), shared by every family: the (B, V) logits stay
         on the device and the (B,) int64 tokens come out.  ``samp`` is the
@@ -483,10 +483,18 @@ class LM:
         ``top_k`` / ``seed`` int); the token drawn here will occupy row
         ``pos + 1``, so its key folds ``(seed, pos + 1)``.  Slots with
         ``temp <= 0`` take the argmax, bit for bit.  ``share``: as for
-        :meth:`decode_step`."""
+        :meth:`decode_step`.
+
+        ``with_flags``: also return the (B,) bool per-slot finite flag,
+        True iff the slot's logits row is finite throughout, as ``(tokens,
+        ok)`` (reference :786-815): the engine's quarantine reads it beside
+        the tokens, and the (B, V) logits never leave the device."""
         logits = self.decode_step(params, token_t, cache, pos, share)
-        return L.sample_step(logits, samp["seed"], pos + 1, samp["temp"],
-                             samp["top_k"], samp["top_p"], samp["min_p"])
+        tok = L.sample_step(logits, samp["seed"], pos + 1, samp["temp"],
+                            samp["top_k"], samp["top_p"], samp["min_p"])
+        if with_flags:
+            return tok, L.finite_rows(logits)
+        return tok
 
     def _decode_rows(self, params, cfg, x_t, cache, pos, share=None):
         for i in range(cfg.n_layers):

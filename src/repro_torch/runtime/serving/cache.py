@@ -33,11 +33,12 @@ with the page, shared by reference on a fork and released exactly when the
 page returns to the pool.
 
 All mutators return an :class:`AllocResult`, truthy on success, so
-``bool(result)`` keeps the older bool contract.  Left out: the reference's
-``fault`` hook (deterministic allocation faults), which belongs with the
-fault injector (ROADMAP 1.7.3), and ``cache_insert``: prefill writes the
-slot's arena rows in place (monolithic prefill through a slot view, each
-chunk by device index).
+``bool(result)`` keeps the older bool contract.  A ``fault`` hook (the
+engine binds its fault injector) refuses :meth:`allocate` / :meth:`extend`
+with ``reason="fault-injected"`` when the ``alloc`` site fires.  Left out:
+the reference's ``cache_insert``: prefill writes the slot's arena rows in
+place (monolithic prefill through a slot view, each chunk by device
+index).
 """
 from __future__ import annotations
 
@@ -129,16 +130,22 @@ class PagedKVCacheManager:
     refcount drops to zero."""
 
     def __init__(self, num_pages: int, page_size: int, *,
-                 max_chains: Optional[int] = None, kv_format: str = "fp32",
+                 max_chains: Optional[int] = None,
+                 fault: Optional[Any] = None, kv_format: str = "fp32",
                  row_bytes: Optional[int] = None):
         """``max_chains``: None keeps a chain's pages only while a slot
         holds them; an int makes the index hold one reference per
         registered page, so chains outlive their last holder, and evicts
         the least recently forked orphaned chain while more than
-        ``max_chains`` regions host chains.  ``kv_format``: the arena's
-        storage format; a scaled one keeps a scale sidecar per page out of
-        the pool.  ``row_bytes``: resident arena bytes of one token row (K
-        + V + scales, all layers), for :meth:`resident_kv_bytes`."""
+        ``max_chains`` regions host chains.  ``fault``: a callable
+        ``fault(site) -> bool``; when ``fault("alloc")`` fires,
+        :meth:`allocate` / :meth:`extend` refuse with ``reason=
+        "fault-injected"`` and the recovery machinery (admission backoff,
+        preemption) takes over (reference cache.py:146-165).
+        ``kv_format``: the arena's storage format; a scaled one keeps a
+        scale sidecar per page out of the pool.  ``row_bytes``: resident
+        arena bytes of one token row (K + V + scales, all layers), for
+        :meth:`resident_kv_bytes`."""
         if num_pages < 1 or page_size < 1:
             raise ValueError((num_pages, page_size))
         if max_chains is not None and max_chains < 1:
@@ -147,6 +154,7 @@ class PagedKVCacheManager:
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_chains = max_chains
+        self._fault = fault
         self.kv_format = kv_format
         self._scaled = kvf.get(kv_format).scaled
         self.row_bytes = row_bytes
@@ -263,6 +271,8 @@ class PagedKVCacheManager:
         pinned."""
         if slot in self._table:
             raise ValueError(f"slot {slot} already allocated")
+        if self._fault is not None and self._fault("alloc"):
+            return AllocResult(False, reason="fault-injected")
         if self.region_pinned(slot):
             return AllocResult(False, reason="region-pinned")
         need = self.pages_for(length)
@@ -281,6 +291,8 @@ class PagedKVCacheManager:
         (the caller preempts), the slot keeps what it had."""
         if slot not in self._table:
             raise ValueError(f"slot {slot} not allocated")
+        if self._fault is not None and self._fault("alloc"):
+            return AllocResult(False, reason="fault-injected")
         need = self.pages_for(new_length) - len(self._table[slot])
         if need > self.free_pages:
             return AllocResult(False, reason="no-pages")

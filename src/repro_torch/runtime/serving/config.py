@@ -1,11 +1,13 @@
-"""EngineConfig: the serving engine's construction surface (the subset of
-``repro/runtime/serving/config.py`` that this port serves).
+"""EngineConfig: the serving engine's construction surface (port of
+``repro/runtime/serving/config.py``).
 
-Fields not listed here (faults, health, the admission caps, donation)
-belong to later slices or have no counterpart: passing one raises
-``TypeError``.  An unknown KV format, an invalid prefix-sharing setting, or
-a ``speculative`` that is not a ``SpecConfig`` or comes with
-``prefix_sharing``, raises ``ValueError`` (reference :84-85, :119-141).
+``donate`` has no counterpart (the port's arena is written in place, so
+there is no buffer to donate): passing it raises ``TypeError``.  An
+unknown KV format, an invalid prefix-sharing setting, a ``speculative``
+that is not a ``SpecConfig`` or comes with ``prefix_sharing``, a
+``faults`` that is not a ``FaultPlan``, a ``health`` that is not a
+``HealthConfig``, or a cap below 1 raises ``ValueError`` (reference
+:84-94, :119-170).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Optional
 
 from repro_torch.core import kv_format as kvf
 from repro_torch.runtime.serving.chunking import validate_buckets
+from repro_torch.runtime.serving.faults import FaultPlan
+from repro_torch.runtime.serving.health import HealthConfig
 from repro_torch.runtime.serving.speculative import SpecConfig
 
 
@@ -42,6 +46,19 @@ class EngineConfig:
                         ``prefix_sharing``); None = plain decode
     ``base_seed``       run-level sampling seed: a sampled request with
                         ``seed=None`` samples with it
+    ``faults``          deterministic fault injection (:class:`FaultPlan`);
+                        None = no injection.  Same plan + same traffic =>
+                        the same failure interleaving
+    ``health``          the degradation ladder (:class:`HealthConfig`);
+                        None = no health monitoring
+    ``admission_reclaim_cap``   orphan-chain reclaims per placement attempt
+    ``admission_attempt_cap``   failed placements before a request departs
+                        FAILED with a typed ``AdmissionRejected`` (None =
+                        retry forever)
+    ``admission_backoff_cap``   ceiling of the exponential admission
+                        backoff, in engine steps
+    ``preempt_cap``     preemption recomputes before a request departs
+                        FAILED (``"recompute-cap"``); None = unbounded
     ``decode_graph``    on the card, replay the decode step as one
                         captured CUDA graph (the reference's compiled step),
                         and a sampled request's first draw as another;
@@ -65,6 +82,12 @@ class EngineConfig:
     kv_format: str = "fp32"
     speculative: Optional[SpecConfig] = None
     base_seed: int = 0
+    faults: Optional[FaultPlan] = None
+    health: Optional[HealthConfig] = None
+    admission_reclaim_cap: int = 8
+    admission_attempt_cap: Optional[int] = None
+    admission_backoff_cap: int = 32
+    preempt_cap: Optional[int] = None
     decode_graph: bool = True
     chunk_graph: bool = True
 
@@ -111,6 +134,29 @@ class EngineConfig:
                     "prefix_sharing: the verify chunk would need the "
                     "composed share view threaded through the draft arena "
                     "as well")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultPlan):
+            raise ValueError(
+                f"EngineConfig.faults must be a FaultPlan or None, "
+                f"got {type(self.faults).__name__}")
+        if self.health is not None and not isinstance(self.health,
+                                                      HealthConfig):
+            raise ValueError(
+                f"EngineConfig.health must be a HealthConfig or None, "
+                f"got {type(self.health).__name__}")
+        if self.admission_reclaim_cap < 1:
+            raise ValueError(
+                f"EngineConfig.admission_reclaim_cap must be >= 1, "
+                f"got {self.admission_reclaim_cap}")
+        for name in ("admission_attempt_cap", "preempt_cap"):
+            v = getattr(self, name)
+            if v is not None and v < 1:
+                raise ValueError(f"EngineConfig.{name} must be >= 1 or "
+                                 f"None, got {v}")
+        if self.admission_backoff_cap < 1:
+            raise ValueError(
+                f"EngineConfig.admission_backoff_cap must be >= 1, "
+                f"got {self.admission_backoff_cap}")
 
     def replace(self, **changes) -> "EngineConfig":
         """A copy with ``changes`` applied (validated again)."""

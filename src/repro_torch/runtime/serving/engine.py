@@ -2,14 +2,18 @@
 engine.py``'s ``ServingEngine``: greedy and sampled decode over any KV
 storage format, ``EngineConfig.kv_format``, with the copy-on-write prefix
 cache, ``EngineConfig.prefix_sharing``, or speculative decoding,
-``EngineConfig.speculative``).
+``EngineConfig.speculative``; under deterministic fault injection,
+deadlines and the health ladder, ``EngineConfig.faults`` / ``health``).
 
 The host runs scheduling and admission; the device runs one decode step
 over the whole slot batch.  As in the reference:
 
   1. **One step over every slot.**  Dead slots keep decoding (masked): the
      new token is kept only where ``active``, and ``pos += active``
-     freezes a dead slot's position (reference engine.py:199-216).
+     freezes a dead slot's position (reference engine.py:199-216).  The
+     step also returns each slot's finite flag (its logits row holds no
+     NaN or Inf) in the same (2, slots) readback as the tokens, so a
+     poisoned slot is quarantined without its logits leaving the device.
   2. **Steps flow through a DispatchQueue.**  ``depth`` steps stay in
      flight; the host reads step *i - depth*'s tokens (copied into pinned
      memory behind a CUDA event) while the device runs step *i*.  A
@@ -90,16 +94,31 @@ bit.  Prefill mirrors every prompt (monolithic, eager) and every chunk
 synchronous: k replays of the draft's micro-step graph, whose tokens and
 positions are fed back on the device, then one replay of the verify graph
 of rung k a slot (greedy or sampled twin; captured at its first use), then
-one host sync.  A speculative engine captures no decode-step graph.  With
-no health ladder in this port a speculative engine always runs rounds;
-the reference's spec-to-queue resync and its ``draft`` fault site wait
-for the fault injector and health (ROADMAP 1.7.3).  A slot whose verify
-logits go non-finite is quarantined (``Status.FAILED``).
+one host sync.  A slot whose verify logits go non-finite is quarantined
+(``Status.FAILED``).  When the health ladder reaches DEGRADED a
+speculative engine runs queue decode instead (reference engine.py:
+1338-1360): its slot vectors are written from host state in place, and on
+the card its decode graph is captured there, at the first degraded step
+(none is captured at construction, so an engine that never degrades pays
+nothing for it); the way back to rounds retires every queue step in
+flight first.
 
-Left out, as in the reference's exclusions or later slices: speculative
-decoding together with prefix sharing (the reference refuses the pair),
-the fault injector and health (whose fault sites skip prefix donors),
-replicas and the router.
+Robustness (reference engine.py:700-813, :1313-1440): the fault sites
+``alloc`` (the page accountant's hook), ``chunk`` (a chunk's dispatch
+dropped), ``decode`` (a step or round dropped), ``logits`` (one RUNNING
+slot's arena region filled with NaN in place, between replays; prefix
+donors and regions hosting registered pages excluded) and ``draft`` (a
+round's proposals corrupted on the device before the verify) fire as the
+injector says; a quarantined slot's region is zeroed before its next
+resident.  Requests past their deadline depart ``TIMED_OUT``; the ladder
+sheds admissions and fails waiting requests when it drains;
+:meth:`ServingEngine.evacuate` hands every unfinished request back for a
+router to place elsewhere.  No fault site or rung stands for a device
+failure: a CUDA error, a failed capture or a kernel that fails to build
+raises.
+
+Left out, as in the reference's exclusions: speculative decoding together
+with prefix sharing (the reference refuses the pair).
 """
 from __future__ import annotations
 
@@ -117,10 +136,12 @@ from repro_torch.models.layers import PARKED_POS
 from repro_torch.runtime.serving import chunking, sampling
 from repro_torch.runtime.serving.cache import PagedKVCacheManager, PrefixMatch
 from repro_torch.runtime.serving.config import EngineConfig
+from repro_torch.runtime.serving.faults import FaultInjector
 from repro_torch.runtime.serving.graphs import (CapturedStep, ChunkGraph,
                                                 DecodeGraph)
+from repro_torch.runtime.serving.health import HealthMonitor, HealthState
 from repro_torch.runtime.serving.request import Request, RequestState, Status
-from repro_torch.runtime.serving.scheduler import Scheduler
+from repro_torch.runtime.serving.scheduler import AdmissionRejected, Scheduler
 from repro_torch.runtime.serving.speculative import SpecController
 
 
@@ -141,7 +162,10 @@ class ServingEngine:
     ``layers.recurrent`` and, for prefix sharing, ``has_recurrent_state`` /
     ``extract_slot_state`` / ``splice_slot_state``
     (``models.transformer.LM``, any ported family); ``params`` live on the
-    model's device, which is where the engine keeps its state.
+    model's device, which is where the engine keeps its state.  ``clock``:
+    the engine's time source (default ``time.perf_counter``), which
+    stamps submissions, first tokens and deadlines; tests and the router's
+    ``StepClock`` inject their own.
     """
 
     def __init__(self, model, cfg, params, *,
@@ -173,15 +197,28 @@ class ServingEngine:
         self.kv_row_bytes = kvf.bytes_per_row(
             kvf.get(self.kv_format), getattr(cfg, "n_kv_heads", 1),
             getattr(cfg, "hd", 0), cfg.adtype) * cfg.n_layers
+        # fault injection: one seeded injector for every site; the page
+        # accountant consults it through a narrow callable
+        self._injector = (FaultInjector(config.faults)
+                          if config.faults is not None else None)
         num_pages = config.num_pages
         if num_pages is None:
             num_pages = max_slots * -(-max_seq // config.page_size)
         self.cache_mgr = PagedKVCacheManager(
             num_pages, config.page_size, max_chains=config.prefix_chain_cap,
+            fault=self._cache_fault if self._injector else None,
             kv_format=self.kv_format, row_bytes=self.kv_row_bytes)
-        self.scheduler = Scheduler(max_slots, self.cache_mgr,
-                                   max_len=max_seq,
-                                   chunked=self.prefill_chunks is not None)
+        self.scheduler = Scheduler(
+            max_slots, self.cache_mgr, max_len=max_seq,
+            chunked=self.prefill_chunks is not None,
+            admission_reclaim_cap=config.admission_reclaim_cap,
+            admission_attempt_cap=config.admission_attempt_cap,
+            admission_backoff_cap=config.admission_backoff_cap,
+            preempt_cap=config.preempt_cap)
+        #: the health ladder, observed once a step off the engine's own
+        #: counters (None: no monitoring)
+        self.health = (HealthMonitor(config.health)
+                       if config.health is not None else None)
         dev = self.device
         self._tokens = torch.zeros(max_slots, dtype=torch.int64, device=dev)
         self._pos = torch.zeros(max_slots, dtype=torch.int64, device=dev)
@@ -212,18 +249,22 @@ class ServingEngine:
         self.spec: Optional[SpecController] = None
         if config.speculative is not None:
             self._init_spec(config.speculative)
-        # a speculative engine runs rounds, never the decode steps
+        # a speculative engine runs rounds, and queue decode only when the
+        # ladder degrades: its decode graph waits for that step
         plain_capture = self._capture and self.spec is None
-        #: the captured greedy decode step (None: eager steps)
+        #: the captured greedy decode step (None: eager steps, or a
+        #: speculative engine that has not degraded yet)
         self.graph = (DecodeGraph(self._decode_step, self._tokens,
                                   self._pos, self._active)
                       if plain_capture else None)
         #: the captured sampled step: None until the first sampled submit
-        #: (and always None for eager steps)
+        #: (a speculative engine's: its first sampled degraded step), and
+        #: always None for eager steps
         self.sampled_graph = None
         self._greedy_step = (self.graph.replay if plain_capture
+                             else None if self._capture
                              else self._decode_step)
-        self._sampled_step = (None if plain_capture
+        self._sampled_step = (None if self._capture
                               else self._decode_step_sampled)
         # the first draw of a sampled request: its static (1, V) logits
         # row, (seed, q, top_k) int64 and (temperature, top_p, min_p) f32
@@ -261,6 +302,15 @@ class ServingEngine:
         self._results: dict[Any, RequestState] = {}
         self._prefill_shapes: set = set()
         self._prefill_tick = 0
+        # robustness state: the step counter (admission backoff ticks),
+        # the step's fault flag (the ladder's consecutive-faults signal),
+        # the slots poisoned and not yet scrubbed, and whether the device
+        # slot vectors lag a speculative round's commits
+        self._tick = 0
+        self._step_faulted = False
+        self._deadlines_active = False
+        self._poisoned_slots: set = set()
+        self._spec_resync = False
         self.stats = {"decode_steps": 0, "prefills": 0, "prefill_chunks": 0,
                       "prefill_shapes": 0, "prefill_rows": 0,
                       "tokens_out": 0, "requests": 0,
@@ -268,12 +318,21 @@ class ServingEngine:
                       "forks": 0, "shared_prompt_tokens": 0,
                       "prefix_hits": 0, "prefix_deferrals": 0,
                       "snapshots": 0, "snapshot_bytes": 0,
+                      "timed_out": 0, "failed": 0, "migrated": 0,
+                      "quarantined": 0, "poisoned": 0,
+                      "deadline_overrun_s": {},
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
                       **({"state_bytes_per_slot": self.arena_unit_bytes}
                          if recurrent else
                          {"kv_row_bytes": self.kv_row_bytes}),
                       "arena_bytes": self.arena_bytes}
+        if self._injector is not None:
+            # a live view of the per-site fire counts (aliased)
+            self.stats["faults"] = self._injector.fired
+        if self.health is not None:
+            self.stats["health"] = self.health.state.name
+            self.stats["health_transitions"] = 0
         if self.spec is not None:
             # rounds = verify rounds (the speculative decode_steps),
             # draft_steps = draft micro-steps, verify_calls = per-slot
@@ -284,8 +343,7 @@ class ServingEngine:
             # ``self.spec.stats``.
             self.stats.update({"spec_rounds": 0, "spec_draft_steps": 0,
                                "spec_verify_calls": 0,
-                               "spec_verify_compiles": 0,
-                               "quarantined": 0, "failed": 0})
+                               "spec_verify_compiles": 0})
 
     def _init_spec(self, spec) -> None:
         """The draft side of speculative decoding (reference engine.py:
@@ -338,42 +396,49 @@ class ServingEngine:
     # -- the device steps ----------------------------------------------------
     def _decode_step(self) -> torch.Tensor:
         """One greedy decode step over every slot (in place on the slot
-        vectors and the arena); returns the raw argmax vector the host
-        reads back ``depth`` steps later.  This is what the greedy decode
-        graph captures: it makes no host read, and the tensors it touches
-        are never rebound (host writes to the slot vectors are in place)."""
+        vectors and the arena); returns the (2, slots) int64 readback the
+        host reads ``depth`` steps later: the raw argmax vector and each
+        slot's finite flag.  This is what the greedy decode graph captures:
+        it makes no host read, and the tensors it touches are never rebound
+        (host writes to the slot vectors are in place)."""
         logits = self.model.decode_step(self.params, self._tokens,
                                         self._cache, self._pos,
                                         share=self._share)
-        return self._advance(torch.argmax(logits, dim=-1))
+        return self._advance(torch.argmax(logits, dim=-1),
+                             L.finite_rows(logits))
 
     def _decode_step_sampled(self) -> torch.Tensor:
         """The sampled twin of :meth:`_decode_step` (reference
         ``_compiled_decode``): decode, then ``sample_step`` over the five
         per-slot sampling vectors, read in place (greedy slots take the
         argmax).  What the sampled decode graph captures."""
-        sampled = self.model.decode_and_sample(self.params, self._tokens,
-                                               self._cache, self._pos,
-                                               self._samp, share=self._share)
-        return self._advance(sampled)
+        sampled, ok = self.model.decode_and_sample(
+            self.params, self._tokens, self._cache, self._pos, self._samp,
+            share=self._share, with_flags=True)
+        return self._advance(sampled, ok)
 
-    def _advance(self, sampled: torch.Tensor) -> torch.Tensor:
+    def _advance(self, sampled: torch.Tensor,
+                 ok: torch.Tensor) -> torch.Tensor:
         """Keep the new token where a slot is active (a dead slot keeps its
-        old one) and freeze a dead slot's position; returns ``sampled``,
-        the raw vector the host reads back."""
+        old one) and freeze a dead slot's position; returns the readback,
+        ``sampled`` (the raw vector) over ``ok`` (the finite flags) as one
+        (2, slots) int64 tensor, so one copy carries both."""
         self._tokens.copy_(torch.where(self._active == 1, sampled,
                                        self._tokens))
         self._pos.add_(self._active)
-        return sampled
+        return torch.stack((sampled, ok.to(torch.int64)))
 
     def _first_draw_step(self) -> torch.Tensor:
         """The first token of a sampled request (``sampling.sample_first``)
         off the static logits row, with its key at q and its knobs read from
-        the static scalars; what the first-draw graph captures (no host
-        read).  Returns (1,) int64."""
+        the static scalars, and whether that row is finite; what the
+        first-draw graph captures (no host read).  Returns (2,) int64:
+        (token, finite flag)."""
         i, f = self._draw_ints, self._draw_floats
-        return L.sample_step(self._draw_logits, i[0:1], i[1:2], f[0:1],
-                             i[2:3], f[1:2], f[2:3])
+        tok = L.sample_step(self._draw_logits, i[0:1], i[1:2], f[0:1],
+                            i[2:3], f[1:2], f[2:3])
+        return torch.cat((tok, L.finite_rows(self._draw_logits).to(
+            torch.int64)))
 
     def _chunk_step(self, tokens: torch.Tensor,
                     scalars: torch.Tensor) -> torch.Tensor:
@@ -429,6 +494,118 @@ class ServingEngine:
                  if sampled else torch.argmax(logits, dim=-1))
         return draws, torch.isfinite(logits).all()
 
+    # -- fault / health plumbing ---------------------------------------------
+    def _cache_fault(self, site: str) -> bool:
+        """The page accountant's fault hook: the injector's answer, and a
+        fired fault flags the step for the ladder."""
+        if self._injector.fire(site):
+            self._step_faulted = True
+            return True
+        return False
+
+    @property
+    def _health_state(self) -> HealthState:
+        return self.health.state if self.health else HealthState.HEALTHY
+
+    def _effective_prefill_budget(self) -> int:
+        """The configured budget, shrunk by the ladder at >= SHEDDING."""
+        budget = self.prefill_budget
+        if (self.health is not None and budget
+                and self._health_state >= HealthState.SHEDDING):
+            budget = max(1, int(budget
+                                * self.health.config.shed_prefill_frac))
+        return budget
+
+    def _depart(self, st: RequestState, status: Status,
+                reason: str) -> None:
+        """An abnormal departure (``Scheduler.depart``), its slot out of the
+        decode batch."""
+        slot = self.scheduler.depart(st, status, reason)
+        if slot is not None:
+            self._deactivate(slot)
+        key = {Status.TIMED_OUT: "timed_out",
+               Status.MIGRATED: "migrated"}.get(status, "failed")
+        self.stats[key] += 1
+
+    def _expire_deadlines(self) -> None:
+        """Depart every request past its deadline, waiting or resident,
+        ``TIMED_OUT`` with its partial output (a clean prefix of its
+        fault-free stream); the overrun is kept per request."""
+        if not self._deadlines_active:
+            return
+        now = self._clock()
+        states = [*self.scheduler.waiting,
+                  *list(self.scheduler.running.values())]
+        for st in states:
+            if st.deadline_at is None or now < st.deadline_at or st.done:
+                continue
+            self.stats["deadline_overrun_s"][st.request.uid] = (
+                now - st.deadline_at)
+            self._depart(st, Status.TIMED_OUT, "deadline")
+
+    def _observe_health(self) -> None:
+        """Feed the ladder one step of signals; at DRAINING the waiting
+        requests fail now (residents finish), so the engine converges."""
+        if self.health is None:
+            return
+        state = self.health.observe(
+            step=self._tick,
+            pressure=self.cache_mgr.utilization(),
+            preemptions=self.scheduler.stats["preempted"],
+            timeouts=self.scheduler.stats["timed_out"],
+            step_fault=self._step_faulted)
+        self._step_faulted = False
+        self.stats["health"] = state.name
+        self.stats["health_transitions"] = len(self.health.transitions)
+        if state >= HealthState.DRAINING:
+            for st in list(self.scheduler.waiting):
+                self._depart(st, Status.FAILED, "draining")
+
+    def _fill_slot(self, slot: int, value: float, *,
+                   floating_only: bool) -> None:
+        """Fill slot ``slot``'s region of every arena leaf (all layers, all
+        rows) with ``value``, in place on the current stream: between two
+        replays, never inside one.  ``floating_only`` skips the integer
+        leaves (an int8 arena's rows; its f32 scales are filled)."""
+        for leaf in self.model.slot_view(self._cache, slot).values():
+            if leaf.is_floating_point() or not floating_only:
+                leaf.fill_(value)
+
+    def _poison_slot(self, running) -> None:
+        """The ``logits`` fault site (reference engine.py:767-799): fill one
+        RUNNING slot's arena region with NaN (every floating leaf: fp32 /
+        bf16 / fp8 rows, the scales of a scaled format, mamba2's SSD state
+        and conv window), so its next decode or verify logits go non-finite
+        and the quarantine departs it.  The victim pick is the injector's
+        ``choose``.  Prefix donors, and regions hosting registered prefix
+        pages a later fork could map, are excluded: the blast radius stays
+        one slot."""
+        cands = sorted(running, key=lambda s: s.slot)
+        if self.prefix_sharing:
+            donors = {st.share_src for st in
+                      self.scheduler.running.values()
+                      if st.share_src is not None
+                      and st.share_src != st.slot}
+            cands = [st for st in cands
+                     if st.slot not in donors
+                     and not self.cache_mgr.hosts_registered(st.slot)]
+        if not cands:
+            return
+        victim = cands[self._injector.choose("logits", len(cands))]
+        self._fill_slot(victim.slot, float("nan"), floating_only=True)
+        self._poisoned_slots.add(victim.slot)
+        self.stats["poisoned"] += 1
+        self._step_faulted = True
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Zero a poisoned slot's region (every leaf) before a new resident
+        moves in (reference engine.py:801-813): chunked prefill writes only
+        its chunks' rows, and monolithic prefill only the prompt's, so a
+        stale NaN row would reach the next resident through the P.V
+        product (a masked key's weight is 0, and 0 x NaN is NaN)."""
+        self._fill_slot(slot, 0.0, floating_only=False)
+        self._poisoned_slots.discard(slot)
+
     def _stage(self, dst: torch.Tensor, values) -> None:
         """Write host ``values`` into device buffer ``dst`` in place,
         without waiting on the steps in flight."""
@@ -449,6 +626,11 @@ class ServingEngine:
 
     # -- intake --------------------------------------------------------------
     def submit(self, request: Request) -> RequestState:
+        # a shedding or draining replica refuses intake: the typed
+        # rejection is the router's signal to try another replica
+        if self._health_state >= HealthState.SHEDDING:
+            raise AdmissionRejected(request.uid,
+                                    self._health_state.name.lower())
         need = request.prompt.shape[0] + 1
         if need > self.max_seq:
             raise ValueError(
@@ -472,6 +654,9 @@ class ServingEngine:
                 self.stats["prefix_hits"] += 1
         st = self.scheduler.submit(request, chunk_plan=plan)
         st.submitted_at = self._clock()
+        if request.deadline_ms is not None:
+            st.deadline_at = st.submitted_at + request.deadline_ms / 1e3
+            self._deadlines_active = True
         self.stats["requests"] += 1
         if not request.sampling.is_greedy:
             self.stats["sampled_requests"] += 1
@@ -501,9 +686,11 @@ class ServingEngine:
 
     # -- admission (prefill into the slot's arena rows) -------------------------
     def _admit(self) -> None:
-        for st in self.scheduler.schedule():
+        for st in self.scheduler.schedule(tick=self._tick):
             if st.slot is None:
                 continue
+            if st.slot in self._poisoned_slots:
+                self._scrub_slot(st.slot)
             if st.status == Status.PREFILLING:
                 # chunked: park the slot so in-flight decode steps leave
                 # its rows alone (their row write is masked off)
@@ -534,19 +721,31 @@ class ServingEngine:
         chunked path's final chunk.  The token occupies row pos0 =
         prompt_len, so it is drawn with the decode path's key at q = pos0
         (the argmax for a greedy request); the slot's sampling vectors are
-        (re)written before the slot joins the batch."""
+        (re)written before the slot joins the batch.
+
+        The prompt's logits are checked first (reference engine.py:
+        933-948): the token and the row's finite flag come back in one
+        read, and a non-finite row (poisoned arena rows) fails the request
+        before it commits a token."""
         slot = st.slot
         pos0 = st.prompt_len
         sp = st.request.sampling
         seed = sampling.resolve_seed(sp, self.base_seed)
         if sp.is_greedy:
-            token0 = torch.argmax(logits[0]).reshape(1)
+            first = torch.stack((torch.argmax(logits[0]),
+                                 L.finite_rows(logits)[0].to(torch.int64)))
         else:
             self._draw_logits.copy_(logits)
             self._stage(self._draw_ints, [seed, pos0, sp.top_k])
             self._stage(self._draw_floats,
                         [sp.temperature, sp.top_p, sp.min_p])
-            token0 = self._draw_step()
+            first = self._draw_step()
+        tok, ok0 = (int(v) for v in self._read_now(first))
+        if not ok0:
+            self.stats["quarantined"] += 1
+            self._step_faulted = True
+            self._depart(st, Status.FAILED, "nan-logits")
+            return
         sampling.write_slot(self._samp, slot, sp, seed)
         if self.prefix_sharing:
             # the slot's donor entry before it joins the decode batch: a
@@ -555,7 +754,6 @@ class ServingEngine:
             src = st.share_src if st.share_src is not None else slot
             self._stage(self._share[0][slot:slot + 1], [src])
             self._stage(self._share[1][slot:slot + 1], [st.share_len])
-        tok = int(self._read_now(token0)[0])
         self._first_token(st)
         self._tokens[slot] = tok
         self._pos[slot] = pos0
@@ -575,14 +773,17 @@ class ServingEngine:
     # -- chunked prefill -------------------------------------------------------
     def _advance_prefill(self) -> None:
         """Ingest prompt chunks for PREFILLING slots, up to
-        ``prefill_budget`` tokens this step (always at least one chunk):
-        least-ingested-first, and every other step the FIFO-oldest
-        PREFILLING slot first (reference engine.py:980)."""
+        ``prefill_budget`` tokens this step (always at least one chunk;
+        shrunk at >= SHEDDING): least-ingested-first, and every other step
+        the FIFO-oldest PREFILLING slot first (reference engine.py:980).
+        A slot whose chunk dispatch the ``chunk`` site dropped stalls for
+        the rest of the step."""
         if self.prefill_chunks is None:
             return
         self._prefill_tick += 1
         spent = 0
-        budget = self.prefill_budget
+        budget = self._effective_prefill_budget()
+        faulted: set = set()
 
         def prefilling():
             return [st for st in self.scheduler.running.values()
@@ -598,8 +799,10 @@ class ServingEngine:
             # strictly older pure prefill), so this can only fork
             self._maybe_fork(oldest)
             size = oldest.chunk_plan[oldest.chunk_idx]
-            self._prefill_one_chunk(oldest, size)
-            spent += size
+            if self._prefill_one_chunk(oldest, size):
+                spent += size
+            else:
+                faulted.add(oldest.slot)
         while True:
             states = sorted(prefilling(),
                             key=lambda s: (s.prefill_pos, s.seq))
@@ -609,17 +812,21 @@ class ServingEngine:
             for st in states:
                 if st.status != Status.PREFILLING or st.slot is None:
                     continue        # departed via an earlier activation
+                if st.slot in faulted:
+                    continue        # dropped dispatch: stalled this step
                 if self._maybe_fork(st):
                     continue        # deferred: an older donor is still
                     #                 publishing this slot's prefix
                 size = st.chunk_plan[st.chunk_idx]
                 if spent and spent + size > budget:
                     return
-                self._prefill_one_chunk(st, size)
+                if not self._prefill_one_chunk(st, size):
+                    faulted.add(st.slot)
+                    continue
                 spent += size
                 progressed = True
             if not progressed:
-                return              # everything left is deferred
+                return              # everything left is deferred / faulted
 
     def _maybe_fork(self, st: RequestState) -> bool:
         """At a slot's first chunk under prefix sharing: remap its leading
@@ -773,7 +980,13 @@ class ServingEngine:
             self._draft_params, tokens, self._draft_cache, scalars[0],
             scalars[1], scalars[2])
 
-    def _prefill_one_chunk(self, st: RequestState, size: int) -> None:
+    def _prefill_one_chunk(self, st: RequestState, size: int) -> bool:
+        """Ingest one chunk; False if the ``chunk`` fault site dropped its
+        dispatch (the cursor stays, and the slot replays the same chunk
+        next step)."""
+        if self._injector is not None and self._injector.fire("chunk"):
+            self._step_faulted = True
+            return False
         req = st.request
         plen = st.prompt_len
         start = st.prefill_pos
@@ -797,11 +1010,12 @@ class ServingEngine:
         if self.prefix_sharing and st.share_src is None:
             self._register_prefix(st)
         if not is_last:
-            return
+            return True
         self.scheduler.finish_prefill(st.slot)
         # steps submitted mid-prefill are stale for this slot: drop them
         self._slot_gen[st.slot] += 1
         self._activate_slot(st, logits)
+        return True
 
     # -- speculative rounds ---------------------------------------------------
     def _verify_runner(self, k: int, sampled: bool):
@@ -843,7 +1057,10 @@ class ServingEngine:
         and commits them, plus the draw at the first mismatch.  Rejected
         rows in both arenas are dead, so rollback is the position cursor
         alone.  Non-RUNNING slots draft at ``PARKED_POS`` and write
-        nothing.
+        nothing.  When the ``draft`` fault site fires, every proposal is
+        corrupted (+1 mod vocab) on the device before the verify reads it
+        (the reference corrupts its host copy at the same point, :1263-
+        1270); the committed stream stays the target's own.
         """
         running = [st for st in self.scheduler.running.values()
                    if st.status == Status.RUNNING]
@@ -866,6 +1083,10 @@ class ServingEngine:
             draft()
             self._chain[j + 1].copy_(self._dtok)
         self.stats["spec_draft_steps"] += k
+        if self._injector is not None and self._injector.fire("draft"):
+            props = self._chain[1:k + 1]
+            props.copy_(torch.remainder(props + 1, self.cfg.vocab))
+            self._step_faulted = True
         slots = [st.slot for st in running]
         for i, st in enumerate(running):
             tokens, verify = self._verify_runner(
@@ -892,8 +1113,8 @@ class ServingEngine:
                 # its tokens commit (the others are untouched: the fault
                 # lives in the slot's own arena rows)
                 self.stats["quarantined"] += 1
-                self.stats["failed"] += 1
-                self._deactivate(self.scheduler.fail(st, "nan-logits"))
+                self._step_faulted = True
+                self._depart(st, Status.FAILED, "nan-logits")
                 continue
             a, committed = sampling.accept_tokens(props[:, slot], draws[i])
             n_done, departures = self.scheduler.on_tokens(slot, committed)
@@ -915,40 +1136,84 @@ class ServingEngine:
 
     # -- the continuous-batching loop ----------------------------------------
     def step(self) -> None:
-        """One engine iteration: retire lagged outputs, admit, ingest
-        prompt chunks, submit one decode step: the sampled one if a RUNNING
-        slot samples, else its greedy twin.  A speculative engine runs one
-        synchronous draft / verify / commit round instead (reference
-        engine.py:1313-1348; with no health ladder in this port, always)."""
+        """One engine iteration (reference engine.py:1313-1380): retire
+        lagged outputs, expire deadlines, observe health, admit, ingest
+        prompt chunks, then submit one decode step: the sampled one if a
+        RUNNING slot samples, else its greedy twin.  A speculative engine
+        runs one synchronous draft / verify / commit round instead, while
+        the ladder is below DEGRADED.  The ``decode`` fault site drops the
+        step (or round); the ``logits`` site poisons a slot before it."""
+        self._tick += 1
         self._drain_pending(limit=self.depth)
+        self._expire_deadlines()
+        self._observe_health()
         self._admit()
         self._advance_prefill()
         running = [st for st in self.scheduler.running.values()
                    if st.status == Status.RUNNING]
         if not running:
             return
-        if self.spec is not None:
+        inj = self._injector
+        if inj is not None and inj.fire("decode"):
+            # a dropped dispatch: positions do not move, so no stream can
+            # diverge; the fault costs a step, never a token
+            self._step_faulted = True
+            return
+        if inj is not None and inj.fire("logits"):
+            self._poison_slot(running)
+        if self.spec is not None \
+                and self._health_state < HealthState.DEGRADED:
             if self._pending:
+                # queue decode -> rounds (the ladder recovered): retire
+                # every queue step in flight first, so no committed token
+                # is credited twice
                 self._queue.drain()
                 self._drain_pending(limit=0)
             self._spec_round()
+            self._spec_resync = True
             return
-        if any(not st.request.sampling.is_greedy for st in running):
+        if self._spec_resync:
+            # rounds -> queue decode (the ladder degraded): the device slot
+            # vectors lag the rounds' commits; write each RUNNING slot's
+            # token and position from host state, in place
+            for st in running:
+                self._tokens[st.slot] = st.generated[-1]
+                self._pos[st.slot] = st.prompt_len + len(st.generated) - 1
+                self._active[st.slot] = 1
+            self._spec_resync = False
+        sampled = any(not st.request.sampling.is_greedy for st in running)
+        if sampled:
             self.stats["sampled_steps"] += 1
-            read = self._queue.submit(self._sampled_step)
-        else:
-            read = self._queue.submit(self._greedy_step)
+        read = self._queue.submit(self._queue_step(sampled))
         self.stats["decode_steps"] += 1
         snapshot = {slot: (st, self._slot_gen[slot])
                     for slot, st in self.scheduler.running.items()}
         self._pending.append((read, snapshot))
 
+    def _queue_step(self, sampled: bool):
+        """The decode step to submit: the sampled or greedy graph's replay
+        (a speculative engine captures the one it needs here, at its first
+        degraded step of that kind), or the eager step."""
+        if sampled:
+            if self._sampled_step is None:
+                self.sampled_graph = DecodeGraph(
+                    self._decode_step_sampled, self._tokens, self._pos,
+                    self._active)
+                self._sampled_step = self.sampled_graph.replay
+            return self._sampled_step
+        if self._greedy_step is None:
+            self.graph = DecodeGraph(self._decode_step, self._tokens,
+                                     self._pos, self._active)
+            self._greedy_step = self.graph.replay
+        return self._greedy_step
+
     def _drain_pending(self, *, limit: int) -> None:
-        """Credit the tokens of steps older than ``limit`` steps."""
+        """Credit the tokens of steps older than ``limit`` steps, and
+        quarantine a slot whose flag says its logits went non-finite."""
         while len(self._pending) > limit:
             read, snapshot = self._pending.popleft()
             t0 = time.perf_counter()
-            host_tokens = read.wait()
+            host_tokens, host_ok = read.wait()
             self.stats["host_blocked_s"] += time.perf_counter() - t0
             for slot, (st, gen) in snapshot.items():
                 # stale: the request left this slot after the step was
@@ -957,10 +1222,41 @@ class ServingEngine:
                 if (st.status != Status.RUNNING or st.slot != slot
                         or gen != self._slot_gen[slot]):
                     continue
+                if not host_ok[slot]:
+                    # the first poisoned entry departs the slot FAILED
+                    # before a poisoned token commits (FIFO), and later
+                    # entries for it die on the status guard above;
+                    # co-resident slots are untouched (the NaN lives in
+                    # the victim's own arena region)
+                    self.stats["quarantined"] += 1
+                    self._step_faulted = True
+                    self._depart(st, Status.FAILED, "nan-logits")
+                    continue
                 self.stats["tokens_out"] += 1
                 for dslot, _ in self.scheduler.on_token(
                         slot, int(host_tokens[slot])):
                     self._deactivate(dslot)
+
+    def evacuate(self) -> list:
+        """Take every unfinished request out of service for migration and
+        return their :class:`Request` objects in arrival order (reference
+        engine.py:1417-1440).  Each departs ``MIGRATED`` (counted apart
+        from failures), its slot leaves the decode batch, its pages free
+        through the refcounts, and its result is dropped here: the router
+        owns it wherever it places it next.  A stream is a pure function
+        of (seed, absolute position), so the new replica replays it bit
+        for bit from the prompt."""
+        states = [*self.scheduler.waiting,
+                  *list(self.scheduler.running.values())]
+        states.sort(key=lambda s: s.seq)
+        moved = []
+        for st in states:
+            if st.done:
+                continue
+            self._depart(st, Status.MIGRATED, "migrated")
+            self._results.pop(st.request.uid, None)
+            moved.append(st.request)
+        return moved
 
     def run(self, *, max_steps: Optional[int] = None) -> dict:
         """Drive until every submitted request finishes.  Returns

@@ -180,13 +180,16 @@ class CapturedStep:
 class DecodeGraph(CapturedStep):
     """One captured decode step over the slot batch: ``step()`` reads and
     writes the slot vectors ``tokens``, ``pos``, ``active`` in place and
-    returns the vector the host reads back; it warms up with every slot
-    parked (:func:`parked_warm_up`).  ``kind="draft"``: the speculative
+    returns what the host reads back, for the engine's greedy and sampled
+    steps one (2, slots) int64 tensor of the tokens over the per-slot
+    finite flags (one copy, no second readback); it warms up with every
+    slot parked (:func:`parked_warm_up`).  ``kind="draft"``: the speculative
     draft's micro-step (the reference's ``_compiled_draft_propose`` /
     ``_greedy``, engine.py:255-284) over the draft arena, which feeds its
     proposal back into ``tokens`` and advances every ``pos`` by one (no
     ``active``), so the k micro-steps of a round are k replays with no
-    host write between them."""
+    host write between them; it returns the proposals alone (no flag, as
+    in the reference: a poisoned target shows in the verify's flag)."""
 
     def __init__(self, step: Callable[[], torch.Tensor],
                  tokens: torch.Tensor, pos: torch.Tensor,

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler (port of ``repro/runtime/serving/
-scheduler.py``'s ``Scheduler`` without the fault and health hooks, which
-belong with the fault injector, ROADMAP 1.7.3).
+scheduler.py``: ``AdmissionRejected`` and ``Scheduler``).
 
 Keeps the decode batch full every step: finished sequences retire and
 release their slot + pages, waiting requests are admitted into free slots
@@ -11,7 +10,15 @@ greedy or sampled, the draws fold only (seed, position)).  Pages are
 freed by refcount, so a departing fork drops only its references to a
 donor's shared prefix pages, and a region still hosting shared pages is
 skipped at admission.  Victim-is-youngest is the progress guarantee:
-the oldest running sequence is never evicted.  Pure host logic.
+the oldest running sequence is never evicted.
+
+Under faults the loop stays bounded: a head-of-line request whose
+placement fails backs off exponentially in engine ticks and, past
+``admission_attempt_cap`` failures, departs FAILED with a typed
+:class:`AdmissionRejected`; a request preempted ``preempt_cap`` times
+departs FAILED instead of recomputing again; :meth:`Scheduler.depart`
+takes a request out of service from any non-terminal state (deadline,
+quarantine, drain, migration).  Pure host logic.
 """
 from __future__ import annotations
 
@@ -21,30 +28,65 @@ import heapq
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.request import Request, RequestState, Status
 
-# orphaned prefix chains reclaimed per placement attempt before the head of
-# the line waits a step (reference scheduler.py:53)
-ADMISSION_RECLAIM_CAP = 8
+class AdmissionRejected(Exception):
+    """A request was refused service: its admission attempts reached their
+    cap (``finish_reason == "admission-rejected"``, the exception on
+    ``RequestState.rejection``) or the replica sheds load (raised by
+    ``ServingEngine.submit``).  ``replica``: the replica that refused,
+    attached by the router before it re-raises."""
+
+    def __init__(self, uid, reason: str, attempts: int = 0,
+                 replica=None):
+        at = "" if replica is None else f" by replica {replica}"
+        super().__init__(f"request {uid!r} rejected{at} ({reason}) "
+                         f"after {attempts} admission attempts")
+        self.uid = uid
+        self.reason = reason
+        self.attempts = attempts
+        self.replica = replica
 
 
 class Scheduler:
     def __init__(self, max_slots: int, cache: PagedKVCacheManager, *,
-                 max_len: int | None = None, chunked: bool = False):
+                 max_len: int | None = None, chunked: bool = False,
+                 admission_reclaim_cap: int = 8,
+                 admission_attempt_cap: int | None = None,
+                 admission_backoff_cap: int = 32,
+                 preempt_cap: int | None = None):
         """``max_len``: the per-slot arena depth (engine's max_seq).
         ``chunked``: admissions enter PREFILLING (the engine ingests prompt
         chunks across steps and calls :meth:`finish_prefill`) instead of
-        going straight to RUNNING via one monolithic prefill."""
+        going straight to RUNNING via one monolithic prefill.
+
+        ``admission_reclaim_cap``: orphaned prefix chains reclaimed per
+        placement before the head of the line waits a step.
+        ``admission_attempt_cap`` (None = never): failed placements before
+        a request departs FAILED, ``"admission-rejected"``, with
+        exponential tick backoff between attempts up to
+        ``admission_backoff_cap`` (backoff needs :meth:`schedule`'s
+        ``tick``).  ``preempt_cap`` (None = never): recomputes before a
+        request departs FAILED, ``"recompute-cap"``, keeping its tokens."""
         if max_slots < 1:
             raise ValueError(max_slots)
+        if admission_reclaim_cap < 1:
+            raise ValueError(f"admission_reclaim_cap must be >= 1, "
+                             f"got {admission_reclaim_cap}")
         self.max_slots = max_slots
         self.cache = cache
         self.max_len = max_len
         self.chunked = chunked
+        self.admission_reclaim_cap = admission_reclaim_cap
+        self.admission_attempt_cap = admission_attempt_cap
+        self.admission_backoff_cap = admission_backoff_cap
+        self.preempt_cap = preempt_cap
         self.waiting: collections.deque[RequestState] = collections.deque()
         self.running: dict[int, RequestState] = {}
         self._free_slots: list[int] = list(range(max_slots))
         heapq.heapify(self._free_slots)
         self._next_seq = 0
-        self.stats = {"admitted": 0, "finished": 0, "preempted": 0}
+        self.stats = {"admitted": 0, "finished": 0, "preempted": 0,
+                      "timed_out": 0, "failed": 0, "rejected": 0,
+                      "migrated": 0}
 
     # -- intake --------------------------------------------------------------
     def submit(self, request: Request,
@@ -74,7 +116,11 @@ class Scheduler:
         return not self.waiting and not self.running
 
     # -- admission -----------------------------------------------------------
-    def schedule(self) -> list[RequestState]:
+    @property
+    def free_slots(self) -> int:
+        return len(self._free_slots)
+
+    def schedule(self, tick: int | None = None) -> list[RequestState]:
         """Admit FIFO-head requests into free slots (smallest first) while
         cache pages last; returns the newly admitted states (RUNNING, or
         PREFILLING under chunked prefill).  Admission reserves pages for
@@ -83,14 +129,23 @@ class Scheduler:
         hosts live shared prefix pages of a departed donor) is skipped;
         when every candidate is refused, the least recently forked
         orphaned chain is reclaimed and the placement retried, at most
-        ``ADMISSION_RECLAIM_CAP`` times (reference scheduler.py:155-200)."""
+        ``admission_reclaim_cap`` times (reference scheduler.py:135-210).
+
+        ``tick`` (the engine's step counter) engages the bounded retry: a
+        head-of-line request whose placement failed waits until
+        ``next_try_tick`` (exponential backoff) and, at
+        ``admission_attempt_cap`` failures, departs FAILED with a typed
+        :class:`AdmissionRejected` on ``RequestState.rejection``."""
         admitted = []
         while self.waiting and self._free_slots:
             st = self.waiting[0]
+            if tick is not None and st.next_try_tick > tick:
+                break                      # backing off; FIFO kept
             need = st.prompt_len + 1
             if st.chunk_plan is not None:
                 need = max(need, sum(st.chunk_plan))
             slot = None
+            reason = "no-pages"
             reclaims = 0
             while slot is None:
                 for cand in sorted(self._free_slots):
@@ -98,14 +153,27 @@ class Scheduler:
                     if res:
                         slot = cand
                         break
+                    reason = res.reason
                     if res.reason != "region-pinned":
                         break              # no pages yet
                 if slot is None:
-                    if reclaims >= ADMISSION_RECLAIM_CAP \
+                    if reclaims >= self.admission_reclaim_cap \
                             or not self.cache.reclaim_orphan():
                         break
                     reclaims += 1
             if slot is None:
+                st.admission_attempts += 1
+                cap = self.admission_attempt_cap
+                if cap is not None and st.admission_attempts >= cap:
+                    st.rejection = AdmissionRejected(
+                        st.request.uid, reason, st.admission_attempts)
+                    self.depart(st, Status.FAILED, "admission-rejected")
+                    self.stats["rejected"] += 1
+                    continue               # rejected head: the next may fit
+                if tick is not None:
+                    st.next_try_tick = tick + min(
+                        1 << (st.admission_attempts - 1),
+                        self.admission_backoff_cap)
                 break                      # head-of-line blocks
             self._free_slots.remove(slot)
             heapq.heapify(self._free_slots)
@@ -175,16 +243,34 @@ class Scheduler:
                 break
         return n, departures
 
-    def fail(self, st: RequestState, reason: str) -> int:
-        """Take a resident request out of service as FAILED, keeping what
-        it generated (the resident branch of the reference's ``depart``,
-        scheduler.py:286-317: the speculative engine's quarantine of a
-        slot whose verify logits went non-finite).  Returns the released
-        slot."""
-        slot = st.slot
-        self._release(st)
-        st.status = Status.FAILED
+    def depart(self, st: RequestState, status: Status,
+               reason: str) -> int | None:
+        """Take a request out of service abnormally (reference
+        scheduler.py:286-317): ``TIMED_OUT`` (deadline), ``FAILED``
+        (quarantine, admission rejection, recompute cap, drain) or
+        ``MIGRATED`` (evacuation; the request replays elsewhere), keeping
+        what it generated.  A WAITING request leaves the queue; a resident
+        one releases its slot through the same refcount-ordered free as
+        retirement, so a departing fork drops only its references to the
+        donor's pages, and the scale sidecar goes with each page that
+        pools.  A terminal request is left as it is.  Returns the released
+        slot (None if the request held none)."""
+        if st.done:
+            return None
+        slot = None
+        if st.status == Status.WAITING:
+            try:
+                self.waiting.remove(st)
+            except ValueError:
+                pass
+        elif st.slot is not None and self.running.get(st.slot) is st:
+            slot = st.slot
+            self._release(st)
+        st.status = status
         st.finish_reason = reason
+        key = {Status.TIMED_OUT: "timed_out",
+               Status.MIGRATED: "migrated"}.get(status, "failed")
+        self.stats[key] += 1
         return slot
 
     def _finish(self, st: RequestState,
@@ -202,7 +288,12 @@ class Scheduler:
         a victim caught mid-prefill rewinds its chunk cursor to 0, and a
         forked one to the unforked state (its shared-page references went
         with the release; re-admission re-forks against whatever chains
-        are live then)."""
+        are live then).  A request already preempted ``preempt_cap`` times
+        departs FAILED (``"recompute-cap"``) instead, keeping its tokens."""
+        if self.preempt_cap is not None \
+                and st.preemptions >= self.preempt_cap:
+            return self.depart(st, Status.FAILED, "recompute-cap"), st
+        st.preemptions += 1
         slot = st.slot
         self._release(st)
         st.status = Status.WAITING

@@ -306,7 +306,7 @@ def test_first_draw_step_matches_sample_first(models, family, fmt):
     """The first-draw step (what the first-draw graph captures) over its
     static logits row and scalars makes no host read and draws
     ``sampling.sample_first``'s token, bit for bit, at several knob
-    sets."""
+    sets, beside the row's finite flag (0 once the row holds a NaN)."""
     _, (_, _, tm, tp) = models[family]
     eng = _engine(tserving, tm, tm.cfg, tp, kv_format=fmt)
     assert eng.draw_graph is None and eng._draw_step == eng._first_draw_step
@@ -322,7 +322,12 @@ def test_first_draw_step_matches_sample_first(models, family, fmt):
         with NoHostRead():
             got = eng._first_draw_step()
         want = sampling.sample_first(logits, seed, q, sp)
-        assert got.shape == (1,) and torch.equal(got, want), (sp, q)
+        assert got.shape == (2,) and torch.equal(got[:1], want), (sp, q)
+        assert int(got[1]) == 1
+    eng._draw_logits[0, 5] = float("nan")
+    with NoHostRead():
+        got = eng._first_draw_step()
+    assert int(got[1]) == 0
 
 
 @pytest.mark.parametrize("family", ["dense", "ssm"])

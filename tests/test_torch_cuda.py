@@ -1054,7 +1054,8 @@ def test_cuda_first_draw_graph_equals_eager_draw(cuda, family):
         eng._stage(eng._draw_floats, [temp, top_p, min_p])
         got = graph.replay().clone()
         want = sampling.sample_first(logits, seed, q, sp)
-        assert torch.equal(got, want), (sp, q)
+        # the draw over the row's finite flag, one readback
+        assert torch.equal(got[:1], want) and int(got[1]) == 1, (sp, q)
 
 
 # ---------------------------------------------------------------------------
@@ -1354,3 +1355,191 @@ def test_cuda_speculative_cheap_draft_captured_equals_eager(cuda):
     assert not eager.verify_graphs and eager.draft_graph is None
     assert eng.spec.stats == eager.spec.stats
     assert len(eng.verify_graphs) == eng.stats["spec_verify_compiles"]
+
+
+# ---------------------------------------------------------------------------
+# faults on the card: a NaN-filled slot stays in its slot, the finite flag
+# of the captured steps, faulted engines captured against eager
+# ---------------------------------------------------------------------------
+
+NAN_S = 1121
+
+
+def _fill_nan(t, slot):
+    """Slot ``slot``'s whole region NaN where the type is floating (the
+    engine's ``logits`` fault site: an int8 arena's rows stay, its scales
+    go NaN)."""
+    if t is not None and t.is_floating_point():
+        t[slot] = float("nan")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fmt", SLOT_CASES)
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("donor", [False, True])
+def test_cuda_nan_slot_stays_in_its_slot(cuda, dtype, fmt, d, donor):
+    """Slot 2 of a 4-slot arena of Sk = 1121 rows filled with NaN, as the
+    ``logits`` fault site fills it: flash_decode (survivor lengths 1121,
+    1089 and 1100, so each reaches its last 64-key strip, rows 1088-1120,
+    which runs past the slot's edge) and flash_prefill_chunk through the
+    slot table (chunks ending at row 1121) give the survivors' outputs bit
+    for bit as over the NaN-free arena, and the victim's non-finite;
+    ``donor``: slot 3 reads rows [0, 64) of slot 1 through the donor
+    table."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, kvh, h, c, victim = 4, 2, 6, 40, 2
+    clean = _donor_arena(gen, dtype, fmt, (n, NAN_S, kvh, d), cuda)
+    bad = [None if t is None else t.clone() for t in clean]
+    for t in bad:
+        _fill_nan(t, victim)
+    table = {}
+    if donor:
+        table = dict(share_src=torch.tensor([0, 1, 2, 1], device=cuda),
+                     share_len=torch.tensor([0, 0, 0, 64], device=cuda))
+    q = torch.randn((n, h, d), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([NAN_S, 1089, 50, 1100], device=cuda)
+
+    def decode(arena):
+        k, v, ks, vs = arena
+        return ops.flash_decode(q, k, v, lengths=lens, k_scale=ks,
+                                v_scale=vs, **table)
+
+    want, got = decode(clean), decode(bad)
+    live = [0, 1, 3]
+    assert torch.equal(got[live], want[live])
+    assert not torch.isfinite(got[victim].float()).any()
+    assert torch.isfinite(want.float()).all()
+    qc = torch.randn((n, c, h, d), generator=gen, device=cuda).to(dtype)
+    slots = torch.arange(n, device=cuda)
+    pre = torch.tensor([NAN_S - c, 1049, 9, NAN_S - c], device=cuda)
+    ctab = {}
+    if donor:
+        ctab = dict(share_src=table["share_src"], share_len=table["share_len"])
+
+    def chunk(arena):
+        k, v, ks, vs = arena
+        return ops.flash_prefill_chunk(qc, k, v, prefix=pre, k_scale=ks,
+                                       v_scale=vs, slots=slots, **ctab)
+
+    want, got = chunk(clean), chunk(bad)
+    assert torch.equal(got[live], want[live])
+    assert not torch.isfinite(got[victim].float()).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_cuda_captured_flag_equals_eager(cuda, family, sampled):
+    """The finite flag of the captured decode step (greedy or sampled
+    twin) equals the eager step's on the same state: two engines, one
+    captured and one eager, through the same steps, then one slot filled
+    with NaN in both; the (2, slots) readbacks are equal, the victim's
+    flag 0 and the others' 1, and the captured step's tokens of the
+    survivors equal the eager ones."""
+    from repro_torch.runtime import serving
+    model, params = _tiny(family, torch.bfloat16)
+    plan = ([serving.SamplingParams(temperature=0.9, top_k=20, seed=5)] * 4
+            if sampled else None)
+    engines = [_graph_engine(model, params, plan=plan, max_slots=4,
+                             decode_graph=graph, gens=(20,) * 4)
+               for graph in (True, False)]
+    for eng in engines:
+        for _ in range(3):
+            eng.step()
+        eng._queue.drain()
+        eng._drain_pending(limit=0)
+    outs = []
+    for eng in engines:
+        victim = sorted(eng.scheduler.running)[1]
+        eng._fill_slot(victim, float("nan"), floating_only=True)
+        step = eng._queue_step(sampled)
+        outs.append(step().clone())
+    torch.cuda.synchronize()
+    assert engines[0].graph is not None
+    assert torch.equal(outs[0], outs[1])
+    flags = outs[0][1].tolist()
+    assert flags[victim] == 0
+    assert [f for i, f in enumerate(flags) if i != victim] == [1, 1, 1]
+
+
+def _faulted_engine(model, params, plan, **kw):
+    """Five requests (two sampled) on 3 slots under fault plan ``plan``."""
+    import numpy as np
+    from repro_torch.runtime import serving
+    eng = serving.ServingEngine(model, model.cfg, params,
+                                config=serving.EngineConfig(
+                                    **{"max_slots": 3, "max_seq": 64,
+                                       "page_size": 8, "faults": plan,
+                                       **kw}))
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((5, 11, 7, 16, 9)):
+        sp = (serving.SamplingParams(temperature=1.1, top_k=20, seed=11 + i)
+              if i % 2 else serving.GREEDY)
+        eng.submit(serving.Request(uid=i, prompt=rng.integers(
+            0, model.cfg.vocab, n), max_new_tokens=10, sampling=sp))
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,fmt", [("dense", "fp32"), ("dense", "int8"),
+                                        ("ssm", "fp32")])
+@pytest.mark.parametrize("chunks", [None, (4, 8)])
+def test_cuda_faulted_engine_captured_equals_eager(cuda, family, fmt,
+                                                   chunks):
+    """A fault plan over alloc, chunk, decode and logits: the captured
+    engine (decode, chunk and first-draw graphs) and the eager one give
+    the same streams, statuses and fault counts; every survivor equals
+    the fault-free captured run, every victim keeps a prefix of it, and
+    every page drains."""
+    from repro_torch.runtime import serving
+    model, params = _tiny(family, torch.bfloat16)
+    plan = serving.FaultPlan.of(seed=7, alloc=0.1, decode=0.1,
+                                logits=serving.FaultSpec(0.2, max_fires=2),
+                                **({"chunk": 0.2} if chunks else {}))
+    kw = dict(prefill_chunks=chunks, kv_format=fmt)
+    clean = _faulted_engine(model, params, None, **kw).run()
+    runs = []
+    for graph in (True, False):
+        eng = _faulted_engine(model, params, plan, decode_graph=graph,
+                              chunk_graph=graph, **kw)
+        runs.append((eng.run(max_steps=3000), eng))
+    (got, eng), (want, eager) = runs
+    assert _same_streams(got, want)
+    assert eng.stats["faults"] == eager.stats["faults"]
+    assert eng.stats["poisoned"] == eager.stats["poisoned"] > 0
+    assert eng.stats["quarantined"] == eager.stats["quarantined"] > 0
+    for uid, st in eng._results.items():
+        assert st.status == eager._results[uid].status
+        n = got[uid].size
+        assert (got[uid] == clean[uid][:n]).all()
+        if st.status == serving.Status.FINISHED:
+            assert n == clean[uid].size
+    assert eng.cache_mgr.free_pages == eng.cache_mgr.num_pages
+
+
+@pytest.mark.gpu
+def test_cuda_ladder_degrades_speculation_to_captured_decode(cuda):
+    """The self-draft (k = max_slots = 4) with the health ladder on: a
+    burst of dropped rounds moves it to DEGRADED, where the engine
+    captures its decode graph and runs queue decode, then back to rounds;
+    the streams equal the plain captured engine's."""
+    from repro_torch.runtime import serving
+    model, params = _tiny("dense", torch.bfloat16)
+    want = _spec_engine(model, params, None, prefill_chunks=(8, 16)).run()
+    spec = serving.SpecConfig(draft=model.cfg, k=4, adaptive=False,
+                              draft_seed=0)
+    eng = _spec_engine(
+        model, params, spec, prefill_chunks=(8, 16),
+        faults=serving.FaultPlan.of(
+            seed=4, decode=serving.FaultSpec(1.0, max_fires=3)),
+        health=serving.HealthConfig(fault_degraded=2, fault_shedding=8,
+                                    fault_draining=12, recover_after=2,
+                                    shed_steps_draining=None))
+    assert eng.graph is None
+    got = eng.run(max_steps=3000)
+    assert _same_streams(got, want)
+    trans = [(f, t) for _, f, t, _ in eng.health.transitions]
+    assert ("HEALTHY", "DEGRADED") in trans and ("DEGRADED", "HEALTHY") in trans
+    assert eng.graph is not None or eng.sampled_graph is not None
+    replays = sum(g.replays for g in (eng.graph, eng.sampled_graph) if g)
+    assert replays == eng.stats["decode_steps"] - eng.stats["spec_rounds"] > 0

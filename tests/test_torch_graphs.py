@@ -131,7 +131,9 @@ def test_decode_step_makes_no_host_read(family):
     pos0 = eng._pos.clone()
     with NoHostRead():
         out = eng._decode_step()
-    assert out.shape == (eng.max_slots,)
+    # one readback: the tokens over the per-slot finite flags
+    assert out.shape == (2, eng.max_slots) and out.dtype == torch.int64
+    assert out[1].tolist() == [1] * eng.max_slots
     assert torch.equal(eng._pos, pos0 + live.long())
 
 
@@ -226,7 +228,8 @@ def test_sampled_decode_step_makes_no_host_read(family):
     pos0 = eng._pos.clone()
     with NoHostRead():
         out = eng._decode_step_sampled()
-    assert out.shape == (eng.max_slots,)
+    assert out.shape == (2, eng.max_slots) and out.dtype == torch.int64
+    assert out[1].tolist() == [1] * eng.max_slots
     assert torch.equal(eng._pos, pos0 + live.long())
 
 

@@ -26,7 +26,10 @@ sys.path.insert(0, {repo!r})
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert "repro_torch.runtime.serving.speculative" in names, names
+for name in ("runtime.serving.speculative", "runtime.serving.faults",
+             "runtime.serving.health", "runtime.serving.replica",
+             "runtime.serving.router", "runtime.elastic"):
+    assert "repro_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -187,4 +190,41 @@ def test_launch_counters_stay_zero_on_cpu_speculative():
                                    max_new_tokens=5))
         assert eng.run()[0].shape == (5,)
         assert eng.stats["spec_rounds"] > 0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+
+
+def test_launch_counters_stay_zero_on_cpu_faults_and_router():
+    """A CPU engine under a fault plan and the health ladder (poisoned and
+    scrubbed slots, quarantine, dropped chunks and steps), and a CPU
+    router over two replicas with a drain and migration, take the plain
+    versions: no launch; every replica serves the one model object."""
+    from repro_torch.runtime import serving
+    bundle = registry.build("llama3.2-3b", reduced=True, device="cpu")
+    params = bundle.model.init(0)
+    ops.reset_launch_counts()
+    config = serving.EngineConfig(
+        max_slots=2, max_seq=48, prefill_chunks=(4, 8),
+        faults=serving.FaultPlan.of(seed=1, alloc=0.1, chunk=0.2,
+                                    decode=0.1, logits=0.2),
+        health=serving.HealthConfig())
+    eng = serving.ServingEngine(bundle.model, bundle.cfg, params,
+                                config=config)
+    for i in range(3):
+        eng.submit(serving.Request(uid=i, prompt=np.arange(9 + i) % 256,
+                                   max_new_tokens=5))
+    eng.run(max_steps=2000)
+    assert eng.stats["poisoned"] > 0 and eng.stats["quarantined"] > 0
+    assert sum(n > 0 for n in eng.stats["faults"].values()) >= 2
+    fleet = serving.Router(bundle.model, bundle.cfg, params,
+                           config=serving.RouterConfig(
+                               replicas=2, engine=config.replace(
+                                   faults=None, health=None)))
+    for i in range(4):
+        fleet.submit(serving.Request(uid=i, prompt=np.arange(9 + i) % 256,
+                                     max_new_tokens=5))
+    fleet.step()
+    fleet.drain(0, migrate=True)
+    assert len(fleet.run(max_steps=2000)) == 4
+    assert all(rep.engine.model is bundle.model
+               for rep in fleet.replicas.values())
     assert not any(ops.launch_counts().values()), ops.launch_counts()

@@ -619,10 +619,14 @@ def test_config_accepts_sharing_and_still_refuses_later_slices():
     assert cfg.prefill_chunks == (4, 8) and cfg.prefix_chain_cap == 3
     assert cfg.replace(prefix_chain_cap=None).prefix_sharing
     assert tserving.EngineConfig(speculative=None).speculative is None
-    for name in ("faults", "health", "preempt_cap", "donate",
-                 "admission_reclaim_cap"):
-        with pytest.raises(TypeError):
-            tserving.EngineConfig(**{name: None})
+    # the robustness fields are ported (tests/test_torch_faults.py); the
+    # arena is written in place, so donation has no counterpart
+    for name in ("faults", "health", "preempt_cap"):
+        assert getattr(tserving.EngineConfig(**{name: None}), name) is None
+    assert tserving.EngineConfig(admission_reclaim_cap=2) \
+        .admission_reclaim_cap == 2
+    with pytest.raises(TypeError):
+        tserving.EngineConfig(donate=None)
 
 
 @pytest.mark.parametrize("plen,shared", [(20, 16), (17, 16), (33, 32),

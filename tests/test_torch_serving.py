@@ -74,8 +74,8 @@ def test_engine_rejects_unported_options(models):
     *_, tm, tp = models
     with pytest.raises(ValueError, match="unknown kv_format"):
         tserving.EngineConfig(kv_format="int7")
-    with pytest.raises(TypeError):
-        tserving.EngineConfig(faults=None)
+    with pytest.raises(TypeError):          # no counterpart: in place
+        tserving.EngineConfig(donate=True)
     with pytest.raises(ValueError, match="chunked prefill"):
         tserving.EngineConfig(prefix_sharing=True)
     eng = tserving.ServingEngine(tm, tm.cfg, tp,
@@ -133,4 +133,40 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert serve.parse_args(["--arch", "llama3.2-3b",
                              "--no-reduced"]).reduced is False
     assert serve.parse_args(["--arch", "llama3.2-3b"]).reduced is True
+    # the robustness flags: a fault plan seeded by --seed, the ladder, a
+    # deadline (the robustness line and the transitions), then replicas
+    # behind the router under each placement (one line a replica), the
+    # streams equal the bare engine's
+    base = ["--arch", "llama3.2-3b", "--device", "cpu", "--requests", "4",
+            "--prompt-len", "12", "--gen", "6", "--slots", "2",
+            "--prefill-mode", "chunked", "--chunk-buckets", "4,8"]
+    assert serve.main(base + ["--fault-plan", "decode:0.6:3,alloc:0.2",
+                              "--health", "--deadline-ms", "600000",
+                              "--seed", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "robustness: health=" in out and "timed_out=0" in out
+    assert "health step" in out and "-> DEGRADED (consecutive-faults)" in out
+    args = serve.parse_args(base + ["--fault-plan", "logits:0.5",
+                                    "--deadline-ms", "5"])
+    config = serve.engine_config(args, [12])
+    assert config.faults.seed == 0 and config.health is None
+    assert config.faults.spec("logits").rate == 0.5
+    assert [r.deadline_ms for r in serve.requests(args, 256)] == [5.0] * 4
+    bundle, params = serve.build(serve.parse_args(base))
+    _, want, _ = serve.serve(bundle, params, serve.parse_args(base))
+    for placement in ("least-pressure", "round-robin", "affinity"):
+        fleet_args = base + ["--replicas", "2", "--placement", placement]
+        assert serve.main(fleet_args) == 0
+        out = capsys.readouterr().out
+        assert f"4 requests over 2 replicas ({placement}), 24 tokens" in out
+        assert out.count("  replica: {'replica': ") == 2
+        fleet, got, _ = serve.serve_fleet(bundle, params,
+                                          serve.parse_args(fleet_args))
+        assert sorted(got) == sorted(want)
+        for uid in want:
+            np.testing.assert_array_equal(got[uid], want[uid])
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--replicas", "0"])
+    with pytest.raises(SystemExit):
+        serve.parse_args(base + ["--placement", "random"])
 
