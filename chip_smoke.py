@@ -47,7 +47,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      against the call without a table over equal donor rows (the own rows
      poisoned with NaN), against the plain versions with a planted fault
      (share_len one page short, > 10x), the pin under the table, times
-     with and without the table in alternating pairs;
+     with and without the table in alternating pairs; 3e (hymba-1.5b):
+     the four kernels of the hybrid path at its full width (hd 64, G = 5,
+     each layer's window: 1024 and global; ssd at 50 heads, N = 16, S
+     1536 / 1200), the window dropped as the planted fault (> 10x), the
+     chunk/decode bit pin under window 1024 (C = 512 at prefix 1024),
+     flash_decode rows whose first splits lie before the window, times
+     against SDPA with the same mask and the bound over the visible keys;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -67,7 +73,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      eager step (``--no-decode-graph``) and the captured one, one pair a
      prefill mode, token streams equal to phase 4's, tok/s and wall ms per
      decode step; chunked with eager and captured chunk steps (decode
-     captured), 2 alternating pairs, each run serving the requests twice
+     captured), one pair, each run serving the requests twice
      on one engine (the second wave finds its chunk graphs captured):
      streams equal, tok/s, TTFT per request, ``host_blocked_s``, and a
      planted stale device ``start`` that must change the streams; and ms
@@ -127,12 +133,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      placement policy and with a mid-run drain and migration (streams
      equal one engine's; tok/s; device memory a replica beside the
      shared weights);
+     Then hymba-1.5b (the hybrid family, :func:`hybrid_phase`), prompts
+     1536 / 1200 past its 1024-key window: phase 4 in both prefill modes
+     (flash_attention and ssd a layer a prefill, flash_prefill_chunk and
+     ssd a layer a chunk, flash_decode a layer a replay, all held to the
+     replays), 4c's chunk pair and decode windows (one each: captured =
+     eager, the device ms a captured step by op), 4d's sampled half
+     (captured = eager; ``sample_step`` at 4 x 32001 bit for bit with
+     the CPU), 4f's mix (4 x 1536, 1024 common; the forks read donor rows
+     through the table, the state from snapshots, a fork's decode window
+     straddling its shared length), 4h's fault plan, and phase 5;
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
      through a chunk and 4 decode steps, held to limits stated from a
      control, and (5b) the logits with f32 params and activations; each
-     limit must reject a planted SSD fault;
+     limit must reject a planted SSD fault; for hymba-1.5b the bf16
+     reading beside the control, and (5b) the f32 logits within 1e-3,
+     the window dropped in every windowed layer the planted fault;
   6. the vector-unit path (fmatmul, dot product, fconv2d, the core
      modules): driven at the paper's sweep sizes with its own launch
      counts; each kernel against its plain version there, at ragged
@@ -144,7 +162,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      bf16 matmul shapes take the padding step; dotp's bits repeated;
      kernel / plain / library times; the core modules on CUDA against the
      CPU, bit for bit;
-  7. summary: the kernel JSON line (with each kernel's ``design``), the
+  7. summary: the kernel JSON line (with each kernel's ``design``; the
+     rows ``<kernel>_hymba`` are the kernels at hymba's shapes, their
+     launches those of the hybrid path), the
      card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -199,6 +219,12 @@ SSD_RTOL = 1e-4
 # the last 64-token inner chunk dropped) reads 4.48 and must exceed it.
 LOGIT_TOL = 0.1
 MAMBA2_F32_LOGIT_TOL = 1e-3
+# hymba-1.5b (phase 5b) as mamba2: its bf16 logits carry one-ulp flips of
+# both branches through 32 layers, so the bf16 reading is reported beside
+# the control (the plain path with 64-token SSD chunks); held in f32 to
+# 1e-3, where a planted fault (the window dropped in every windowed layer)
+# must read more than FAULT_MARGIN times that.
+HYMBA_F32_LOGIT_TOL = 1e-3
 # Phase 5c holds the bf16 ssd tensor-core kernel inside the model: one
 # mamba2-2.7b layer at full width in bf16 on request 0's prompt, the final
 # SSD state carried through a 64-token chunk and 4 decode steps, kernel
@@ -268,7 +294,14 @@ DESIGN = {
                      "row, the straddling strip copied by rows (cp.async, "
                      "issued where the ring refills its stage) into the "
                      "same layout; f32: a row select per key"
-       for k in ("flash_decode", "flash_prefill_chunk")}}
+       for k in ("flash_decode", "flash_prefill_chunk")},
+    **{k + "_hymba": "the same kernel at hymba-1.5b's shapes (hd 64, G = "
+                     "25 / 5 = 5 query heads a KV head, each layer's "
+                     "window: 1024 or global), launched on the hybrid path"
+       for k in WGMMA_TMA},
+    "ssd_hymba": "the same kernel at hymba-1.5b's SSD branch (50 heads, P "
+                 "64, N = 16: one 16-wide k-step, the warps of d_state "
+                 "half 1 zero-filled), launched on the hybrid path"}
 # the TPU kernels' scaled branch each scaled row replaces
 SCALED_REPLACES = {
     "flash_decode_scaled": "src/repro/kernels/flash_decode.py:39",
@@ -1332,6 +1365,241 @@ def ssd_checks(torch, ops, cfg):
                 library_ms=None, bytes=nbytes, flops=flops)
 
 
+def hybrid_kernel_checks(torch, ops, cfg):
+    """Phase 3e: the four kernels of the hybrid path at hymba-1.5b's full
+    width (25 query heads over 5 KV heads, hd 64, bf16; ssd at 50 heads,
+    P 64, N 16), each layer's window: 1024 (29 layers) and cfg.max_seq + 1
+    (the 3 global layers).  Each kernel against its plain version within
+    the phase 3 limits, with the window dropped as the planted fault (the
+    limit must fail it by more than FAULT_MARGIN); the chunk/decode bit
+    pin under window 1024 (C = 512 at prefix 1024, rows whose windows
+    cross strips and splits); flash_decode with rows whose first splits
+    lie wholly before the window; ssd with and without an initial state.
+    Timed: kernel, plain, SDPA with the same boolean mask, and the bound
+    counting only the visible keys.  Returns {row name: record}."""
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     flash_prefill_chunk, ssd)
+    from repro_torch.models import hybrid
+    P = ops.PLAIN
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    win = cfg.attn_window
+    windows = sorted(set(hybrid.window_schedule(cfg)))
+    assert windows == [win, cfg.max_seq + 1], windows
+    # the chunked engine's arena: prompts 1536 / 1200 + 64 new tokens + the
+    # smallest chunk's slack; 8 layers past the 50 MB L2
+    slots, smax, nl = 4, 1536 + 64 + 32 + 1, 8
+    print(f"phase 3e: {cfg.name} full width bf16 (H={h}, KVH={kvh}, G="
+          f"{h // kvh}, D={d}, windows {windows}, slots={slots}, "
+          f"max_seq={smax})")
+    rec = {}
+    layer = [0]
+
+    def nxt():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    # -- flash_attention: monolithic prefill, S 1536 and 1200 ---------------
+    errs = []
+    for s in (1536, 1200):
+        qb, kb, vb = rn(1, s, h, d), rn(1, s, kvh, d), rn(1, s, kvh, d)
+        q4, k4, v4 = qb.transpose(1, 2), kb.transpose(1, 2), \
+            vb.transpose(1, 2)
+        for w in windows:
+            errs.append(check(
+                f"flash_attention S={s} window={w}",
+                ops.attention(q4, k4, v4, window=w),
+                P.attention(q4, k4, v4, window=w), "bfloat16",
+                "(tiles cross heads)" if s % 64 else "",
+                fault=None if w > s else (
+                    "the window dropped", P.attention(q4, k4, v4)),
+                margin=FAULT_MARGIN))
+    s = 1536
+    sets = [tuple(t.transpose(1, 2) for t in
+                  (rn(1, s, h, d), rn(1, s, kvh, d), rn(1, s, kvh, d)))
+            for _ in range(3)]
+    k_ = [0]
+
+    def nset():
+        k_[0] = (k_[0] + 1) % len(sets)
+        return sets[k_[0]]
+
+    pos = torch.arange(s, device=dev)
+    amask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                              > pos[:, None] - win)
+    ms = timed(lambda: flash_attention.launch(*nset(), window=win), 20)
+    plain_ms = timed(lambda: P.attention(*nset(), window=win), 5)
+    lib_ms = timed(lambda: sdpa(*nset(), attn_mask=amask), 20)
+    pairs = int(amask.sum())
+    rec["flash_attention_hymba"] = dict(
+        module=flash_attention, label="fa hymba w=1024", max_abs_err=max(
+            errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
+        flops=4 * pairs * h * d)
+
+    # -- flash_decode: the decode step ---------------------------------------
+    arena_k = rn(nl, slots, smax, kvh, d)
+    arena_v = rn(nl, slots, smax, kvh, d)
+    q = rn(slots, h, d)
+    lens = torch.tensor([1600, 1264, PARKED_POS + 1, 1], device=dev)
+    before = (1600 - win) // flash_decode.SPLIT
+    errs = []
+    for w in windows:
+        errs.append(check(
+            f"flash_decode window={w}",
+            ops.flash_decode(q, arena_k[0], arena_v[0], lengths=lens,
+                             window=w),
+            P.flash_decode(q, arena_k[0], arena_v[0], lengths=lens,
+                           window=w), "bfloat16",
+            f"(lengths 1600/1264/parked/1; row 0's first {before} splits "
+            f"of {flash_decode.SPLIT} keys wholly before the window)"
+            if w == win else "(lengths 1600/1264/parked/1)",
+            fault=None if w > smax else (
+                "the window dropped",
+                P.flash_decode(q, arena_k[0], arena_v[0], lengths=lens)),
+            margin=FAULT_MARGIN))
+    torch.cuda.synchronize()
+    left = int(flash_decode.counters(q.device, slots * kvh)[
+        :slots * kvh].abs().sum())
+    assert left == 0, left
+    ms = timed(lambda: flash_decode.launch(q, arena_k[nxt()],
+                                           arena_v[layer[0]], lens,
+                                           window=win), 50)
+    plain_ms = timed(lambda: P.flash_decode(
+        q, arena_k[nxt()], arena_v[layer[0]], lengths=lens, window=win), 5)
+    kpos = torch.arange(smax, device=dev)
+    vis = (kpos[None] < lens[:, None]) & (kpos[None] >= lens[:, None] - win)
+    mask = vis[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib_ms = timed(lambda: sdpa(qs, arena_k[nxt()].transpose(1, 2),
+                                arena_v[layer[0]].transpose(1, 2),
+                                attn_mask=mask), 20)
+    live = int(vis.sum())
+    rec["flash_decode_hymba"] = dict(
+        module=flash_decode, label="fd hymba w=1024", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
+        flops=4 * live * h * d)
+    print(f"  flash_decode window={win}: {live} visible keys of "
+          f"{int(torch.clamp(lens, max=smax).sum())} live rows; arrival "
+          f"counters 0 after the calls")
+
+    # -- flash_prefill_chunk: C = 512 at prefix 1024, and the pin ------------
+    c, p0 = 512, 1024
+    qc = rn(1, c, h, d)
+    pf = torch.tensor([p0], device=dev)
+    own_k, own_v = arena_k[0, 2:3], arena_v[0, 2:3]
+    table = torch.tensor([2], device=dev)
+    errs = []
+    for w in windows:
+        errs.append(check(
+            f"flash_prefill_chunk window={w}",
+            ops.flash_prefill_chunk(qc, arena_k[0], arena_v[0], prefix=pf,
+                                    window=w, slots=table),
+            P.flash_prefill_chunk(qc, own_k, own_v, prefix=pf, window=w),
+            "bfloat16", f"(C={c} at prefix {p0}, slot table)",
+            fault=None if w > smax else (
+                "the window dropped",
+                P.flash_prefill_chunk(qc, own_k, own_v, prefix=pf)),
+            margin=FAULT_MARGIN))
+    pins = {}
+    for w in windows:
+        chunk_out = ops.flash_prefill_chunk(qc, arena_k[0], arena_v[0],
+                                            prefix=pf, window=w,
+                                            slots=table)
+        dec_out = ops.flash_decode(
+            qc[0], own_k.expand(c, smax, kvh, d),
+            own_v.expand(c, smax, kvh, d),
+            lengths=p0 + torch.arange(c, device=dev) + 1, window=w)
+        pins[w] = bool(torch.equal(chunk_out[0], dec_out))
+        print(f"  pin under window {w}: chunk row j == flash_decode at pos "
+              f"{p0} + j, bit for bit (bf16, G={h // kvh}, hd {d}): "
+              f"{pins[w]} (max diff "
+              f"{(chunk_out[0].float() - dec_out.float()).abs().max().item()}"
+              f")")
+    assert all(pins.values()), f"chunk/decode bit pin broken: {pins}"
+    ms = timed(lambda: flash_prefill_chunk.launch(
+        qc, arena_k[nxt()], arena_v[layer[0]], pf, window=win,
+        slots=table), 20)
+    plain_ms = timed(lambda: P.flash_prefill_chunk(
+        qc, arena_k[nxt(), 2:3], arena_v[layer[0], 2:3], prefix=pf,
+        window=win), 5)
+    qpos = p0 + torch.arange(c, device=dev)
+    cmask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :]
+                                                > qpos[:, None] - win)
+    qt = qc.transpose(1, 2)
+    lib_ms = timed(lambda: sdpa(qt, arena_k[nxt(), 2:3].transpose(1, 2),
+                                arena_v[layer[0], 2:3].transpose(1, 2),
+                                attn_mask=cmask), 20)
+    rows = int(cmask.any(0).sum())
+    rec["flash_prefill_chunk_hymba"] = dict(
+        module=flash_prefill_chunk, label="fpc hymba w=1024",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=2 * (2 * qc.numel() + 2 * rows * kvh * d),
+        flops=4 * int(cmask.sum()) * h * d, pin=all(pins.values()))
+    del arena_k, arena_v
+
+    # -- ssd: the SSD branch, N = 16 ----------------------------------------
+    s_cfg = cfg.ssm
+    nh, hd, n = s_cfg.n_heads(cfg.d_model), s_cfg.headdim, s_cfg.d_state
+    g2 = torch.Generator(device=dev).manual_seed(27)
+
+    def inputs(s):
+        x = (torch.randn((s, nh, hd), generator=g2, device=dev)
+             * 0.05).to(torch.bfloat16).transpose(0, 1)
+        la = -torch.rand((s, nh), generator=g2, device=dev).T * 0.1
+        B = torch.randn((1, s, n), generator=g2, device=dev).to(
+            torch.bfloat16)
+        C = torch.randn((1, s, n), generator=g2, device=dev).to(
+            torch.bfloat16)
+        st = torch.randn((nh, n, hd), generator=g2, device=dev) * 0.1
+        return x, la, B, C, st
+
+    errs = []
+    for s in (1536, 1200):
+        x, la, B, C, st = inputs(s)
+        for init in (None, st):
+            got = ops.ssd(x, la, B, C, chunk=s_cfg.chunk, initial_state=init)
+            want = P.ssd(x, la, B, C, chunk=s_cfg.chunk, initial_state=init)
+            la_bad = la.clone()
+            la_bad[:, -8] -= 1.0
+            decay = P.ssd(x, la_bad, B, C, chunk=s_cfg.chunk,
+                          initial_state=init)
+            y_fault = (("log_a[:, -8] - 1", decay[0]) if init is None else
+                       ("initial state dropped",
+                        P.ssd(x, la, B, C, chunk=s_cfg.chunk)[0]))
+            label = f"ssd N={n} S={s} init={init is not None}"
+            errs.append(max(
+                check(f"{label} y", got[0], want[0], "ssd",
+                      fault=y_fault),
+                check(f"{label} state", got[1], want[1], "ssd",
+                      fault=("log_a[:, -8] - 1", decay[1]))))
+    s = 1536
+    sets = [inputs(s)[:4] for _ in range(3)]
+
+    def nssd():
+        k_[0] = (k_[0] + 1) % len(sets)
+        return sets[k_[0]]
+
+    ms = timed(lambda: ssd.launch(*nssd()), 20)
+    plain_ms = timed(lambda: P.ssd(*nssd(), chunk=s_cfg.chunk), 5)
+    nbytes = (2 * nh * s * hd * 2 + nh * s * 4 + 2 * s * n * 2
+              + nh * n * hd * 4)
+    q64 = 64
+    full, rem = divmod(s, q64)
+    pairs = full * q64 * (q64 + 1) // 2 + rem * (rem + 1) // 2
+    rec["ssd_hymba"] = dict(
+        module=ssd, label=f"ssd hymba N={n}", max_abs_err=max(errs), ms=ms,
+        plain_ms=plain_ms, library_ms=None, bytes=nbytes,
+        flops=nh * (2 * pairs * (n + hd) + 2 * 2 * s * n * hd))
+    return rec
+
+
 def bound(r):
     """Fill ``bound_ms`` / ``bound_by`` of a kernel record and print it
     (operations at the record's ``flop_rate``, bf16's by default)."""
@@ -1350,25 +1618,55 @@ def bound(r):
 
 SERVE_ARGS = ["--no-reduced", "--requests", "4", "--prompt-len", "1024",
               "--slots", "4", "--depth", "2", "--device", "cuda"]
+# hymba-1.5b's prompts, 1536 / 1200: past its 1024-key window, so the
+# window bites in prefill as well as decode (and S = 1200 puts query tiles
+# across heads in monolithic prefill)
+HYMBA = "hymba-1.5b"
+HYMBA_PROMPTS = ["--prompt-len", "1536", "--prompt-mix", "1536,1200"]
+
+
+def serve_args(arch):
+    """Phase 4's serve flags for ``arch`` (hymba-1.5b: its prompts)."""
+    return SERVE_ARGS + (HYMBA_PROMPTS if arch == HYMBA else [])
+
+
+def path_kernels(cfg):
+    """(monolithic prefill's kernels, a chunk's kernels, decode's kernels)
+    of the family's path: dense attention, ssm ssd, hybrid both."""
+    attn, ssm = cfg.family != "ssm", cfg.ssm is not None
+    return ((("flash_attention",) if attn else ()) + (("ssd",) if ssm
+                                                      else ()),
+            (("flash_prefill_chunk",) if attn else ()) + (("ssd",) if ssm
+                                                          else ()),
+            ("flash_decode",) if attn else ())
 
 
 def serving_runs(torch, ops, serve, arch, gen):
     """Phase 4: both prefill modes of ``arch`` at full width.  Returns
     (bundle, params, args, {mode: (engine, out, seconds, launch
     counts)})."""
-    base = ["--arch", arch, "--gen", str(gen)] + SERVE_ARGS
+    base = ["--arch", arch, "--gen", str(gen)] + serve_args(arch)
     args = serve.parse_args(base)
     t0 = time.perf_counter()
     bundle, params = serve.build(args)
     torch.cuda.synchronize()
     cfg = bundle.cfg
-    if cfg.family == "ssm":
-        shape = (f"d_inner={cfg.ssm.d_inner(cfg.d_model)}, "
-                 f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads x "
-                 f"{cfg.ssm.headdim}, d_state={cfg.ssm.d_state}, "
-                 f"chunk={cfg.ssm.chunk}")
-    else:
-        shape = f"H={cfg.n_heads}/KVH={cfg.n_kv_heads}, d_ff={cfg.d_ff}"
+    shape = []
+    if cfg.family != "ssm":
+        shape.append(f"H={cfg.n_heads}/KVH={cfg.n_kv_heads}, hd={cfg.hd}, "
+                     f"d_ff={cfg.d_ff}")
+    if cfg.family == "hybrid":
+        win = bundle.model.windows
+        glob = [i for i, w in enumerate(win) if w != cfg.attn_window]
+        shape.append(f"window {cfg.attn_window} in "
+                     f"{win.count(cfg.attn_window)} layers, global layers "
+                     f"{glob}")
+    if cfg.ssm is not None:
+        shape.append(f"d_inner={cfg.ssm.d_inner(cfg.d_model)}, "
+                     f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads x "
+                     f"{cfg.ssm.headdim}, d_state={cfg.ssm.d_state}, "
+                     f"chunk={cfg.ssm.chunk}")
+    shape = ", ".join(shape)
     print(f"phase 4: {cfg.name} full width: {cfg.n_params() / 1e9:.3f} B "
           f"params ({cfg.n_layers} layers, d={cfg.d_model}, {shape}, "
           f"V={cfg.vocab}, {cfg.param_dtype}); init "
@@ -1399,9 +1697,9 @@ def serving_runs(torch, ops, serve, arch, gen):
         assert eng.draw_graph is None
         check_chunk_graphs(eng)
         print_graphs(f"  {mode}", eng)
-        if cfg.family == "dense":
+        for name in path_kernels(cfg)[2]:
             # every replayed launch counted, plus the warm-up step's own
-            assert counts["flash_decode"] == cfg.n_layers * (g.replays + 1), \
+            assert counts[name] == cfg.n_layers * (g.replays + 1), \
                 (counts, g.replays)
         for o in out.values():
             assert o.shape == (margs.gen,), o.shape
@@ -1413,16 +1711,15 @@ def serving_runs(torch, ops, serve, arch, gen):
     # from its length's graph, plus each chunk graph's parked warm-up (as
     # flash_decode counts its decode graph's warm-up step)
     nl = cfg.n_layers
-    chunk_kernel = "ssd" if cfg.family == "ssm" else "flash_prefill_chunk"
-    assert chunked[chunk_kernel] == nl * (c_eng.stats["prefill_chunks"]
-                                          + len(c_eng.chunk_graphs)) > 0, \
-        chunked
-    if cfg.family == "ssm":
-        assert mono["ssd"] == nl * m_eng.stats["prefills"] > 0, mono
-    else:
-        assert mono["flash_attention"] > 0, mono
-        assert mono["flash_decode"] > 0, mono
-        assert chunked["flash_decode"] > 0, chunked
+    prefill_k, chunk_k, decode_k = path_kernels(cfg)
+    for name in chunk_k:
+        assert chunked[name] == nl * (c_eng.stats["prefill_chunks"]
+                                      + len(c_eng.chunk_graphs)) > 0, \
+            (name, chunked)
+    for name in prefill_k:
+        assert mono[name] == nl * m_eng.stats["prefills"] > 0, (name, mono)
+    for name in decode_k:
+        assert mono[name] > 0 and chunked[name] > 0, (mono, chunked)
     return bundle, params, args, runs
 
 
@@ -1496,7 +1793,8 @@ def profile_run(torch, ops, serve, bundle, params, mode, chunk_graph=True):
     Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(["--arch", bundle.name, "--gen", "16",
-                             "--prefill-mode", mode] + SERVE_ARGS)
+                             "--prefill-mode", mode]
+                            + serve_args(bundle.name))
     args.chunk_graph = chunk_graph
     eng = serve.engine(bundle, params, args)
     label = (f"{bundle.name} {mode} captured"
@@ -1569,7 +1867,8 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
     prefill mode in alternating order; every run's token streams must equal phase 4's captured run's.
     Prints tok/s and wall ms per decode step (prefill included) of each
     run; returns {mode: {kind: [(tok/s, ms per step), ...]}}."""
-    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    base = (["--arch", bundle.name, "--gen", str(gen)]
+            + serve_args(bundle.name))
     table = {}
     for mode in ("monolithic", "chunked"):
         want = runs[mode][1]
@@ -1611,7 +1910,8 @@ def chunk_pairs(torch, serve, bundle, params, runs, gen, pairs=3):
     TTFT s}, host_blocked_s), ...]}}."""
     import numpy as np
     from repro_torch.runtime.serving import Request
-    base = (["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    base = (["--arch", bundle.name, "--gen", str(gen)]
+            + serve_args(bundle.name)
             + ["--prefill-mode", "chunked"])
     want = runs["chunked"][1]
     kinds = ("eager chunks", "captured chunks")
@@ -1704,7 +2004,8 @@ def decode_window(torch, serve, bundle, params, kinds=None, pairs=3,
     for kind, extra in kinds.items():
         flags, attrs = (extra, {}) if isinstance(extra, list) else extra
         args = serve.parse_args(
-            ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS + flags)
+            ["--arch", bundle.name, "--gen", str(gen)]
+            + serve_args(bundle.name) + flags)
         for key, value in attrs.items():
             setattr(args, key, value)
         eng = engines[kind] = serve.engine(bundle, params, args)
@@ -1812,8 +2113,10 @@ def chi2_check(torch, L, sampling, n=20000, v=101):
 
 def sampler_checks(torch):
     """Phase 4d (a): ``sample_step`` on the card against the same function
-    on the CPU, same f32 logits at 4 x 128256 (llama3.2-3b) and 4 x 50280
-    (mamba2-2.7b), other knobs and seed in each slot: keys, the V-word
+    on the CPU, same f32 logits at 4 x 128256 (llama3.2-3b), 4 x 50280
+    (mamba2-2.7b) and 4 x 32001 (hymba-1.5b: an odd vocabulary, so the
+    windowed sums pad unevenly), other knobs and seed in each slot: keys,
+    the V-word
     draws, the kept sets and values and the tokens bit for bit; with q + 1
     the sampled slots' tokens must move (the planted fault) and the greedy
     slot's not.  Then the sampler alone on the card, eager (wall ms a call,
@@ -1824,7 +2127,7 @@ def sampler_checks(torch):
     from repro_torch.runtime.serving import sampling
     res = {}
     sampled = torch.tensor([kn[0] > 0 for kn in SLOT_KNOBS])
-    for v in (128256, 50280):
+    for v in (128256, 50280, 32001):
         out = {}
         for dev in ("cpu", "cuda"):
             logits, seed, q, t, k, p, m = sampler_inputs(torch, v, dev)
@@ -1887,7 +2190,8 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
     run])."""
     import numpy as np
     from repro_torch.runtime.serving import Request, ServingEngine
-    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS \
+    base = ["--arch", bundle.name, "--gen", str(gen)] \
+        + serve_args(bundle.name) \
         + SAMPLE_ARGS
     cfg = bundle.cfg
     res, all_counts = {}, []
@@ -1911,10 +2215,10 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
         assert eng.draw_graph.replays == st["sampled_requests"], \
             eng.draw_graph.replays
         check_chunk_graphs(eng)
-        if cfg.family == "dense":
-            assert counts["flash_decode"] == cfg.n_layers * (
+        for name in path_kernels(cfg)[2]:
+            assert counts[name] == cfg.n_layers * (
                 st["decode_steps"] + 2), counts
-        else:
+        if cfg.ssm is not None:
             assert counts["ssd"] == cfg.n_layers * (
                 st["prefills"] + st["prefill_chunks"]
                 + len(eng.chunk_graphs)) > 0, counts
@@ -2027,7 +2331,8 @@ def narrow_runs(torch, ops, serve, bundle, params, runs, gen=64):
     streams}})."""
     import numpy as np
     from repro_torch.runtime.serving import tolerance
-    base = ["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    base = (["--arch", bundle.name, "--gen", str(gen)]
+            + serve_args(bundle.name))
     cfg = bundle.cfg
     nl = cfg.n_layers
     all_counts = []
@@ -2121,6 +2426,9 @@ SHARED_ARGS = ["--requests", "4", "--prompt-len", "1024", "--prompt-mix",
                "shared-prefix", "--slots", "4", "--depth", "2",
                "--prefill-mode", "chunked", "--chunk-buckets", "256,512",
                "--page-size", "16", "--no-reduced", "--device", "cuda"]
+# hymba-1.5b's shared-prefix mix: 4 x 1536 tokens, the first 1024 common,
+# so a fork's decode window (1024 keys) straddles its shared length
+HYMBA_SHARED = ["--prompt-len", "1536", "--shared-prefix", "1024"]
 
 
 def chunk_timer(torch, eng):
@@ -2168,7 +2476,10 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
     """Phase 4f: the shared-prefix mix served at full width with prefix
     sharing on and off (alternating pairs, ``pairs`` of them), decode and
     chunks captured: llama3.2-3b over its fp32-format arena and int8,
-    mamba2-2.7b.  Each run serves the requests twice on one engine: a first
+    mamba2-2.7b, hymba-1.5b (its own mix, :data:`HYMBA_SHARED`: its forks
+    read the donor's K/V rows through the table and resume the SSD state
+    from snapshots).  Each run serves the requests twice on one engine: a
+    first
     wave (which captures the chunk graph inside it, as phase 4c's) and a
     second of the same prompts as new requests (the graphs exist; with no
     chain cap the first wave's chains went with their holders, so it forks
@@ -2187,7 +2498,9 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
     t_phase = time.perf_counter()
     cfg = bundle.cfg
     dense = cfg.family == "dense"
-    base = ["--arch", bundle.name, "--gen", str(gen)] + SHARED_ARGS
+    attn = path_kernels(cfg)[2]
+    base = (["--arch", bundle.name, "--gen", str(gen)] + SHARED_ARGS
+            + (HYMBA_SHARED if bundle.name == HYMBA else []))
     shared = serve.shared_prefix_len(serve.parse_args(base))
     n_req = serve.parse_args(base).requests
     forks = n_req - 1
@@ -2254,7 +2567,7 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
                 assert not any(m.region_pinned(s)
                                for s in range(eng.max_slots))
                 check_chunk_graphs(eng)
-                if dense:
+                if attn:
                     for name in ("flash_decode", "flash_prefill_chunk"):
                         assert counts[name] > 0, counts
                         assert counts[name + "_donor"] == (
@@ -2289,7 +2602,7 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
                       f"{rs[0]['chunks']} chunks")
         for kind, eng in engines.items():
             print_graphs(f"  sharing {kind}", eng)
-        if not dense:
+        if bundle.model.has_recurrent_state:
             eng = engines["on"]
             nbytes = eng.stats["snapshot_bytes"]
             snap_ms = timed(lambda: eng.model.extract_slot_state(
@@ -2489,7 +2802,8 @@ def speculative_runs(torch, ops, serve, bundle, params, runs, sampled_out,
     run]."""
     from repro_torch.runtime.serving import SpecConfig
     cfg = bundle.cfg
-    base = (["--arch", bundle.name, "--gen", str(gen)] + SERVE_ARGS
+    base = (["--arch", bundle.name, "--gen", str(gen)]
+            + serve_args(bundle.name)
             + ["--prefill-mode", "chunked"])
     all_counts = []
 
@@ -2721,7 +3035,7 @@ def flag_cost(torch, serve, bundle, params, n=40):
     from repro_torch.models import layers as L
     from repro_torch.runtime.serving import Status, graphs
     args = serve.parse_args(["--arch", bundle.name, "--gen", "48"]
-                            + SERVE_ARGS + SAMPLE_ARGS
+                            + serve_args(bundle.name) + SAMPLE_ARGS
                             + ["--sampling-mix", "1.0"])
     eng = serve.engine(bundle, params, args)
     while eng.scheduler.waiting or any(
@@ -2800,7 +3114,8 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
     decode and chunk steps captured, two waves an engine (the second
     reuses every slot, a quarantined one after its scrub).
 
-    Both families: fault-free and faulted runs in ``pairs`` alternating
+    Every family (hymba-1.5b: its poison fills K/V rows, SSD state and
+    conv tail): fault-free and faulted runs in ``pairs`` alternating
     pairs; the faulted runs' survivors equal phase 4's captured chunked
     streams bit for bit, victims keep a prefix, each poison is
     quarantined (:func:`fault_problems`), and the two faulted runs repeat
@@ -2824,7 +3139,7 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
                                              HealthConfig, SpecConfig)
     t_start = time.perf_counter()
     name = bundle.name
-    base = (["--arch", name, "--gen", "64"] + SERVE_ARGS
+    base = (["--arch", name, "--gen", "64"] + serve_args(name)
             + ["--prefill-mode", "chunked"])
     args = serve.parse_args(base)
     clean = runs["chunked"][1]
@@ -2869,8 +3184,7 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
     for out, fired, _ in faulted[1:]:
         assert fired == faulted[0][1] and same_streams(out, faulted[0][0])
     nl = bundle.cfg.n_layers
-    kernels = (("ssd",) if bundle.cfg.family == "ssm"
-               else ("flash_decode", "flash_prefill_chunk"))
+    kernels = set(path_kernels(bundle.cfg)[1] + path_kernels(bundle.cfg)[2])
     assert all(counts[k] > 0 for k in kernels), counts
     print(f"phase 4h: {name} faulted run's launches {counts} ({nl} layers)")
     print(f"phase 4h: {name} medians of {pairs} alternating pairs, first "
@@ -2897,7 +3211,8 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
           f"scrub {scrub_ms:.4f} ms a slot")
     del eng
     # monolithic prefill (flash_attention) under the same plan, one wave
-    mono = serve.parse_args(["--arch", name, "--gen", "64"] + SERVE_ARGS)
+    mono = serve.parse_args(["--arch", name, "--gen", "64"]
+                            + serve_args(name))
     ops.reset_launch_counts()
     eng, out, _, _ = fault_run(torch, serve, bundle, params, mono, plan,
                                waves=1)
@@ -3056,6 +3371,43 @@ def ssm_f32_check(torch, ops, cfg, params, prompt):
     assert f_diff > tol, f_diff
 
 
+def hybrid_f32_check(torch, ops, cfg, params, prompt):
+    """Phase 5b (hybrid): request 0's prefill logits (1536 tokens, past
+    the window) with f32 params and activations, kernel path vs plain
+    path, held to HYMBA_F32_LOGIT_TOL; the plain path with the window
+    dropped in every windowed layer (the planted fault) must exceed it by
+    more than FAULT_MARGIN."""
+    from repro_torch.models import registry
+    P = ops.PLAIN
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    p32 = f32(params)
+    logits = {}
+    for name, kops in (("kernel", ops), ("plain", P), ("fault", P)):
+        model = registry.build_model(cfg32, device="cuda", kernels=kops)
+        if name == "fault":
+            model.windows = [cfg.max_seq + 1] * cfg.n_layers
+        logits[name] = prefill_logits(model, p32, prompt)
+    del p32
+    diff = (logits["kernel"] - logits["plain"]).abs().max().item()
+    f_diff = (logits["fault"] - logits["plain"]).abs().max().item()
+    tol = HYMBA_F32_LOGIT_TOL
+    print(f"phase 5b: {cfg.name} f32 request 0 prefill logits "
+          f"({prompt.shape[1]} tokens), kernel vs plain path: max |diff| = "
+          f"{diff:.4e} (tol {tol}; logits std "
+          f"{logits['plain'].std().item():.4f}); planted fault (the window "
+          f"dropped in the {cfg.n_layers - cfg.n_global_layers} windowed "
+          f"layers): {f_diff:.4e}, {f_diff / tol:.1f} of the limit")
+    assert bool(torch.isfinite(logits["kernel"]).all())
+    assert diff <= tol, diff
+    assert f_diff > FAULT_MARGIN * tol, f_diff
+
+
 def carry_dropped(P):
     """The plain ssd with a planted fault: the carry into the last 64-token
     inner chunk dropped (the state entering it is zero)."""
@@ -3206,7 +3558,7 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
     plain = registry.build_model(bundle.cfg, device="cuda",
                                  kernels=ops.PLAIN)
     models = [("kernel", bundle.model), ("plain", plain)]
-    ssm = bundle.cfg.family == "ssm"
+    ssm = bundle.cfg.ssm is not None
     if ssm:
         # control: the plain path with 64-token SSD chunks, which changes
         # nothing but the f32 rounding of the scan
@@ -3236,8 +3588,11 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
     assert bool(torch.isfinite(logits["kernel"]).all())
     if ssm:
         del logits, models, plain
-        ssm_layer_check(torch, ops, bundle.cfg, params, prompt)
-        ssm_f32_check(torch, ops, bundle.cfg, params, prompt)
+        if bundle.cfg.family == "ssm":
+            ssm_layer_check(torch, ops, bundle.cfg, params, prompt)
+            ssm_f32_check(torch, ops, bundle.cfg, params, prompt)
+        else:
+            hybrid_f32_check(torch, ops, bundle.cfg, params, prompt)
     else:
         assert diff <= LOGIT_TOL, diff
         if gap >= LOGIT_TOL:
@@ -3249,6 +3604,54 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
         n = int(np.argmin(a == b)) if not (a == b).all() else a.size
         print(f"  request {uid}: monolithic vs chunked token-match prefix "
               f"{n}/{a.size}")
+
+
+def hybrid_phase(torch, ops, serve, smi):
+    """Phases 4 and 5 for hymba-1.5b (the hybrid family: each layer's
+    attention window and SSD branch side by side) at full width, random
+    weights, prompts 1536 / 1200: served monolithic and chunked (4), the
+    chunks eager against captured and the stale-start fault, decode-only
+    windows eager against captured with the device ms a step (4c), half
+    the requests sampled, captured against eager (4d), the shared-prefix
+    mix with sharing on and off (4f), the fault plan (4h), and request 0's
+    logits (5).  Fewer repetitions than the other two models' phases, to
+    hold the smoke's time; every check in full.  Returns the launch counts
+    of its main-path runs, each kernel's count under ``<kernel>_hymba``
+    (the kernel table's rows 1h-4h)."""
+    t_start = time.perf_counter()
+    bundle, params, args, runs = serving_runs(torch, ops, serve, HYMBA,
+                                              gen=64)
+    cpairs = chunk_pairs(torch, serve, bundle, params, runs, gen=64,
+                         pairs=1)
+    window, wbusy = decode_window(torch, serve, bundle, params, pairs=1)
+    mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params, runs)
+    shared = shared_prefix_runs(torch, ops, serve, bundle, params, pairs=1)
+    faulted = fault_phase(torch, ops, serve, bundle, params, runs)
+    end_to_end(torch, ops, serve, bundle, params, args, runs)
+    ttft = {mode: sorted(run[0].stats["ttft_s"].values())
+            for mode, run in runs.items()}
+    tok_s = {mode: sum(o.size for o in run[1].values()) / run[2]
+             for mode, run in runs.items()}
+    pools = {mode: sum(g.pool_bytes for g in
+                       [run[0].graph, *run[0].chunk_graphs.values()])
+             for mode, run in runs.items()}
+    rows = cpairs["captured chunks"]
+    print(f"phase 4: {HYMBA} summary ({smi}): "
+          + "; ".join(f"{mode} {tok_s[mode]:.1f} tok/s, TTFT ms "
+                      f"{[round(1e3 * t, 1) for t in ttft[mode]]}, graph "
+                      f"pools {pools[mode] / 1e6:.1f} MB" for mode in runs)
+          + f"; captured greedy decode step {wbusy['captured'][0]:.3f} ms "
+            f"device, {statistics.median(window['captured']):.3f} ms wall "
+            f"(eager {statistics.median(window['eager']):.3f} ms wall); "
+            f"captured chunks second wave "
+            f"{statistics.median(r[0] for r in rows['second']):.1f} tok/s; "
+            f"sampled mix " + ", ".join(f"{mode} {r[0]:.1f} tok/s"
+                                        for mode, r in mixed.items())
+          + f"; phases 4-5 in {time.perf_counter() - t_start:.1f} s")
+    counts = [run[3] for run in runs.values()] + counts4d + shared + faulted
+    del bundle, params, runs
+    torch.cuda.empty_cache()
+    return [{f"{k}_hymba": v for k, v in c.items()} for c in counts]
 
 
 def vector_unit_phase(torch, ops):
@@ -3606,6 +4009,7 @@ def main() -> int:
                                     registry.config("llama3.2-3b")))
     rec.update(donor_checks(torch, ops, registry.config("llama3.2-3b")))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
+    rec.update(hybrid_kernel_checks(torch, ops, registry.config(HYMBA)))
     for name in sorted(rec):
         bound(rec[name])
     stamp("phases 1-3")
@@ -3622,12 +4026,13 @@ def main() -> int:
         busy[("chunked", "eager chunks")] = profile_run(
             torch, ops, serve, bundle, params, "chunked", chunk_graph=False)
         stamp(f"{arch} phase 4b")
-        # the decode-step timing pairs run once (their checks in full) to
-        # hold the smoke's time with the chunk pairs added
+        # the decode-step and chunk timing pairs run once each (their
+        # checks in full) to hold the smoke's time with hymba's phases
+        # added
         pairs = eager_vs_captured(serve, bundle, params, runs, gen=64,
                                   pairs=1)
         cpairs = chunk_pairs(torch, serve, bundle, params, runs, gen=64,
-                             pairs=2)
+                             pairs=1)
         window, wbusy = decode_window(torch, serve, bundle, params, pairs=1)
         stamp(f"{arch} phase 4c")
         mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params,
@@ -3684,6 +4089,8 @@ def main() -> int:
         all_runs += [run[3] for run in runs.values()] + counts4d
         del bundle, params, runs
         torch.cuda.empty_cache()
+    all_runs += hybrid_phase(torch, ops, serve, smi)
+    stamp(f"{HYMBA} phases 4-5")
     vu_rec, vu_counts = vector_unit_phase(torch, ops)
     stamp("phase 6")
     for name in sorted(vu_rec):
@@ -3694,7 +4101,7 @@ def main() -> int:
     kernels = []
     for name in sorted(rec):
         r = rec[name]
-        launches = sum(counts[name] for counts in all_runs)
+        launches = sum(counts.get(name, 0) for counts in all_runs)
         assert launches > 0, (name, launches)
         kernels.append({
             "name": name, "route": "cuda", "source": r["module"].SOURCE,
@@ -3709,7 +4116,9 @@ def main() -> int:
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "
           f"{'holds' if rec['flash_prefill_chunk']['pin'] else 'broken'}"
-          f" (bf16), holds (int8, fp8, and under the donor table)")
+          f" (bf16), holds (int8, fp8, under the donor table, and under "
+          f"hymba's window 1024: "
+          f"{rec['flash_prefill_chunk_hymba']['pin']})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

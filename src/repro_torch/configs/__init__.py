@@ -1,1 +1,1 @@
-"""Architecture configs of the dense decoder-only family (torch dtypes)."""
+"""Architecture configs of the ported families (torch dtypes)."""

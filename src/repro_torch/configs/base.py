@@ -86,26 +86,31 @@ class ArchConfig:
         return _DTYPES[self.act_dtype]
 
     def n_params(self) -> int:
-        """Total parameter count (embedding included) of a dense or ssm
-        config, by the reference's formula (configs/base.py:90)."""
-        if self.family not in ("dense", "ssm"):
+        """Total parameter count (embedding included) of a dense, ssm or
+        hybrid config, by the reference's formula (configs/base.py:90)."""
+        if self.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"n_params for family {self.family!r} is not ported")
         d, hd = self.d_model, self.hd
-        if self.family == "ssm":
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.qk_norm:
+            attn += 2 * hd
+        mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
+        if self.ssm is not None:
             s = self.ssm
             di, nh = s.d_inner(d), s.n_heads(d)
             gn = s.n_groups * s.d_state
-            per_layer = (d * (2 * di + 2 * gn + nh)       # in projections
-                         + s.conv_width * (di + 2 * gn)   # depthwise conv
-                         + 2 * nh + nh                    # A_log, dt_bias, D
-                         + di + di * d + 2 * d)           # norm + out + lns
+            ssm_p = (d * (2 * di + 2 * gn + nh)           # in projections
+                     + s.conv_width * (di + 2 * gn)       # depthwise conv
+                     + 2 * nh + nh                        # A_log, dt_bias, D
+                     + di + di * d)                       # norm + out
+        if self.family == "ssm":
+            per_layer = ssm_p + 2 * d                     # + lns
+        elif self.family == "hybrid":
+            # both branches, their two output norms and ln1 / ln2
+            per_layer = attn + ssm_p + mlp + 3 * d
         else:
-            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-                + self.n_heads * hd * d
-            if self.qk_norm:
-                attn += 2 * hd
-            mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
             per_layer = attn + mlp + 2 * d
         total = self.n_layers * per_layer
         total += self.vocab * d                      # embed
@@ -114,7 +119,8 @@ class ArchConfig:
         return int(total + d)                        # + final norm
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test scale config of the same (dense or ssm) family."""
+        """Smoke-test scale config of the same (dense, ssm or hybrid)
+        family (reference configs/base.py:150)."""
         kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                   vocab=256, head_dim=16, max_seq=128)
         if self.ssm:
@@ -123,4 +129,7 @@ class ArchConfig:
             if self.family == "ssm":
                 kw["n_heads"] = 8      # d_inner(64)=128 / headdim 16
                 kw["n_kv_heads"] = 8
+        if self.family == "hybrid":
+            kw["attn_window"] = 32
+            kw["n_global_layers"] = 1
         return dataclasses.replace(self, **kw)

@@ -3,14 +3,17 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b --no-reduced
 --requests 4 --prompt-len 1024 --gen 64 --slots 4 --depth 2``
 
-Port of ``repro/launch/serve.py`` for the ported families (dense, and
-ssm: ``--arch mamba2-2.7b``).  Runs on the card unless ``--device cpu``.
+Port of ``repro/launch/serve.py`` for the ported families (dense; ssm:
+``--arch mamba2-2.7b``; hybrid: ``--arch hymba-1.5b``, whose arena line
+gives both its K/V bytes a row and its SSD state bytes a slot).  Runs on
+the card unless ``--device cpu``.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
 reference always draws them from ``PRNGKey(0)``); prompts come from
 ``numpy.random.default_rng(0)`` as in the reference (odd requests get a
 25%-shorter prompt, or ``--prompt-mix`` cycles given lengths, or
 ``--prompt-mix shared-prefix`` gives every request a common page-aligned
-half of ``--prompt-len`` and a tail of its own, reference serve.py:324-334).
+half of ``--prompt-len``, or ``--shared-prefix`` tokens, and a tail of its
+own, reference serve.py:324-334).
 ``--prefix-sharing`` (chunked prefill only) turns the copy-on-write prefix
 cache on: later requests fork onto the first one's pages and ingest only
 their tails.
@@ -119,6 +122,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "requests, or 'shared-prefix' for a common prefix of "
                         "half --prompt-len (page-aligned) plus distinct "
                         "tails; overrides --prompt-len")
+    p.add_argument("--shared-prefix", type=int, default=None,
+                   help="the shared-prefix mix's common head in tokens "
+                        "(cut to whole pages; default half --prompt-len)")
     p.add_argument("--prefix-sharing", action="store_true",
                    help="copy-on-write prefix cache: fork repeated "
                         "page-aligned prompt prefixes onto shared pages "
@@ -205,10 +211,13 @@ SHARED_PREFIX = "shared-prefix"
 
 
 def shared_prefix_len(args) -> int:
-    """The common prefix of the shared-prefix mix: half ``--prompt-len``
-    cut to whole pages, at least one page."""
+    """The common prefix of the shared-prefix mix: ``--shared-prefix``
+    (default half ``--prompt-len``) cut to whole pages, at least one
+    page."""
     ps = args.page_size
-    return max(ps, args.prompt_len // 2 // ps * ps)
+    want = (args.shared_prefix if args.shared_prefix is not None
+            else args.prompt_len // 2)
+    return max(ps, want // ps * ps)
 
 
 def prompt_lengths(args) -> list[int]:
@@ -346,9 +355,12 @@ def report_stats(eng: ServingEngine) -> None:
     stats = dict(eng.stats)
     ttft = sorted(stats.pop("ttft_s", {}).values())
     print("engine:", stats)
-    unit = "state bytes/slot" if eng.model.layers.recurrent else "bytes/row"
+    units = ([f"{stats['kv_row_bytes']} bytes/row"]
+             if "kv_row_bytes" in stats else []) \
+        + ([f"{eng.state_bytes_per_slot} state bytes/slot"]
+           if eng.state_bytes_per_slot else [])
     print(f"arena: {eng.arena_bytes / 1e6:.2f} MB resident "
-          f"(kv_format={eng.kv_format}, {eng.arena_unit_bytes} {unit}, "
+          f"(kv_format={eng.kv_format}, {', '.join(units)}, "
           f"written in place)")
     total = max(stats["requests"], 1)
     sampled = stats["sampled_requests"]

@@ -3,11 +3,14 @@
 The reference LM's parameters (``transformer.py:335-346``) are a nested
 dict: ``embed``, ``layers`` (dense: ``{ln1,attn.{wq,wk,wv,wo,q_norm?,
 k_norm?},ln2,mlp.{w_up,w_gate?,w_down}}``; ssm: ``{ln,mamba.{w_z,w_x,w_B,
-w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23), each leaf
+w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23; hybrid: the
+dense layer's leaves with ``attn_norm``, ``mamba`` and ``mamba_norm``,
+hybrid.py:32), each leaf
 stacked on a leading L axis, ``final_norm`` and ``lm_head`` (absent when
 embeddings are tied).  The port keeps that layout exactly, so the bridge
 is a checked leaf-by-leaf copy.  Every leaf takes ``cfg.param_dtype``
-except the ssm family's ``A_log``/``dt_bias``/``D``, which are float32
+except the mamba branch's ``A_log``/``dt_bias``/``D`` (ssm and hybrid),
+which are float32
 whatever the param dtype, as in the reference (mamba2.py:42-44).
 Callers hand the tree over as numpy arrays (``np.asarray`` of each leaf),
 so this module never sees a JAX type.
@@ -24,13 +27,12 @@ from repro_torch.core import device as device_mod
 F32_LEAVES = ("layers.mamba.A_log", "layers.mamba.dt_bias", "layers.mamba.D")
 
 
-def _ssm_layer_shapes(cfg) -> dict:
+def _mamba_shapes(cfg) -> dict:
     s, d, nl = cfg.ssm, cfg.d_model, cfg.n_layers
     di, nh = s.d_inner(d), s.n_heads(d)
     gn = s.n_groups * s.d_state
     m = "layers.mamba."
     return {
-        "layers.ln.scale": (nl, d),
         m + "w_z": (nl, d, di), m + "w_x": (nl, d, di),
         m + "w_B": (nl, d, gn), m + "w_C": (nl, d, gn),
         m + "w_dt": (nl, d, nh), m + "conv": (nl, s.conv_width, di + 2 * gn),
@@ -40,11 +42,12 @@ def _ssm_layer_shapes(cfg) -> dict:
 
 
 def expected_shapes(cfg) -> dict:
-    """The LM's parameter tree as {path: shape} (dense or ssm)."""
+    """The LM's parameter tree as {path: shape} (dense, ssm or
+    hybrid)."""
     d, hd, nl = cfg.d_model, cfg.hd, cfg.n_layers
     if cfg.family == "ssm":
-        shapes = {"embed": (cfg.vocab, d), **_ssm_layer_shapes(cfg),
-                  "final_norm.scale": (d,)}
+        shapes = {"embed": (cfg.vocab, d), "layers.ln.scale": (nl, d),
+                  **_mamba_shapes(cfg), "final_norm.scale": (d,)}
         if not cfg.tie_embeddings:
             shapes["lm_head"] = (d, cfg.vocab)
         return shapes
@@ -65,6 +68,10 @@ def expected_shapes(cfg) -> dict:
         shapes["layers.attn.k_norm.scale"] = (nl, hd)
     if cfg.act == "silu_gated":
         shapes["layers.mlp.w_gate"] = (nl, d, cfg.d_ff)
+    if cfg.family == "hybrid":
+        shapes.update({"layers.attn_norm.scale": (nl, d),
+                       "layers.mamba_norm.scale": (nl, d),
+                       **_mamba_shapes(cfg)})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
     return shapes

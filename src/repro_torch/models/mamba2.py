@@ -221,16 +221,23 @@ def init_ssm_cache(cfg, batch: int, max_seq: int, kv_format: str,
     }
 
 
+def ssm_prefill_branch(p_mamba, cfg, h, view_l, *, kops=ops):
+    """The SSD branch of a monolithic prefill over normed input ``h``: its
+    final state and conv tail go into the (slot's) arena view's "ssm" /
+    "conv" leaves in place.  Returns the branch output."""
+    y, (state, tail) = mamba_apply(p_mamba, cfg, h, kops=kops,
+                                   return_state=True)
+    view_l["ssm"].copy_(state)
+    view_l["conv"].copy_(tail)
+    return y
+
+
 def ssm_prefill_layer(p, cfg, x, view_l, positions, *, kops=ops):
     """Monolithic prefill: the layer's final state and conv tail go into
     the (slot's) arena view in place."""
     del positions
     h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
-    y, (state, tail) = mamba_apply(p["mamba"], cfg, h, kops=kops,
-                                   return_state=True)
-    view_l["ssm"].copy_(state)
-    view_l["conv"].copy_(tail)
-    return x + y
+    return x + ssm_prefill_branch(p["mamba"], cfg, h, view_l, kops=kops)
 
 
 def _by_slot(layer_l):
@@ -257,24 +264,20 @@ def chunk_carry(layer_l, slot, start):
             stored)
 
 
-def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
-                    prefix, *, kops=ops, share=None):
-    """One prompt chunk through an SSM layer (reference :283) into arena
-    slot ``slot`` of the layer's {"ssm": (N·nh, N, P), "conv": (N, W-1,
-    di+2gn)}; the carried state and conv tail are written back by device
-    index (the reference's ``ssm_chunk_scatter``, :303), keep-masked on
-    ``start < PARKED_POS`` as :func:`ssm_rows_write` masks a parked decode
-    slot, so a parked chunk (the captured step's warm-up) writes the old
-    values back.  ``nvalid`` keeps the final chunk's padding out of the
-    recurrence.  The ssd kernel always gets an initial state (zeros on the
-    first chunk), as in the reference.  ``share`` is unused: the state has
-    no sequence axis, so a fork's share of it was spliced into the slot
-    before its first chunk (at ``start = share_len > 0``, which
-    :func:`chunk_carry` carries)."""
-    del positions, prefix, share
+def ssm_chunk_branch(p_mamba, cfg, h, layer_l, slot, start, nvalid, *,
+                     kops=ops):
+    """The SSD branch of one prompt chunk over normed input ``h`` into
+    arena slot ``slot`` of the layer's "ssm" (N·nh, N, P) / "conv" (N,
+    W-1, di+2gn) leaves: the carried state and conv tail are written back
+    by device index (the reference's ``ssm_chunk_scatter``, :303),
+    keep-masked on ``start < PARKED_POS`` as :func:`ssm_rows_write` masks
+    a parked decode slot, so a parked chunk (the captured step's warm-up)
+    writes the old values back.  ``nvalid`` keeps the final chunk's
+    padding out of the recurrence.  The ssd kernel always gets an initial
+    state (zeros on the first chunk), as in the reference.  Returns the
+    branch output."""
     state0, tail0, stored = chunk_carry(layer_l, slot, start)
-    h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
-    y, (state, tail) = mamba_apply(p["mamba"], cfg, h, kops=kops,
+    y, (state, tail) = mamba_apply(p_mamba, cfg, h, kops=kops,
                                    initial_state=state0, conv_tail=tail0,
                                    nvalid=nvalid, return_state=True)
     live = start < L.PARKED_POS
@@ -283,21 +286,44 @@ def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
                     torch.where(live, state, stored[0])[None])
     conv.index_copy_(0, slot.view(1),
                      torch.where(live, tail.to(conv.dtype), stored[1]))
-    return x + y
+    return y
+
+
+def ssm_layer_chunk(p, cfg, x, layer_l, slot, positions, start, nvalid,
+                    prefix, *, kops=ops, share=None):
+    """One prompt chunk through an SSM layer (reference :283) into arena
+    slot ``slot`` (:func:`ssm_chunk_branch`).  ``share`` is unused: the
+    state has no sequence axis, so a fork's share of it was spliced into
+    the slot before its first chunk (at ``start = share_len > 0``, which
+    :func:`chunk_carry` carries)."""
+    del positions, prefix, share
+    h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
+    return x + ssm_chunk_branch(p["mamba"], cfg, h, layer_l, slot, start,
+                                nvalid, kops=kops)
 
 
 def ssm_rows_write(view_l, new, pos) -> None:
-    """Write one decode step's new state into the layer's arena slice in
-    place, keep-masked per slot (reference ``ssm_rows_scatter``, :247): the
-    state is not position-addressed, so a parked slot (pos ==
-    PARKED_POS, mid-chunked-prefill) must keep the state its chunks are
-    threading, bit for bit."""
+    """Write one decode step's new state (``new``: {"ssm", "conv"}) into
+    the layer's arena slice in place, keep-masked per slot (reference
+    ``ssm_rows_scatter``, :247): the state is not position-addressed, so a
+    parked slot (pos == PARKED_POS, mid-chunked-prefill) must keep the
+    state its chunks are threading, bit for bit."""
     b = pos.shape[0]
     live = pos < L.PARKED_POS
-    for key, leaf in view_l.items():
+    for key, val in new.items():
+        leaf = view_l[key]
         f = leaf.shape[0] // b
         m = live.repeat_interleave(f).reshape((b * f,) + (1,) * (leaf.ndim - 1))
-        leaf.copy_(torch.where(m, new[key].to(leaf.dtype), leaf))
+        leaf.copy_(torch.where(m, val.to(leaf.dtype), leaf))
+
+
+def ssm_decode_branch(p_mamba, cfg, h, view_l, pos, *, kops=ops):
+    """The SSD branch of one decode step over normed input ``h`` against
+    the layer's "ssm" / "conv" leaves, its new state written back in
+    place (:func:`ssm_rows_write`).  Returns the branch output."""
+    y, new = mamba_decode_step(p_mamba, cfg, h, view_l, kops=kops)
+    ssm_rows_write(view_l, new, pos)
+    return y
 
 
 def ssm_layer_decode_rows(p, cfg, x_t, view_l, pos, *, kops=ops,
@@ -306,9 +332,8 @@ def ssm_layer_decode_rows(p, cfg, x_t, view_l, pos, *, kops=ops,
     unused (no sequence axis)."""
     del share
     h = L.rmsnorm(p["ln"], x_t, cfg.rms_eps)
-    y, new = mamba_decode_step(p["mamba"], cfg, h, view_l, kops=kops)
-    ssm_rows_write(view_l, new, pos)
-    return x_t + y
+    return x_t + ssm_decode_branch(p["mamba"], cfg, h, view_l, pos,
+                                   kops=kops)
 
 
 def _factors(cfg) -> dict:
@@ -318,5 +343,5 @@ def _factors(cfg) -> dict:
 #: the ssm family: per-slot SSD state + conv tail, the ``ssd`` kernel
 SSM = LayerSet(
     init_params=ssm_layer_init, init_cache=init_ssm_cache,
-    factors=_factors, recurrent=True, prefill_layer=ssm_prefill_layer,
+    factors=_factors, prefill_layer=ssm_prefill_layer,
     chunk_layer=ssm_layer_chunk, decode_layer=ssm_layer_decode_rows)

@@ -1,36 +1,37 @@
 """Architecture registry: ``--arch <id>`` -> config + model.
 
-Port of ``repro/models/registry.py`` for the dense and ssm families.  The
-other families of the reference raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Port of ``repro/models/registry.py`` for the dense, ssm and hybrid
+families.  The other families of the reference raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-from repro_torch.configs import (deepseek_coder_33b, llama3_2_3b,
-                                 mamba2_2_7b, nemotron_4_15b, qwen3_14b)
+from repro_torch.configs import (deepseek_coder_33b, hymba_1_5b,
+                                 llama3_2_3b, mamba2_2_7b, nemotron_4_15b,
+                                 qwen3_14b)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import hybrid as H
 from repro_torch.models import mamba2 as S
 from repro_torch.models import transformer as T
 
 _CONFIGS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (deepseek_coder_33b, nemotron_4_15b, qwen3_14b, llama3_2_3b,
-              mamba2_2_7b)
+              mamba2_2_7b, hymba_1_5b)
 }
 
 #: family -> its layer set behind the LM driver
-_LAYER_SETS = {"dense": T.DENSE, "ssm": S.SSM}
+_LAYER_SETS = {"dense": T.DENSE, "ssm": S.SSM, "hybrid": H.HYBRID}
 
 ARCH_NAMES: tuple[str, ...] = tuple(sorted(_CONFIGS))
 
 # the reference's architectures not ported yet and the ROADMAP item for each
 _NOT_PORTED = {
-    "hymba-1.5b": "hybrid", "llava-next-34b": "vlm",
-    "qwen2-moe-a2.7b": "moe",
+    "llava-next-34b": "vlm", "qwen2-moe-a2.7b": "moe",
     "qwen3-moe-30b-a3b": "moe", "whisper-large-v3": "encdec",
 }
 

@@ -7,7 +7,8 @@ Port of ``repro/models/transformer.py``: the dense layer functions
 ``decode_and_sample``.  As in the
 reference the driver is family-pluggable: a :class:`LayerSet` bundles one
 family's layer functions and arena (:data:`DENSE` here, ``mamba2.SSM`` for
-the ssm family), and the driver runs any of them.
+the ssm family, ``hybrid.HYBRID`` for the hybrid family), and the driver
+runs any of them.
 
 Parameters keep the reference's layout — per-layer tensors stacked on a
 leading L axis, weights stored (in, out) and applied as ``x @ W`` — so a
@@ -139,8 +140,6 @@ class LayerSet:
       * ``factors(cfg)`` -> {leaf: f}, the per-leaf batch factor: leaf dim
         1 is slots x f (1 for K/V, their scales and conv leaves, n_heads
         for the fused SSD state; reference ``_cache_factors``, :451);
-      * ``recurrent``: the arena holds per-slot state with no sequence
-        axis, so its size does not grow with max_seq;
       * ``prefill_layer(p, cfg, x, view_l, positions, *, kops)``;
       * ``chunk_layer(p, cfg, x, layer_l, slot, positions, start, nvalid,
         prefix, *, kops, share)``: one chunk into arena slot ``slot`` of
@@ -153,15 +152,23 @@ class LayerSet:
         share was spliced into the slot's state at the fork);
       * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops, share)``: slots
         parked at ``PARKED_POS`` must come out untouched; ``share``: (B,)
-        (src, len) or None, as for the chunk.
+        (src, len) or None, as for the chunk;
+      * ``windows(cfg)`` (optional) -> one attention window a layer, host
+        ints: the driver passes layer i's as ``window=`` to each of the
+        three layer functions (the reference scans them as ``layer_xs``,
+        transformer.py:298-312; a captured step holds each layer's as a
+        constant of its launch).  None: the layers take no window.
+
+    Which arena leaves have a sequence axis is not declared: the driver
+    reads it off the arena's shapes (:meth:`LM.seq_axes`).
     """
     init_params: Callable
     init_cache: Callable
     factors: Callable
-    recurrent: bool
     prefill_layer: Callable
     chunk_layer: Callable
     decode_layer: Callable
+    windows: Optional[Callable] = None
 
 
 def _dense_init_params(cfg, gen, dev) -> dict:
@@ -204,7 +211,7 @@ def _dense_init_cache(cfg, batch, max_seq, kv_format, device) -> dict:
 DENSE = LayerSet(
     init_params=_dense_init_params, init_cache=_dense_init_cache,
     factors=lambda cfg: dict.fromkeys(("k", "v", "k_scale", "v_scale"), 1),
-    recurrent=False, prefill_layer=_prefill_layer,
+    prefill_layer=_prefill_layer,
     chunk_layer=dense_layer_chunk, decode_layer=dense_layer_decode_rows)
 
 
@@ -230,6 +237,10 @@ class LM:
         self.layers = layers
         self.device = device_mod.resolve(device)
         self.kops = kernels
+        #: layer i's attention window (host ints), or None
+        self.windows = (list(layers.windows(cfg)) if layers.windows
+                        else None)
+        self._seq_axes: dict = {}
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int = 0) -> dict:
@@ -262,21 +273,42 @@ class LM:
         {"k", "v"} of (L, batch, max_seq, KVH, hd) in ``kv_format``'s
         storage dtype, + {"k_scale", "v_scale"} of (L, batch, max_seq, KVH)
         for a scaled format).  An unknown format, or a narrow one for a
-        recurrent family, raises ``ValueError`` (reference :399-405)."""
+        family with recurrent state (ssm, hybrid), raises ``ValueError``
+        (reference :399-405)."""
         kvf.get(kv_format)
-        if kv_format != "fp32" and self.layers.recurrent:
+        if kv_format != "fp32" and self.has_recurrent_state:
             raise ValueError(
                 f"kv_format={kv_format!r}: the {self.cfg.family} family's "
                 f"recurrent state stays full precision (only 'fp32')")
         return self.layers.init_cache(self.cfg, batch, max_seq, kv_format,
                                       self.device)
 
+    def seq_axes(self, kv_format: str = "fp32") -> dict:
+        """{leaf: index of its sequence axis in the per-layer leaf, or -1
+        for a leaf with none (the SSD state, the conv tail)} of the
+        family's arena in ``kv_format`` (reference ``_seq_axes``, :464):
+        read off two arenas of one slot on the meta device, 8 and 16 rows
+        deep, as the axis whose extent follows max_seq."""
+        axes = self._seq_axes.get(kv_format)
+        if axes is None:
+            meta = torch.device("meta")
+            small, big = (self.layers.init_cache(self.cfg, 1, n, kv_format,
+                                                 meta) for n in (8, 16))
+            axes = {}
+            for key, leaf in small.items():
+                diff = [i for i, (a, b) in enumerate(
+                    zip(leaf.shape[1:], big[key].shape[1:])) if a != b]
+                axes[key] = diff[0] if diff else -1
+            self._seq_axes[kv_format] = axes
+        return axes
+
     @property
     def has_recurrent_state(self) -> bool:
-        """The arena holds per-slot state with no sequence axis (reference
-        :487): those leaves cannot be shared by position, so a fork needs
-        a snapshot of the donor's state at the divergence boundary."""
-        return self.layers.recurrent
+        """Some arena leaf holds per-slot state with no sequence axis
+        (reference :487): those leaves cannot be shared by position, so a
+        fork needs a snapshot of the donor's state at the divergence
+        boundary, and the state stays full precision."""
+        return any(ax < 0 for ax in self.seq_axes().values())
 
     #: prefix sharing composes the chunk path (a fork's ingestion resumes
     #: at the divergence boundary) with the arena decode path (the donor
@@ -286,20 +318,22 @@ class LM:
 
     def _state_leaves(self, cache: dict):
         """(key, leaf, factor) of the arena leaves with no sequence axis
-        (reference ``_seq_axes`` < 0): all of a recurrent family's, none
-        of the dense family's."""
-        if not self.layers.recurrent:
-            return []
+        (:meth:`seq_axes` < 0): the ssm family's all, the hybrid family's
+        "ssm" and "conv", none of the dense family's."""
+        fmt = L.kv_cache_format(cache) if "k" in cache else "fp32"
+        axes = self.seq_axes(fmt)
         factors = self.layers.factors(self.cfg)
-        return [(key, leaf, factors[key]) for key, leaf in cache.items()]
+        return [(key, leaf, factors[key]) for key, leaf in cache.items()
+                if axes[key] < 0]
 
     def extract_slot_state(self, cache: dict, slot: int) -> list:
         """A copy of slot ``slot``'s recurrent-state leaves, a list in
         arena-leaf order (reference :549): the SSD state and the conv
-        tail, (L, f, ...) each.  The serving engine checkpoints a prefix
-        donor's state with it at page boundaries, so a later fork resumes
-        the recurrence there.  Runs on the current stream, after whatever
-        was enqueued before it."""
+        tail, (L, f, ...) each (K/V rows are not copied: a fork reads
+        them in place through the donor table).  The serving engine
+        checkpoints a prefix donor's state with it at page boundaries, so
+        a later fork resumes the recurrence there.  Runs on the current
+        stream, after whatever was enqueued before it."""
         return [leaf[:, slot * f:(slot + 1) * f].clone()
                 for _, leaf, f in self._state_leaves(cache)]
 
@@ -341,6 +375,10 @@ class LM:
     def _layer_view(cache: dict, i: int) -> dict:
         return {key: leaf[i] for key, leaf in cache.items()}
 
+    def _layer_kw(self, i: int) -> dict:
+        """Layer i's side inputs: its window, where the family has them."""
+        return {} if self.windows is None else {"window": self.windows[i]}
+
     # -- drivers -------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor,
                 cache: dict) -> torch.Tensor:
@@ -355,7 +393,8 @@ class LM:
         for i in range(cfg.n_layers):
             x = self.layers.prefill_layer(
                 layer_params(params["layers"], i), cfg, x,
-                self._layer_view(cache, i), positions, kops=self.kops)
+                self._layer_view(cache, i), positions, kops=self.kops,
+                **self._layer_kw(i))
         h = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
         return head_logits(h[:, -1], self.head(params))
 
@@ -451,7 +490,7 @@ class LM:
             x = self.layers.chunk_layer(
                 layer_params(params["layers"], i), cfg, x,
                 self._layer_view(cache, i), slot, positions, start, nvalid,
-                prefix, kops=self.kops, share=share)
+                prefix, kops=self.kops, share=share, **self._layer_kw(i))
         return L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
 
     def decode_step(self, params, token_t: torch.Tensor, cache: dict,
@@ -501,5 +540,5 @@ class LM:
             x_t = self.layers.decode_layer(
                 layer_params(params["layers"], i), cfg, x_t,
                 self._layer_view(cache, i), pos, kops=self.kops,
-                share=share)
+                share=share, **self._layer_kw(i))
         return x_t

@@ -76,11 +76,12 @@ reads the donor's rows in place, on the device: its chunks pass (donor
 slot, shared length) as two more device scalars of the chunk graph, and
 the decode graphs read two engine-owned (slots,) vectors, the donor table
 of ``flash_decode`` and ``flash_prefill_chunk`` (the identity (slot, 0)
-for an unshared slot).  Writes never go through it.  A recurrent family
-has no rows to share: the donor's state and conv tail are copied into a
-snapshot at each page-aligned chunk end (eager copies on the stream the
-chunk graphs replay on, after the chunk), and the fork splices the
-snapshot into its own slot before its first tail chunk.
+for an unshared slot).  Writes never go through it.  Recurrent state (the
+ssm family's, the hybrid family's beside its K/V rows) has no rows to
+share: the donor's state and conv tail are copied into a snapshot at each
+page-aligned chunk end (eager copies on the stream the chunk graphs replay
+on, after the chunk), and the fork splices the snapshot into its own slot
+before its first tail chunk.
 
 Speculative decoding (``EngineConfig.speculative``, the dense family,
 every KV format; reference engine.py:601-633, :1205-1348): a draft LM in a
@@ -159,7 +160,7 @@ class ServingEngine:
 
     ``model`` exposes ``init_cache`` / ``slot_view`` / ``prefill`` /
     ``prefill_chunk`` / ``decode_step`` / ``decode_and_sample``,
-    ``layers.recurrent`` and, for prefix sharing, ``has_recurrent_state`` /
+    ``seq_axes`` and, for prefix sharing, ``has_recurrent_state`` /
     ``extract_slot_state`` / ``splice_slot_state``
     (``models.transformer.LM``, any ported family); ``params`` live on the
     model's device, which is where the engine keeps its state.  ``clock``:
@@ -188,8 +189,8 @@ class ServingEngine:
         self.kv_format = config.kv_format
         self.base_seed = int(config.base_seed)
         self.prefix_sharing = bool(config.prefix_sharing)
-        # a recurrent family forks only at boundaries where the donor's
-        # state was checkpointed
+        # a family with recurrent state (ssm, hybrid) forks only at
+        # boundaries where the donor's state was checkpointed
         self._needs_state_snapshot = (self.prefix_sharing
                                       and model.has_recurrent_state)
         # resident arena bytes of one token row, all layers (reference
@@ -239,11 +240,15 @@ class ServingEngine:
                                        kv_format=self.kv_format)
         self.arena_bytes = sum(t.numel() * t.element_size()
                                for t in self._cache.values())
-        # a recurrent arena (SSD state) has no sequence axis: its size is
-        # per slot, whatever max_seq is
-        recurrent = model.layers.recurrent
-        self.arena_unit_bytes = self.arena_bytes // (
-            max_slots if recurrent else max_slots * max_seq)
+        # the leaves with no sequence axis (SSD state, conv tail) are per
+        # slot, whatever max_seq is; the hybrid arena has both kinds
+        axes = model.seq_axes(self.kv_format)
+        has_rows = any(ax >= 0 for ax in axes.values())
+        #: resident bytes of one slot's recurrent state, all layers (0: the
+        #: arena has none)
+        self.state_bytes_per_slot = sum(
+            t.numel() * t.element_size() for key, t in self._cache.items()
+            if axes[key] < 0) // max_slots
         self._capture = config.decode_graph and dev.type == "cuda"
         #: the speculative controller (None: plain decode)
         self.spec: Optional[SpecController] = None
@@ -323,9 +328,10 @@ class ServingEngine:
                       "deadline_overrun_s": {},
                       "host_blocked_s": 0.0, "ttft_s": {},
                       "kv_format": self.kv_format,
-                      **({"state_bytes_per_slot": self.arena_unit_bytes}
-                         if recurrent else
-                         {"kv_row_bytes": self.kv_row_bytes}),
+                      **({"kv_row_bytes": self.kv_row_bytes}
+                         if has_rows else {}),
+                      **({"state_bytes_per_slot": self.state_bytes_per_slot}
+                         if self.state_bytes_per_slot else {}),
                       "arena_bytes": self.arena_bytes}
         if self._injector is not None:
             # a live view of the per-site fire counts (aliased)
@@ -574,12 +580,12 @@ class ServingEngine:
     def _poison_slot(self, running) -> None:
         """The ``logits`` fault site (reference engine.py:767-799): fill one
         RUNNING slot's arena region with NaN (every floating leaf: fp32 /
-        bf16 / fp8 rows, the scales of a scaled format, mamba2's SSD state
-        and conv window), so its next decode or verify logits go non-finite
-        and the quarantine departs it.  The victim pick is the injector's
-        ``choose``.  Prefix donors, and regions hosting registered prefix
-        pages a later fork could map, are excluded: the blast radius stays
-        one slot."""
+        bf16 / fp8 rows, the scales of a scaled format, the SSD state and
+        conv window of mamba2 and hymba), so its next decode or verify
+        logits go non-finite and the quarantine departs it.  The victim
+        pick is the injector's ``choose``.  Prefix donors, and regions
+        hosting registered prefix pages a later fork could map, are
+        excluded: the blast radius stays one slot."""
         cands = sorted(running, key=lambda s: s.slot)
         if self.prefix_sharing:
             donors = {st.share_src for st in

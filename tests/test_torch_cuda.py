@@ -96,6 +96,63 @@ def test_cuda_chunk_rows_bit_equal_decode(cuda, dtype, d, c):
     assert torch.equal(chunk[0], dec)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,window", [(16, 6, 8), (64, 10, 8),
+                                        (64, 10, 77), (64, 10, 200)])
+def test_cuda_chunk_rows_bit_equal_decode_under_window(cuda, dtype, d, h,
+                                                       window):
+    """The chunk/decode bit pin under a sliding window: C = 40 rows at
+    prefix 300 of 400 arena rows, 2 KV heads (G = 3, or hymba's G = 5 at
+    hd 64, so 64-row bf16 tiles cross heads).  Window 8; 77, whose edge
+    (keys 224-263 for the chunk's rows) falls inside a 64-key strip; 200,
+    whose edge (keys 101-140) crosses the first 128-key split boundary:
+    the chunk's tile walks strips wholly before a row's window, which must
+    leave the row as skipping them does."""
+    gen = torch.Generator(device=cuda).manual_seed(window)
+    s, kvh, c, pre = 400, 2, 40, 300
+    q = torch.randn((1, c, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, s, kvh, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, s, kvh, d), generator=gen, device=cuda).to(dtype)
+    chunk = ops.flash_prefill_chunk(
+        q, k, v, prefix=torch.tensor([pre], device=cuda), window=window)
+    dec = ops.flash_decode(q[0], k.expand(c, s, kvh, d),
+                           v.expand(c, s, kvh, d),
+                           lengths=pre + 1 + torch.arange(c, device=cuda),
+                           window=window)
+    assert torch.equal(chunk[0], dec)
+    want = ops.PLAIN.flash_prefill_chunk(
+        q, k, v, prefix=torch.tensor([pre], device=cuda), window=window)
+    assert _within_limit(chunk, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [8, 64, 100, 1024])
+def test_cuda_decode_splits_before_the_window(cuda, dtype, window):
+    """flash_decode over 1633 rows (13 splits of 128 keys) at hymba's head
+    shape (hd 64, G = 5) with rows whose every split but the last lies
+    wholly before the window (length 1633, 1600), one whose window reaches
+    key 0 (length 129 at window 1024), a parked slot and a length-1 row:
+    within the limit of the plain version, bits repeated, the arrival
+    counters back at 0."""
+    from repro_torch.kernels import flash_decode
+    gen = torch.Generator(device=cuda).manual_seed(window)
+    s, kvh, h, d = 1633, 5, 25, 64
+    q = torch.randn((5, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((5, s, kvh, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((5, s, kvh, d), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([1633, 1600, 129, PARKED, 1], device=cuda)
+    got = ops.flash_decode(q, k, v, lengths=lens, window=window)
+    want = ops.PLAIN.flash_decode(q, k, v, lengths=lens, window=window)
+    assert _within_limit(got, want)
+    again = ops.flash_decode(q, k, v, lengths=lens, window=window)
+    assert torch.equal(got, again)
+    torch.cuda.synchronize()
+    rows = 5 * kvh
+    assert int(flash_decode.counters(q.device, rows)[:rows].abs().sum()) == 0
+
+
 # (q dtype, arena format) of the scaled-branch tests: f32 q over a bf16,
 # int8 or fp8 arena (the CUDA-core tile), bf16 q over int8 or fp8 (the
 # tensor-core tile; a bf16 arena under bf16 q is the unscaled path above)
@@ -418,6 +475,35 @@ def test_cuda_ssd_bf16_unaligned_rows(cuda):
     assert _ssd_within_limit(got[1], want[1])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 65, 1536])
+def test_cuda_ssd_hymba_shape_matches_plain_and_repeats(cuda, s):
+    """hymba-1.5b's SSD branch: 50 rows, P 64, N 16 (one 16-wide k-step;
+    the warps of d_state half 1 hold zero-filled columns), one B/C group,
+    bf16, with and without an initial state: within the limit, y and the
+    state repeated bit for bit on a second call."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=cuda).manual_seed(s)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    bh, p, n = 50, 64, 16
+    x = (rn(s, bh, p) * 0.05).bfloat16().transpose(0, 1)
+    la = -torch.rand((bh, s), generator=gen, device=cuda) * 0.1
+    B, C = rn(1, s, n).bfloat16(), rn(1, s, n).bfloat16()
+    st = rn(bh, n, p) * 0.1
+    for init in (None, st):
+        got = ops.ssd(x, la, B, C, chunk=256, initial_state=init)
+        want = ops.PLAIN.ssd(x, la, B, C, chunk=256, initial_state=init)
+        assert _ssd_within_limit(got[0], want[0])
+        assert _ssd_within_limit(got[1], want[1])
+        again = ssd.launch(x, la, B, C, initial_state=init)
+        for a, b in zip(got, again):
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+
+
 def _reassoc_within_limit(got, want, bound):
     """The vector-unit kernels' limit (``chip_smoke.py`` states it): the
     per-element reassociation bound c 2^-24 sum |a b| of the kernel module's
@@ -623,14 +709,18 @@ def test_cuda_flash_decode_one_launch_counters_and_repeat(cuda, dtype, sk):
 # ---------------------------------------------------------------------------
 
 def _tiny(family, dtype):
-    """(model, params): the reduced config of llama3.2-3b (dense) or
-    mamba2-2.7b (ssm) at ``dtype``, random weights from seed 0."""
+    """(model, params): the reduced config of llama3.2-3b (dense),
+    mamba2-2.7b (ssm) or hymba-1.5b (hybrid, its window cut to 8 so the
+    tests' prompts pass it) at ``dtype``, random weights from seed 0."""
     import dataclasses
     from repro_torch.models import registry
-    arch = "llama3.2-3b" if family == "dense" else "mamba2-2.7b"
+    arch = {"dense": "llama3.2-3b", "ssm": "mamba2-2.7b",
+            "hybrid": "hymba-1.5b"}[family]
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     cfg = dataclasses.replace(registry.config(arch).reduced(),
                               param_dtype=name, act_dtype=name)
+    if family == "hybrid":
+        cfg = dataclasses.replace(cfg, attn_window=8)
     model = registry.build_model(cfg, device="cuda")
     return model, model.init(0)
 
@@ -1543,3 +1633,68 @@ def test_cuda_ladder_degrades_speculation_to_captured_decode(cuda):
     assert eng.graph is not None or eng.sampled_graph is not None
     replays = sum(g.replays for g in (eng.graph, eng.sampled_graph) if g)
     assert replays == eng.stats["decode_steps"] - eng.stats["spec_rounds"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["monolithic", "chunked", "sampled",
+                                  "shared", "faulted"])
+def test_cuda_hybrid_engine_captured_equals_eager(cuda, dtype, mode):
+    """The reduced hymba-1.5b (window 8, one global layer) served with its
+    decode, chunk and first-draw steps captured gives the streams of the
+    engine whose steps all run eagerly: monolithic and chunked prefill
+    (prompts past the window, preemption in chunked), half the requests
+    sampled, prefix sharing (forks read the donor's K/V rows through the
+    table, the SSD state from snapshots) and a fault plan.  Every kernel
+    of the hybrid path launches: flash_decode n_layers x (replays + the
+    warm-up), a chunk's flash_prefill_chunk and ssd alike."""
+    from repro_torch.runtime import serving
+    model, params = _tiny("hybrid", dtype)
+    if mode == "shared":
+        def make(**kw):
+            return _shared_prefix_engine(model, params, **kw)
+    elif mode == "faulted":
+        plan = serving.FaultPlan.of(seed=7, alloc=0.1, decode=0.1, chunk=0.2,
+                                    logits=serving.FaultSpec(0.2,
+                                                             max_fires=2))
+
+        def make(**kw):
+            return _faulted_engine(model, params, plan, prefill_chunks=(4, 8),
+                                   **kw)
+    else:
+        chunked = mode != "monolithic"
+        kw0 = dict(lens=(9, 21, 13, 17), prefill_chunks=(4, 8) if chunked
+                   else None, plan=_mixed_plan() if mode == "sampled"
+                   else None)
+        if mode == "chunked":
+            kw0.update(page_size=4, num_pages=10)
+
+        def make(**kw):
+            return _graph_engine(model, params, **kw0, **kw)
+    eager = make(decode_graph=False, chunk_graph=False)
+    want = eager.run(max_steps=3000)
+    ops.reset_launch_counts()
+    eng = make()
+    got = eng.run(max_steps=3000)
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    st, nl = eng.stats, model.cfg.n_layers
+    assert counts["flash_decode"] == nl * (
+        eng.graph.replays + (eng.sampled_graph.replays
+                             if eng.sampled_graph else 0)
+        + 1 + (eng.sampled_graph is not None)), counts
+    chunk_calls = st["prefill_chunks"] + len(eng.chunk_graphs)
+    assert counts["flash_prefill_chunk"] == nl * chunk_calls, counts
+    assert counts["ssd"] == nl * (chunk_calls + st["prefills"]), counts
+    assert counts["flash_attention"] == nl * st["prefills"], counts
+    if mode == "chunked":
+        assert eng.scheduler.stats["preempted"] > 0
+    if mode == "shared":
+        assert st["forks"] == 3 and st["snapshots"] > 0
+        assert counts["flash_decode_donor"] == counts["flash_decode"]
+        assert counts["flash_prefill_chunk_donor"] == \
+            counts["flash_prefill_chunk"]
+    if mode == "faulted":
+        assert st["faults"] == eager.stats["faults"]
+        assert st["poisoned"] == eager.stats["poisoned"] > 0
+        assert st["quarantined"] == st["poisoned"]

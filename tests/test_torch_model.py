@@ -105,7 +105,22 @@ def test_llama_full_width_size():
     assert cfg.adtype == torch.bfloat16 and not cfg.tie_embeddings
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "qwen3-moe-30b-a3b"])
+def test_hymba_full_width_size():
+    """hymba-1.5b: the published width, 1.64 B parameters, and its global
+    layers at 0 / 16 / 31 (window max_seq + 1), 1024 elsewhere."""
+    from repro_torch.models import hybrid
+    cfg = treg.config("hymba-1.5b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd, cfg.d_ff, cfg.vocab) == (32, 1600, 25, 5, 64, 5504,
+                                             32001)
+    assert (cfg.ssm.d_state, cfg.ssm.n_heads(cfg.d_model)) == (16, 50)
+    assert round(cfg.n_params() / 1e9, 2) == 1.64
+    win = hybrid.window_schedule(cfg)
+    assert [i for i, w in enumerate(win) if w != 1024] == [0, 16, 31]
+    assert {win[i] for i in (0, 16, 31)} == {524_289}
+
+
+@pytest.mark.parametrize("name", ["llava-next-34b", "qwen3-moe-30b-a3b"])
 def test_other_families_not_ported(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.build(name, device="cpu")

@@ -353,7 +353,7 @@ def test_ssm_cache_layout_and_formats(tiny):
     assert tuple(cache["ssm"].shape) == (2, 3 * nh, 8, 8)
     assert tuple(cache["conv"].shape) == (2, 3, 3, 64 + 16)
     assert cache["ssm"].dtype == torch.float32
-    assert tm.num_slots(cache) == 3 and tm.layers.recurrent
+    assert tm.num_slots(cache) == 3 and tm.has_recurrent_state
     view = tm.slot_view(cache, 2)
     assert tuple(view["ssm"].shape) == (2, nh, 8, 8)
     view["ssm"].fill_(1.0)
