@@ -54,6 +54,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      chunk/decode bit pin under window 1024 (C = 512 at prefix 1024),
      flash_decode rows whose first splits lie before the window, times
      against SDPA with the same mask and the bound over the visible keys;
+     3f (qwen2-moe-a2.7b, G = 1, and qwen3-moe-30b-a3b, G = 8; hd 128):
+     the three attention kernels at the moe serving runs' shapes, each
+     with its planted fault (> 10x), the pin at C = 512 / 256 through the
+     slot table, and flash_decode at G = 1 beside G = 8 over the same K/V
+     (what the dead rows of the 64-row MMA tile cost);
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -143,14 +148,39 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      the CPU), 4f's mix (4 x 1536, 1024 common; the forks read donor rows
      through the table, the state from snapshots, a fork's decode window
      straddling its shared length), 4h's fault plan, and phase 5;
+     Then qwen2-moe-a2.7b (the moe family, :func:`moe_phase`: 60 routed
+     experts top 4 and 4 shared, the reference's capacity predication),
+     under its published capacity_factor 1.25, which binds: phase 4 in
+     both prefill modes, the share of pairs dropped in a prefill, a chunk
+     and a decode step, an eager decode step under
+     ``set_sync_debug_mode("error")``, 4c with the chunks eager too and a
+     decode window (the captured step's device time by op), 4d's sampled
+     half (captured = eager only: capacity couples a dispatch's rows), 4e
+     over int8; then with capacity_factor = n_experts / top_k on the same
+     weights, where a token's output is its own: phase 4, no pair
+     dropped, 4f's mix (sharing on = off), 4h's plan (survivors bit for
+     bit) and 2 replicas against one engine.  Then qwen3-moe-30b-a3b
+     (:func:`moe30b_phase`, 56.9 GiB of weights, every other model
+     collected first): 4 x 512 tokens, 32 new, both modes captured;
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
      through a chunk and 4 decode steps, held to limits stated from a
-     control, and (5b) the logits with f32 params and activations; each
+     control, on the served model's layer 0 and on 8 more weight draws
+     of one layer, and (5b) the logits with f32 params and activations; each
      limit must reject a planted SSD fault; for hymba-1.5b the bf16
      reading beside the control, and (5b) the f32 logits within 1e-3,
-     the window dropped in every windowed layer the planted fault;
+     the window dropped in every windowed layer the planted fault; for
+     qwen2-moe-a2.7b the logits and every layer's expert choices, kernel
+     path against plain, no farther apart than a control (the plain path
+     with SDPA attention), and layer 0's MoE dispatched in 512- and
+     4-row pieces against one dispatch: with capacity free no token whose
+     choices agree moves, under the published capacity tokens move; a
+     planted attention fault (the softmax scale dropped) must read more
+     than 10x the control; (5b) with capacity free, f32 params and
+     activations through all 24 layers, monolithic = chunked first-token
+     logits within 1e-3, the chunks under the published capacity the
+     planted fault;
   6. the vector-unit path (fmatmul, dot product, fconv2d, the core
      modules): driven at the paper's sweep sizes with its own launch
      counts; each kernel against its plain version there, at ragged
@@ -163,8 +193,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      kernel / plain / library times; the core modules on CUDA against the
      CPU, bit for bit;
   7. summary: the kernel JSON line (with each kernel's ``design``; the
-     rows ``<kernel>_hymba`` are the kernels at hymba's shapes, their
-     launches those of the hybrid path), the
+     rows ``<kernel>_hymba``, ``<kernel>_moe`` and ``<kernel>_moe30b``
+     are the kernels at hymba's, qwen2-moe's and qwen3-moe's shapes,
+     their launches those of the hybrid and moe paths), the
      card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -225,6 +256,18 @@ MAMBA2_F32_LOGIT_TOL = 1e-3
 # 1e-3, where a planted fault (the window dropped in every windowed layer)
 # must read more than FAULT_MARGIN times that.
 HYMBA_F32_LOGIT_TOL = 1e-3
+# qwen2-moe-a2.7b with capacity free (phase 5b): its bf16 monolithic and
+# chunked logits part through router near-ties that one-ulp differences
+# move (phase 5's expert choices), so that a token's output is its own
+# once capacity no longer binds is held in f32 (params and activations):
+# each prompt's first-token logits through monolithic prefill (one
+# dispatch of S rows a layer, flash_attention) against chunked prefill
+# (512, then 512 or 256 rows; flash_prefill_chunk), all 24 layers, to
+# 1e-3, the limit of the other f32 checks; a planted fault (the chunks
+# dispatched under the published capacity, which binds, so a token's
+# output depends on its chunk-mates) must exceed it by more than
+# FAULT_MARGIN.
+MOE_F32_LOGIT_TOL = 1e-3
 # Phase 5c holds the bf16 ssd tensor-core kernel inside the model: one
 # mamba2-2.7b layer at full width in bf16 on request 0's prompt, the final
 # SSD state carried through a 64-token chunk and 4 decode steps, kernel
@@ -236,13 +279,17 @@ HYMBA_F32_LOGIT_TOL = 1e-3
 # Limit per quantity: its margin times the control's reading, taken as at
 # least 1 (a bf16 output the control happens to leave unflipped still
 # flips by one ulp).
-#   * bf16 outputs (the layer's y, the chunk's y, the decode outputs): both
-#     paths reach them through one-ulp flips of the bf16 SSD output; the
+#   * bf16 outputs of a scan (the layer's y, the chunk's y): both paths
+#     reach them through one-ulp flips of the bf16 SSD output; the
 #     kernel's f32 results lie farther from the plain path's than the
 #     control's (its f32 operands enter the tensor cores as two bf16
 #     terms, ~2^-17 relative per term against ~2^-24), so more elements
 #     flip, each by the same ulp, and the flips compound through the
 #     gate, the norm and the out-projection: margin 4;
+#   * the decode outputs: both paths run the same plain recurrence from
+#     the carried state, so the kernel reaches them through that state's
+#     rounding alone, not through a scan's flips: margin 2 (the kernel
+#     read 0.50-0.67 ulps on SSM_LAYER_DRAWS);
 #   * f32 states (after the prompt, after the chunk): they carry the
 #     rounding itself.  The kernel reads 2.5x (prompt) and 20x (after the
 #     chunk) the control; a lower-precision control, the same arithmetic
@@ -250,10 +297,16 @@ HYMBA_F32_LOGIT_TOL = 1e-3
 #     fail, and reads far above the kernel: margin 64, 3x above the
 #     kernel's 20x, so that a state a few times less precise fails.
 # The planted fault of phase 5b (the carry into the last 64-token inner
-# chunk dropped, here in the prompt's scan) must exceed every limit by
-# more than FAULT_MARGIN.
+# chunk dropped, in every scan of the path as a kernel's fault would be:
+# the prompt's, and the chunk's, whose carried state it then drops) must
+# exceed every limit by more than FAULT_MARGIN.  With the fault in the
+# prompt's scan alone and margin 4, 'decode out' read 12.7x on this seed
+# but 6.2x on another weight draw; in every scan, 11.1-14.7x on the 8
+# draws below.  So the check runs on the served model's layer 0 and on
+# each of SSM_LAYER_DRAWS, a 1-layer model's weights from that seed.
 SSM_LAYER_MARGIN = {"y": 4.0, "state": 64.0, "chunk y": 4.0,
-                    "chunk state": 64.0, "decode out": 4.0}
+                    "chunk state": 64.0, "decode out": 2.0}
+SSM_LAYER_DRAWS = tuple(range(8))
 # The vector-unit kernels (matmul, dotp, conv2d), kernel vs plain: a float32
 # result may differ from the plain version's by the reassociation bound
 # c 2^-24 sum |a b| over its contraction, with c stated beside each kernel
@@ -298,6 +351,13 @@ DESIGN = {
     **{k + "_hymba": "the same kernel at hymba-1.5b's shapes (hd 64, G = "
                      "25 / 5 = 5 query heads a KV head, each layer's "
                      "window: 1024 or global), launched on the hybrid path"
+       for k in WGMMA_TMA},
+    **{k + "_moe": "the same kernel at qwen2-moe-a2.7b's shapes (MHA: 16 / "
+                   "16 heads, G = 1, one live row of each 64-row MMA tile; "
+                   "hd 128), launched on the moe path"
+       for k in WGMMA_TMA},
+    **{k + "_moe30b": "the same kernel at qwen3-moe-30b-a3b's shapes (32 / "
+                      "4 heads, G = 8, hd 128), launched on the moe path"
        for k in WGMMA_TMA},
     "ssd_hymba": "the same kernel at hymba-1.5b's SSD branch (50 heads, P "
                  "64, N = 16: one 16-wide k-step, the warps of d_state "
@@ -1600,6 +1660,165 @@ def hybrid_kernel_checks(torch, ops, cfg):
     return rec
 
 
+def moe_kernel_checks(torch, ops, cfg, suffix, prompts, gen):
+    """Phase 3f: the three attention kernels of the moe path at ``cfg``'s
+    full width (qwen2-moe-a2.7b: MHA, 16 / 16 heads, G = 1; qwen3-moe-30b-
+    a3b: 32 / 4 heads, G = 8, qk_norm outside the kernels), hd 128, bf16,
+    at the shapes its serving run gives them (``prompts``, ``gen`` new
+    tokens, 4 slots, chunks of 512 / 256): flash_attention at each prompt
+    length, flash_decode over the chunked engine's arena with lengths
+    (prompt + gen, the shorter one's, parked, 1), flash_prefill_chunk at
+    C = 512 (prefix 0 and 512) and C = 256 (prefix 512) through the slot
+    table.  Each against its plain version within the phase 3 limit, with
+    a planted fault the limit must fail (the last row dropping key 0;
+    lengths + 1 in the live rows; prefix + 1); the chunk/decode bit pin at
+    the model's G; kernel / plain / SDPA times and the bound.  At G = 1
+    also flash_decode over the same K/V with 8 query heads a KV head (G
+    = 8): the tensor-core tile pads the G query rows of a KV head to the
+    MMA's 64 either way, so the two times show what the 63 dead rows of
+    G = 1 cost.  Returns {``<kernel>_<suffix>``: record}."""
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     flash_prefill_chunk)
+    P = ops.PLAIN
+    dev = "cuda"
+    gen_ = torch.Generator(device=dev).manual_seed(27)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen_, device=dev).to(
+            torch.bfloat16)
+
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    slots, smax, nl = 4, max(prompts) + gen + 32 + 1, 8
+    print(f"phase 3f: {cfg.name} full width bf16 (H={h}, KVH={kvh}, G={g}, "
+          f"D={d}, prompts {list(prompts)}, slots={slots}, max_seq={smax})")
+    rec = {}
+    layer = [0]
+
+    def nxt():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    # -- flash_attention: monolithic prefill at each prompt length ----------
+    errs = []
+    for s in sorted(set(prompts), reverse=True):
+        q4, k4, v4 = (t.transpose(1, 2) for t in
+                      (rn(1, s, h, d), rn(1, s, kvh, d), rn(1, s, kvh, d)))
+        errs.append(check(f"flash_attention S={s}",
+                          ops.attention(q4, k4, v4), P.attention(q4, k4, v4),
+                          "bfloat16", "",
+                          fault=("the last row drops key 0",
+                                 P.attention(q4, k4, v4, window=s - 1))))
+    s = max(prompts)
+    sets = [tuple(t.transpose(1, 2) for t in
+                  (rn(1, s, h, d), rn(1, s, kvh, d), rn(1, s, kvh, d)))
+            for _ in range(3)]
+    k_ = [0]
+
+    def nset():
+        k_[0] = (k_[0] + 1) % len(sets)
+        return sets[k_[0]]
+
+    rec[f"flash_attention_{suffix}"] = dict(
+        module=flash_attention, label=f"fa {suffix} S={s}",
+        max_abs_err=max(errs),
+        ms=timed(lambda: flash_attention.launch(*nset()), 20),
+        plain_ms=timed(lambda: P.attention(*nset()), 5),
+        library_ms=timed(lambda: sdpa(*nset(), is_causal=True), 20),
+        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
+        flops=4 * h * d * s * (s + 1) // 2)
+    del sets
+
+    # -- flash_decode: the decode step ---------------------------------------
+    arena_k = rn(nl, slots, smax, kvh, d)
+    arena_v = rn(nl, slots, smax, kvh, d)
+    q = rn(slots, h, d)
+    long_, short = max(prompts) + gen, min(prompts) + gen
+    lens = torch.tensor([long_, short, PARKED_POS + 1, 1], device=dev)
+    bad_lens = lens + torch.tensor([1, 1, 0, 0], device=dev)
+    err = check("flash_decode", ops.flash_decode(q, arena_k[0], arena_v[0],
+                                                 lengths=lens),
+                P.flash_decode(q, arena_k[0], arena_v[0], lengths=lens),
+                "bfloat16", f"(lengths {long_}/{short}/parked/1)",
+                fault=("lengths + 1 in the two long rows",
+                       P.flash_decode(q, arena_k[0], arena_v[0],
+                                      lengths=bad_lens)))
+    torch.cuda.synchronize()
+    left = int(flash_decode.counters(q.device, slots * kvh)[
+        :slots * kvh].abs().sum())
+    assert left == 0, left
+    ms = timed(lambda: flash_decode.launch(q, arena_k[nxt()],
+                                           arena_v[layer[0]], lens), 50)
+    plain_ms = timed(lambda: P.flash_decode(q, arena_k[nxt()],
+                                            arena_v[layer[0]],
+                                            lengths=lens), 5)
+    kpos = torch.arange(smax, device=dev)
+    mask = (kpos[None] < lens[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib_ms = timed(lambda: sdpa(qs, arena_k[nxt()].transpose(1, 2),
+                                arena_v[layer[0]].transpose(1, 2),
+                                attn_mask=mask), 20)
+    live = int(torch.clamp(lens, max=smax).sum())
+    rec[f"flash_decode_{suffix}"] = dict(
+        module=flash_decode, label=f"fd {suffix} G={g}", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
+        flops=4 * live * h * d)
+    if g == 1:
+        q8 = rn(slots, 8 * kvh, d)
+        ms8 = timed(lambda: flash_decode.launch(q8, arena_k[nxt()],
+                                                arena_v[layer[0]], lens), 50)
+        print(f"  flash_decode G=1 padding: {ms:.4f} ms at G = 1 ({h} query "
+              f"rows over {kvh} KV heads, 1 live row of each 64-row MMA "
+              f"tile) vs {ms8:.4f} ms at G = 8 over the same K/V "
+              f"({8 * h} query rows): the G = 1 call costs "
+              f"{ms / ms8:.3f}x the G = 8 call that does 8x the work")
+        rec[f"flash_decode_{suffix}"]["g8_ms"] = ms8
+
+    # -- flash_prefill_chunk: C = 512 / 256 through the slot table -----------
+    table = torch.tensor([2], device=dev)
+    own_k, own_v = arena_k[0, 2:3], arena_v[0, 2:3]
+    errs, pins = [], []
+    for c, p0 in ((512, 0), (512, 512), (256, 512)):
+        qc = rn(1, c, h, d)
+        pf = torch.tensor([p0], device=dev)
+        got = ops.flash_prefill_chunk(qc, arena_k[0], arena_v[0], prefix=pf,
+                                      slots=table)
+        errs.append(check(
+            f"flash_prefill_chunk C={c} prefix={p0}", got,
+            P.flash_prefill_chunk(qc, own_k, own_v, prefix=pf), "bfloat16",
+            "(slot table)",
+            fault=("prefix + 1", P.flash_prefill_chunk(qc, own_k, own_v,
+                                                       prefix=pf + 1))))
+        dec = ops.flash_decode(qc[0], own_k.expand(c, smax, kvh, d),
+                               own_v.expand(c, smax, kvh, d),
+                               lengths=p0 + torch.arange(c, device=dev) + 1)
+        pins.append(bool(torch.equal(got[0], dec)))
+        print(f"  pin: chunk row j == flash_decode at pos {p0} + j, bit for "
+              f"bit (bf16, G={g}, C={c}): {pins[-1]} (max diff "
+              f"{(got[0].float() - dec.float()).abs().max().item()})")
+    assert all(pins), f"chunk/decode bit pin broken at G = {g}: {pins}"
+    c, p0 = 512, 512
+    qc = rn(1, c, h, d)
+    pf = torch.tensor([p0], device=dev)
+    ms = timed(lambda: flash_prefill_chunk.launch(
+        qc, arena_k[nxt()], arena_v[layer[0]], pf, slots=table), 20)
+    plain_ms = timed(lambda: P.flash_prefill_chunk(
+        qc, arena_k[nxt(), 2:3], arena_v[layer[0], 2:3], prefix=pf), 5)
+    cmask = kpos[None, :] <= (p0 + torch.arange(c, device=dev))[:, None]
+    qt = qc.transpose(1, 2)
+    lib_ms = timed(lambda: sdpa(qt, arena_k[nxt(), 2:3].transpose(1, 2),
+                                arena_v[layer[0], 2:3].transpose(1, 2),
+                                attn_mask=cmask), 20)
+    rec[f"flash_prefill_chunk_{suffix}"] = dict(
+        module=flash_prefill_chunk, label=f"fpc {suffix} C={c}",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=2 * (2 * qc.numel() + 2 * (p0 + c) * kvh * d),
+        flops=4 * int(cmask.sum()) * h * d, pin=all(pins))
+    del arena_k, arena_v
+    return rec
+
+
 def bound(r):
     """Fill ``bound_ms`` / ``bound_by`` of a kernel record and print it
     (operations at the record's ``flop_rate``, bf16's by default)."""
@@ -1623,11 +1842,18 @@ SERVE_ARGS = ["--no-reduced", "--requests", "4", "--prompt-len", "1024",
 # across heads in monolithic prefill)
 HYMBA = "hymba-1.5b"
 HYMBA_PROMPTS = ["--prompt-len", "1536", "--prompt-mix", "1536,1200"]
+# the moe family: qwen2-moe-a2.7b at phase 4's prompts (1024 / 768, 64 new
+# tokens), qwen3-moe-30b-a3b in a shorter wave (4 x 512, 32 new tokens)
+QWEN2_MOE = "qwen2-moe-a2.7b"
+QWEN3_MOE = "qwen3-moe-30b-a3b"
+QWEN3_PROMPTS = ["--prompt-len", "512", "--prompt-mix", "512"]
 
 
 def serve_args(arch):
-    """Phase 4's serve flags for ``arch`` (hymba-1.5b: its prompts)."""
-    return SERVE_ARGS + (HYMBA_PROMPTS if arch == HYMBA else [])
+    """Phase 4's serve flags for ``arch`` (hymba-1.5b and
+    qwen3-moe-30b-a3b: their prompts)."""
+    return SERVE_ARGS + {HYMBA: HYMBA_PROMPTS,
+                         QWEN3_MOE: QWEN3_PROMPTS}.get(arch, [])
 
 
 def path_kernels(cfg):
@@ -1641,14 +1867,15 @@ def path_kernels(cfg):
             ("flash_decode",) if attn else ())
 
 
-def serving_runs(torch, ops, serve, arch, gen):
-    """Phase 4: both prefill modes of ``arch`` at full width.  Returns
-    (bundle, params, args, {mode: (engine, out, seconds, launch
+def serving_runs(torch, ops, serve, arch, gen, built=None):
+    """Phase 4: both prefill modes of ``arch`` at full width (``built``:
+    a (bundle, params) pair to serve instead of building the arch's).
+    Returns (bundle, params, args, {mode: (engine, out, seconds, launch
     counts)})."""
     base = ["--arch", arch, "--gen", str(gen)] + serve_args(arch)
     args = serve.parse_args(base)
     t0 = time.perf_counter()
-    bundle, params = serve.build(args)
+    bundle, params = built or serve.build(args)
     torch.cuda.synchronize()
     cfg = bundle.cfg
     shape = []
@@ -1661,6 +1888,13 @@ def serving_runs(torch, ops, serve, arch, gen):
         shape.append(f"window {cfg.attn_window} in "
                      f"{win.count(cfg.attn_window)} layers, global layers "
                      f"{glob}")
+    if cfg.moe is not None:
+        me = cfg.moe
+        shape.append(f"{me.n_experts} experts top {me.top_k} (d_ff_expert "
+                     f"{me.d_ff_expert}), {me.n_shared_experts} shared "
+                     f"(d_ff {me.d_ff_shared}), capacity_factor "
+                     f"{me.capacity_factor}; {cfg.n_active_params() / 1e9:.3f}"
+                     f" B active")
     if cfg.ssm is not None:
         shape.append(f"d_inner={cfg.ssm.d_inner(cfg.d_model)}, "
                      f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads x "
@@ -1861,12 +2095,15 @@ def same_streams(got, want) -> bool:
 PAIR_ORDER = (("eager", "captured"), ("captured", "eager"))
 
 
-def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
+def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3,
+                      eager_chunks=False):
     """Phase 4c: phase 4's requests served again with the eager decode step
-    (``--no-decode-graph``) and with the captured one, ``pairs`` pairs a
-    prefill mode in alternating order; every run's token streams must equal phase 4's captured run's.
-    Prints tok/s and wall ms per decode step (prefill included) of each
-    run; returns {mode: {kind: [(tok/s, ms per step), ...]}}."""
+    (``--no-decode-graph``; with ``eager_chunks`` the chunks eager too)
+    and with the captured one, ``pairs`` pairs a prefill mode in
+    alternating order; every run's token streams must equal phase 4's
+    captured run's.  Prints tok/s and wall ms per decode step (prefill
+    included) of each run; returns {mode: {kind: [(tok/s, ms per step),
+    ...]}}."""
     base = (["--arch", bundle.name, "--gen", str(gen)]
             + serve_args(bundle.name))
     table = {}
@@ -1878,8 +2115,11 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
                 args = serve.parse_args(
                     base + ["--prefill-mode", mode]
                     + (["--no-decode-graph"] if kind == "eager" else []))
+                args.chunk_graph = not (eager_chunks and kind == "eager")
                 eng, out, dt = serve.serve(bundle, params, args)
                 assert (eng.graph is None) == (kind == "eager")
+                assert bool(eng.chunk_graphs) == (
+                    mode == "chunked" and args.chunk_graph)
                 assert same_streams(out, want), (mode, kind, i)
                 total = sum(o.size for o in out.values())
                 res[kind].append((total / dt,
@@ -1887,8 +2127,10 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3):
                 del eng, out
         table[mode] = res
         print(f"phase 4c: {bundle.name} {mode}: token streams of "
-              f"{2 * pairs} runs (eager and captured, alternating) equal "
-              f"phase 4's captured run's")
+              f"{2 * pairs} runs (eager"
+              + (" decode and chunk steps" if eager_chunks else "")
+              + " and captured, alternating) equal phase 4's captured "
+                "run's")
         for kind in ("eager", "captured"):
             print(f"  {kind:8s} tok/s "
                   f"{[round(r[0], 1) for r in res[kind]]}, ms per decode "
@@ -2178,14 +2420,17 @@ def sampler_checks(torch):
     return res
 
 
-def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
+def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64,
+                 per_token=True):
     """Phase 4d (b): phase 4's requests with half of them sampled
     (SAMPLE_ARGS), both prefill modes, the decode steps captured (the
     default) and eager: streams equal; the greedy requests equal phase 4's
     streams (a greedy row takes the argmax, bit for bit, and no row's logits
     depend on its batch-mates); a sampled request served alone (same slots
     and arena) equal to its stream in the batch; the sampled graph replayed
-    once a sampled step.  Returns ({mode: (tok/s, sampled steps, decode
+    once a sampled step.  ``per_token=False`` (a moe model under binding
+    capacity, where a row's logits do depend on its batch-mates) holds
+    captured = eager only.  Returns ({mode: (tok/s, sampled steps, decode
     steps, the captured run's streams)}, [launch counts of each captured
     run])."""
     import numpy as np
@@ -2244,6 +2489,18 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64):
             draw_times(torch, eng)
         want = runs[mode][1]
         greedy = [i for i, sp in enumerate(plan) if sp.is_greedy]
+        if not per_token:
+            same = [i for i in greedy if (out[i] == want[i]).all()]
+            print(f"phase 4d: {bundle.name} {mode}: streams of the captured "
+                  f"and the eager engine ({e_eng.stats['sampled_steps']} "
+                  f"eager sampled steps, {total / e_dt:.1f} tok/s) equal; "
+                  f"capacity binds, so a row's logits depend on its "
+                  f"batch-mates: greedy requests {same} of {greedy} equal "
+                  f"phase 4's (not held)")
+            res[mode] = (total / dt, st["sampled_steps"],
+                         st["decode_steps"], out)
+            del eng, e_eng
+            continue
         for uid in greedy:
             assert (out[uid] == want[uid]).all(), (mode, uid)
         lens = serve.prompt_lengths(args)
@@ -3410,11 +3667,14 @@ def hybrid_f32_check(torch, ops, cfg, params, prompt):
 
 def carry_dropped(P):
     """The plain ssd with a planted fault: the carry into the last 64-token
-    inner chunk dropped (the state entering it is zero)."""
+    inner chunk dropped (the state entering it is zero; in a scan of at
+    most 64 tokens that is the initial state)."""
     import torch
 
     def ssd(x, log_a, B, C, *, chunk=256, initial_state=None):
         cut = (x.shape[1] - 1) // 64 * 64
+        if cut == 0:
+            return P.ssd(x, log_a, B, C, chunk=chunk)
         y0, _ = P.ssd(x[:, :cut], log_a[:, :cut], B[:, :cut], C[:, :cut],
                       chunk=chunk, initial_state=initial_state)
         y1, st = P.ssd(x[:, cut:], log_a[:, cut:], B[:, cut:], C[:, cut:],
@@ -3459,7 +3719,7 @@ def one_term():
     return ssd
 
 
-def ssm_layer_check(torch, ops, cfg, params, prompt):
+def ssm_layer_check(torch, ops, cfg, params, prompt, label="layer 0"):
     """Phase 5c: layer 0 of mamba2-2.7b in bf16 (``mamba_apply`` on the
     rms-normed embeddings of request 0's prompt, as serving's monolithic
     prefill runs it), its final SSD state and conv tail carried through
@@ -3486,12 +3746,10 @@ def ssm_layer_check(torch, ops, cfg, params, prompt):
         return L.rmsnorm(p["ln"], L.embed_lookup(params["embed"], tokens),
                          cfg.rms_eps)
 
-    def run(kops, c, first=None):
-        """The quantities of one path; ``first``: the ops of the prompt's
-        scan when they differ (the planted fault)."""
+    def run(kops, c):
+        """The quantities of one path."""
         y, (st, tail) = mamba2.mamba_apply(p["mamba"], c, h(prompt),
-                                           kops=first or kops,
-                                           return_state=True)
+                                           kops=kops, return_state=True)
         yc, (stc, tailc) = mamba2.mamba_apply(
             p["mamba"], c, h(more[None, :64]), kops=kops, initial_state=st,
             conv_tail=tail, return_state=True)
@@ -3508,12 +3766,12 @@ def ssm_layer_check(torch, ops, cfg, params, prompt):
     got = run(ops, cfg)
     launched = ssd.launches - before
     plain, ctrl = run(P, cfg), run(P, cfg64)
-    fault = run(P, cfg, types.SimpleNamespace(**{**vars(P),
-                                                 "ssd": carry_dropped(P)}))
+    fault = run(types.SimpleNamespace(**{**vars(P),
+                                         "ssd": carry_dropped(P)}), cfg)
     low = run(types.SimpleNamespace(**{**vars(P), "ssd": one_term()}), cfg)
     assert launched == 2, launched       # the prompt's scan and the chunk's
     assert got["y"].dtype == torch.bfloat16, got["y"].dtype
-    print(f"phase 5c: {cfg.name} layer 0, bf16, request 0's "
+    print(f"phase 5c: {cfg.name} {label}, bf16, request 0's "
           f"{prompt.shape[1]}-token prompt, then a 64-token chunk and 4 "
           f"decode steps carried from its state ({launched} ssd launches on "
           f"the kernel path)")
@@ -3590,6 +3848,11 @@ def end_to_end(torch, ops, serve, bundle, params, args, runs):
         del logits, models, plain
         if bundle.cfg.family == "ssm":
             ssm_layer_check(torch, ops, bundle.cfg, params, prompt)
+            one = dataclasses.replace(bundle.cfg, n_layers=1)
+            for seed in SSM_LAYER_DRAWS:
+                ssm_layer_check(torch, ops, one, registry.build_model(
+                    one, device="cuda").init(seed), prompt,
+                    label=f"layer 0 of a 1-layer draw from seed {seed}")
             ssm_f32_check(torch, ops, bundle.cfg, params, prompt)
         else:
             hybrid_f32_check(torch, ops, bundle.cfg, params, prompt)
@@ -3652,6 +3915,522 @@ def hybrid_phase(torch, ops, serve, smi):
     del bundle, params, runs
     torch.cuda.empty_cache()
     return [{f"{k}_hymba": v for k, v in c.items()} for c in counts]
+
+
+def free_capacity(registry, bundle):
+    """``bundle``'s moe model with capacity_factor = n_experts / top_k, the
+    reference's regime in which no (token, choice) pair is ever dropped
+    (configs/base.py:183-195), so batching, chunking and sharing cannot
+    change a token's output; a model of its own over the same parameter
+    tensors."""
+    me = bundle.cfg.moe
+    cfg = dataclasses.replace(bundle.cfg, moe=dataclasses.replace(
+        me, capacity_factor=me.n_experts / me.top_k))
+    return registry.Bundle(name=bundle.name, cfg=cfg,
+                           model=registry.build_model(cfg, device="cuda"))
+
+
+def watch(module, name, seen):
+    """Wrap ``module.name`` so that each call appends its result to
+    ``seen``; returns the function that puts the original back."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def moe_prompts(torch, serve, bundle):
+    """Phase 4's prompts of ``bundle`` as (1, S) device tensors."""
+    args = serve.parse_args(["--arch", bundle.name]
+                            + serve_args(bundle.name))
+    return [torch.as_tensor(p, device="cuda")[None]
+            for p in serve.prompts(args, bundle.cfg.vocab)]
+
+
+def drop_shares(torch, bundle, params, prompts):
+    """The share of (token, choice) pairs dropped by capacity in one
+    prefill (request 0's prompt, one dispatch of S rows a layer), one
+    chunk (its first 512 rows) and one decode step (4 slots: requests 0
+    and 1 after their prompts, the chunk's slot, one parked), read off the
+    ``keep`` of ``moe.dispatch`` in every layer; then the same decode step
+    under ``torch.cuda.set_sync_debug_mode("error")``, where any host sync
+    raises.  Returns {what: share}."""
+    from repro_torch.models import moe
+    model, cfg = bundle.model, bundle.cfg
+    smax = max(p.shape[1] for p in prompts) + 2
+    cache = model.init_cache(4, smax)
+    shares, toks = {}, []
+
+    def run(what, fn):
+        seen = []
+        restore = watch(moe, "dispatch", seen)
+        try:
+            out = fn()
+        finally:
+            restore()
+        keep = torch.cat([k for _, k in seen])
+        assert len(seen) == cfg.n_layers, len(seen)
+        shares[what] = (1.0 - keep.float().mean().item(), keep.numel())
+        return out
+
+    for i, prompt in enumerate(prompts[:2]):
+        view = model.slot_view(cache, i)
+        toks.append(run(f"prefill S={prompt.shape[1]}", lambda: model.prefill(
+            params, prompt, view)).argmax(-1))
+    piece = prompts[0][:, :512]
+    toks.append(run("chunk C=512", lambda: model.prefill_chunk(
+        params, piece, cache, 2, 0, 511)).argmax(-1))
+    tok = torch.cat(toks + [toks[0]])
+    pos = torch.tensor([prompts[0].shape[1], prompts[1].shape[1], 512,
+                        PARKED_POS], device="cuda")
+    run("decode 4 slots", lambda: model.decode_step(params, tok, cache,
+                                                    pos.clone()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = model.decode_step(params, tok, cache, pos.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits[:3]).all())
+    print(f"phase 4: {bundle.name} (capacity_factor "
+          f"{cfg.moe.capacity_factor}) pairs dropped by capacity, all "
+          f"{cfg.n_layers} layers: " + "; ".join(
+              f"{what} {100 * sh:.2f}% of {n}" for what, (sh, n)
+              in shares.items())
+          + "; an eager decode step under set_sync_debug_mode('error') "
+            "raised nothing")
+    return {what: sh for what, (sh, _) in shares.items()}
+
+
+def routed_logits(model, params, prompt):
+    """Request 0's prefill logits and the expert choices (L, S, k) of
+    every layer's dispatch on the way."""
+    import torch
+    from repro_torch.models import moe
+    seen = []
+    restore = watch(moe, "route", seen)
+    try:
+        logits = prefill_logits(model, params, prompt)
+    finally:
+        restore()
+    return logits, torch.stack([idx for _, idx, _ in seen])
+
+
+def moe_end_to_end(torch, ops, bundle, params, prompt, free_bundle):
+    """Phase 5 (moe): request 0's prefill logits, kernel path against
+    plain path, beside a control (the plain path with PyTorch's
+    ``scaled_dot_product_attention`` for the attention op: another
+    rounding of the same attention), and the share of (token, layer,
+    choice) expert choices on which each pair agrees: a one-ulp attention
+    difference can move a router near-tie, a moved choice replaces a
+    quarter of that token's routed output, and under binding capacity it
+    also moves which later pairs are dropped.  The same for the
+    capacity-free variant.  Held: the kernel path's logits no farther from
+    the plain path's, and its choices agreeing no less, than the
+    control's; the plain path with a planted attention fault (the softmax
+    scale dropped: 1 in place of hd^-1/2, in every layer) farther than
+    FAULT_MARGIN times the control.  Returns {label: (max |diff|,
+    agreement)}."""
+    import types
+    import torch.nn.functional as F
+    from repro_torch.models import registry
+    P = ops.PLAIN
+
+    def sdpa_attention(q, k, v, *, causal=True, window=None, **_):
+        assert window is None
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=k.shape[-3] != q.shape[-3])
+
+    def unscaled(q, k, v, *, causal=True, window=None, **_):
+        return P.attention(q, k, v, causal=causal, window=window, scale=1.0)
+
+    kops = {"control": types.SimpleNamespace(**{**vars(P),
+                                                "attention": sdpa_attention}),
+            "fault": types.SimpleNamespace(**{**vars(P),
+                                              "attention": unscaled})}
+    out = {}
+    for label, b in (("published", bundle), ("capacity-free", free_bundle)):
+        res = {name: routed_logits(m, params, prompt) for name, m in (
+            ("kernel", b.model),
+            ("plain", registry.build_model(b.cfg, device="cuda",
+                                           kernels=P)),
+            *((k, registry.build_model(b.cfg, device="cuda", kernels=o))
+              for k, o in kops.items()))}
+        diff = {k: (res[k][0] - res["plain"][0]).abs().max().item()
+                for k in ("kernel", "control", "fault")}
+        agree = {k: (res[k][1] == res["plain"][1]).float().mean().item()
+                 for k in ("kernel", "control", "fault")}
+        top2 = torch.topk(res["plain"][0], 2).values
+        print(f"phase 5: {bundle.name} {label} (capacity_factor "
+              f"{b.cfg.moe.capacity_factor:g}) request 0 prefill logits "
+              f"against the plain path: kernel max |diff| "
+              f"{diff['kernel']:.4e}, control (SDPA attention) "
+              f"{diff['control']:.4e} (logits std "
+              f"{res['plain'][0].std().item():.4f}); expert choices equal "
+              f"on {100 * agree['kernel']:.3f}% (kernel) and "
+              f"{100 * agree['control']:.3f}% (control) of "
+              f"{res['plain'][1].numel()} (token, layer, choice); argmax "
+              f"{int(res['kernel'][0].argmax())} vs "
+              f"{int(res['plain'][0].argmax())}, plain top-2 gap "
+              f"{(top2[0] - top2[1]).item():.4e}; planted fault (softmax "
+              f"scale dropped in every layer) max |diff| "
+              f"{diff['fault']:.4e} = "
+              f"{diff['fault'] / diff['control']:.1f}x the control, "
+              f"choices equal on {100 * agree['fault']:.3f}%")
+        for k in ("kernel", "control"):
+            assert res[k][0].shape == (b.cfg.vocab,)
+            assert bool(torch.isfinite(res[k][0]).all())
+        # the kernel path no farther from the plain path than another
+        # rounding of the same attention, which a real fault is not
+        assert diff["kernel"] <= diff["control"], (label, diff)
+        assert agree["kernel"] >= agree["control"], (label, agree)
+        assert diff["fault"] > FAULT_MARGIN * diff["control"], (label, diff)
+        out[label] = (diff, agree)
+        del res
+    return out
+
+
+# a token's MoE output "moves" between two dispatches when its relative
+# change (row norm) exceeds this: bf16 rounding of GEMMs of other shapes
+# stays far below it, one dropped pair of four (gate ~1/4) far above
+MOVED_REL = 0.05
+
+
+def split_invariance(torch, bundle, params, prompt):
+    """Phase 5 (moe): layer 0's MoE input for ``prompt`` (through the
+    kernel path's attention) dispatched as one (S rows, monolithic
+    prefill's dispatch), in 512-row pieces (a chunk's) and in 4-row
+    pieces (a decode step's); each token's output and expert choices in
+    a split against the one dispatch.  Returns {split: (tokens whose
+    choices differ, tokens with equal choices whose output moved (>
+    MOVED_REL), the largest relative change among those that did not
+    move)}."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import attention_prefill, layer_params
+    model, cfg = bundle.model, bundle.cfg
+    p = layer_params(params["layers"], 0)
+    s = prompt.shape[1]
+    x = L.embed_lookup(params["embed"], prompt)
+    cache = model.init_cache(1, s + 1)
+    h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
+    x = x + attention_prefill(p["attn"], cfg, h,
+                              {k: v[0] for k, v in cache.items()},
+                              torch.arange(s, device=x.device)[None],
+                              kops=model.kops)
+    h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
+
+    def dispatched(rows):
+        seen = []
+        restore = watch(moe, "route", seen)
+        try:
+            y = torch.cat([moe.moe_mlp_apply(p["moe"], cfg, piece)[0]
+                           for piece in h.split(rows, dim=1)], dim=1)
+        finally:
+            restore()
+        return y[0].float(), torch.cat([idx for _, idx, _ in seen])
+
+    y1, c1 = dispatched(s)
+    out = {}
+    for rows in (512, 4):
+        y, c = dispatched(rows)
+        same = (c == c1).all(-1)
+        rel = (y - y1).norm(dim=-1) / y1.norm(dim=-1)
+        moved = same & (rel > MOVED_REL)
+        still = rel[same & ~moved]
+        out[rows] = (int((~same).sum()), int(moved.sum()),
+                     still.max().item() if still.numel() else 0.0)
+    return out
+
+
+def mono_chunked_logits(bundle, params, prompts):
+    """Each prompt's first-token logits through monolithic prefill (one
+    dispatch of S rows a layer) and chunked prefill (the engine's plan:
+    512, then 512 or 256): max |diff| over the prompts."""
+    model = bundle.model
+    return max((prefill_logits(model, params, p)
+                - chunked_routed_logits(model, params, p)[0]).abs().max()
+               .item() for p in prompts[:2])
+
+
+def chunked_routed_logits(model, params, prompt):
+    """``prompt``'s first-token logits through chunked prefill (the
+    engine's plan) and the expert choices (L, S, k) of every layer's
+    dispatch on the way."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.runtime.serving import chunking
+    n, seen = prompt.shape[1], []
+    cache = model.init_cache(1, n + 1)
+    start = 0
+    restore = watch(moe, "route", seen)
+    try:
+        for c in chunking.chunk_plan(n):
+            piece = prompt[:, start:start + c]
+            last = model.prefill_chunk(params, piece, cache, 0, start,
+                                       piece.shape[1] - 1)[0]
+            start += c
+    finally:
+        restore()
+    nl = model.cfg.n_layers
+    chunks = len(seen) // nl
+    return last, torch.stack([
+        torch.cat([seen[i * nl + layer][1] for i in range(chunks)])
+        for layer in range(nl)])
+
+
+def moe_f32_check(torch, bundle, free, params, prompts):
+    """Phase 5b (moe): requests 0 and 1's first-token logits with f32
+    params and activations through all layers, monolithic against chunked
+    prefill under capacity_factor = n_experts / top_k, held to
+    MOE_F32_LOGIT_TOL, with the expert choices of the two compared; the
+    planted fault (the chunks under the published capacity) must exceed
+    the limit by more than FAULT_MARGIN.  Converts ``params`` to f32 in
+    place, leaf by leaf, so the bf16 leaves leave the card as it goes
+    (every engine over them must be collected first)."""
+    from repro_torch.models import registry
+
+    def to_f32(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                to_f32(v)
+            else:
+                tree[k] = v.float()
+
+    held = torch.cuda.memory_allocated()
+    to_f32(params)
+    f32 = dict(param_dtype="float32", act_dtype="float32")
+    models = {label: registry.build_model(dataclasses.replace(b.cfg, **f32),
+                                          device="cuda")
+              for label, b in (("free", free), ("published", bundle))}
+    tol, diff, fault, agree = MOE_F32_LOGIT_TOL, 0.0, 0.0, []
+    for prompt in prompts[:2]:
+        mono, m_idx = routed_logits(models["free"], params, prompt)
+        chunk, c_idx = chunked_routed_logits(models["free"], params, prompt)
+        bad, _ = chunked_routed_logits(models["published"], params, prompt)
+        assert mono.dtype == torch.float32 and mono.shape == (
+            free.cfg.vocab,)
+        assert bool(torch.isfinite(mono).all() & torch.isfinite(chunk).all())
+        diff = max(diff, (mono - chunk).abs().max().item())
+        fault = max(fault, (mono - bad).abs().max().item())
+        agree.append(int((m_idx != c_idx).sum()))
+    print(f"phase 5b: {free.name} capacity-free (capacity_factor "
+          f"{free.cfg.moe.capacity_factor:g}) f32, all {free.cfg.n_layers} "
+          f"layers ({held / 1e9:.1f} GB on the card before the f32 copy, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB after): first-token "
+          f"logits of requests 0 and 1, monolithic vs chunked prefill: max "
+          f"|diff| {diff:.4e} (tol {tol}); (token, layer, choice) expert "
+          f"choices that differ: {agree}; planted fault (the chunks under "
+          f"capacity_factor {bundle.cfg.moe.capacity_factor:g}): "
+          f"{fault:.4e}, {fault / tol:.1f}x the limit")
+    assert diff <= tol, diff
+    assert fault > FAULT_MARGIN * tol, fault
+
+
+def int8_runs(torch, ops, serve, bundle, params, runs, gen=64):
+    """Phase 4e (moe): phase 4's requests over an int8 arena, both
+    prefill modes captured: every flash_decode and flash_prefill_chunk
+    launch scaled (counts set to 0 just before each run), the pages and
+    the scale sidecar drained; printed: kv_row_bytes and arena bytes
+    beside the fp32 format's, the greedy token match against phase 4's
+    streams.  Returns [launch counts of each run]."""
+    from repro_torch.runtime.serving import tolerance
+    nl = bundle.cfg.n_layers
+    all_counts = []
+    for mode in ("monolithic", "chunked"):
+        args = serve.parse_args(["--arch", bundle.name, "--gen", str(gen),
+                                 "--prefill-mode", mode, "--kv-format",
+                                 "int8"] + serve_args(bundle.name))
+        ops.reset_launch_counts()
+        eng, out, dt = serve.serve(bundle, params, args)
+        counts = ops.launch_counts()
+        all_counts.append(counts)
+        steps = eng.stats["decode_steps"]
+        assert eng.graph.replays == steps > 0
+        assert counts["flash_decode_scaled"] == counts["flash_decode"] \
+            == nl * (steps + 1), counts
+        assert counts["flash_prefill_chunk_scaled"] == \
+            counts["flash_prefill_chunk"], counts
+        check_chunk_graphs(eng)
+        assert eng.cache_mgr.free_pages == eng.cache_mgr.num_pages
+        assert eng.cache_mgr.scale_sidecar_pages == 0
+        ref = runs[mode][0]
+        report = tolerance.compare_streams(runs[mode][1], out)
+        total = sum(o.size for o in out.values())
+        print(f"phase 4e: {bundle.name} int8 {mode}: {total} tokens in "
+              f"{dt:.3f} s = {total / dt:.1f} tok/s; kv_row_bytes "
+              f"{eng.kv_row_bytes} vs fp32's {ref.kv_row_bytes} "
+              f"({eng.kv_row_bytes / ref.kv_row_bytes:.3f}x), arena "
+              f"{eng.arena_bytes / 1e6:.1f} MB vs {ref.arena_bytes / 1e6:.1f}"
+              f" MB; greedy token match vs fp32: {report.describe()}")
+        del eng
+    return all_counts
+
+
+def moe_phase(torch, ops, serve, registry, smi):
+    """Phases 4 and 5 for qwen2-moe-a2.7b (the moe family: routed experts
+    with the reference's capacity predication) at full width, random
+    weights, prompts 1024 / 768, 64 new tokens, 4 slots.
+
+    Under the published capacity_factor 1.25, which binds (cap 1 of 60
+    experts in a decode step of 4 slots, 42 in a 512-row chunk, 85 in a
+    1024-row prefill): served monolithic and chunked (4), the share of
+    pairs dropped in a prefill, a chunk and a decode step and an eager
+    decode step with no host sync, captured = eager with the chunks eager
+    too and a decode-only window with the captured step's device time by
+    op (4c), requests 1 and 3 sampled, captured = eager (4d), the int8
+    arena (4e), and request 0's logits and expert choices against the
+    plain path (5).  Under capacity_factor = n_experts / top_k (the same
+    parameter tensors), where a token's output is its own: served in both
+    modes, no pair dropped, layer 0's MoE dispatched in 512- and 4-row
+    pieces against one dispatch (no token whose choices agree moves; the
+    published config's tokens do move), monolithic against chunked
+    first-token logits and streams (reported), the shared-prefix mix with
+    sharing on and off (4f), the fault plan (4h) and 2 replicas behind
+    the router against one engine.  Under binding
+    capacity those equalities fail in the reference too, so they are not
+    asserted there; that a token's output is its own once capacity no
+    longer binds is held in f32 at the end (5b: monolithic = chunked
+    through all layers), where the weights become f32.  Returns the
+    launch counts of its main-path runs, each kernel's count under
+    ``<kernel>_moe``."""
+    import gc
+
+    import numpy as np
+    t_start = time.perf_counter()
+    bundle, params, args, runs = serving_runs(torch, ops, serve, QWEN2_MOE,
+                                              gen=64)
+    prompts = moe_prompts(torch, serve, bundle)
+    shares = drop_shares(torch, bundle, params, prompts)
+    pairs = eager_vs_captured(serve, bundle, params, runs, gen=64, pairs=1,
+                              eager_chunks=True)
+    # the captured step alone: eager_vs_captured holds it to the eager one
+    window, wbusy = decode_window(torch, serve, bundle, params, pairs=1,
+                                  same=False, kinds={"captured": []})
+    mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params, runs,
+                                   per_token=False)
+    counts4e = int8_runs(torch, ops, serve, bundle, params, runs)
+    free = free_capacity(registry, bundle)
+    e2e = moe_end_to_end(torch, ops, bundle, params, prompts[0], free)
+    t_bind = time.perf_counter() - t_start
+
+    # capacity free: the per-token equalities
+    fb, fp, fargs, fruns = serving_runs(torch, ops, serve, QWEN2_MOE,
+                                        gen=64, built=(free, params))
+    free_shares = drop_shares(torch, free, params, prompts)
+    assert max(free_shares.values()) == 0.0, free_shares
+    splits = {}
+    for label, b in (("published", bundle), ("capacity-free", free)):
+        splits[label] = split_invariance(torch, b, params, prompts[0])
+        print(f"phase 5: {QWEN2_MOE} {label} (capacity_factor "
+              f"{b.cfg.moe.capacity_factor:g}), layer 0's MoE over request "
+              f"0's {prompts[0].shape[1]} rows dispatched in pieces against "
+              f"one dispatch: " + "; ".join(
+                  f"{rows}-row pieces: {flip} tokens with other expert "
+                  f"choices, {moved} with the same choices whose output "
+                  f"moved (> {MOVED_REL} of its norm), the rest within "
+                  f"{worst:.3e}" for rows, (flip, moved, worst)
+                  in splits[label].items()))
+    for rows, (_, moved, worst) in splits["capacity-free"].items():
+        assert moved == 0 and worst <= MOVED_REL, (rows, moved, worst)
+    # the contrast: under binding capacity a token's output does depend on
+    # how the rows were dispatched
+    assert all(moved > 0 for _, moved, _ in splits["published"].values())
+    diffs = {label: mono_chunked_logits(b, params, prompts)
+             for label, b in (("published", bundle), ("capacity-free",
+                                                      free))}
+    print(f"phase 5: {QWEN2_MOE} first-token logits, monolithic vs chunked "
+          f"prefill (flash_attention against flash_prefill_chunk, one "
+          f"dispatch against chunks of 512 / 256): max |diff| "
+          + ", ".join(f"{k} {v:.4e}" for k, v in diffs.items())
+          + " (reported: bf16 rounding moves router near-ties through the "
+            "24 layers, see the expert choices above; 5b holds them in "
+            "f32)")
+    for uid in sorted(fruns["monolithic"][1]):
+        a, b = fruns["monolithic"][1][uid], fruns["chunked"][1][uid]
+        n = int(np.argmin(a == b)) if not (a == b).all() else a.size
+        print(f"  capacity-free request {uid}: monolithic vs chunked "
+              f"token-match prefix {n}/{a.size}")
+    shared = shared_prefix_runs(torch, ops, serve, fb, params, pairs=1)
+    faulted = fault_phase(torch, ops, serve, fb, params, fruns)
+    ttft = {mode: sorted(run[0].stats["ttft_s"].values())
+            for mode, run in runs.items()}
+    tok_s = {mode: sum(o.size for o in run[1].values()) / run[2]
+             for mode, run in runs.items()}
+    print(f"phase 4: {QWEN2_MOE} summary ({smi}): "
+          + "; ".join(f"{mode} {tok_s[mode]:.1f} tok/s, TTFT ms "
+                      f"{[round(1e3 * t, 1) for t in ttft[mode]]}"
+                      for mode in runs)
+          + f"; captured greedy decode step {wbusy['captured'][0]:.3f} ms "
+            f"device, {statistics.median(window['captured']):.3f} ms wall; "
+            f"4c " + ", ".join(
+                f"{mode} {kind} {res[kind][0][0]:.1f} tok/s"
+                for mode, res in pairs.items() for kind in res)
+          + "; sampled mix " + ", ".join(f"{mode} {r[0]:.1f} tok/s"
+                                         for mode, r in mixed.items())
+          + "; dropped " + ", ".join(f"{k} {100 * v:.2f}%"
+                                     for k, v in shares.items())
+          + "; expert choices equal to the plain path's " + ", ".join(
+              f"{label} {100 * a['kernel']:.3f}% (control "
+              f"{100 * a['control']:.3f}%)" for label, (_, a) in e2e.items())
+          + f"; binding phases {t_bind:.1f} s, phases 4-5 in "
+            f"{time.perf_counter() - t_start:.1f} s")
+    counts = ([run[3] for run in runs.values()] + counts4d + counts4e
+              + [run[3] for run in fruns.values()] + shared + faulted)
+    # the engines hold their graphs in reference cycles: collect them, so
+    # that the bf16 weights leave the card as the f32 copy is made
+    del runs, fruns, fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_f32_check(torch, bundle, free, params, prompts)
+    del bundle, params, free, fb
+    torch.cuda.empty_cache()
+    return [{f"{k}_moe": v for k, v in c.items()} for c in counts]
+
+
+def moe30b_phase(torch, ops, serve, smi):
+    """qwen3-moe-30b-a3b (32 / 4 heads, G = 8, qk_norm, 128 experts top
+    8, no shared experts) at full width, 56.9 GiB of bf16 weights, with
+    every other model freed first: one greedy wave of 4 requests of 512
+    tokens and 32 new tokens, monolithic and chunked (4), and one 16-step
+    decode window of the captured step with its device time by op (4c).
+    The same requests eager against captured are cut, the first cut of
+    the smoke's time (qwen2-moe holds captured = eager).
+    Returns the launch counts of the captured runs, each kernel's count
+    under ``<kernel>_moe30b``."""
+    import gc
+    t_start = time.perf_counter()
+    # the engines of the earlier phases hold their graphs in reference
+    # cycles: collect them, so their weights and pools leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"phase 4: {QWEN3_MOE}: {held / 1e9:.2f} GB still allocated on "
+          f"the card before its weights")
+    assert held < 4e9, held
+    bundle, params, args, runs = serving_runs(torch, ops, serve, QWEN3_MOE,
+                                              gen=32)
+    window, wbusy = decode_window(torch, serve, bundle, params, pairs=1,
+                                  steps=16, same=False,
+                                  kinds={"captured": []})
+    tok_s = {mode: sum(o.size for o in run[1].values()) / run[2]
+             for mode, run in runs.items()}
+    print(f"phase 4: {QWEN3_MOE} summary ({smi}): " + "; ".join(
+        f"{mode} {tok_s[mode]:.1f} tok/s, {1e3 * run[2] / run[0].stats['decode_steps']:.2f}"
+        f" ms wall a decode step incl. prefill" for mode, run in runs.items())
+        + f"; captured greedy decode step {wbusy['captured'][0]:.3f} ms "
+          f"device, {window['captured'][0]:.3f} ms wall; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
+          f"in {time.perf_counter() - t_start:.1f} s")
+    counts = [run[3] for run in runs.values()]
+    del bundle, params, runs
+    torch.cuda.empty_cache()
+    return [{f"{k}_moe30b": v for k, v in c.items()} for c in counts]
 
 
 def vector_unit_phase(torch, ops):
@@ -4010,6 +4789,10 @@ def main() -> int:
     rec.update(donor_checks(torch, ops, registry.config("llama3.2-3b")))
     rec["ssd"] = ssd_checks(torch, ops, registry.config("mamba2-2.7b"))
     rec.update(hybrid_kernel_checks(torch, ops, registry.config(HYMBA)))
+    rec.update(moe_kernel_checks(torch, ops, registry.config(QWEN2_MOE),
+                                 "moe", (1024, 768), 64))
+    rec.update(moe_kernel_checks(torch, ops, registry.config(QWEN3_MOE),
+                                 "moe30b", (512,), 32))
     for name in sorted(rec):
         bound(rec[name])
     stamp("phases 1-3")
@@ -4091,6 +4874,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     all_runs += hybrid_phase(torch, ops, serve, smi)
     stamp(f"{HYMBA} phases 4-5")
+    all_runs += moe_phase(torch, ops, serve, registry, smi)
+    stamp(f"{QWEN2_MOE} phases 4-5")
+    all_runs += moe30b_phase(torch, ops, serve, smi)
+    stamp(f"{QWEN3_MOE} phase 4")
     vu_rec, vu_counts = vector_unit_phase(torch, ops)
     stamp("phase 6")
     for name in sorted(vu_rec):
@@ -4116,9 +4903,11 @@ def main() -> int:
         f"{k['name']}=ok({k['launches']} launches)" for k in kernels)
         + f"; chunk/decode bit pin "
           f"{'holds' if rec['flash_prefill_chunk']['pin'] else 'broken'}"
-          f" (bf16), holds (int8, fp8, under the donor table, and under "
+          f" (bf16), holds (int8, fp8, under the donor table, under "
           f"hymba's window 1024: "
-          f"{rec['flash_prefill_chunk_hymba']['pin']})")
+          f"{rec['flash_prefill_chunk_hymba']['pin']}, at G = 1: "
+          f"{rec['flash_prefill_chunk_moe']['pin']} and G = 8: "
+          f"{rec['flash_prefill_chunk_moe30b']['pin']})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -86,9 +86,9 @@ class ArchConfig:
         return _DTYPES[self.act_dtype]
 
     def n_params(self) -> int:
-        """Total parameter count (embedding included) of a dense, ssm or
-        hybrid config, by the reference's formula (configs/base.py:90)."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        """Total parameter count (embedding included) of a dense, moe, ssm
+        or hybrid config, by the reference's formula (configs/base.py:90)."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"n_params for family {self.family!r} is not ported")
         d, hd = self.d_model, self.hd
@@ -97,6 +97,13 @@ class ArchConfig:
         if self.qk_norm:
             attn += 2 * hd
         mlp = (3 if self.act == "silu_gated" else 2) * d * self.d_ff
+        if self.moe:
+            # the routed experts, the shared ones with their gate, the
+            # router (reference :101-110)
+            me = self.moe
+            mlp = 3 * d * me.d_ff_expert * me.n_experts + d * me.n_experts
+            if me.n_shared_experts:
+                mlp += 3 * d * me.d_ff_shared + d
         if self.ssm is not None:
             s = self.ssm
             di, nh = s.d_inner(d), s.n_heads(d)
@@ -118,11 +125,29 @@ class ArchConfig:
             total += self.vocab * d                  # lm head
         return int(total + d)                        # + final norm
 
+    def n_active_params(self) -> int:
+        """Parameters touched per token (reference :140): a moe config's
+        top-k routed experts, its shared experts and gate, and its router
+        in place of all its experts; every other family's n_params."""
+        if not self.moe:
+            return self.n_params()
+        me, d = self.moe, self.d_model
+        base = dataclasses.replace(self, moe=None, d_ff=0).n_params()
+        active = 3 * d * me.d_ff_expert * me.top_k + d * me.n_experts
+        if me.n_shared_experts:
+            active += 3 * d * me.d_ff_shared + d
+        return int(base + self.n_layers * active)
+
     def reduced(self) -> "ArchConfig":
-        """Smoke-test scale config of the same (dense, ssm or hybrid)
+        """Smoke-test scale config of the same (dense, moe, ssm or hybrid)
         family (reference configs/base.py:150)."""
         kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                   vocab=256, head_dim=16, max_seq=128)
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff_expert=32,
+                d_ff_shared=64 if self.moe.n_shared_experts else 0,
+                n_shared_experts=min(self.moe.n_shared_experts, 2))
         if self.ssm:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=8, headdim=16,
                                             chunk=16)

@@ -3,9 +3,10 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b --no-reduced
 --requests 4 --prompt-len 1024 --gen 64 --slots 4 --depth 2``
 
-Port of ``repro/launch/serve.py`` for the ported families (dense; ssm:
-``--arch mamba2-2.7b``; hybrid: ``--arch hymba-1.5b``, whose arena line
-gives both its K/V bytes a row and its SSD state bytes a slot).  Runs on
+Port of ``repro/launch/serve.py`` for the ported families (dense; moe:
+``--arch qwen2-moe-a2.7b`` / ``qwen3-moe-30b-a3b``; ssm: ``--arch
+mamba2-2.7b``; hybrid: ``--arch hymba-1.5b``, whose arena line gives both
+its K/V bytes a row and its SSD state bytes a slot).  Runs on
 the card unless ``--device cpu``.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
 reference always draws them from ``PRNGKey(0)``); prompts come from

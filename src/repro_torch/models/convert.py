@@ -2,16 +2,18 @@
 
 The reference LM's parameters (``transformer.py:335-346``) are a nested
 dict: ``embed``, ``layers`` (dense: ``{ln1,attn.{wq,wk,wv,wo,q_norm?,
-k_norm?},ln2,mlp.{w_up,w_gate?,w_down}}``; ssm: ``{ln,mamba.{w_z,w_x,w_B,
-w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23; hybrid: the
-dense layer's leaves with ``attn_norm``, ``mamba`` and ``mamba_norm``,
-hybrid.py:32), each leaf
+k_norm?},ln2,mlp.{w_up,w_gate?,w_down}}``; moe: the dense layer's leaves
+with ``moe.{router,experts.{w_gate,w_up,w_down},shared?.{w_up,w_gate,
+w_down},shared_gate?}`` in place of ``mlp``, moe.py:31; ssm: ``{ln,mamba.
+{w_z,w_x,w_B,w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23;
+hybrid: the dense layer's leaves with ``attn_norm``, ``mamba`` and
+``mamba_norm``, hybrid.py:32), each leaf
 stacked on a leading L axis, ``final_norm`` and ``lm_head`` (absent when
 embeddings are tied).  The port keeps that layout exactly, so the bridge
 is a checked leaf-by-leaf copy.  Every leaf takes ``cfg.param_dtype``
-except the mamba branch's ``A_log``/``dt_bias``/``D`` (ssm and hybrid),
-which are float32
-whatever the param dtype, as in the reference (mamba2.py:42-44).
+except the mamba branch's ``A_log``/``dt_bias``/``D`` (ssm and hybrid)
+and the moe router, which are float32 whatever the param dtype, as in the
+reference (mamba2.py:42-44, moe.py:46-47).
 Callers hand the tree over as numpy arrays (``np.asarray`` of each leaf),
 so this module never sees a JAX type.
 """
@@ -24,7 +26,8 @@ from repro_torch.core import device as device_mod
 
 
 #: leaves kept in float32 whatever the param dtype
-F32_LEAVES = ("layers.mamba.A_log", "layers.mamba.dt_bias", "layers.mamba.D")
+F32_LEAVES = ("layers.mamba.A_log", "layers.mamba.dt_bias", "layers.mamba.D",
+              "layers.moe.router")
 
 
 def _mamba_shapes(cfg) -> dict:
@@ -41,8 +44,25 @@ def _mamba_shapes(cfg) -> dict:
     }
 
 
+def _moe_shapes(cfg) -> dict:
+    me, d, nl = cfg.moe, cfg.d_model, cfg.n_layers
+    e, f = me.n_experts, me.d_ff_expert
+    m = "layers.moe."
+    shapes = {m + "router": (nl, d, e),
+              m + "experts.w_gate": (nl, e, d, f),
+              m + "experts.w_up": (nl, e, d, f),
+              m + "experts.w_down": (nl, e, f, d)}
+    if me.n_shared_experts:
+        fs = me.d_ff_shared
+        shapes.update({m + "shared.w_up": (nl, d, fs),
+                       m + "shared.w_gate": (nl, d, fs),
+                       m + "shared.w_down": (nl, fs, d),
+                       m + "shared_gate": (nl, d, 1)})
+    return shapes
+
+
 def expected_shapes(cfg) -> dict:
-    """The LM's parameter tree as {path: shape} (dense, ssm or
+    """The LM's parameter tree as {path: shape} (dense, moe, ssm or
     hybrid)."""
     d, hd, nl = cfg.d_model, cfg.hd, cfg.n_layers
     if cfg.family == "ssm":
@@ -59,15 +79,18 @@ def expected_shapes(cfg) -> dict:
         "layers.attn.wv": (nl, d, cfg.n_kv_heads * hd),
         "layers.attn.wo": (nl, cfg.n_heads * hd, d),
         "layers.ln2.scale": (nl, d),
-        "layers.mlp.w_up": (nl, d, cfg.d_ff),
-        "layers.mlp.w_down": (nl, cfg.d_ff, d),
         "final_norm.scale": (d,),
     }
     if cfg.qk_norm:
         shapes["layers.attn.q_norm.scale"] = (nl, hd)
         shapes["layers.attn.k_norm.scale"] = (nl, hd)
-    if cfg.act == "silu_gated":
-        shapes["layers.mlp.w_gate"] = (nl, d, cfg.d_ff)
+    if cfg.family == "moe":
+        shapes.update(_moe_shapes(cfg))
+    else:
+        shapes["layers.mlp.w_up"] = (nl, d, cfg.d_ff)
+        shapes["layers.mlp.w_down"] = (nl, cfg.d_ff, d)
+        if cfg.act == "silu_gated":
+            shapes["layers.mlp.w_gate"] = (nl, d, cfg.d_ff)
     if cfg.family == "hybrid":
         shapes.update({"layers.attn_norm.scale": (nl, d),
                        "layers.mamba_norm.scale": (nl, d),

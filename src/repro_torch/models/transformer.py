@@ -6,9 +6,9 @@ Port of ``repro/models/transformer.py``: the dense layer functions
 ``verify_chunk``, ``decode_step`` / ``_decode_rows`` and
 ``decode_and_sample``.  As in the
 reference the driver is family-pluggable: a :class:`LayerSet` bundles one
-family's layer functions and arena (:data:`DENSE` here, ``mamba2.SSM`` for
-the ssm family, ``hybrid.HYBRID`` for the hybrid family), and the driver
-runs any of them.
+family's layer functions and arena (:data:`DENSE` here, ``moe.MOE`` for
+the moe family, ``mamba2.SSM`` for the ssm family, ``hybrid.HYBRID`` for
+the hybrid family), and the driver runs any of them.
 
 Parameters keep the reference's layout — per-layer tensors stacked on a
 leading L axis, weights stored (in, out) and applied as ``x @ W`` — so a
@@ -171,9 +171,10 @@ class LayerSet:
     windows: Optional[Callable] = None
 
 
-def _dense_init_params(cfg, gen, dev) -> dict:
+def _dense_init_params(cfg, gen, dev, mlp: bool = True) -> dict:
     """N(0, 1) scaled by fan-in^-1/2 for every projection (reference
-    layers.py:160-174, :450-459), unit norms."""
+    layers.py:160-174, :450-459), unit norms; ``mlp=False`` leaves the
+    MLP out (a family that brings its own, as the moe family)."""
     pd, d, nl = cfg.pdtype, cfg.d_model, cfg.n_layers
 
     def ones(n):
@@ -193,13 +194,16 @@ def _dense_init_params(cfg, gen, dev) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": ones(cfg.hd)}
         attn["k_norm"] = {"scale": ones(cfg.hd)}
-    shapes = {"w_up": ((d, cfg.d_ff), std_in),
-              "w_down": ((cfg.d_ff, d), std_ff)}
-    if cfg.act == "silu_gated":
-        shapes["w_gate"] = ((d, cfg.d_ff), std_in)
-    mlp = {name: normal(s, sd) for name, (s, sd) in shapes.items()}
-    return {"ln1": {"scale": ones(d)}, "attn": attn,
-            "ln2": {"scale": ones(d)}, "mlp": mlp}
+    tree = {"ln1": {"scale": ones(d)}, "attn": attn,
+            "ln2": {"scale": ones(d)}}
+    if mlp:
+        shapes = {"w_up": ((d, cfg.d_ff), std_in),
+                  "w_down": ((cfg.d_ff, d), std_ff)}
+        if cfg.act == "silu_gated":
+            shapes["w_gate"] = ((d, cfg.d_ff), std_in)
+        tree["mlp"] = {name: normal(s, sd) for name, (s, sd) in
+                       shapes.items()}
+    return tree
 
 
 def _dense_init_cache(cfg, batch, max_seq, kv_format, device) -> dict:

@@ -1698,3 +1698,96 @@ def test_cuda_hybrid_engine_captured_equals_eager(cuda, dtype, mode):
         assert st["faults"] == eager.stats["faults"]
         assert st["poisoned"] == eager.stats["poisoned"] > 0
         assert st["quarantined"] == st["poisoned"]
+
+
+# ---------------------------------------------------------------------------
+# the moe family (routed experts with capacity predication)
+# ---------------------------------------------------------------------------
+
+def _tiny_moe(dtype, capacity_factor=None):
+    """(model, params): the reduced qwen2-moe-a2.7b (4 experts top 2, 2
+    shared) at ``dtype``, at its published capacity_factor 1.25 (binding)
+    or the given one, random weights from seed 0."""
+    import dataclasses
+    from repro_torch.models import registry
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = dataclasses.replace(registry.config("qwen2-moe-a2.7b").reduced(),
+                              param_dtype=name, act_dtype=name)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    model = registry.build_model(cfg, device="cuda")
+    return model, model.init(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks", [None, (4, 8)])
+@pytest.mark.parametrize("capacity", [None, 2.0], ids=["binding", "free"])
+def test_cuda_moe_engine_captured_equals_eager(cuda, dtype, chunks,
+                                               capacity):
+    """The reduced qwen2-moe served by the captured engine (decode and
+    chunk graphs) and by the eager one: equal streams under binding
+    capacity (the dispatch of a replay sees the same rows as the eager
+    step's) and free; flash_decode n_layers x (replays + the warm-up)."""
+    model, params = _tiny_moe(dtype, capacity)
+    kw = dict(max_slots=3, prefill_chunks=chunks)
+    want = _graph_engine(model, params, decode_graph=False,
+                         chunk_graph=False, **kw).run()
+    ops.reset_launch_counts()
+    eng = _graph_engine(model, params, **kw)
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    nl = model.cfg.n_layers
+    assert counts["flash_decode"] == nl * (eng.graph.replays + 1), counts
+    if chunks:
+        assert len(eng.chunk_graphs) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", [1.0, 2.0], ids=["binding", "free"])
+def test_cuda_moe_mlp_matches_cpu(cuda, capacity):
+    """``moe_mlp_apply`` in f32 on the card against the CPU on the same
+    inputs: the same expert choices and drops, y within 2e-5, aux within
+    1e-6 relative."""
+    from repro_torch.models import moe
+    model, params = _tiny_moe(torch.float32, capacity)
+    cfg = model.cfg
+    p = {k: (v[0] if not isinstance(v, dict) else
+             {kk: vv[0] for kk, vv in v.items()})
+         for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, 33, cfg.d_model), generator=gen, device="cuda")
+    y, aux = moe.moe_mlp_apply(p, cfg, x)
+    cpu = {k: (v.cpu() if not isinstance(v, dict) else
+               {kk: vv.cpu() for kk, vv in v.items()}) for k, v in p.items()}
+    y_c, aux_c = moe.moe_mlp_apply(cpu, cfg, x.cpu())
+    xf = x.reshape(-1, cfg.d_model)
+    _, idx, _ = moe.route(p, cfg, xf)
+    _, idx_c, _ = moe.route(cpu, cfg, xf.cpu())
+    assert torch.equal(idx.cpu(), idx_c)
+    cap = moe.capacity(cfg, xf.shape[0])
+    assert torch.equal(moe.dispatch(idx, 4, cap)[1].cpu(),
+                       moe.dispatch(idx_c, 4, cap)[1])
+    assert ((y.cpu() - y_c).abs() <= 2e-5).all()
+    assert abs(float(aux) - float(aux_c)) <= 1e-6 * abs(float(aux_c))
+
+
+@pytest.mark.gpu
+def test_cuda_moe_decode_step_makes_no_sync(cuda):
+    """An eager bf16 moe decode step (a parked slot among live ones) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in routing,
+    capacity, dispatch or combine synchronises with the host."""
+    model, params = _tiny_moe(torch.bfloat16)
+    cache = model.init_cache(3, 32)
+    tok = torch.tensor([3, 5, 7], device="cuda")
+    pos = torch.tensor([4, (1 << 30), 9], device="cuda")
+    model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = model.decode_step(params, tok, cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())

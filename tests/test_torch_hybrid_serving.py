@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.runtime import serving as jserving  # noqa: E402
 from repro_torch.runtime import serving as tserving  # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core import device as device_mod  # noqa: E402
 from repro_torch.kernels import (conv2d, dotp,  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.configs.base import ArchConfig  # noqa: E402
 from repro.runtime import elastic as jelastic  # noqa: E402

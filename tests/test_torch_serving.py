@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.runtime import serving as jserving  # noqa: E402
 from repro_torch.core.dispatch import DispatchQueue  # noqa: E402

@@ -25,6 +25,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ops  # noqa: E402
 
