@@ -58,7 +58,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      the three attention kernels at the moe serving runs' shapes, each
      with its planted fault (> 10x), the pin at C = 512 / 256 through the
      slot table, and flash_decode at G = 1 beside G = 8 over the same K/V
-     (what the dead rows of the 64-row MMA tile cost);
+     (what the dead rows of the 64-row MMA tile cost); 3g (llava-next-34b,
+     G = 7, hd 128; whisper-large-v3, MHA, hd 64): flash_attention causal
+     at S = 576 patch rows + 1024 / 768 tokens (one patch row fewer the
+     fault), non-causal over the encoder's S = 1500 and the cross prefill's
+     Sq = 224 / 160 x Sk = 1500 (the last ragged key strip dropped the
+     fault), flash_decode at G = 7 over bf16 and int8 arenas and over
+     1500 cross rows with ``lengths=None``;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -72,7 +78,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      and each graph's warm-up and capture time and pool bytes; 4b: short
      runs under torch.profiler (device time by kernel, the attention and
      ssd kernels' own line, device busy share; captured in both prefill
-     modes, and chunked with eager chunk steps; the graph
+     modes; the graph
      launches must equal the replays, and each attention kernel's counted
      launches the ones the profile saw); 4c: the same requests with the
      eager step (``--no-decode-graph``) and the captured one, one pair a
@@ -93,8 +99,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      the first-draw graph) equal to eager ones, the sampled requests'
      TTFT, the greedy requests equal to phase 4's, a sampled request
      served alone equal to its stream in the batch, the first draw alone
-     captured against eager, and decode-only windows of the greedy twin
-     against the sampled graph (one pair); 4e
+     captured against eager, and (llama3.2-3b) decode-only windows of
+     the greedy twin against the sampled graph (one pair); 4e
      (llama3.2-3b): served with narrow KV arenas, bf16 (streams equal
      phase 4's), then int8 and fp8, both prefill modes captured and one
      eager run of each (eager decode steps; eager chunk steps), streams
@@ -159,9 +165,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      over int8; then with capacity_factor = n_experts / top_k on the same
      weights, where a token's output is its own: phase 4, no pair
      dropped, 4f's mix (sharing on = off), 4h's plan (survivors bit for
-     bit) and 2 replicas against one engine.  Then qwen3-moe-30b-a3b
-     (:func:`moe30b_phase`, 56.9 GiB of weights, every other model
-     collected first): 4 x 512 tokens, 32 new, both modes captured;
+     bit) and 2 replicas against one engine.  Then whisper-large-v3 (the
+     encdec family, :func:`encdec_phase`): 4 requests of 1500 random
+     frames and prompts of 224 / 160 tokens, monolithic (the reference
+     refuses chunked prefill for the family): phase 4, one
+     eager-vs-captured pair and a decode window, 4d's sampled half, 4h's
+     plan (the poison fills the self and cross leaves) and 8 requests
+     over 2 replicas against one engine.  Then qwen3-moe-30b-a3b
+     (:func:`moe30b_phase`, at 24 of its 48 layers, 29.0 GiB of weights,
+     every other model collected first): 4 x 512 tokens, 32 new, both
+     modes captured.  Last
+     llava-next-34b (the vlm family, :func:`vlm_phase`, 64.05 GiB of
+     weights, every other model collected first): phase 4's prompts after
+     576 patch rows each, monolithic (refused chunked with patch rows):
+     phase 4, the pair and a window, 4d, 4e over int8, 4h;
   5. end to end, per model: request 0's prefill logits through the
      kernels against the same model built on the plain versions; for
      mamba2-2.7b (5c) one bf16 layer at full width, its SSD state carried
@@ -180,7 +197,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      than 10x the control; (5b) with capacity free, f32 params and
      activations through all 24 layers, monolithic = chunked first-token
      logits within 1e-3, the chunks under the published capacity the
-     planted fault;
+     planted fault; for whisper-large-v3 the bf16 reading reported and
+     (5b) the f32 logits through all 64 layers within
+     WHISPER_F32_LOGIT_TOL, the encoder run causal the planted fault; for
+     llava-next-34b the logits against the plain path within LOGIT_TOL or
+     an SDPA control's reading, whichever is larger, the patch prefix one
+     row later the planted fault;
   6. the vector-unit path (fmatmul, dot product, fconv2d, the core
      modules): driven at the paper's sweep sizes with its own launch
      counts; each kernel against its plain version there, at ragged
@@ -193,9 +215,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      kernel / plain / library times; the core modules on CUDA against the
      CPU, bit for bit;
   7. summary: the kernel JSON line (with each kernel's ``design``; the
-     rows ``<kernel>_hymba``, ``<kernel>_moe`` and ``<kernel>_moe30b``
-     are the kernels at hymba's, qwen2-moe's and qwen3-moe's shapes,
-     their launches those of the hybrid and moe paths), the
+     rows ``<kernel>_hymba``, ``<kernel>_moe``, ``<kernel>_moe30b``,
+     ``<kernel>_whisper`` and ``<kernel>_vlm`` are the kernels at hymba's,
+     qwen2-moe's, qwen3-moe's, whisper's and llava's shapes, their
+     launches those of the hybrid, moe, encdec and vlm paths), the
      card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -256,6 +279,14 @@ MAMBA2_F32_LOGIT_TOL = 1e-3
 # 1e-3, where a planted fault (the window dropped in every windowed layer)
 # must read more than FAULT_MARGIN times that.
 HYMBA_F32_LOGIT_TOL = 1e-3
+# whisper-large-v3 (phase 5b) as hymba: its bf16 logits carry one-ulp
+# flips through 32 encoder and 32 decoder layers (5.11e-2 on this seed),
+# so the bf16 reading is reported; held in f32 (params and activations),
+# where the first reading was 2.74e-6 (f32 reassociation through 64
+# layers; deterministic), so 3e-5 leaves ~11x; a planted fault (the
+# encoder run causal, 2.66 on this seed) must read more than FAULT_MARGIN
+# times it.
+WHISPER_F32_LOGIT_TOL = 3e-5
 # qwen2-moe-a2.7b with capacity free (phase 5b): its bf16 monolithic and
 # chunked logits part through router near-ties that one-ulp differences
 # move (phase 5's expert choices), so that a token's output is its own
@@ -361,7 +392,24 @@ DESIGN = {
        for k in WGMMA_TMA},
     "ssd_hymba": "the same kernel at hymba-1.5b's SSD branch (50 heads, P "
                  "64, N = 16: one 16-wide k-step, the warps of d_state "
-                 "half 1 zero-filled), launched on the hybrid path"}
+                 "half 1 zero-filled), launched on the hybrid path",
+    **{k + "_vlm": "the same kernel at llava-next-34b's shapes (56 / 8 "
+                   "heads, G = 7: a 64-row MMA tile folds rows of several "
+                   "heads; hd 128; prompts of 576 patch rows + text), "
+                   "launched on the vlm path"
+       for k in ("flash_attention", "flash_decode")},
+    "flash_attention_whisper": "the same kernel at whisper-large-v3's "
+                               "shapes (MHA 20 / 20, hd 64): the encoder "
+                               "non-causal at S = 1500 (keys masked to the "
+                               "true Sk in the last strip), the prompt "
+                               "causal, the cross-attention non-causal at "
+                               "Sq = prompt x Sk = 1500; launched on the "
+                               "encdec path",
+    "flash_decode_whisper": "the same kernel at whisper-large-v3's shapes "
+                            "(G = 1, hd 64): the self-attention over the "
+                            "slot's rows and the cross-attention over all "
+                            "1500 encoder rows (lengths=None), launched on "
+                            "the encdec path"}
 # the TPU kernels' scaled branch each scaled row replaces
 SCALED_REPLACES = {
     "flash_decode_scaled": "src/repro/kernels/flash_decode.py:39",
@@ -1847,13 +1895,35 @@ HYMBA_PROMPTS = ["--prompt-len", "1536", "--prompt-mix", "1536,1200"]
 QWEN2_MOE = "qwen2-moe-a2.7b"
 QWEN3_MOE = "qwen3-moe-30b-a3b"
 QWEN3_PROMPTS = ["--prompt-len", "512", "--prompt-mix", "512"]
+# the vlm and encdec families: llava-next-34b at phase 4's prompts (1024 /
+# 768 text tokens, each after its 576 patch rows), whisper-large-v3 at
+# prompts of 224 / 160 tokens (about half of its 448-token text context)
+# after its encoder's 1500 frames
+LLAVA = "llava-next-34b"
+WHISPER = "whisper-large-v3"
+WHISPER_PROMPTS = ["--prompt-len", "224", "--prompt-mix", "224,160"]
 
 
 def serve_args(arch):
-    """Phase 4's serve flags for ``arch`` (hymba-1.5b and
-    qwen3-moe-30b-a3b: their prompts)."""
-    return SERVE_ARGS + {HYMBA: HYMBA_PROMPTS,
-                         QWEN3_MOE: QWEN3_PROMPTS}.get(arch, [])
+    """Phase 4's serve flags for ``arch`` (hymba-1.5b, qwen3-moe-30b-a3b
+    and whisper-large-v3: their prompts)."""
+    return SERVE_ARGS + {HYMBA: HYMBA_PROMPTS, QWEN3_MOE: QWEN3_PROMPTS,
+                         WHISPER: WHISPER_PROMPTS}.get(arch, [])
+
+
+def decode_launches(cfg) -> int:
+    """flash_decode launches of one decode step: one a layer, two for
+    encdec (its self-attention and its cross-attention)."""
+    return cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def prefill_launches(cfg, name) -> int:
+    """``name``'s launches in one monolithic prefill: one a layer, and for
+    encdec's flash_attention one an encoder layer and two a decoder layer
+    (its prompt, causal; its cross-attention, non-causal)."""
+    if cfg.family == "encdec" and name == "flash_attention":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
 
 
 def path_kernels(cfg):
@@ -1867,8 +1937,9 @@ def path_kernels(cfg):
             ("flash_decode",) if attn else ())
 
 
-def serving_runs(torch, ops, serve, arch, gen, built=None):
-    """Phase 4: both prefill modes of ``arch`` at full width (``built``:
+def serving_runs(torch, ops, serve, arch, gen, built=None,
+                 modes=("monolithic", "chunked")):
+    """Phase 4: the prefill ``modes`` of ``arch`` at full width (``built``:
     a (bundle, params) pair to serve instead of building the arch's).
     Returns (bundle, params, args, {mode: (engine, out, seconds, launch
     counts)})."""
@@ -1895,6 +1966,11 @@ def serving_runs(torch, ops, serve, arch, gen, built=None):
                      f"(d_ff {me.d_ff_shared}), capacity_factor "
                      f"{me.capacity_factor}; {cfg.n_active_params() / 1e9:.3f}"
                      f" B active")
+    if cfg.family == "vlm":
+        shape.append(f"{cfg.n_patch_tokens} patch rows before each prompt")
+    if cfg.family == "encdec":
+        shape.append(f"{cfg.n_enc_layers} encoder layers over "
+                     f"{cfg.enc_seq} frames")
     if cfg.ssm is not None:
         shape.append(f"d_inner={cfg.ssm.d_inner(cfg.d_model)}, "
                      f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads x "
@@ -1906,7 +1982,7 @@ def serving_runs(torch, ops, serve, arch, gen, built=None):
           f"V={cfg.vocab}, {cfg.param_dtype}); init "
           f"{time.perf_counter() - t0:.1f} s")
     runs = {}
-    for mode in ("monolithic", "chunked"):
+    for mode in modes:
         margs = serve.parse_args(base + ["--prefill-mode", mode])
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -1933,27 +2009,29 @@ def serving_runs(torch, ops, serve, arch, gen, built=None):
         print_graphs(f"  {mode}", eng)
         for name in path_kernels(cfg)[2]:
             # every replayed launch counted, plus the warm-up step's own
-            assert counts[name] == cfg.n_layers * (g.replays + 1), \
+            assert counts[name] == decode_launches(cfg) * (g.replays + 1), \
                 (counts, g.replays)
         for o in out.values():
             assert o.shape == (margs.gen,), o.shape
             assert ((o >= 0) & (o < cfg.vocab)).all()
         runs[mode] = (eng, out, dt, counts)
-    (m_eng, _, _, mono), (c_eng, _, _, chunked) = (runs["monolithic"],
-                                                   runs["chunked"])
     # one launch per layer per prefill and per chunk, each chunk replayed
     # from its length's graph, plus each chunk graph's parked warm-up (as
     # flash_decode counts its decode graph's warm-up step)
     nl = cfg.n_layers
     prefill_k, chunk_k, decode_k = path_kernels(cfg)
-    for name in chunk_k:
-        assert chunked[name] == nl * (c_eng.stats["prefill_chunks"]
-                                      + len(c_eng.chunk_graphs)) > 0, \
-            (name, chunked)
+    if "chunked" in runs:
+        c_eng, chunked = runs["chunked"][0], runs["chunked"][3]
+        for name in chunk_k:
+            assert chunked[name] == nl * (c_eng.stats["prefill_chunks"]
+                                          + len(c_eng.chunk_graphs)) > 0, \
+                (name, chunked)
+    m_eng, mono = runs["monolithic"][0], runs["monolithic"][3]
     for name in prefill_k:
-        assert mono[name] == nl * m_eng.stats["prefills"] > 0, (name, mono)
+        assert mono[name] == prefill_launches(cfg, name) \
+            * m_eng.stats["prefills"] > 0, (name, mono)
     for name in decode_k:
-        assert mono[name] > 0 and chunked[name] > 0, (mono, chunked)
+        assert all(run[3][name] > 0 for run in runs.values()), runs
     return bundle, params, args, runs
 
 
@@ -2096,7 +2174,7 @@ PAIR_ORDER = (("eager", "captured"), ("captured", "eager"))
 
 
 def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3,
-                      eager_chunks=False):
+                      eager_chunks=False, modes=("monolithic", "chunked")):
     """Phase 4c: phase 4's requests served again with the eager decode step
     (``--no-decode-graph``; with ``eager_chunks`` the chunks eager too)
     and with the captured one, ``pairs`` pairs a prefill mode in
@@ -2107,7 +2185,7 @@ def eager_vs_captured(serve, bundle, params, runs, gen, pairs=3,
     base = (["--arch", bundle.name, "--gen", str(gen)]
             + serve_args(bundle.name))
     table = {}
-    for mode in ("monolithic", "chunked"):
+    for mode in modes:
         want = runs[mode][1]
         res = {"eager": [], "captured": []}
         for i in range(pairs):
@@ -2421,7 +2499,7 @@ def sampler_checks(torch):
 
 
 def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64,
-                 per_token=True):
+                 per_token=True, modes=("monolithic", "chunked")):
     """Phase 4d (b): phase 4's requests with half of them sampled
     (SAMPLE_ARGS), both prefill modes, the decode steps captured (the
     default) and eager: streams equal; the greedy requests equal phase 4's
@@ -2433,14 +2511,13 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64,
     captured = eager only.  Returns ({mode: (tok/s, sampled steps, decode
     steps, the captured run's streams)}, [launch counts of each captured
     run])."""
-    import numpy as np
-    from repro_torch.runtime.serving import Request, ServingEngine
+    from repro_torch.runtime.serving import ServingEngine
     base = ["--arch", bundle.name, "--gen", str(gen)] \
         + serve_args(bundle.name) \
         + SAMPLE_ARGS
     cfg = bundle.cfg
     res, all_counts = {}, []
-    for mode in ("monolithic", "chunked"):
+    for mode in modes:
         args = serve.parse_args(base + ["--prefill-mode", mode])
         plan = serve.sampling_plan(
             args.requests, temperature=args.temperature, top_k=args.top_k,
@@ -2461,7 +2538,7 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64,
             eng.draw_graph.replays
         check_chunk_graphs(eng)
         for name in path_kernels(cfg)[2]:
-            assert counts[name] == cfg.n_layers * (
+            assert counts[name] == decode_launches(cfg) * (
                 st["decode_steps"] + 2), counts
         if cfg.ssm is not None:
             assert counts["ssd"] == cfg.n_layers * (
@@ -2504,13 +2581,12 @@ def sampled_runs(torch, ops, serve, bundle, params, runs, gen=64,
         for uid in greedy:
             assert (out[uid] == want[uid]).all(), (mode, uid)
         lens = serve.prompt_lengths(args)
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+        reqs = serve.requests(args, cfg.vocab, cfg=cfg)
         uid = next(i for i, sp in enumerate(plan) if not sp.is_greedy)
         alone = ServingEngine(bundle.model, cfg, params,
-                              config=serve.engine_config(args, lens))
-        alone.submit(Request(uid=uid, prompt=prompts[uid],
-                             max_new_tokens=gen, sampling=plan[uid]))
+                              config=serve.engine_config(
+                                  args, lens, serve.prefix_extra(cfg)))
+        alone.submit(reqs[uid])
         a_out = alone.run()
         assert (a_out[uid] == out[uid]).all(), (mode, uid)
         n_diff = sum(int((out[i] != want[i]).any()) for i in out
@@ -3366,10 +3442,11 @@ def fill_times(torch, eng):
 
 
 def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
-                pairs=2):
-    """Phase 4h: phase 4's chunked requests under :data:`FAULT_PLAN`, the
-    decode and chunk steps captured, two waves an engine (the second
-    reuses every slot, a quarantined one after its scrub).
+                pairs=2, mode="chunked"):
+    """Phase 4h: phase 4's requests (prefill ``mode``, chunked unless
+    given) under :data:`FAULT_PLAN`, the decode and chunk steps captured,
+    two waves an engine (the second reuses every slot, a quarantined one
+    after its scrub).
 
     Every family (hymba-1.5b: its poison fills K/V rows, SSD state and
     conv tail): fault-free and faulted runs in ``pairs`` alternating
@@ -3397,9 +3474,9 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
     t_start = time.perf_counter()
     name = bundle.name
     base = (["--arch", name, "--gen", "64"] + serve_args(name)
-            + ["--prefill-mode", "chunked"])
+            + ["--prefill-mode", mode])
     args = serve.parse_args(base)
-    clean = runs["chunked"][1]
+    clean = runs[mode][1]
     plan = fault_plan()
     rows = {"clean": [], "faulted": []}
     faulted = []
@@ -3441,7 +3518,9 @@ def fault_phase(torch, ops, serve, bundle, params, runs, int8_out=None,
     for out, fired, _ in faulted[1:]:
         assert fired == faulted[0][1] and same_streams(out, faulted[0][0])
     nl = bundle.cfg.n_layers
-    kernels = set(path_kernels(bundle.cfg)[1] + path_kernels(bundle.cfg)[2])
+    prefill_k, chunk_k, decode_k = path_kernels(bundle.cfg)
+    kernels = set((prefill_k if mode == "monolithic" else chunk_k)
+                  + decode_k)
     assert all(counts[k] > 0 for k in kernels), counts
     print(f"phase 4h: {name} faulted run's launches {counts} ({nl} layers)")
     print(f"phase 4h: {name} medians of {pairs} alternating pairs, first "
@@ -4037,20 +4116,13 @@ def moe_end_to_end(torch, ops, bundle, params, prompt, free_bundle):
     FAULT_MARGIN times the control.  Returns {label: (max |diff|,
     agreement)}."""
     import types
-    import torch.nn.functional as F
     from repro_torch.models import registry
     P = ops.PLAIN
-
-    def sdpa_attention(q, k, v, *, causal=True, window=None, **_):
-        assert window is None
-        return F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=k.shape[-3] != q.shape[-3])
 
     def unscaled(q, k, v, *, causal=True, window=None, **_):
         return P.attention(q, k, v, causal=causal, window=window, scale=1.0)
 
-    kops = {"control": types.SimpleNamespace(**{**vars(P),
-                                                "attention": sdpa_attention}),
+    kops = {"control": sdpa_kops(P),
             "fault": types.SimpleNamespace(**{**vars(P),
                                               "attention": unscaled})}
     out = {}
@@ -4232,7 +4304,8 @@ def moe_f32_check(torch, bundle, free, params, prompts):
     assert fault > FAULT_MARGIN * tol, fault
 
 
-def int8_runs(torch, ops, serve, bundle, params, runs, gen=64):
+def int8_runs(torch, ops, serve, bundle, params, runs, gen=64,
+              modes=("monolithic", "chunked")):
     """Phase 4e (moe): phase 4's requests over an int8 arena, both
     prefill modes captured: every flash_decode and flash_prefill_chunk
     launch scaled (counts set to 0 just before each run), the pages and
@@ -4242,7 +4315,7 @@ def int8_runs(torch, ops, serve, bundle, params, runs, gen=64):
     from repro_torch.runtime.serving import tolerance
     nl = bundle.cfg.n_layers
     all_counts = []
-    for mode in ("monolithic", "chunked"):
+    for mode in modes:
         args = serve.parse_args(["--arch", bundle.name, "--gen", str(gen),
                                  "--prefill-mode", mode, "--kv-format",
                                  "int8"] + serve_args(bundle.name))
@@ -4395,26 +4468,25 @@ def moe_phase(torch, ops, serve, registry, smi):
 
 def moe30b_phase(torch, ops, serve, smi):
     """qwen3-moe-30b-a3b (32 / 4 heads, G = 8, qk_norm, 128 experts top
-    8, no shared experts) at full width, 56.9 GiB of bf16 weights, with
-    every other model freed first: one greedy wave of 4 requests of 512
-    tokens and 32 new tokens, monolithic and chunked (4), and one 16-step
-    decode window of the captured step with its device time by op (4c).
-    The same requests eager against captured are cut, the first cut of
-    the smoke's time (qwen2-moe holds captured = eager).
-    Returns the launch counts of the captured runs, each kernel's count
-    under ``<kernel>_moe30b``."""
-    import gc
+    8, no shared experts) at full width and 24 of its 48 layers (29.0
+    GiB of bf16 weights), with every other model freed first: one greedy
+    wave of 4 requests of 512 tokens and 32 new tokens, monolithic and
+    chunked (4), and one 16-step decode window of the captured step with
+    its device time by op (4c).  The same requests eager against captured
+    are cut, and the depth is cut to 24 layers, to hold the smoke's time
+    (qwen2-moe holds captured = eager; these checks do not depend on
+    depth).  Returns the launch counts of the captured runs, each
+    kernel's count under ``<kernel>_moe30b``."""
+    from repro_torch.models import registry
     t_start = time.perf_counter()
-    # the engines of the earlier phases hold their graphs in reference
-    # cycles: collect them, so their weights and pools leave the card
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    print(f"phase 4: {QWEN3_MOE}: {held / 1e9:.2f} GB still allocated on "
-          f"the card before its weights")
-    assert held < 4e9, held
+    collect_for(torch, QWEN3_MOE)
+    cfg = dataclasses.replace(registry.config(QWEN3_MOE), n_layers=24)
+    model = registry.build_model(cfg, device="cuda")
+    built = (registry.Bundle(name=QWEN3_MOE, cfg=cfg, model=model),
+             model.init(0))
     bundle, params, args, runs = serving_runs(torch, ops, serve, QWEN3_MOE,
-                                              gen=32)
+                                              gen=32, built=built)
+    del built
     window, wbusy = decode_window(torch, serve, bundle, params, pairs=1,
                                   steps=16, same=False,
                                   kinds={"captured": []})
@@ -4431,6 +4503,483 @@ def moe30b_phase(torch, ops, serve, smi):
     del bundle, params, runs
     torch.cuda.empty_cache()
     return [{f"{k}_moe30b": v for k, v in c.items()} for c in counts]
+
+
+def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
+    """Phase 3g: the attention kernels at the new shapes of the vlm and
+    encdec paths, bf16.  llava-next-34b (56 / 8 heads, G = 7, hd 128):
+    flash_attention causal at its prefills, S = 576 patch rows + 1024 /
+    768 text tokens, the planted fault one patch row fewer (key 0
+    dropped); flash_decode over 4 slots of its arena (lengths prompt +
+    64 new tokens, the shorter one's, parked, 1), bf16 and int8, the
+    faults lengths + 1 and V scaled by K's scales.  whisper-large-v3 (MHA
+    20 / 20, hd 64): flash_attention non-causal over the encoder's S =
+    1500 (not a multiple of the 64-key strip) and the cross-attention
+    prefill, Sq = 224 / 160 against Sk = 1500; flash_decode over all 1500
+    cross rows of 4 slots (``lengths=None``); the planted fault the last
+    ragged key strip dropped.  Each against its plain version within the
+    phase 3 limit, each fault rejected by more than FAULT_MARGIN; kernel /
+    plain / SDPA times and the bound.  Returns {``<kernel>_vlm``,
+    ``<kernel>_whisper``: record}."""
+    from repro_torch.core import kv_format as kvf
+    from repro_torch.kernels import flash_attention, flash_decode
+    P = ops.PLAIN
+    dev = "cuda"
+    gen_ = torch.Generator(device=dev).manual_seed(28)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen_, device=dev).to(
+            torch.bfloat16)
+
+    def rotation(sets):
+        """The next of ``sets`` at each call: timed calls read operands
+        that are not in L2."""
+        i = [0]
+
+        def nxt():
+            i[0] = (i[0] + 1) % len(sets)
+            return sets[i[0]]
+        return nxt
+
+    rec = {}
+    # -- llava-next-34b ------------------------------------------------------
+    h, kvh, d = llava.n_heads, llava.n_kv_heads, llava.hd
+    g, npatch = h // kvh, llava.n_patch_tokens
+    prompts = (npatch + 1024, npatch + 768)
+    print(f"phase 3g: {llava.name} full width bf16 (H={h}, KVH={kvh}, G={g},"
+          f" D={d}; prompts {list(prompts)} = {npatch} patch rows + 1024 / "
+          f"768 tokens)")
+    errs = []
+    for s in prompts:
+        q, k, v = rn(1, h, s, d), rn(1, kvh, s, d), rn(1, kvh, s, d)
+        errs.append(check(
+            f"flash_attention S={s} G={g}", ops.attention(q, k, v),
+            P.attention(q, k, v), "bfloat16", "(causal)",
+            fault=("one patch row fewer: key 0 dropped",
+                   P.attention(q, k[:, :, 1:], v[:, :, 1:]))))
+    s = max(prompts)
+    nset = rotation([(rn(1, h, s, d), rn(1, kvh, s, d), rn(1, kvh, s, d))
+                     for _ in range(3)])
+    rec["flash_attention_vlm"] = dict(
+        module=flash_attention, label=f"fa vlm S={s}", max_abs_err=max(errs),
+        ms=timed(lambda: flash_attention.launch(*nset()), 20),
+        plain_ms=timed(lambda: P.attention(*nset()), 3),
+        library_ms=timed(lambda: sdpa(*nset(), is_causal=True), 20),
+        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
+        flops=4 * h * d * s * (s + 1) // 2)
+    del nset
+
+    slots, smax, nl = 4, s + 64 + 1, 8
+    arena_k, arena_v = rn(nl, slots, smax, kvh, d), rn(nl, slots, smax,
+                                                        kvh, d)
+    q = rn(slots, h, d)
+    lens = torch.tensor([prompts[0] + 64, prompts[1] + 64, PARKED_POS + 1,
+                         1], device=dev)
+    bad_lens = lens + torch.tensor([1, 1, 0, 0], device=dev)
+    err = check(f"flash_decode G={g}",
+                ops.flash_decode(q, arena_k[0], arena_v[0], lengths=lens),
+                P.flash_decode(q, arena_k[0], arena_v[0], lengths=lens),
+                "bfloat16", f"(lengths {lens[0].item()}/{lens[1].item()}/"
+                            f"parked/1)",
+                fault=("lengths + 1 in the two long rows",
+                       P.flash_decode(q, arena_k[0], arena_v[0],
+                                      lengths=bad_lens)))
+    torch.cuda.synchronize()
+    assert int(flash_decode.counters(q.device, slots * kvh)[
+        :slots * kvh].abs().sum()) == 0
+    layer = rotation(list(range(nl)))
+    kpos = torch.arange(smax, device=dev)
+    mask = (kpos[None] < lens[:, None])[:, None, None, :]
+
+    def kernel():
+        i = layer()
+        return flash_decode.launch(q, arena_k[i], arena_v[i], lens)
+
+    def plain():
+        i = layer()
+        return P.flash_decode(q, arena_k[i], arena_v[i], lengths=lens)
+
+    def library():
+        i = layer()
+        return sdpa(q[:, :, None], arena_k[i].transpose(1, 2),
+                    arena_v[i].transpose(1, 2), attn_mask=mask)
+
+    ms, plain_ms, lib_ms = (timed(kernel, 50), timed(plain, 5),
+                            timed(library, 20))
+    live = int(torch.clamp(lens, max=smax).sum())
+    # int8 arena: the scaled branch at G = 7
+    (kq, ks), (vq, vs) = (kvf.quantize(kvf.get("int8"), t.float())
+                          for t in (arena_k, arena_v))
+    check(f"flash_decode G={g} bf16/int8",
+          ops.flash_decode(q, kq[0], vq[0], lengths=lens, k_scale=ks[0],
+                           v_scale=vs[0]),
+          P.flash_decode(q, kq[0], vq[0], lengths=lens, k_scale=ks[0],
+                         v_scale=vs[0]), "bfloat16", "",
+          fault=("V scaled by K's scales",
+                 P.flash_decode(q, kq[0], vq[0], lengths=lens,
+                                k_scale=ks[0], v_scale=ks[0])))
+
+    def kernel_int8():
+        i = layer()
+        return flash_decode.launch(q, kq[i], vq[i], lens, k_scale=ks[i],
+                                   v_scale=vs[i])
+
+    i8_ms = timed(kernel_int8, 50)
+    print(f"  flash_decode G={g} int8 arena: {i8_ms:.4f} ms against "
+          f"{ms:.4f} ms over the bf16 arena")
+    rec["flash_decode_vlm"] = dict(
+        module=flash_decode, label=f"fd vlm G={g}", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, int8_ms=i8_ms,
+        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
+        flops=4 * live * h * d)
+    del arena_k, arena_v, kq, vq, ks, vs
+
+    # -- whisper-large-v3 ----------------------------------------------------
+    h, kvh, d, se = whisper.n_heads, whisper.n_kv_heads, whisper.hd, \
+        whisper.enc_seq
+    full = se // 64 * 64
+    strip = ("the last ragged key strip dropped (keys "
+             f"{full}-{se - 1})")
+    print(f"phase 3g: {whisper.name} full width bf16 (H={h}, KVH={kvh}, "
+          f"D={d}; encoder S={se}, prompts 224 / 160)")
+    q, k, v = rn(1, h, se, d), rn(1, kvh, se, d), rn(1, kvh, se, d)
+    errs = [check(f"flash_attention encoder S={se}",
+                  ops.attention(q, k, v, causal=False),
+                  P.attention(q, k, v, causal=False), "bfloat16",
+                  "(non-causal)",
+                  fault=(strip, P.attention(q, k[:, :, :full],
+                                            v[:, :, :full], causal=False)))]
+    cross_ms = {}
+    for sq in (224, 160):
+        qc = rn(1, h, sq, d)
+        errs.append(check(
+            f"flash_attention cross Sq={sq} Sk={se}",
+            ops.attention(qc, k, v, causal=False),
+            P.attention(qc, k, v, causal=False), "bfloat16",
+            "(non-causal)",
+            fault=(strip, P.attention(qc, k[:, :, :full], v[:, :, :full],
+                                      causal=False))))
+        cross_ms[sq] = (timed(lambda: flash_attention.launch(
+                            qc, k, v, causal=False), 20),
+                        timed(lambda: sdpa(qc, k, v), 20))
+    print("  cross prefill (K/V L2-resident): " + ", ".join(
+        f"Sq={sq} kernel {a:.4f} ms, SDPA {b:.4f} ms"
+        for sq, (a, b) in cross_ms.items()))
+    nset = rotation([(rn(1, h, se, d), rn(1, kvh, se, d), rn(1, kvh, se, d))
+                     for _ in range(3)])
+    rec["flash_attention_whisper"] = dict(
+        module=flash_attention, label=f"fa whisper S={se}",
+        max_abs_err=max(errs),
+        ms=timed(lambda: flash_attention.launch(*nset(), causal=False), 20),
+        plain_ms=timed(lambda: P.attention(*nset(), causal=False), 3),
+        library_ms=timed(lambda: sdpa(*nset()), 20),
+        bytes=2 * (2 * se * h * d + 2 * se * kvh * d),
+        flops=4 * h * d * se * se, cross_ms=cross_ms)
+    del nset
+
+    ck, cv = rn(nl, slots, se, kvh, d), rn(nl, slots, se, kvh, d)
+    q = rn(slots, h, d)
+    short = torch.full((slots,), full, device=dev)
+    err = check("flash_decode cross, lengths=None",
+                ops.flash_decode(q, ck[0], cv[0]),
+                P.flash_decode(q, ck[0], cv[0]), "bfloat16",
+                f"({slots} slots x {se} rows)",
+                fault=(strip, P.flash_decode(q, ck[0], cv[0],
+                                             lengths=short)))
+    torch.cuda.synchronize()
+    assert int(flash_decode.counters(q.device, slots * kvh)[
+        :slots * kvh].abs().sum()) == 0
+
+    def cross_kernel():
+        i = layer()
+        return flash_decode.launch(q, ck[i], cv[i], None)
+
+    def cross_plain():
+        i = layer()
+        return P.flash_decode(q, ck[i], cv[i])
+
+    def cross_library():
+        i = layer()
+        return sdpa(q[:, :, None], ck[i].transpose(1, 2),
+                    cv[i].transpose(1, 2))
+
+    rec["flash_decode_whisper"] = dict(
+        module=flash_decode, label="fd whisper cross", max_abs_err=err,
+        ms=timed(cross_kernel, 50), plain_ms=timed(cross_plain, 5),
+        library_ms=timed(cross_library, 20),
+        bytes=2 * (2 * q.numel() + 2 * slots * se * kvh * d),
+        flops=4 * slots * se * h * d)
+    del ck, cv
+    return rec
+
+
+def sdpa_kops(P):
+    """The plain namespace with PyTorch's ``scaled_dot_product_attention``
+    for the attention op: another rounding of the same attention, the
+    control of phase 5."""
+    import types
+    import torch.nn.functional as F
+
+    def sdpa_attention(q, k, v, *, causal=True, window=None, **_):
+        assert window is None
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=k.shape[-3] != q.shape[-3])
+
+    return types.SimpleNamespace(**{**vars(P), "attention": sdpa_attention})
+
+
+def first_request(torch, serve, bundle, args):
+    """Request 0 of ``args``'s run as device tensors: its prompt (1, S)
+    and its extras, batched."""
+    req = serve.requests(args, bundle.cfg.vocab, cfg=bundle.cfg)[0]
+    return (torch.as_tensor(req.prompt, device="cuda")[None],
+            {k: torch.as_tensor(v, device="cuda")[None]
+             for k, v in (req.extras or {}).items()})
+
+
+def extras_logits(model, params, prompt, extras, rows):
+    """``model``'s prefill logits (V,) for ``prompt`` with ``extras``, into
+    a one-slot arena of ``rows`` rows."""
+    return model.prefill(params, prompt, model.init_cache(1, rows),
+                         **extras)[0]
+
+
+def vlm_end_to_end(torch, ops, serve, bundle, params, args, runs):
+    """Phase 5 (vlm): request 0's prefill logits (its 576 patch rows, then
+    its 1024 tokens) through the kernels against the plain path, beside a
+    control (the plain path with SDPA attention).  Held: the kernel path
+    no farther from the plain path than LOGIT_TOL or the control,
+    whichever is larger; the plain path with the patch prefix moved one
+    row later (row 0 zero, the last row dropped: the planted fault) farther
+    than FAULT_MARGIN times that limit; the served stream's first token
+    the kernel path's argmax."""
+    from repro_torch.models import registry
+    P = ops.PLAIN
+    cfg = bundle.cfg
+    prompt, extras = first_request(torch, serve, bundle, args)
+    patches = extras["patch_embeds"]
+    rows = prompt.shape[1] + patches.shape[1] + 1
+    logits = {"kernel": extras_logits(bundle.model, params, prompt, extras,
+                                      rows)}
+    for name, kops in (("plain", P), ("control", sdpa_kops(P))):
+        m = registry.build_model(cfg, device="cuda", kernels=kops)
+        logits[name] = extras_logits(m, params, prompt, extras, rows)
+    shifted = torch.cat([torch.zeros_like(patches[:, :1]),
+                         patches[:, :-1]], 1)
+    logits["fault"] = extras_logits(m, params, prompt,
+                                    {"patch_embeds": shifted}, rows)
+    diff = {k: (logits[k] - logits["plain"]).abs().max().item()
+            for k in ("kernel", "control", "fault")}
+    limit = max(LOGIT_TOL, diff["control"])
+    tok = int(torch.argmax(logits["kernel"]))
+    top2 = torch.topk(logits["plain"], 2).values
+    print(f"phase 5: {bundle.name} request 0 prefill logits "
+          f"({patches.shape[1]} patch rows + {prompt.shape[1]} tokens) against the plain path: "
+          f"kernel max |diff| {diff['kernel']:.4e}, control (SDPA attention) "
+          f"{diff['control']:.4e}, limit {limit:.4e} (logits std "
+          f"{logits['plain'].std().item():.4f}); argmax {tok} vs "
+          f"{int(torch.argmax(logits['plain']))}, plain top-2 gap "
+          f"{(top2[0] - top2[1]).item():.4e}; planted fault (the patch "
+          f"prefix one row later) {diff['fault']:.4e} = "
+          f"{diff['fault'] / limit:.1f}x the limit")
+    assert logits["kernel"].shape == (cfg.vocab,)
+    assert bool(torch.isfinite(logits["kernel"]).all())
+    assert diff["kernel"] <= limit, diff
+    assert diff["fault"] > FAULT_MARGIN * limit, diff
+    assert int(runs["monolithic"][1][0][0]) == tok
+
+
+def encdec_end_to_end(torch, ops, serve, bundle, params, args, runs):
+    """Phase 5 (encdec): request 0's prefill logits (its 1500 frames, then
+    its 224 tokens), kernel path against plain path in bf16 (reported: 32
+    + 32 random-weight layers carry one-ulp bf16 flips, as mamba2's and
+    hymba's do), then (5b) with f32 params and activations through all 64
+    layers, held to WHISPER_F32_LOGIT_TOL; the plain path with the encoder
+    run causal (the planted fault) must exceed it by more than
+    FAULT_MARGIN.  The served stream's first token is the bf16 kernel
+    path's argmax."""
+    import types
+    from repro_torch.models import registry
+    P = ops.PLAIN
+    cfg = bundle.cfg
+    prompt, extras = first_request(torch, serve, bundle, args)
+    rows = prompt.shape[1] + 1
+    plain = registry.build_model(cfg, device="cuda", kernels=P)
+    k16 = extras_logits(bundle.model, params, prompt, extras, rows)
+    p16 = extras_logits(plain, params, prompt, extras, rows)
+    d16 = (k16 - p16).abs().max().item()
+    tok = int(torch.argmax(k16))
+    print(f"phase 5: {bundle.name} request 0 prefill logits ({cfg.enc_seq} "
+          f"frames, {prompt.shape[1]} tokens), bf16, kernel vs plain path: "
+          f"max |diff| {d16:.4e} (reported; 5b holds f32; logits std "
+          f"{p16.std().item():.4f}); argmax {tok} vs "
+          f"{int(torch.argmax(p16))}")
+    assert bool(torch.isfinite(k16).all()) and k16.shape == (cfg.vocab,)
+    assert int(runs["monolithic"][1][0][0]) == tok
+    del plain, k16, p16
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+
+    def causal_encoder(q, k, v, *, causal=True, **kw):
+        return P.attention(q, k, v, causal=True, **kw)
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    p32 = f32(params)
+    logits = {}
+    for name, kops in (("kernel", ops), ("plain", P), ("fault", P)):
+        model = registry.build_model(cfg32, device="cuda", kernels=kops)
+        if name == "fault":
+            enc = registry.build_model(cfg32, device="cuda",
+                                       kernels=types.SimpleNamespace(
+                                           **{**vars(P),
+                                              "attention": causal_encoder}))
+            model.encode = enc.encode
+        logits[name] = extras_logits(model, p32, prompt, extras, rows)
+    del p32
+    diff = (logits["kernel"] - logits["plain"]).abs().max().item()
+    f_diff = (logits["fault"] - logits["plain"]).abs().max().item()
+    tol = WHISPER_F32_LOGIT_TOL
+    print(f"phase 5b: {bundle.name} f32 request 0 prefill logits, kernel vs "
+          f"plain path through {cfg.n_enc_layers} + {cfg.n_layers} layers: "
+          f"max |diff| = {diff:.4e} (tol {tol}; logits std "
+          f"{logits['plain'].std().item():.4f}); planted fault (the encoder "
+          f"run causal): {f_diff:.4e}, {f_diff / tol:.1f} of the limit")
+    assert bool(torch.isfinite(logits["kernel"]).all())
+    assert diff <= tol, diff
+    assert f_diff > FAULT_MARGIN * tol, f_diff
+
+
+def family_summary(name, smi, runs, window, wbusy, params, mixed, t_start):
+    """Phase 4's summary line of the vlm and encdec phases: tok/s and TTFT
+    of the captured run, the captured decode step's device and wall ms
+    beside the read time at the HBM rate of the weights a decode step
+    reads (every weight but the tables it reads a row of, ``embed`` and
+    ``pos_embed``, and the encoder's), the sampled mix's tok/s."""
+    eng, out, dt, _ = runs["monolithic"]
+    ttft = sorted(eng.stats["ttft_s"].values())
+    weights = sum(t.numel() * t.element_size() for key, tree in
+                  params.items() if key not in ("embed", "pos_embed",
+                                                "enc_layers", "enc_norm")
+                  for t in _leaves({key: tree}))
+    floor = 1e3 * weights / HBM_BYTES_PER_S
+    print(f"phase 4: {name} summary ({smi}): monolithic "
+          f"{sum(o.size for o in out.values()) / dt:.1f} tok/s, TTFT ms "
+          f"{[round(1e3 * t, 1) for t in ttft]}; captured greedy decode "
+          f"step {wbusy['captured'][0]:.3f} ms device, "
+          f"{statistics.median(window['captured']):.3f} ms wall, weight "
+          f"read floor {floor:.3f} ms (the {weights / 2 ** 30:.2f} GiB a "
+          f"decode step reads, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); sampled mix "
+          + ", ".join(f"{mode} {r[0]:.1f} tok/s" for mode, r in mixed.items())
+          + f"; phases 4-5 in {time.perf_counter() - t_start:.1f} s")
+
+
+def collect_for(torch, name):
+    """Collect the engines of the earlier phases (they hold their graphs
+    in reference cycles), so their weights and pools leave the card before
+    ``name``'s weights are made."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"phase 4: {name}: {held / 1e9:.2f} GB still allocated on the "
+          f"card before its weights")
+    assert held < 4e9, held
+
+
+def vlm_phase(torch, ops, serve, smi):
+    """Phases 4 and 5 for llava-next-34b (the vlm family: a dense LM whose
+    prompts follow 576 patch rows) at full width, 64.05 GiB of random bf16
+    weights, every other model collected first: 4 requests of 1024 / 768
+    tokens after their patch rows, 64 new tokens, 4 slots, depth 2,
+    monolithic prefill (the reference refuses chunked prefill with patch
+    rows).  Served captured (4), one eager-vs-captured pair and a 16-step
+    decode window of the captured step (4c), half the requests sampled,
+    captured = eager (4d), the int8 arena (4e), the fixed fault plan (4h)
+    and request 0's logits (5).  Returns the launch counts of its
+    main-path runs, each kernel's count under ``<kernel>_vlm``."""
+    import gc
+    t_start = time.perf_counter()
+    collect_for(torch, LLAVA)
+    mono = ("monolithic",)
+    bundle, params, args, runs = serving_runs(torch, ops, serve, LLAVA,
+                                              gen=64, modes=mono)
+    eager_vs_captured(serve, bundle, params, runs, gen=64, pairs=1,
+                      modes=mono)
+    window, wbusy = decode_window(torch, serve, bundle, params, pairs=1,
+                                  steps=16, same=False,
+                                  kinds={"captured": []})
+    mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params, runs,
+                                   modes=mono)
+    counts4e = int8_runs(torch, ops, serve, bundle, params, runs,
+                         modes=mono)
+    faulted = fault_phase(torch, ops, serve, bundle, params, runs,
+                          mode="monolithic")
+    vlm_end_to_end(torch, ops, serve, bundle, params, args, runs)
+    family_summary(LLAVA, smi, runs, window, wbusy, params, mixed, t_start)
+    counts = [run[3] for run in runs.values()] + counts4d + counts4e \
+        + faulted
+    del bundle, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{f"{k}_vlm": v for k, v in c.items()} for c in counts]
+
+
+def encdec_phase(torch, ops, serve, smi):
+    """Phases 4 and 5 for whisper-large-v3 (the encdec family: an encoder
+    over 1500 frames, a decoder with cross-attention) at full width,
+    random bf16 weights: 4 requests of 1500 random frames each and
+    prompts of 224 / 160 tokens, 64 new tokens, 4 slots, depth 2,
+    monolithic prefill (the reference refuses chunked prefill for the
+    family).  Served captured (4), one eager-vs-captured pair and a
+    16-step decode window of the captured step (4c), half the requests
+    sampled, captured = eager (4d), the fixed fault plan (4h: the poison
+    fills the self and cross leaves), 8 requests over 2 replicas behind
+    the router against one engine, and request 0's logits (5, 5b in f32).
+    Returns the launch counts of its main-path runs, each kernel's count
+    under ``<kernel>_whisper``."""
+    import gc
+    t_start = time.perf_counter()
+    collect_for(torch, WHISPER)
+    mono = ("monolithic",)
+    bundle, params, args, runs = serving_runs(torch, ops, serve, WHISPER,
+                                              gen=64, modes=mono)
+    eager_vs_captured(serve, bundle, params, runs, gen=64, pairs=1,
+                      modes=mono)
+    window, wbusy = decode_window(torch, serve, bundle, params, pairs=1,
+                                  steps=16, same=False,
+                                  kinds={"captured": []})
+    mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params, runs,
+                                   modes=mono)
+    faulted = fault_phase(torch, ops, serve, bundle, params, runs,
+                          mode="monolithic")
+    eight = (["--arch", WHISPER, "--gen", "64"] + serve_args(WHISPER)
+             + ["--requests", "8"])
+    one, want, one_dt = serve.serve(bundle, params, serve.parse_args(eight))
+    del one
+    ops.reset_launch_counts()
+    fleet, got, dt = serve.serve_fleet(bundle, params, serve.parse_args(
+        eight + ["--replicas", "2"]))
+    fleet_counts = ops.launch_counts()
+    assert same_streams(got, want), "2 replicas != one engine"
+    assert all(r.engine.params is params for r in fleet.replicas.values())
+    print(f"phase 4h: {WHISPER} 2 replicas (least-pressure), 8 requests: "
+          f"{sum(o.size for o in got.values()) / dt:.1f} tok/s (one 4-slot "
+          f"engine {sum(o.size for o in want.values()) / one_dt:.1f}); "
+          f"placed {fleet.stats['placed']}; streams equal one engine's")
+    del fleet
+    encdec_end_to_end(torch, ops, serve, bundle, params, args, runs)
+    family_summary(WHISPER, smi, runs, window, wbusy, params, mixed,
+                   t_start)
+    counts = [run[3] for run in runs.values()] + counts4d + faulted \
+        + [fleet_counts]
+    del bundle, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{f"{k}_whisper": v for k, v in c.items()} for c in counts]
 
 
 def vector_unit_phase(torch, ops):
@@ -4793,6 +5342,8 @@ def main() -> int:
                                  "moe", (1024, 768), 64))
     rec.update(moe_kernel_checks(torch, ops, registry.config(QWEN3_MOE),
                                  "moe30b", (512,), 32))
+    rec.update(vlm_encdec_kernel_checks(torch, ops, registry.config(LLAVA),
+                                        registry.config(WHISPER)))
     for name in sorted(rec):
         bound(rec[name])
     stamp("phases 1-3")
@@ -4801,13 +5352,12 @@ def main() -> int:
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)
         stamp(f"{arch} phase 4")
-        # no eager-decode profile (its busy share is recorded in PERF.md):
-        # it holds the smoke's time with the chunk profiles added
+        # no eager-decode and no eager-chunk profile (their busy shares
+        # are recorded in PERF.md): they hold the smoke's time with the
+        # vlm and encdec phases added
         busy = {(mode, "captured"): profile_run(torch, ops, serve, bundle,
                                                 params, mode)
                 for mode in ("monolithic", "chunked")}
-        busy[("chunked", "eager chunks")] = profile_run(
-            torch, ops, serve, bundle, params, "chunked", chunk_graph=False)
         stamp(f"{arch} phase 4b")
         # the decode-step and chunk timing pairs run once each (their
         # checks in full) to hold the smoke's time with hymba's phases
@@ -4820,17 +5370,24 @@ def main() -> int:
         stamp(f"{arch} phase 4c")
         mixed, counts4d = sampled_runs(torch, ops, serve, bundle, params,
                                        runs)
-        swindow, sbusy = decode_window(
-            torch, serve, bundle, params, same=False, phase="4d", pairs=1,
-            kinds={"greedy": [], "sampled": SAMPLE_ARGS
-                   + ["--sampling-mix", "1.0"]})
+        # the greedy twin against the sampled graph over decode-only
+        # windows: llama3.2-3b's only (mamba2's is in PERF.md), to hold
+        # the smoke's time with the vlm and encdec phases added
+        swindow = sbusy = {}
+        if bundle.cfg.family == "dense":
+            swindow, sbusy = decode_window(
+                torch, serve, bundle, params, same=False, phase="4d",
+                pairs=1, kinds={"greedy": [], "sampled": SAMPLE_ARGS
+                                + ["--sampling-mix", "1.0"]})
         stamp(f"{arch} phase 4d")
+        windows = ("; decode only, median ms a step " + ", ".join(
+            f"{kind} {statistics.median(ms):.3f} (device "
+            f"{sbusy[kind][0]:.3f})" for kind, ms in swindow.items())
+            if swindow else "")
         print(f"phase 4d: {bundle.name} summary ({smi}): mixed runs "
               + "; ".join(f"{mode} {r[0]:.1f} tok/s ({r[1]} of {r[2]} steps "
                           f"sampled)" for mode, r in mixed.items())
-              + "; decode only, median ms a step " + ", ".join(
-                  f"{kind} {statistics.median(ms):.3f} (device "
-                  f"{sbusy[kind][0]:.3f})" for kind, ms in swindow.items()))
+              + windows)
         print(f"phase 4c: {bundle.name} summary ({smi}), medians: " + "; ".join(
             f"{mode} {kind} {statistics.median(r[0] for r in res[kind]):.1f}"
             f" tok/s, {statistics.median(r[1] for r in res[kind]):.2f} ms a "
@@ -4876,8 +5433,12 @@ def main() -> int:
     stamp(f"{HYMBA} phases 4-5")
     all_runs += moe_phase(torch, ops, serve, registry, smi)
     stamp(f"{QWEN2_MOE} phases 4-5")
+    all_runs += encdec_phase(torch, ops, serve, smi)
+    stamp(f"{WHISPER} phases 4-5")
     all_runs += moe30b_phase(torch, ops, serve, smi)
     stamp(f"{QWEN3_MOE} phase 4")
+    all_runs += vlm_phase(torch, ops, serve, smi)
+    stamp(f"{LLAVA} phases 4-5")
     vu_rec, vu_counts = vector_unit_phase(torch, ops)
     stamp("phase 6")
     for name in sorted(vu_rec):

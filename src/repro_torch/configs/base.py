@@ -86,11 +86,11 @@ class ArchConfig:
         return _DTYPES[self.act_dtype]
 
     def n_params(self) -> int:
-        """Total parameter count (embedding included) of a dense, moe, ssm
-        or hybrid config, by the reference's formula (configs/base.py:90)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"n_params for family {self.family!r} is not ported")
+        """Total parameter count (embedding included), by the reference's
+        formula (configs/base.py:90).  For encdec the formula counts the
+        decoder's learned positions as ``enc_seq`` rows, where the tree
+        holds ``max_seq`` of them (whisper-large-v3: 1.603 B here, 1.643 B
+        in the tree); ported as it is."""
         d, hd = self.d_model, self.hd
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
@@ -123,7 +123,16 @@ class ArchConfig:
         total += self.vocab * d                      # embed
         if not self.tie_embeddings:
             total += self.vocab * d                  # lm head
-        return int(total + d)                        # + final norm
+        total += d                                   # final norm
+        if self.family == "encdec":
+            # encoder layers, each decoder layer's cross-attention and
+            # extra norm, the encoder positions (reference :131-136)
+            enc_attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d
+            enc_layer = enc_attn + mlp + 2 * d
+            total += self.n_enc_layers * enc_layer + self.n_layers * attn \
+                + self.n_layers * d + self.enc_seq * d
+        return int(total)
 
     def n_active_params(self) -> int:
         """Parameters touched per token (reference :140): a moe config's
@@ -139,8 +148,8 @@ class ArchConfig:
         return int(base + self.n_layers * active)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test scale config of the same (dense, moe, ssm or hybrid)
-        family (reference configs/base.py:150)."""
+        """Smoke-test scale config of the same family (reference
+        configs/base.py:150)."""
         kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                   vocab=256, head_dim=16, max_seq=128)
         if self.moe:
@@ -157,4 +166,9 @@ class ArchConfig:
         if self.family == "hybrid":
             kw["attn_window"] = 32
             kw["n_global_layers"] = 1
+        if self.family == "encdec":
+            kw["n_enc_layers"] = 2
+            kw["enc_seq"] = 24
+        if self.family == "vlm":
+            kw["n_patch_tokens"] = 12
         return dataclasses.replace(self, **kw)

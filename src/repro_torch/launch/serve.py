@@ -3,18 +3,23 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b --no-reduced
 --requests 4 --prompt-len 1024 --gen 64 --slots 4 --depth 2``
 
-Port of ``repro/launch/serve.py`` for the ported families (dense; moe:
+Port of ``repro/launch/serve.py`` for every family (dense; moe:
 ``--arch qwen2-moe-a2.7b`` / ``qwen3-moe-30b-a3b``; ssm: ``--arch
 mamba2-2.7b``; hybrid: ``--arch hymba-1.5b``, whose arena line gives both
-its K/V bytes a row and its SSD state bytes a slot).  Runs on
-the card unless ``--device cpu``.
+its K/V bytes a row and its SSD state bytes a slot; vlm: ``--arch
+llava-next-34b``, each request with its patch embeddings, which the arena
+depth counts; encdec: ``--arch whisper-large-v3``, each request with its
+frames, the arena line giving its cross K/V bytes a slot; both serve in
+monolithic prefill only, as in the reference).  Runs on the card unless
+``--device cpu``.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
 reference always draws them from ``PRNGKey(0)``); prompts come from
 ``numpy.random.default_rng(0)`` as in the reference (odd requests get a
 25%-shorter prompt, or ``--prompt-mix`` cycles given lengths, or
 ``--prompt-mix shared-prefix`` gives every request a common page-aligned
 half of ``--prompt-len``, or ``--shared-prefix`` tokens, and a tail of its
-own, reference serve.py:324-334).
+own, reference serve.py:324-334); then each request's frames or patch
+embeddings, N(0, 1) f32 from the same generator.
 ``--prefix-sharing`` (chunked prefill only) turns the copy-on-write prefix
 cache on: later requests fork onto the first one's pages and ingest only
 their tails.
@@ -70,6 +75,7 @@ from repro_torch.runtime.serving import (DEFAULT_BUCKETS, GREEDY,
                                          RouterConfig, SamplingParams,
                                          ServingEngine, SpecConfig,
                                          parse_fault_plan)
+from repro_torch.runtime.serving.engine import prefix_extra
 
 
 def parse_speculative(text: str) -> SpecConfig:
@@ -234,11 +240,12 @@ def prompt_lengths(args) -> list[int]:
             for i in range(args.requests)]
 
 
-def prompts(args, vocab: int) -> list[np.ndarray]:
-    """The run's prompts, drawn from ``numpy.random.default_rng(0)`` as
-    the reference draws them: the shared-prefix mix's common head first,
-    then each tail; otherwise one prompt of each length in turn."""
-    rng = np.random.default_rng(0)
+def prompts(args, vocab: int, rng=None) -> list[np.ndarray]:
+    """The run's prompts, drawn from ``numpy.random.default_rng(0)`` (or
+    ``rng``) as the reference draws them: the shared-prefix mix's common
+    head first, then each tail; otherwise one prompt of each length in
+    turn."""
+    rng = np.random.default_rng(0) if rng is None else rng
     lens = prompt_lengths(args)
     if args.prompt_mix == SHARED_PREFIX:
         shared = shared_prefix_len(args)
@@ -248,7 +255,28 @@ def prompts(args, vocab: int) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n) for n in lens]
 
 
-def engine_config(args, lens) -> EngineConfig:
+def extras(args, cfg) -> list[dict]:
+    """Each request's prefill side inputs (reference serve.py:353-360),
+    drawn after the prompts from the same ``default_rng(0)``, f32: the
+    encdec family's ``frames`` (enc_seq, d), the vlm family's
+    ``patch_embeds`` (n_patch_tokens, d); empty dicts for the others."""
+    rng = np.random.default_rng(0)
+    prompts(args, cfg.vocab, rng)
+    drawn = {}
+    if cfg.family == "encdec":
+        drawn["frames"] = rng.standard_normal(
+            (args.requests, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        drawn["patch_embeds"] = rng.standard_normal(
+            (args.requests, cfg.n_patch_tokens, cfg.d_model)
+        ).astype(np.float32)
+    return [{key: val[i] for key, val in drawn.items()}
+            for i in range(args.requests)]
+
+
+def engine_config(args, lens, prefix: int = 0) -> EngineConfig:
+    """The run's EngineConfig; ``prefix``: the arena rows a request holds
+    before its prompt (``engine.prefix_extra``), which its depth counts."""
     chunks = None
     if args.prefill_mode == "chunked":
         chunks = (tuple(int(x) for x in args.chunk_buckets.split(","))
@@ -256,7 +284,7 @@ def engine_config(args, lens) -> EngineConfig:
     pad_slack = min(chunks) if chunks else 0
     return EngineConfig(
         max_slots=args.slots or args.requests,
-        max_seq=max(lens) + args.gen + pad_slack + 1,
+        max_seq=max(lens) + prefix + args.gen + pad_slack + 1,
         depth=args.depth, page_size=args.page_size, num_pages=args.pages,
         prefill_chunks=chunks, prefill_budget=args.prefill_budget,
         prefix_sharing=args.prefix_sharing,
@@ -287,17 +315,22 @@ def sampling_plan(n_requests: int, *, temperature: float, top_k: int,
     ]
 
 
-def requests(args, vocab: int, *, sessions: int = 0) -> list[Request]:
+def requests(args, vocab: int, *, sessions: int = 0,
+             cfg=None) -> list[Request]:
     """The run's requests: :func:`prompts`, sampled as
     :func:`sampling_plan` says, each with ``--deadline-ms``; ``sessions``
-    > 0 gives request i the session ``s{i mod sessions}``."""
+    > 0 gives request i the session ``s{i mod sessions}``; ``cfg`` (the
+    model's config) gives each its :func:`extras`."""
     reqs = prompts(args, vocab)
+    side = (extras(args, cfg) if cfg is not None
+            else [None] * args.requests)
     plan = sampling_plan(args.requests, temperature=args.temperature,
                          top_k=args.top_k, top_p=args.top_p,
                          min_p=args.min_p, seed=args.seed,
                          mix=args.sampling_mix)
     return [Request(uid=i, prompt=reqs[i], max_new_tokens=args.gen,
-                    sampling=plan[i], deadline_ms=args.deadline_ms,
+                    sampling=plan[i], extras=side[i] or None,
+                    deadline_ms=args.deadline_ms,
                     session=f"s{i % sessions}" if sessions else None)
             for i in range(args.requests)]
 
@@ -308,9 +341,10 @@ def engine(bundle, params, args, **changes) -> ServingEngine:
     sampled one if a request samples).  ``changes``: EngineConfig fields
     set past what the flags say (e.g. ``speculative`` with a full-width
     draft)."""
-    reqs = requests(args, bundle.cfg.vocab)
+    reqs = requests(args, bundle.cfg.vocab, cfg=bundle.cfg)
     config = engine_config(
-        args, [r.prompt.size for r in reqs]).replace(**changes)
+        args, [r.prompt.size for r in reqs],
+        prefix_extra(bundle.cfg)).replace(**changes)
     eng = ServingEngine(bundle.model, bundle.cfg, params, config=config)
     for r in reqs:
         eng.submit(r)
@@ -322,9 +356,11 @@ def router(bundle, params, args, **changes) -> Router:
     ``--placement``), sharing ``bundle.model`` and ``params``, with the
     run's requests submitted; sessions cycle over twice the fleet so the
     affinity policy has pins to keep (reference serve.py:380-390)."""
-    reqs = requests(args, bundle.cfg.vocab, sessions=2 * args.replicas)
+    reqs = requests(args, bundle.cfg.vocab, sessions=2 * args.replicas,
+                    cfg=bundle.cfg)
     config = engine_config(
-        args, [r.prompt.size for r in reqs]).replace(**changes)
+        args, [r.prompt.size for r in reqs],
+        prefix_extra(bundle.cfg)).replace(**changes)
     fleet = Router(bundle.model, bundle.cfg, params,
                    config=RouterConfig(replicas=args.replicas,
                                        placement=args.placement,

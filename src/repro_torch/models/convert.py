@@ -7,10 +7,13 @@ with ``moe.{router,experts.{w_gate,w_up,w_down},shared?.{w_up,w_gate,
 w_down},shared_gate?}`` in place of ``mlp``, moe.py:31; ssm: ``{ln,mamba.
 {w_z,w_x,w_B,w_C,w_dt,conv,A_log,dt_bias,D,norm,w_out}}``, mamba2.py:23;
 hybrid: the dense layer's leaves with ``attn_norm``, ``mamba`` and
-``mamba_norm``, hybrid.py:32), each leaf
+``mamba_norm``, hybrid.py:32; vlm: the dense tree), each leaf
 stacked on a leading L axis, ``final_norm`` and ``lm_head`` (absent when
-embeddings are tied).  The port keeps that layout exactly, so the bridge
-is a checked leaf-by-leaf copy.  Every leaf takes ``cfg.param_dtype``
+embeddings are tied).  The encdec tree (encdec.py:91-106) is ``embed``,
+``pos_embed``, ``enc_layers.{ln1,attn,ln2,mlp}``, ``enc_norm``,
+``dec_layers.{ln1,self_attn,ln_x,cross_attn,ln2,mlp}``, ``dec_norm`` and
+``lm_head``, its norms LayerNorms (``scale`` and ``bias``).  The port
+keeps that layout exactly, so the bridge is a checked leaf-by-leaf copy.  Every leaf takes ``cfg.param_dtype``
 except the mamba branch's ``A_log``/``dt_bias``/``D`` (ssm and hybrid)
 and the moe router, which are float32 whatever the param dtype, as in the
 reference (mamba2.py:42-44, moe.py:46-47).
@@ -61,10 +64,40 @@ def _moe_shapes(cfg) -> dict:
     return shapes
 
 
+def _encdec_shapes(cfg) -> dict:
+    d, hd, ff = cfg.d_model, cfg.hd, cfg.d_ff
+    shapes = {"embed": (cfg.vocab, d), "pos_embed": (cfg.max_seq, d),
+              "enc_norm.scale": (d,), "enc_norm.bias": (d,),
+              "dec_norm.scale": (d,), "dec_norm.bias": (d,),
+              "lm_head": (d, cfg.vocab)}
+    for stack, n, blocks in (("enc_layers", cfg.n_enc_layers,
+                              (("ln1", "attn"),)),
+                             ("dec_layers", cfg.n_layers,
+                              (("ln1", "self_attn"),
+                               ("ln_x", "cross_attn")))):
+        for norm, attn in blocks + (("ln2", None),):
+            shapes[f"{stack}.{norm}.scale"] = (n, d)
+            shapes[f"{stack}.{norm}.bias"] = (n, d)
+            if attn is None:
+                continue
+            a = f"{stack}.{attn}."
+            shapes.update({a + "wq": (n, d, cfg.n_heads * hd),
+                           a + "wk": (n, d, cfg.n_kv_heads * hd),
+                           a + "wv": (n, d, cfg.n_kv_heads * hd),
+                           a + "wo": (n, cfg.n_heads * hd, d)})
+            if cfg.qk_norm:
+                shapes[a + "q_norm.scale"] = (n, hd)
+                shapes[a + "k_norm.scale"] = (n, hd)
+        shapes[f"{stack}.mlp.w_up"] = (n, d, ff)
+        shapes[f"{stack}.mlp.w_down"] = (n, ff, d)
+    return shapes
+
+
 def expected_shapes(cfg) -> dict:
-    """The LM's parameter tree as {path: shape} (dense, moe, ssm or
-    hybrid)."""
+    """The model's parameter tree as {path: shape} (every family)."""
     d, hd, nl = cfg.d_model, cfg.hd, cfg.n_layers
+    if cfg.family == "encdec":
+        return _encdec_shapes(cfg)
     if cfg.family == "ssm":
         shapes = {"embed": (cfg.vocab, d), "layers.ln.scale": (nl, d),
                   **_mamba_shapes(cfg), "final_norm.scale": (d,)}

@@ -53,6 +53,28 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 mean and variance, one cast back (reference
+    layers.py:130)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) f32 sinusoidal positions, sines in the even columns and
+    cosines in the odd ones (reference layers.py:676)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, : d // 2])
+    return pe
+
+
 _FREQS: dict = {}
 
 
@@ -230,17 +252,19 @@ def attention_chunk(p: dict, cfg, x: torch.Tensor, layer_kv: dict,
 def attention_decode_rows(p: dict, cfg, x_t: torch.Tensor, layer_kv: dict,
                           pos: torch.Tensor, *,
                           window: Optional[int] = None,
-                          kops=ops, share=None) -> torch.Tensor:
+                          kops=ops, share=None,
+                          use_rope: bool = True) -> torch.Tensor:
     """One decode step: write the token's K/V row (quantized to the
     arena's format, with its scales) at ``pos`` into the arena layer view
     (masked to pos < max_seq), then ``flash_decode`` over it with
-    ``lengths = pos + 1``.  x_t: (B, d); layer_kv: {"k", "v"} of (B, Smax,
-    KVH, hd) (+ scales (B, Smax, KVH)).  ``share``: (share_src, share_len)
+    ``lengths = pos + 1``; ``use_rope=False`` for a model with learned
+    positions (the encdec decoder).  x_t: (B, d); layer_kv: {"k", "v"} of
+    (B, Smax, KVH, hd) (+ scales (B, Smax, KVH)).  ``share``: (share_src, share_len)
     (B,) device tensors or None: slot b reads rows [0, share_len[b]) from
     slot share_src[b] (reference ``_share_view``, transformer.py:495); the
     row write still targets slot b's own row.  Returns (B, d)."""
     b, _ = x_t.shape
-    q, k_t, v_t = _decode_qkv(p, cfg, x_t, pos, True)
+    q, k_t, v_t = _decode_qkv(p, cfg, x_t, pos, use_rope)
     for key, rows in _quantized(layer_kv, k_t[:, 0], v_t[:, 0]).items():
         write_rows(layer_kv[key], rows, pos)
     o = kops.flash_decode(q[:, 0], layer_kv["k"], layer_kv["v"],

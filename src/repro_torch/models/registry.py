@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> config + model.
 
-Port of ``repro/models/registry.py`` for the dense, moe, ssm and hybrid
-families.  The other families of the reference raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Port of ``repro/models/registry.py``: every architecture the reference
+registers, each family's driver (the ``LM`` over a family's layer set;
+``VLM`` for vlm, ``EncDecLM`` for encdec).
 """
 from __future__ import annotations
 
@@ -10,20 +10,23 @@ import dataclasses
 from typing import Any
 
 from repro_torch.configs import (deepseek_coder_33b, hymba_1_5b,
-                                 llama3_2_3b, mamba2_2_7b, nemotron_4_15b,
-                                 qwen2_moe_a2_7b, qwen3_14b,
-                                 qwen3_moe_30b_a3b)
+                                 llama3_2_3b, llava_next_34b, mamba2_2_7b,
+                                 nemotron_4_15b, qwen2_moe_a2_7b, qwen3_14b,
+                                 qwen3_moe_30b_a3b, whisper_large_v3)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import hybrid as H
 from repro_torch.models import mamba2 as S
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.vlm import VLM
 
 _CONFIGS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (deepseek_coder_33b, nemotron_4_15b, qwen3_14b, llama3_2_3b,
-              mamba2_2_7b, hymba_1_5b, qwen3_moe_30b_a3b, qwen2_moe_a2_7b)
+              hymba_1_5b, llava_next_34b, mamba2_2_7b, whisper_large_v3,
+              qwen3_moe_30b_a3b, qwen2_moe_a2_7b)
 }
 
 #: family -> its layer set behind the LM driver
@@ -32,15 +35,8 @@ _LAYER_SETS = {"dense": T.DENSE, "moe": M.MOE, "ssm": S.SSM,
 
 ARCH_NAMES: tuple[str, ...] = tuple(sorted(_CONFIGS))
 
-# the reference's architectures not ported yet and the ROADMAP item for each
-_NOT_PORTED = {"llava-next-34b": "vlm", "whisper-large-v3": "encdec"}
-
 
 def config(name: str) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is family {_NOT_PORTED[name]!r}, not ported yet "
-            f"(ROADMAP Open items 1.8)")
     try:
         return _CONFIGS[name]
     except KeyError:
@@ -49,11 +45,14 @@ def config(name: str) -> ArchConfig:
 
 def build_model(cfg: ArchConfig, *, device="cuda", kernels=ops):
     """The family driver for a config (full or reduced)."""
+    if cfg.family == "vlm":
+        return VLM(cfg, T.DENSE, device=device, kernels=kernels)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device=device, kernels=kernels)
     layers = _LAYER_SETS.get(cfg.family)
     if layers is not None:
         return T.LM(cfg, layers, device=device, kernels=kernels)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Open items 1.8)")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 @dataclasses.dataclass(frozen=True)

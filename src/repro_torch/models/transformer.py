@@ -314,6 +314,9 @@ class LM:
         boundary, and the state stays full precision."""
         return any(ax < 0 for ax in self.seq_axes().values())
 
+    #: every ported LM family ingests prompts in chunks (reference :324)
+    supports_chunked_prefill = True
+
     #: prefix sharing composes the chunk path (a fork's ingestion resumes
     #: at the divergence boundary) with the arena decode path (the donor
     #: table reads its rows in place); every ported family has both
@@ -390,9 +393,15 @@ class LM:
         ``slot_view`` of one) in place — dense: rows [0, S); recurrent: the
         state after the prompt — and return last-position logits (B, V)
         f32."""
+        return self._prefill_rows(params, L.embed_lookup(params["embed"],
+                                                         tokens), cache)
+
+    def _prefill_rows(self, params, x: torch.Tensor,
+                      cache: dict) -> torch.Tensor:
+        """:meth:`prefill` from the embedded rows x (B, S, d), at positions
+        [0, S)."""
         cfg = self.cfg
-        b, s = tokens.shape
-        x = L.embed_lookup(params["embed"], tokens)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for i in range(cfg.n_layers):
             x = self.layers.prefill_layer(

@@ -53,11 +53,12 @@ over the whole slot batch.  As in the reference:
      eagerly.
   5. **Keys fold (seed, position) only.**  A sampled slot's token at cache
      row q is drawn with ``fold_in(fold_in(PRNGKey(0), seed), q)``; the
-     first token at q = prompt_len, off the prefill logits.  So a stream
-     does not depend on its batch-mates, on chunking or on a preemption's
-     recompute, and the slot-generation guard drops a step's token for a
-     slot that was (re)admitted after the step was submitted, whichever of
-     the two steps it was.
+     first token at q = prompt_len (+ the patch rows of a vlm prompt),
+     off the prefill logits.  So a stream does not depend on its
+     batch-mates, on chunking or on a preemption's recompute, and the
+     slot-generation guard drops a step's token for a slot that was
+     (re)admitted after the step was submitted, whichever of the two
+     steps it was.
 
 Prefill comes in two modes: monolithic (``prefill_chunks=None``; one call
 per prompt) and chunked (bucket-sized chunks interleaved with decode under
@@ -146,6 +147,12 @@ from repro_torch.runtime.serving.scheduler import AdmissionRejected, Scheduler
 from repro_torch.runtime.serving.speculative import SpecController
 
 
+def prefix_extra(cfg) -> int:
+    """Arena rows a request holds before its prompt: llava's patch rows
+    (the vlm family), 0 for every other family."""
+    return cfg.n_patch_tokens if cfg.family == "vlm" else 0
+
+
 def _common_prefix_len(a: np.ndarray, b: np.ndarray) -> int:
     n = min(len(a), len(b))
     if n == 0:
@@ -156,14 +163,19 @@ def _common_prefix_len(a: np.ndarray, b: np.ndarray) -> int:
 
 class ServingEngine:
     """Continuous-batching generation (greedy or sampled, per request) over
-    a decoder-only LM.
+    any registry model.
 
     ``model`` exposes ``init_cache`` / ``slot_view`` / ``prefill`` /
-    ``prefill_chunk`` / ``decode_step`` / ``decode_and_sample``,
-    ``seq_axes`` and, for prefix sharing, ``has_recurrent_state`` /
-    ``extract_slot_state`` / ``splice_slot_state``
-    (``models.transformer.LM``, any ported family); ``params`` live on the
-    model's device, which is where the engine keeps its state.  ``clock``:
+    ``decode_step`` / ``decode_and_sample`` and ``seq_axes``, for chunked
+    prefill ``prefill_chunk``, and for prefix sharing
+    ``has_recurrent_state`` / ``extract_slot_state`` /
+    ``splice_slot_state`` (``models.transformer.LM`` and ``models.vlm.
+    VLM``; ``models.encdec.EncDecLM``, which says through
+    ``supports_chunked_prefill`` / ``supports_prefix_sharing`` /
+    ``supports_narrow_kv`` what it lacks, so the engine refuses those
+    modes as the reference does).  A request's ``extras`` reach
+    ``prefill`` as keywords (``patch_embeds``, ``frames``); ``params``
+    live on the model's device, which is where the engine keeps its state.  ``clock``:
     the engine's time source (default ``time.perf_counter``), which
     stamps submissions, first tokens and deadlines; tests and the router's
     ``StepClock`` inject their own.
@@ -182,6 +194,32 @@ class ServingEngine:
         max_seq = self.max_seq = config.max_seq
         self.depth = config.depth
         self.prefill_chunks = config.prefill_chunks
+        #: arena rows a request holds before its prompt (reference
+        #: engine.py:475)
+        self.prefix_extra = prefix_extra(cfg)
+        # the reference's refusals, in its order and words (engine.py:
+        # 477-513, :608-610)
+        if self.prefill_chunks is not None:
+            if not getattr(model, "supports_chunked_prefill", False):
+                raise ValueError(
+                    f"family {cfg.family!r} does not support chunked "
+                    f"prefill; use prefill_chunks=None")
+            if self.prefix_extra:
+                raise ValueError("chunked prefill with prefix_extra "
+                                 "(VLM patch tokens) is unsupported")
+        if config.prefix_sharing and not getattr(
+                model, "supports_prefix_sharing", False):
+            raise ValueError(
+                f"family {cfg.family!r} does not support prefix sharing "
+                f"(needs the chunked-prefill and arena-decode hooks)")
+        if config.kv_format != "fp32" and not getattr(
+                model, "supports_narrow_kv", True):
+            raise ValueError(
+                f"family {cfg.family!r} does not support kv_format="
+                f"{config.kv_format!r}: its cache constructor is fp32-only")
+        if config.speculative is not None and self.prefix_extra:
+            raise ValueError("speculative decoding with prefix_extra "
+                             "(VLM patch tokens) is unsupported")
         self.prefill_budget = (config.prefill_budget
                                if config.prefill_budget is not None
                                else (max(self.prefill_chunks)
@@ -210,7 +248,8 @@ class ServingEngine:
             fault=self._cache_fault if self._injector else None,
             kv_format=self.kv_format, row_bytes=self.kv_row_bytes)
         self.scheduler = Scheduler(
-            max_slots, self.cache_mgr, max_len=max_seq,
+            max_slots, self.cache_mgr, prefix_extra=self.prefix_extra,
+            max_len=max_seq,
             chunked=self.prefill_chunks is not None,
             admission_reclaim_cap=config.admission_reclaim_cap,
             admission_attempt_cap=config.admission_attempt_cap,
@@ -637,7 +676,7 @@ class ServingEngine:
         if self._health_state >= HealthState.SHEDDING:
             raise AdmissionRejected(request.uid,
                                     self._health_state.name.lower())
-        need = request.prompt.shape[0] + 1
+        need = request.prompt.shape[0] + self.prefix_extra + 1
         if need > self.max_seq:
             raise ValueError(
                 f"request {request.uid!r}: prompt needs {need} rows "
@@ -707,9 +746,13 @@ class ServingEngine:
             self._slot_gen[st.slot] += 1
             prompt = torch.as_tensor(st.request.prompt, dtype=torch.int64,
                                      device=self.device)[None, :]
+            # the family's side inputs (frames, patch_embeds) batched; a
+            # preemption's recompute passes them again
+            extras = {key: torch.as_tensor(val, device=self.device)[None]
+                      for key, val in (st.request.extras or {}).items()}
             logits = self.model.prefill(
-                self.params, prompt, self.model.slot_view(self._cache,
-                                                          st.slot))
+                self.params, prompt,
+                self.model.slot_view(self._cache, st.slot), **extras)
             if self.spec is not None:
                 # mirror the prompt into the draft arena (logits dropped):
                 # both arenas hold rows [0, prompt_len), and a preemption's
@@ -725,8 +768,8 @@ class ServingEngine:
         """Draw the prompt's first token off ``logits`` (1, V) and put the
         slot into the decode batch — shared by monolithic admission and the
         chunked path's final chunk.  The token occupies row pos0 =
-        prompt_len, so it is drawn with the decode path's key at q = pos0
-        (the argmax for a greedy request); the slot's sampling vectors are
+        prompt_len + prefix_extra, so it is drawn with the decode path's
+        key at q = pos0 (the argmax for a greedy request); the slot's sampling vectors are
         (re)written before the slot joins the batch.
 
         The prompt's logits are checked first (reference engine.py:
@@ -734,7 +777,7 @@ class ServingEngine:
         read, and a non-finite row (poisoned arena rows) fails the request
         before it commits a token."""
         slot = st.slot
-        pos0 = st.prompt_len
+        pos0 = st.prompt_len + self.prefix_extra
         sp = st.request.sampling
         seed = sampling.resolve_seed(sp, self.base_seed)
         if sp.is_greedy:
@@ -1079,7 +1122,8 @@ class ServingEngine:
             # the slot's current token (committed, not yet in the arena)
             # and the row it will occupy
             tok0[st.slot] = st.generated[-1]
-            pos0[st.slot] = st.prompt_len + len(st.generated) - 1
+            pos0[st.slot] = (st.prompt_len + self.prefix_extra
+                             + len(st.generated) - 1)
         all_greedy = all(st.request.sampling.is_greedy for st in running)
         draft = self._draft_greedy if all_greedy else self._draft_sampled
         self._stage(self._dtok, tok0)
@@ -1184,7 +1228,8 @@ class ServingEngine:
             # token and position from host state, in place
             for st in running:
                 self._tokens[st.slot] = st.generated[-1]
-                self._pos[st.slot] = st.prompt_len + len(st.generated) - 1
+                self._pos[st.slot] = (st.prompt_len + self.prefix_extra
+                                      + len(st.generated) - 1)
                 self._active[st.slot] = 1
             self._spec_resync = False
         sampled = any(not st.request.sampling.is_greedy for st in running)

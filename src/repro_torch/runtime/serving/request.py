@@ -1,6 +1,4 @@
-"""Serving request objects (copy of ``repro/runtime/serving/request.py``
-without ``Request.extras``, the prefill side inputs of the families not
-ported yet, ROADMAP 1.8).
+"""Serving request objects (copy of ``repro/runtime/serving/request.py``).
 
 A :class:`Request` is immutable user input; :class:`RequestState` is the
 scheduler's mutable bookkeeping for it.  States are host-only — device
@@ -43,6 +41,10 @@ TERMINAL = (Status.FINISHED, Status.TIMED_OUT, Status.FAILED,
 class Request:
     """One generation request.  ``prompt`` is a (S,) int32 token array.
 
+    ``extras``: per-request prefill side inputs (whisper's ``frames``,
+    llava's ``patch_embeds``), unbatched numpy arrays or tensors: the
+    engine adds the batch dim and moves them to its device.
+
     ``deadline_ms`` (optional): wall-clock budget from submission; a
     request still waiting or resident past it departs ``TIMED_OUT`` with
     the tokens it has (a clean prefix of its fault-free stream).  It
@@ -53,6 +55,7 @@ class Request:
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: Optional[int] = None
+    extras: Optional[dict] = None
     sampling: SamplingParams = GREEDY
     deadline_ms: Optional[float] = None
     session: Optional[Any] = None

@@ -28,6 +28,7 @@ import heapq
 from repro_torch.runtime.serving.cache import PagedKVCacheManager
 from repro_torch.runtime.serving.request import Request, RequestState, Status
 
+
 class AdmissionRejected(Exception):
     """A request was refused service: its admission attempts reached their
     cap (``finish_reason == "admission-rejected"``, the exception on
@@ -48,12 +49,14 @@ class AdmissionRejected(Exception):
 
 class Scheduler:
     def __init__(self, max_slots: int, cache: PagedKVCacheManager, *,
-                 max_len: int | None = None, chunked: bool = False,
-                 admission_reclaim_cap: int = 8,
+                 prefix_extra: int = 0, max_len: int | None = None,
+                 chunked: bool = False, admission_reclaim_cap: int = 8,
                  admission_attempt_cap: int | None = None,
                  admission_backoff_cap: int = 32,
                  preempt_cap: int | None = None):
-        """``max_len``: the per-slot arena depth (engine's max_seq).
+        """``prefix_extra``: arena rows a request occupies beyond its prompt
+        before it decodes (llava's patch rows).  ``max_len``: the per-slot
+        arena depth (engine's max_seq).
         ``chunked``: admissions enter PREFILLING (the engine ingests prompt
         chunks across steps and calls :meth:`finish_prefill`) instead of
         going straight to RUNNING via one monolithic prefill.
@@ -73,6 +76,7 @@ class Scheduler:
                              f"got {admission_reclaim_cap}")
         self.max_slots = max_slots
         self.cache = cache
+        self.prefix_extra = prefix_extra
         self.max_len = max_len
         self.chunked = chunked
         self.admission_reclaim_cap = admission_reclaim_cap
@@ -94,7 +98,8 @@ class Scheduler:
         # a request that can't fit the pool even alone would preempt itself
         # forever; a chunked request's padded final chunk occupies rows past
         # the prompt, so its worst case is max(padded plan, prompt + gen)
-        worst = request.prompt.shape[0] + request.max_new_tokens
+        worst = (request.prompt.shape[0] + self.prefix_extra
+                 + request.max_new_tokens)
         if chunk_plan is not None:
             worst = max(worst, sum(chunk_plan))
         if self.cache.pages_for(worst) > self.cache.num_pages:
@@ -124,9 +129,10 @@ class Scheduler:
         """Admit FIFO-head requests into free slots (smallest first) while
         cache pages last; returns the newly admitted states (RUNNING, or
         PREFILLING under chunked prefill).  Admission reserves pages for
-        prompt + the first generated token, and under chunked prefill at
-        least the padded chunk plan.  A slot whose region is pinned (it
-        hosts live shared prefix pages of a departed donor) is skipped;
+        prompt + prefix_extra + the first generated token, and under
+        chunked prefill at least the padded chunk plan.  A slot whose
+        region is pinned (it hosts live shared prefix pages of a departed
+        donor) is skipped;
         when every candidate is refused, the least recently forked
         orphaned chain is reclaimed and the placement retried, at most
         ``admission_reclaim_cap`` times (reference scheduler.py:135-210).
@@ -141,7 +147,7 @@ class Scheduler:
             st = self.waiting[0]
             if tick is not None and st.next_try_tick > tick:
                 break                      # backing off; FIFO kept
-            need = st.prompt_len + 1
+            need = st.prompt_len + self.prefix_extra + 1
             if st.chunk_plan is not None:
                 need = max(need, sum(st.chunk_plan))
             slot = None
@@ -212,7 +218,7 @@ class Scheduler:
         if len(st.generated) >= req.max_new_tokens:
             return [self._finish(st, "max_new_tokens")]
         departures = []
-        new_len = st.prompt_len + len(st.generated) + 1
+        new_len = st.prompt_len + self.prefix_extra + len(st.generated) + 1
         while not self.cache.extend(slot, new_len):
             victim = max(self.running.values(), key=lambda s: s.seq)
             departures.append(self._preempt(victim))

@@ -1791,3 +1791,156 @@ def test_cuda_moe_decode_step_makes_no_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the vlm and encdec families (llava-next-34b, whisper-large-v3)
+# ---------------------------------------------------------------------------
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 100, 600, 1600])
+def test_cuda_vlm_attention_g7(cuda, dtype, s):
+    """flash_attention causal at llava's head shape (14 / 2 heads, G = 7,
+    hd 128): the tensor-core tile's 64 folded rows cross heads."""
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q = _randn(gen, 1, 14, s, 128, dtype=dtype)
+    k, v = (_randn(gen, 1, 2, s, 128, dtype=dtype) for _ in range(2))
+    assert _within_limit(ops.attention(q, k, v),
+                         ops.PLAIN.attention(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(1500, 1500), (224, 1500), (160, 1500),
+                                   (7, 1500), (1, 1500), (50, 130)])
+def test_cuda_encdec_attention_non_causal(cuda, dtype, sq, sk):
+    """flash_attention non-causal at hd 64, MHA: whisper's encoder (S =
+    1500, not a multiple of 64) and its cross-attention prefill (Sq < Sk
+    = 1500)."""
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    q = _randn(gen, 2, 4, sq, 64, dtype=dtype)
+    k, v = (_randn(gen, 2, 4, sk, 64, dtype=dtype) for _ in range(2))
+    assert _within_limit(ops.attention(q, k, v, causal=False),
+                         ops.PLAIN.attention(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,s", [(20, 20, 64, 1500), (4, 4, 64, 24),
+                                       (14, 2, 128, 1665)])
+def test_cuda_encdec_flash_decode_without_lengths(cuda, dtype, h, kvh, d,
+                                                  s):
+    """flash_decode with ``lengths=None`` (every row attended: whisper's
+    cross-attention over 1500 encoder rows) and at llava's G = 7, against
+    the plain version; the arrival counters read 0 after the call."""
+    from repro_torch.kernels import flash_decode
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q = _randn(gen, 4, h, d, dtype=dtype)
+    k, v = (_randn(gen, 4, s, kvh, d, dtype=dtype) for _ in range(2))
+    assert _within_limit(ops.flash_decode(q, k, v),
+                         ops.PLAIN.flash_decode(q, k, v))
+    lens = torch.tensor([s, s // 2, PARKED, 1], device="cuda")
+    assert _within_limit(ops.flash_decode(q, k, v, lengths=lens),
+                         ops.PLAIN.flash_decode(q, k, v, lengths=lens))
+    torch.cuda.synchronize()
+    assert int(flash_decode.counters(q.device, 4 * kvh)[:4 * kvh]
+               .abs().sum()) == 0
+
+
+def _tiny_family(name, dtype):
+    """(model, params): the reduced ``name`` at ``dtype``, random weights
+    from seed 0."""
+    import dataclasses
+    from repro_torch.models import registry
+    dt = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = dataclasses.replace(registry.config(name).reduced(),
+                              param_dtype=dt, act_dtype=dt)
+    model = registry.build_model(cfg, device="cuda")
+    return model, model.init(0)
+
+
+def _extras_engine(model, params, sampled=False, **kw):
+    """A port engine with 4 requests (prompts 5 / 9 / 7 / 12), each with
+    the family's extras; requests 1 and 3 sampled if ``sampled``."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.runtime import serving
+    eng = serving.ServingEngine(model, model.cfg, params,
+                                config=serving.EngineConfig(
+                                    **{"max_slots": 2, "max_seq": 64, **kw}))
+    args = serve.parse_args(["--arch", model.cfg.name, "--requests", "4"])
+    side = serve.extras(args, model.cfg)
+    rng = np.random.default_rng(0)
+    for i, (n, g) in enumerate(zip((5, 9, 7, 12), (8, 6, 10, 7))):
+        sp = (serving.SamplingParams(temperature=0.9, top_k=20, seed=7 + i)
+              if sampled and i % 2 else serving.GREEDY)
+        eng.submit(serving.Request(
+            uid=i, prompt=rng.integers(0, model.cfg.vocab, n),
+            max_new_tokens=g, sampling=sp, extras=side[i]))
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_cuda_vlm_encdec_engine_captured_equals_eager(cuda, name, dtype,
+                                                      sampled):
+    """The reduced llava (12 patch rows) and whisper (enc_seq 24) served by
+    the captured engine and by the eager one: equal streams, every arena
+    leaf (whisper's cross leaves included) bit for bit after the run,
+    flash_decode n_layers x (replays + the warm-up) (x 2 for whisper: self
+    and cross), flash_attention once a prefill (x 3 for whisper's layers:
+    the encoder's, the decoder's self and cross)."""
+    model, params = _tiny_family(name, dtype)
+    eager = _extras_engine(model, params, sampled, decode_graph=False)
+    want = eager.run()
+    ops.reset_launch_counts()
+    eng = _extras_engine(model, params, sampled)
+    got = eng.run()
+    counts = ops.launch_counts()
+    assert _same_streams(got, want)
+    for key, leaf in eng._cache.items():
+        assert torch.equal(leaf, eager._cache[key]), key
+    cfg = model.cfg
+    encdec = cfg.family == "encdec"
+    replays = eng.graph.replays + (eng.sampled_graph.replays if sampled
+                                   else 0)
+    warm = 2 if sampled else 1
+    assert counts["flash_decode"] == (2 if encdec else 1) * cfg.n_layers \
+        * (replays + warm), counts
+    prefills = eng.stats["prefills"]
+    attn = (cfg.n_enc_layers + 2 * cfg.n_layers) if encdec else cfg.n_layers
+    assert counts["flash_attention"] == attn * prefills, counts
+
+
+@pytest.mark.gpu
+def test_cuda_encdec_decode_step_makes_no_sync(cuda):
+    """An eager bf16 encdec decode step (a parked slot among live ones)
+    under ``torch.cuda.set_sync_debug_mode("error")``: the learned
+    positions' clamp, the self row writes and the cross-attention make no
+    host sync; the parked slot's self rows stay as they were."""
+    model, params = _tiny_family("whisper-large-v3", torch.bfloat16)
+    cache = model.init_cache(3, 32)
+    frames = torch.randn((1, model.cfg.enc_seq, model.cfg.d_model),
+                         device="cuda")
+    for b in range(3):
+        model.prefill(params, torch.arange(4, device="cuda")[None],
+                      model.slot_view(cache, b), frames=frames)
+    tok = torch.tensor([3, 5, 7], device="cuda")
+    pos = torch.tensor([4, (1 << 30), 9], device="cuda")
+    model.decode_step(params, tok, cache, pos)
+    before = cache["k"][:, 1].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = model.decode_step(params, tok, cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())
+    assert torch.equal(cache["k"][:, 1], before)

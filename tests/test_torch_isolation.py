@@ -229,3 +229,27 @@ def test_launch_counters_stay_zero_on_cpu_faults_and_router():
     assert all(rep.engine.model is bundle.model
                for rep in fleet.replicas.values())
     assert not any(ops.launch_counts().values()), ops.launch_counts()
+
+
+@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
+def test_launch_counters_stay_zero_on_cpu_vlm_and_encdec(name):
+    """A CPU engine of the vlm family (patch rows before the prompt) and
+    of the encdec family (the encoder, the cross leaves), greedy and
+    sampled, takes the plain versions: no launch."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import serving
+    bundle = registry.build(name, reduced=True, device="cpu")
+    params = bundle.model.init(0)
+    args = serve.parse_args(["--arch", name, "--device", "cpu",
+                             "--requests", "3", "--prompt-len", "9",
+                             "--gen", "4", "--slots", "2",
+                             "--temperature", "0.7", "--sampling-mix",
+                             "0.5"])
+    ops.reset_launch_counts()
+    eng = serve.engine(bundle, params, args)
+    out = eng.run()
+    assert [o.shape for o in out.values()] == [(4,)] * 3
+    assert eng.stats["sampled_requests"] == 1
+    assert all(r.request.extras for r in eng._results.values())
+    assert isinstance(eng, serving.ServingEngine)
+    assert not any(ops.launch_counts().values()), ops.launch_counts()

@@ -124,10 +124,21 @@ def test_hymba_full_width_size():
     assert {win[i] for i in (0, 16, 31)} == {524_289}
 
 
-@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
-def test_other_families_not_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.build(name, device="cpu")
+def test_every_reference_arch_builds_on_cpu():
+    """The port refuses no architecture the reference registers: each
+    builds reduced on the CPU with the reference's family driver, and
+    its init has the tree ``convert.expected_shapes`` names."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.transformer import LM
+    from repro_torch.models.vlm import VLM
+    assert treg.ARCH_NAMES == jreg.ARCH_NAMES
+    for name in jreg.ARCH_NAMES:
+        bundle = treg.build(name, reduced=True, device="cpu")
+        want = {"vlm": VLM, "encdec": EncDecLM}.get(bundle.cfg.family, LM)
+        assert type(bundle.model) is want, name
+        flat = convert._flatten(bundle.model.init(0))
+        assert {k: tuple(v.shape) for k, v in flat.items()} == \
+            convert.expected_shapes(bundle.cfg), name
 
 
 # ---------------------------------------------------------------------------
