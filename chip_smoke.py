@@ -8,16 +8,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero and prints no ``ok`` line):
 
   1. device: the card as ``nvidia-smi`` reports it, CUDA and capability;
-  2. build: the seven kernels (flash_attention, flash_decode,
-     flash_prefill_chunk, ssd, matmul, dotp, conv2d) from
+  2. build: the eight kernels (flash_attention, flash_attention_bwd,
+     flash_decode, flash_prefill_chunk, ssd, matmul, dotp, conv2d) from
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
      source, all at once; then the SASS (``cuobjdump``): each bf16
      attention kernel must hold HGMMA (warpgroup MMA) and UTMALDG (TMA
      load), the scaled ones (bf16 q over int8 / fp8 arenas) included,
      flash_decode no combine kernel, each bf16 ssd kernel HMMA
      (mma.sync), the bf16 matmul kernel HGMMA and UTMALDG, the f32 matmul
-     kernels LDGSTS (cp.async) and no tensor-core MMA, and none of those
-     ssd / matmul kernels may spill (registers and stack printed);
+     kernels LDGSTS (cp.async) and no tensor-core MMA, flash_attention_bwd's
+     dK/dV and dQ kernels no MMA, and none of those ssd / matmul /
+     backward kernels may spill (registers and stack printed);
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
      ragged lengths, a parked slot, chunk prefix 0 and > 0; ssd: 80 heads,
@@ -65,6 +66,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      Sq = 224 / 160 x Sk = 1500 (the last ragged key strip dropped the
      fault), flash_decode at G = 7 over bf16 and int8 arenas and over
      1500 cross rows with ``lengths=None``;
+     3t: the attention backward kernel (flash_attention_bwd) at
+     training shapes (llama3.2-3b's B 4 x S 1024, whisper's cross Sq 224
+     x Sk 1500, llava's G = 7) against the plain backward, the planted
+     fault (delta dropped), two runs bit for bit, the forward's O with
+     and without its LSE output bit for bit; kernel / plain / SDPA
+     backward times;
+  train: llama3.2-3b at full width trained 6 steps through
+     ``repro_torch.launch.train`` (batch 4 x seq 1024, remat full), right
+     after phase 3 on an empty card: each step's loss, grad norm and lr,
+     step wall, tokens/s, peak memory, one profiled step (busy share,
+     device ms by op), the model-FLOP share; 28 x 2 forward and 28
+     backward launches a step, no plain, SDPA or cuDNN attention; 5t:
+     one f32 training step, kernel path against plain path (llama3.2-3b
+     at full width and 2 layers; reduced qwen2-moe, llava, whisper), the
+     plain backward run non-causal the planted fault; the restart:
+     reduced llama3.2-3b 6 steps straight = 3, a checkpoint (RPK1), a
+     restore in a fresh Trainer, 3 more, bit for bit;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -405,6 +423,17 @@ DESIGN = {
                                "causal, the cross-attention non-causal at "
                                "Sq = prompt x Sk = 1500; launched on the "
                                "encdec path",
+    "flash_attention_bwd": "cuda-core f32 (bf16 widened in shared "
+                           "memory): a delta pass; dK/dV, a CTA a (batch, "
+                           "KV head, 64-key block) walking its G heads' "
+                           "query blocks in order; dQ, a CTA a (batch, "
+                           "head, 64-row block); no atomics, bits repeat",
+    "flash_attention_train": "the flash_attention kernel as training "
+                             "calls it: llama3.2-3b's training batch (B 4, "
+                             "S 1024, causal) with the f32 row LSE written "
+                             "for the backward; its launches are the "
+                             "training path's (forward and remat "
+                             "recompute)",
     "flash_decode_whisper": "the same kernel at whisper-large-v3's shapes "
                             "(G = 1, hd 64): the self-attention over the "
                             "slot's rows and the cross-attention over all "
@@ -446,7 +475,9 @@ def sass_counts(_build, name):
 # functions the library has).
 SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
               ("matmul", "mm_bf16_kernel", ("HGMMA", "UTMALDG"), (), 1),
-              ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"), 2))
+              ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"), 2),
+              ("flash_attention_bwd", "fab_dkdv", (), ("HMMA", "HGMMA"), 10),
+              ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 10))
 
 
 def sass_check(_build):
@@ -5298,7 +5329,395 @@ def core_compare(torch, got, want):
           f"bit; VRF stats {got['vrf stats']}")
 
 
+# ---------------------------------------------------------------------------
+# training (phases 3t, train_phase, 5t and the restart)
+# ---------------------------------------------------------------------------
+
+# The attention backward, kernel vs plain version, per element: one ulp of
+# the output's type at the larger magnitude (each rounds its f32 result
+# once) plus BWD_RTOL times the plain gradient's rms.  The kernel sums dK
+# and dV over every query row of the G heads of a KV head, dQ over every
+# key, in f32 in another order than the plain version's einsums, and the
+# terms of dS = P (dP - delta) cancel, so an element near 0 carries the
+# rounding of the whole sum: the rms term is its floor.  A planted fault
+# (delta dropped: dS = P dP) must exceed the limit by more than
+# FAULT_MARGIN.
+BWD_RTOL = 1e-4
+# The training shapes of phase 3t: (label, B, H, KVH, Sq, Sk, hd, causal).
+# llama3.2-3b's training step (train_phase's batch), whisper-large-v3's
+# cross-attention (MHA, 224 decoder rows over 1500 encoder rows, Sk not a
+# multiple of the 64-key block), llava-next-34b's G = 7 over its 576 patch
+# rows and 1024 tokens.
+TRAIN_SHAPES = (("llama3.2-3b", 4, 24, 8, 1024, 1024, 128, True),
+                ("whisper cross", 4, 20, 20, 224, 1500, 64, False),
+                ("llava G=7", 1, 56, 8, 1600, 1600, 128, True))
+TRAIN_ARGS = ["--arch", "llama3.2-3b", "--full", "--steps", "6", "--batch",
+              "4", "--seq", "1024", "--log-every", "1"]
+TRAIN_PEAK = 989e12              # H100 SXM dense bf16, the FLOP share's base
+# Phase 5t: one step's gradients, kernel path against plain path in f32,
+# per leaf max |kernel - plain| / max |plain|, and the loss relative.  The
+# first reading (NVIDIA H100 80GB HBM3, 700.00 W): gradients
+# 4.8e-07 to 7.7e-07 (llama3.2-3b at full width and 2 layers, the
+# reduced moe, vlm and encdec), losses 0 to 7.5e-08: f32 sums in another
+# order, deterministic.  The limits leave ~13x; the planted fault (the
+# plain backward non-causal) read 1.0, 1e5 x the gradient limit.
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_LOSS_TOL = 1e-6
+
+
+def bwd_excess(got, want):
+    """max over elements of |got - want| / the backward's limit (see
+    BWD_RTOL) over a tuple of gradients."""
+    out = 0.0
+    for g, w in zip(got, want):
+        g32, w32 = g.float(), w.float()
+        lim = (ulp(g32.abs().maximum(w32.abs()), type_bits(g))
+               + BWD_RTOL * w32.pow(2).mean().sqrt())
+        out = max(out, ((g32 - w32).abs() / lim).max().item())
+    return out
+
+
+def train_kernel_checks(torch, ops):
+    """Phase 3t: the backward kernel alone at the training shapes
+    (TRAIN_SHAPES), against the plain backward within the limit, the
+    planted fault (delta dropped) rejected by more than FAULT_MARGIN, two
+    runs bit for bit, the forward's O with its LSE output on against off
+    bit for bit; at llama3.2-3b's shape the times (kernel, plain, SDPA's
+    backward: forward plus backward less forward) and the bound.  Returns
+    the records ``flash_attention_bwd`` and ``flash_attention_train`` (the
+    forward as training calls it, LSE on)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rec = {}
+    print("phase 3t: flash_attention_bwd at the training shapes (bf16)")
+    for label, b, h, kvh, sq, sk, d, causal in TRAIN_SHAPES:
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q = rn(b, sq, h, d).transpose(1, 2)
+        k, v = rn(b, sk, kvh, d).transpose(1, 2), rn(b, sk, kvh, d) \
+            .transpose(1, 2)
+        o, lse = fa.launch(q, k, v, causal=causal, with_lse=True)
+        same_o = torch.equal(o, fa.launch(q, k, v, causal=causal))
+        g = rn(b, sq, h, d).transpose(1, 2)
+        got = fab.launch(q, k, v, o, lse, g, causal=causal)
+        again = fab.launch(q, k, v, o, lse, g, causal=causal)
+        bits = all(torch.equal(x, y) for x, y in zip(got, again))
+        want = ops._attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                        window=None, scale=None)
+        fault = ops._attention_bwd_plain(q, k, v, torch.zeros_like(o), lse,
+                                         g, causal=causal, window=None,
+                                         scale=None)
+        ratio = bwd_excess(got, want)
+        f_ratio = bwd_excess(got[:2], fault[:2])
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, want))
+        print(f"  {label:<14} B={b} H={h}/{kvh} Sq={sq} Sk={sk} hd={d} "
+              f"causal={causal}: max|kernel-plain| {err:.3e}, {ratio:.3f} "
+              f"of the limit (1 ulp + {BWD_RTOL:.0e} rms); planted fault "
+              f"(delta dropped) {f_ratio:.1f} of the limit; two runs bit "
+              f"for bit {bits}; O with LSE = O without, bit for bit "
+              f"{same_o}")
+        assert ratio <= 1.0, (label, ratio)
+        assert f_ratio > FAULT_MARGIN, (label, f_ratio)
+        assert bits and same_o, (label, bits, same_o)
+        if label != "llama3.2-3b":
+            continue
+        ms = timed(lambda: fab.launch(q, k, v, o, lse, g, causal=causal), 5)
+        plain_ms = timed(lambda: ops._attention_bwd_plain(
+            q, k, v, o, lse, g, causal=causal, window=None, scale=None), 2)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        fwd_ms = timed(lambda: sdpa(qs, ks, vs, is_causal=True), 10)
+        both_ms = timed(lambda: torch.autograd.grad(
+            sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), g), 5)
+        fwd_flops = 4 * b * h * d * sq * (sq + 1) // 2
+        rec["flash_attention_bwd"] = dict(
+            module=fab, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=both_ms - fwd_ms, flops=int(2.5 * fwd_flops),
+            bytes=2 * (3 * q.numel() + 2 * o.numel() + 2 * k.numel()
+                       + 2 * v.numel()) + 4 * lse.numel(),
+            label="flash_attention_bwd")
+        f_ms = timed(lambda: fa.launch(q, k, v, with_lse=True), 20)
+        f_plain = timed(lambda: ops.PLAIN.attention(q, k, v), 3)
+        f_err = check("flash_attention train fwd", o,
+                      ops.PLAIN.attention(q, k, v), "bfloat16",
+                      "(LSE on)")
+        rec["flash_attention_train"] = dict(
+            module=fa, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+            library_ms=fwd_ms,
+            flops=fwd_flops, bytes=2 * (2 * q.numel() + k.numel()
+                                        + v.numel()) + 4 * lse.numel(),
+            label="flash_attention_train")
+        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA backward {both_ms - fwd_ms:.3f} ms (forward + "
+              f"backward {both_ms:.3f} less forward {fwd_ms:.3f}); forward "
+              f"with LSE {f_ms:.4f} ms")
+    return rec
+
+
+def no_plain_attention(torch, seen):
+    """Wrap the plain attention versions so that a call is recorded in
+    ``seen``; returns the function that puts them back."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    undo = [watch(fa, "flash_attention_plain", seen),
+            watch(fab, "flash_attention_bwd_plain", seen)]
+    return lambda: [u() for u in undo]
+
+
+LIBRARY_ATTENTION = ("scaled_dot_product", "flash_attention_backward",
+                     "efficient_attention", "cudnn", "_flash_attention")
+
+
+def train_phase(torch, ops, smi):
+    """llama3.2-3b at full width (28 layers, bf16, random init from seed
+    0) through ``launch.train``'s ``main``: 6 steps at batch 4 x seq 1024,
+    remat full, the reference's lr, warmup, decay and clip.  Each step's
+    loss, grad norm and lr, the wall a step over steps 2-5, tokens a
+    second, peak memory, then one more step under torch.profiler (device
+    busy share, device ms by op, the attention kernels apart) and the
+    model-FLOP share of TRAIN_PEAK.  Asserts finite losses, 28 x 2
+    flash_attention and 28 flash_attention_bwd launches a step, and no
+    plain, SDPA or cuDNN attention on the path.  Returns the counts of
+    the 6-step run under the JSON rows' names."""
+    import math
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    seen = []
+    undo = no_plain_attention(torch, seen)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = {}
+    try:
+        train_cli.main(TRAIN_ARGS, out=out)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tr, state = out["trainer"], out["state"]
+    cfg = tr.model.cfg
+    hist = state["_history"]
+    steps, nl = len(hist), cfg.n_layers
+    for h in hist:
+        print(f"train_phase: step {h['step']}: loss {h['loss']:.6f}, grad "
+              f"norm {h['grad_norm']:.6f}, lr {h['lr']:.3e}, wall "
+              f"{1e3 * h['dt']:.1f} ms")
+    assert steps == 6 and all(math.isfinite(h["loss"]) for h in hist), hist
+    assert not seen, f"a plain attention version ran on the path: {len(seen)}"
+    want = {"flash_attention": 2 * nl * steps,
+            "flash_attention_bwd": nl * steps}
+    got = {k: counts[k] for k in want}
+    print(f"train_phase: launches {got} (28 x 2 and 28 a step: the forward, "
+          f"its remat recompute and the backward)")
+    assert got == want, (got, want)
+    dts = [h["dt"] for h in hist[2:6]]
+    tokens = 4 * 1024
+    step_s = sum(dts) / len(dts)
+    # one more step under the profiler, on the next batch
+    batch = next(iter(make_pipeline(cfg, ShapeConfig("t", 1024, 4, "train"),
+                                    start_step=6, num_steps=1)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, _, m = tr.step_fn(state["params"], state["opt"], batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    rows, _ = device_time(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    names = [e.key for e in prof.key_averages()]
+    lib = [n for n in names if any(s in n for s in LIBRARY_ATTENTION)]
+    assert not lib, f"library attention on the training path: {lib}"
+    own = {}
+    for us, n, key in rows:
+        for kname in ("fa_tc_kernel", "fab_dkdv", "fab_dq", "fab_delta"):
+            if kname in key:
+                t, c = own.get(kname, (0.0, 0))
+                own[kname] = (t + us / 1e3, c + n)
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    attn = 6 * 4 * cfg.n_heads * cfg.hd * 1024 * 1024 * nl
+    model_flops = 6 * n_params * tokens + attn
+    bwd_ms = sum(own.get(k, (0.0, 0))[0]
+                 for k in ("fab_dkdv", "fab_dq", "fab_delta"))
+    print(f"train_phase: llama3.2-3b full width ({smi}): {n_params / 1e9:.3f}"
+          f" B params; step wall over steps 2-5 {1e3 * step_s:.1f} ms "
+          f"(median {1e3 * statistics.median(dts):.1f}), {tokens / step_s:.0f}"
+          f" tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; model FLOPs a "
+          f"step (6 N tokens + attention 6 B H hd S^2 L, causal) "
+          f"{model_flops / 1e12:.2f} TFLOP, {100 * model_flops / step_s / TRAIN_PEAK:.1f}"
+          f"% of {TRAIN_PEAK / 1e12:.0f} TFLOP/s; profiled step wall "
+          f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / (1e3 * wall):.1f}%), the backward kernel "
+          f"{bwd_ms:.1f} ms ({100 * bwd_ms / busy:.1f}% of the device time)")
+    print("train_phase: the attention kernels' device time: " + ", ".join(
+        f"{k} {t:.2f} ms in {c} launches" for k, (t, c) in own.items()))
+    print("train_phase: top device time:")
+    for us, n, key in rows[:14]:
+        print(f"    {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    print(f"train_phase: {time.perf_counter() - t0:.1f} s")
+    del out, tr, state, batch, prof
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{"flash_attention_train": got["flash_attention"],
+             "flash_attention_bwd": got["flash_attention_bwd"]}]
+
+
+def grads_apart(kg, pg):
+    """(max over leaves of max |kernel - plain| / max |plain|, the leaf)."""
+    from repro_torch.core import tree
+    worst = (0.0, "")
+    for (p, a), (_, b) in zip(tree.items(kg), tree.items(pg)):
+        r = ((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, (r, "/".join(p)))
+    return worst
+
+
+def train_end_to_end(torch, ops, registry):
+    """Phase 5t: one training step's loss and gradients, kernel path
+    against plain path (the same weights, the plain model built with
+    ``kernels=ops.PLAIN``: plain forward and backward), in f32:
+    llama3.2-3b at full width and 2 layers (batch 2 x 1024), then reduced
+    qwen2-moe-a2.7b, llava-next-34b and whisper-large-v3 (batch 2 x 64).
+    The loss within TRAIN_LOSS_TOL relative, each gradient leaf within
+    TRAIN_GRAD_TOL of its largest element; the planted fault (the plain
+    path's backward run non-causal) must read more than FAULT_MARGIN times
+    the limit at llama3.2-3b's width."""
+    from repro_torch.core import chaining
+    from repro_torch.data import SyntheticLMDataset, family_extras_fn
+    from repro_torch.data.pipeline import to_device
+    f32 = dict(param_dtype="float32", act_dtype="float32")
+    cases = [("llama3.2-3b 2 layers", dataclasses.replace(
+        registry.config("llama3.2-3b"), n_layers=2, **f32), 2, 1024)]
+    for name in (QWEN2_MOE, LLAVA, WHISPER):
+        cases.append((f"{name} reduced", dataclasses.replace(
+            registry.config(name).reduced(), **f32), 2, 64))
+    for label, cfg, b, s in cases:
+        km = registry.build_model(cfg, device="cuda")
+        pm = registry.build_model(cfg, device="cuda", kernels=ops.PLAIN)
+        params = km.init(0)
+        host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s,
+                                  global_batch=b).batch(0)
+        extras = family_extras_fn(cfg)
+        batch = to_device(extras(0, host) if extras else host, "cuda")
+
+        def vg(model):
+            return chaining.value_and_grad(
+                lambda p, bt: model.loss_fn(p, bt)[0], params, batch)
+        ops.reset_launch_counts()
+        kl, kg = vg(km)
+        counts = ops.launch_counts()
+        pl, pg = vg(pm)
+        loss_rel = abs(kl.item() - pl.item()) / abs(pl.item())
+        worst, leaf = grads_apart(kg, pg)
+        print(f"phase 5t: {label}: loss kernel {kl.item():.6f} plain "
+              f"{pl.item():.6f} ({loss_rel:.2e} relative, limit "
+              f"{TRAIN_LOSS_TOL:.0e}); gradients: worst leaf {leaf} "
+              f"{worst:.2e} of its max (limit {TRAIN_GRAD_TOL:.0e}); "
+              f"launches flash_attention {counts['flash_attention']}, "
+              f"flash_attention_bwd {counts['flash_attention_bwd']}")
+        assert counts["flash_attention"] > 0 and \
+            counts["flash_attention_bwd"] > 0, counts
+        assert loss_rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL, (
+            label, loss_rel, worst, leaf)
+        if label.startswith("llama"):
+            real = ops._attention_bwd_plain
+
+            def noncausal(*a, **kw):
+                kw["causal"] = False
+                return real(*a, **kw)
+            ops._attention_bwd_plain = noncausal
+            try:
+                _, fg = vg(pm)
+            finally:
+                ops._attention_bwd_plain = real
+            f_worst, f_leaf = grads_apart(kg, fg)
+            print(f"  planted fault (the plain backward non-causal): worst "
+                  f"leaf {f_leaf} {f_worst:.2e}, "
+                  f"{f_worst / TRAIN_GRAD_TOL:.1f} of the limit")
+            assert f_worst > FAULT_MARGIN * TRAIN_GRAD_TOL, f_worst
+            del fg
+        del km, pm, params, kg, pg, batch
+        torch.cuda.empty_cache()
+
+
+def restart_check(torch, ops, registry):
+    """The restart on the card: reduced llama3.2-3b (bf16) trains 6 steps
+    straight, and again as 3 steps, a checkpoint (the port's RPK1 file in
+    whatever codec the machine has), a restore in a fresh Trainer and 3
+    more: losses and final params and moments bit for bit.  Run under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
+    warnings name any op without a deterministic path."""
+    import shutil
+    import warnings
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data import make_pipeline
+    from repro_torch.runtime.trainer import Trainer, TrainConfig
+    ck = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    bundle = registry.build("llama3.2-3b", reduced=True, device="cuda")
+    shape = ShapeConfig("t", 64, 4, "train")
+    kw = dict(log_every=1, peak_lr=1e-3, seed=0)
+
+    def pipe(start, n):
+        return make_pipeline(bundle.cfg, shape, start_step=start,
+                             num_steps=n)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ops.reset_launch_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            st_a = Trainer(bundle.model, TrainConfig(num_steps=6, **kw)).run(
+                pipe(0, 6))
+            Trainer(bundle.model, TrainConfig(
+                num_steps=3, ckpt_dir=ck, ckpt_every=100, **kw)).run(
+                    pipe(0, 3))
+            tr_c = Trainer(bundle.model, TrainConfig(
+                num_steps=6, ckpt_dir=ck, ckpt_every=100, **kw))
+            state, start = tr_c.maybe_restore()
+            st_c = tr_c.run(pipe(3, 3), start_step=start, state=state)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = ops.launch_counts()
+    with open(os.path.join(ck, "step_3", "state.ckpt"), "rb") as f:
+        head = f.read(5)
+    shutil.rmtree(ck, ignore_errors=True)
+    a = [h["loss"] for h in st_a["_history"]][3:]
+    c = [h["loss"] for h in st_c["_history"]]
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree.leaves({"p": st_a["params"], "o": st_a["opt"]}),
+        tree.leaves({"p": st_c["params"], "o": st_c["opt"]})))
+    notes = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                    if "deterministic" in str(w.message)})
+    print(f"restart: file header {head!r} (zstandard "
+          f"{'present' if store.zstd is not None else 'absent'}); start "
+          f"step {start}; losses straight {a} resumed {c}; params and "
+          f"moments bit for bit {same}; launches flash_attention "
+          f"{counts['flash_attention']}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd']}; determinism warnings: "
+          f"{notes or 'none'}")
+    assert start == 3 and head[:4] == b"RPK1", (start, head)
+    assert a == c and same, (a, c, same)
+    assert counts["flash_attention_bwd"] > 0, counts
+
+
 def main() -> int:
+    # cuBLAS picks its workspace per stream; a fixed configuration keeps
+    # its GEMMs' bits from run to run (the restart check); set before the
+    # first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -5344,10 +5763,15 @@ def main() -> int:
                                  "moe30b", (512,), 32))
     rec.update(vlm_encdec_kernel_checks(torch, ops, registry.config(LLAVA),
                                         registry.config(WHISPER)))
+    rec.update(train_kernel_checks(torch, ops))
     for name in sorted(rec):
         bound(rec[name])
     stamp("phases 1-3")
-    all_runs = []
+    all_runs = train_phase(torch, ops, smi)
+    stamp("train_phase")
+    train_end_to_end(torch, ops, registry)
+    restart_check(torch, ops, registry)
+    stamp("phase 5t and the restart")
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)

@@ -1,0 +1,5 @@
+from repro_torch.checkpoint.store import (CheckpointManager, latest_step,
+                                          restore_pytree, save_pytree)
+
+__all__ = ["CheckpointManager", "save_pytree", "restore_pytree",
+           "latest_step"]

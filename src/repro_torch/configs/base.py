@@ -172,3 +172,13 @@ class ArchConfig:
         if self.family == "vlm":
             kw["n_patch_tokens"] = 12
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One batch shape (reference ``configs/base.py:223``): the training
+    pipeline's sequence length and global batch."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode

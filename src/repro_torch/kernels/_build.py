@@ -25,8 +25,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_attention", "flash_decode", "flash_prefill_chunk", "ssd",
-           "matmul", "dotp", "conv2d")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
+           "flash_prefill_chunk", "ssd", "matmul", "dotp", "conv2d")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo"]

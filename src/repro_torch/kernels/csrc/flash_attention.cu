@@ -35,6 +35,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Problem p) {
   t.load_q(p, b, kvh, r0);
   t.run_keys(p, kvh, 0, p.Sk);
   t.store(p, b, kvh, r0, t.acc, t.Ls);
+  if (p.lse) t.store_lse(p, bkv, r0);
 }
 
 template <typename T, int D>
@@ -60,6 +61,7 @@ fa_tc_kernel(Problem p, const __grid_constant__ CUtensorMap mk,
   t.load_q(p, b, kvh, r0);
   t.run(p, &mk, &mv, kvh, bmul, t.lim[0], t.lim[1], [](int) {});
   t.store(p, b, kvh, r0, t.o, t.l);
+  if (p.lse) t.store_lse(p, bkv, r0);
 }
 
 template <int D>
@@ -80,6 +82,8 @@ static int fa_tc_run(const Problem& p, int B, cudaStream_t st) {
 // q (B, H, Sq, D), k/v (B, KVH, Sk, D), o (B, H, Sq, D), all by strides
 // (batch, position, head); H = KVH * G.  bf16 needs vec (16-byte aligned
 // bases and strides: the TMA map and the Q loads).
+// lse: null (serving), or a (B, H, Sq) f32 buffer for the row log-sum-exp
+// the backward pass reads (training); O's bits do not depend on it.
 extern "C" int fa_launch(int dtype, int hd, const void* q, const void* k,
                          const void* v, void* o,
                          long long sqb, long long sqs, long long sqh,
@@ -87,7 +91,8 @@ extern "C" int fa_launch(int dtype, int hd, const void* q, const void* k,
                          long long svb, long long svs, long long svh,
                          long long sob, long long sos, long long soh,
                          int B, int KVH, int G, int Sq, int Sk, int causal,
-                         int window, float scale, int vec, void* stream) {
+                         int window, float scale, int vec, float* lse,
+                         void* stream) {
   Problem p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
@@ -97,6 +102,7 @@ extern "C" int fa_launch(int dtype, int hd, const void* q, const void* k,
   p.KVH = KVH; p.G = G; p.C = Sq; p.Sk = Sk;
   p.qbase = nullptr; p.qbase0 = Sk - Sq; p.qbase_add = 0;
   p.causal = causal; p.window = window; p.scale = scale; p.vec = vec;
+  p.lse = lse;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return FK_DISPATCH(dtype, hd, fa_run, fa_tc_run, p, B, st);
 }

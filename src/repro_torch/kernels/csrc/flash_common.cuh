@@ -115,7 +115,18 @@ struct Problem {
   // from its own row (K, V and their scales alike); null -> no table
   const int* share_src = nullptr;
   const int* share_len = nullptr;
+  // flash_attention only (training): (B, H, C) f32 row log-sum-exp of the
+  // scaled scores, m + log(l), row r of (b, kvh) at (b * KVH + kvh) * G * C
+  // + r; null on every serving call, and written after O, which it does
+  // not change
+  float* lse = nullptr;
 };
+
+// The row log-sum-exp the backward pass recomputes P from: the split's max
+// plus log of its sum (NEG_INF-ish for a row that sees no key, l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m + logf(l > 0.f ? l : 1.f);
+}
 
 // The arena batch row that query batch b reads.
 __device__ __forceinline__ int arena_row(const Problem& p, int b) {
@@ -482,6 +493,13 @@ struct Tile {
           row[dl + DL * w] = from_f<T>(finish_val(vals[v][w], L[r]));
       }
     }
+  }
+
+  // Rows [r0, r0 + ROWS) of Problem::lse from the unmerged (Ms, Ls).
+  __device__ void store_lse(const Problem& p, int bkv, int r0) const {
+    const int nrows = p.G * p.C;
+    for (int r = tid; r < ROWS && r0 + r < nrows; r += NT)
+      p.lse[(long long)bkv * nrows + r0 + r] = row_lse(Ms[r], Ls[r]);
   }
 };
 

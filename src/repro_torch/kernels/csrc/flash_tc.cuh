@@ -717,6 +717,18 @@ struct TcTile {
       }
     }
   }
+  // This thread's two rows of Problem::lse from the unmerged (m, l); the
+  // four threads of a row hold the same values, the first writes them.
+  __device__ __forceinline__ void store_lse(const Problem& p, int bkv,
+                                            int r0) const {
+    if (lane % 4) return;
+    const int nrows = p.G * p.C;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int R0 = r0 + row0 + 8 * i;
+      if (R0 < nrows) p.lse[(long long)bkv * nrows + R0] = row_lse(m[i], l[i]);
+    }
+  }
 };
 
 // -- host side ---------------------------------------------------------------

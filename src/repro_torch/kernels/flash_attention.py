@@ -30,9 +30,11 @@ launches = 0
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None, scale=None,
-                          bk: int = 512):
+                          bk: int = 512, with_lse: bool = False):
     """q: (..., Sq, D); k/v: (..., Sk, D) with the same leading dims.
-    Strip-mined online softmax over ``bk``-key strips."""
+    Strip-mined online softmax over ``bk``-key strips.  ``with_lse``: also
+    return the (..., Sq) f32 row log-sum-exp of the scaled scores, m +
+    log(l) (the reference's ``_fwd`` residual, flash_ref.py:133-134)."""
     sq, d = q.shape[-2:]
     sk = k.shape[-2]
     scale = scale if scale is not None else d ** -0.5
@@ -67,19 +69,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                                                     p, vb)
         m = m_new
     safe = torch.where(l > 0, l, 1.0)
-    return (acc / safe[..., None]).to(q.dtype)
+    out = (acc / safe[..., None]).to(q.dtype)
+    return (out, m + torch.log(safe)) if with_lse else out
 
 
 _ARGS = ([_build.I, _build.I] + [_build.P] * 4 + [_build.LL] * 12
-         + [_build.I] * 7 + [_build.F, _build.I, _build.P])
+         + [_build.I] * 7 + [_build.F, _build.I, _build.P, _build.P])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: Optional[int] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None, with_lse: bool = False):
     """CUDA kernel.  q: (B, H, Sq, D); k/v: (B, KVH, Sk, D) with KVH | H,
     any strides with a unit last axis.  Returns (B, H, Sq, D) in q's dtype
-    (a permuted view of a (B, Sq, H, D) buffer)."""
+    (a permuted view of a (B, Sq, H, D) buffer); ``with_lse`` (training):
+    (that, the (B, H, Sq) f32 row log-sum-exp), which the kernel writes
+    after O without changing O's bits."""
     global launches
     _build.require_cuda(NAME, q, k, v)
     b, h, sq, d = q.shape
@@ -92,6 +97,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dt, *(_build.inner_contiguous(t) for t in (q, k, v)))
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = _build.bind(NAME, "fa_launch", _ARGS)
     code = fn(dt, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
               _build.ptr(o),
@@ -100,7 +107,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               v.stride(0), v.stride(2), v.stride(1),
               o.stride(0), o.stride(1), o.stride(2),
               b, kvh, h // kvh, sq, sk, int(bool(causal)), int(window or 0),
-              float(scale), vec, _build.stream_of(q))
+              float(scale), vec, _build.ptr(lse), _build.stream_of(q))
     launches += 1
     _build.check(code, NAME)
-    return o.permute(0, 2, 1, 3)
+    o = o.permute(0, 2, 1, 3)
+    return (o, lse) if with_lse else o

@@ -3,7 +3,11 @@
 Port of ``repro/kernels/ops.py`` for the kernels of the serving path, with
 the reference's argument layouts:
 
-  * :func:`attention` — (..., S, D) forward attention (ops.py:194);
+  * :func:`attention` — (..., S, D) attention (ops.py:194), with a
+    gradient when an operand requires one: the forward kernel also writes
+    the row log-sum-exp and the backward is ``flash_attention_bwd``'s
+    kernel (the reference's training path, ``flash_ref.flash_attention_ref``
+    with its custom VJP, flash_ref.py:68-225);
   * :func:`flash_decode` — (B, H, hd) queries over a (B, S, KVH, hd) cache
     with per-slot ``lengths`` (ops.py:324);
   * :func:`flash_prefill_chunk` — (B, C, H, hd) chunk queries over the
@@ -54,6 +58,7 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
 
 # kernel modules import _pad_to / NEG_INF from here, so they come after
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as _fab  # noqa: E402
 from repro_torch.kernels import flash_decode as _fd  # noqa: E402
 from repro_torch.kernels import flash_prefill_chunk as _fpc  # noqa: E402
 from repro_torch.kernels import ssd as _ssd  # noqa: E402
@@ -61,7 +66,7 @@ from repro_torch.kernels import matmul as _mm  # noqa: E402
 from repro_torch.kernels import dotp as _dp  # noqa: E402
 from repro_torch.kernels import conv2d as _cv  # noqa: E402
 
-KERNEL_MODULES = (_fa, _fd, _fpc, _ssd, _mm, _dp, _cv)
+KERNEL_MODULES = (_fa, _fab, _fd, _fpc, _ssd, _mm, _dp, _cv)
 #: the kernels with a fused-dequant branch: their scaled launches (over an
 #: int8 / fp8 arena) are also counted apart, as ``<name>_scaled``
 SCALED_MODULES = (_fd, _fpc)
@@ -133,12 +138,87 @@ def _expand_gqa(q, k, v):
     return (k.repeat_interleave(g, dim=-3), v.repeat_interleave(g, dim=-3))
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _attention_plain(q, k, v, *, causal=True, window=None, scale=None,
                      bq=256, bk=512):
     del bq
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, causal, window, scale, True, bk)
     k, v = _expand_gqa(q, k, v)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, bk=bk)
+
+
+def _fold4(*ts):
+    """(..., H, S, D) operands as 4-D (B, H, S, D) views."""
+    if ts[0].ndim == 3:
+        return tuple(t[None] for t in ts)
+    if ts[0].ndim == 4:
+        return ts
+    return tuple(t.reshape(-1, *t.shape[-3:]) for t in ts)
+
+
+def _attention_bwd_plain(q, k, v, o, lse, dout, *, causal, window, scale,
+                         bk=512):
+    """``flash_attention_bwd_plain`` with GQA: K/V expanded to q's heads
+    as the reference's ``jnp.repeat``, and dK / dV summed back over each
+    KV head's G query heads (the repeat's transpose)."""
+    ke, ve = _expand_gqa(q, k, v)
+    dq, dk, dv = _fab.flash_attention_bwd_plain(
+        q.float(), ke.float(), ve.float(), o.float(), lse, dout.float(),
+        causal=causal, window=window, scale=scale, bk=bk)
+    if ke is not k:
+        kvh = k.shape[-3]
+        g = q.shape[-3] // kvh
+        dk, dv = (t.reshape(*t.shape[:-3], kvh, g, *t.shape[-2:]).sum(-3)
+                  for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with a gradient (the reference's ``flash_attention_ref``
+    custom VJP, flash_ref.py:68-225): the forward saves (q, k, v, O, LSE),
+    the backward recomputes P from the LSE.  ``plain``: both passes in
+    plain PyTorch on any device (the oracle path); otherwise CUDA
+    operands take the forward kernel with its LSE output and the backward
+    kernel, CPU operands the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, plain, bk):
+        if plain or not _on_cuda(q, k, v):
+            ke, ve = _expand_gqa(q, k, v)
+            out, lse = _fa.flash_attention_plain(
+                q, ke, ve, causal=causal, window=window, scale=scale,
+                bk=bk, with_lse=True)
+        else:
+            q4, k4, v4 = _fold4(q, k, v)
+            out, lse = _fa.launch(q4, k4, v4, causal=causal, window=window,
+                                  scale=scale, with_lse=True)
+            out = out.reshape(q.shape)
+            lse = lse.reshape(q.shape[:-1])
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, scale, plain, bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale, plain, bk = ctx.opts
+        if plain or not _on_cuda(q, k, v, dout):
+            dq, dk, dv = _attention_bwd_plain(
+                q, k, v, out, lse, dout, causal=causal, window=window,
+                scale=scale, bk=bk)
+        else:
+            q4, k4, v4, o4, g4 = _fold4(q, k, v, out, dout)
+            dq, dk, dv = _fab.launch(
+                q4, k4, v4, o4, lse.reshape(q4.shape[:-1]), g4,
+                causal=causal, window=window, scale=scale)
+            dq, dk, dv = dq.reshape(q.shape), dk.reshape(k.shape), \
+                dv.reshape(v.shape)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,20 +230,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     As in the reference, the leading dims are batch/head and GQA may be
     pre-expanded; in addition the head axis (-3) of k/v may hold KVH heads
     dividing q's H, which the kernel reads in place (head h -> h // G).
+    When an operand requires a gradient (training), the call goes through
+    :class:`_Attention`: on the card the forward kernel with its LSE
+    output, then the backward kernel; serving calls never do.
     """
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, causal, window, scale, False, bk)
     if not _on_cuda(q, k, v):
         return _attention_plain(q, k, v, causal=causal, window=window,
                                 scale=scale, bq=bq, bk=bk)
-    lead = q.shape[:-2]
-    if q.ndim == 3:
-        q4, k4, v4 = q[None], k[None], v[None]
-    elif q.ndim == 4:
-        q4, k4, v4 = q, k, v
-    else:
-        fold = lambda t: t.reshape(-1, *t.shape[-3:])
-        q4, k4, v4 = fold(q), fold(k), fold(v)
+    q4, k4, v4 = _fold4(q, k, v)
     out = _fa.launch(q4, k4, v4, causal=causal, window=window, scale=scale)
-    return out.reshape(*lead, *out.shape[-2:])
+    return out.reshape(*q.shape[:-2], *out.shape[-2:])
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,14 @@ and the moe router, which are float32 whatever the param dtype, as in the
 reference (mamba2.py:42-44, moe.py:46-47).
 Callers hand the tree over as numpy arrays (``np.asarray`` of each leaf),
 so this module never sees a JAX type.
+
+Because the layouts are the same, the way back is the tree itself: the
+checkpoint store writes the port's tree under the reference's flattened
+paths (``params/layers/attn/wq``), and :func:`to_numpy` hands any port
+tree to the reference as numpy.  The optimizer state crosses the same way
+(:func:`opt_state_from_numpy`), and :func:`abstract_state` is the
+trainer's state template with no storage (the reference's
+``eval_shape``).
 """
 from __future__ import annotations
 
@@ -168,3 +176,72 @@ def params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
         dtype = torch.float32 if path in F32_LEAVES else cfg.pdtype
         node[leaf] = t.to(device=dev, dtype=dtype)
     return params
+
+
+def _leaf_dtype(cfg, path: str):
+    return torch.float32 if path in F32_LEAVES else cfg.pdtype
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, val in flat.items():
+        node = tree
+        *parents, leaf = path.split(".")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = val
+    return tree
+
+
+def abstract_params(cfg, dtype=None) -> dict:
+    """The parameter tree as meta tensors of the right shapes and dtypes
+    (``dtype``: one for every leaf), with no storage."""
+    return _nest({path: torch.empty(shape,
+                                    dtype=dtype or _leaf_dtype(cfg, path),
+                                    device="meta")
+                  for path, shape in expected_shapes(cfg).items()})
+
+
+def abstract_state(cfg) -> dict:
+    """The trainer's state {"params", "opt": {"m", "v", "step"}} as meta
+    tensors: a template for ``checkpoint.restore_pytree``."""
+    return {"params": abstract_params(cfg),
+            "opt": {"m": abstract_params(cfg, torch.float32),
+                    "v": abstract_params(cfg, torch.float32),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+
+
+def opt_state_from_numpy(opt: dict, cfg, device="cuda") -> dict:
+    """The reference's AdamW state ({"m", "v": numpy trees, "step": int})
+    as the port's: f32 moments (checked against the parameter tree's
+    shapes) and an int32 step on ``device``."""
+    dev = device_mod.resolve(device)
+    want = expected_shapes(cfg)
+    out = {}
+    for key in ("m", "v"):
+        flat = _flatten(opt[key])
+        if set(flat) != set(want):
+            raise ValueError(f"opt[{key!r}] tree mismatch")
+        leaves = {}
+        for path, shape in want.items():
+            arr = np.asarray(flat[path], dtype=np.float32)
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"opt[{key!r}] {path}: shape {arr.shape}, "
+                                 f"expected {shape}")
+            leaves[path] = torch.from_numpy(arr.copy()).to(dev)
+        out[key] = _nest(leaves)
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def to_numpy(tree):
+    """A port tree (nested dicts of tensors) as numpy, bfloat16 leaves
+    widened to float32 (exact), every other leaf in its own dtype."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -88,18 +88,8 @@ def attention(p, cfg, x, *, causal: bool, kv=None, kops=ops):
     ``layers.attention`` with ``positions=None``).  x: (B, S, d); ``kv``:
     precomputed (k, v) (B, Sk, KVH, hd), the cross-attention's, or None
     to project them from x.  Returns (B, S, d)."""
-    b, s, _ = x.shape
-    if kv is None:
-        q, k, v = L._project_qkv(p, cfg, x, None)
-    else:
-        q = L._dot(x, p["wq"], cfg.adtype).reshape(b, s, cfg.n_heads,
-                                                   cfg.hd)
-        if cfg.qk_norm:
-            q = L.rmsnorm(p["q_norm"], q, cfg.rms_eps)
-        k, v = kv
-    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal=causal)
-    return L._dot(o.transpose(1, 2).reshape(b, s, -1), p["wo"], cfg.adtype)
+    return L.attention(p, cfg, x, positions=None, causal=causal, kv=kv,
+                       kops=kops)
 
 
 def enc_layer(p, cfg, x, *, kops=ops):
@@ -108,6 +98,26 @@ def enc_layer(p, cfg, x, *, kops=ops):
     x = x + attention(p["attn"], cfg, h, causal=False, kops=kops)
     h = L.layernorm(p["ln2"], x, cfg.rms_eps)
     return x + L.mlp(p["mlp"], cfg, h, act="gelu")
+
+
+def dec_train_layer(p, cfg, x, enc_out, *, kops=ops):
+    """One decoder layer of the training forward (reference
+    ``dec_layer_apply``, :68): causal self-attention over the whole
+    sequence, cross-attention over this layer's K/V of ``enc_out``, the
+    GELU MLP; no positions (learned absolute ones are added before)."""
+    eps = cfg.rms_eps
+    h = L.layernorm(p["ln1"], x, eps)
+    x = x + attention(p["self_attn"], cfg, h, causal=True, kops=kops)
+    h = L.layernorm(p["ln_x"], x, eps)
+    x = x + attention(p["cross_attn"], cfg, h, causal=False,
+                      kv=cross_kv(p, cfg, enc_out), kops=kops)
+    h = L.layernorm(p["ln2"], x, eps)
+    return x + L.mlp(p["mlp"], cfg, h, act="gelu")
+
+
+def _no_aux(fn):
+    """A layer function returning x, as a stack layer with no aux loss."""
+    return lambda lp, x, i: (fn(lp, x), None)
 
 
 def cross_kv(p, cfg, enc_out):
@@ -209,19 +219,51 @@ class EncDecLM:
         return {key: leaf[:, slot:slot + 1] for key, leaf in cache.items()}
 
     # -- drivers -------------------------------------------------------------
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor, *,
+               remat: str = "full") -> torch.Tensor:
         """frames: (B, enc_seq, d), cast to the activation dtype, plus the
         sinusoidal positions; returns the normed encoder output (B,
-        enc_seq, d) (reference :108)."""
+        enc_seq, d) (reference :108), each layer under ``remat`` when the
+        weights take a gradient (``transformer.remat_call``)."""
         cfg = self.cfg
         adt = cfg.adtype
         x = frames.to(device=self.device, dtype=adt) \
             + L.sinusoidal_positions(frames.shape[1], cfg.d_model,
                                      self.device).to(adt)
-        for i in range(cfg.n_enc_layers):
-            x = enc_layer(T.layer_params(params["enc_layers"], i), cfg, x,
-                          kops=self.kops)
+        layers = T.unbind_layers(params["enc_layers"], cfg.n_enc_layers)
+        x, _ = T.stack_forward(layers, x, _no_aux(
+            lambda lp, xx: enc_layer(lp, cfg, xx, kops=self.kops)), remat)
         return L.layernorm(params["enc_norm"], x, cfg.rms_eps)
+
+    # -- training ------------------------------------------------------------
+    def decode_hidden(self, params, tokens: torch.Tensor,
+                      enc_out: torch.Tensor, *, remat: str = "full"):
+        """The decoder over the whole sequence with no cache (reference
+        :120): embeddings plus learned positions [0, S), each layer's
+        cross-attention over ``enc_out``; returns the normed hidden states
+        (B, S, d)."""
+        cfg = self.cfg
+        s = tokens.shape[1]
+        x = L.embed_lookup(params["embed"], tokens)
+        x = x + params["pos_embed"][None, :s].to(x.dtype)
+        layers = T.unbind_layers(params["dec_layers"], cfg.n_layers)
+        x, _ = T.stack_forward(layers, x, _no_aux(
+            lambda lp, xx: dec_train_layer(lp, cfg, xx, enc_out,
+                                           kops=self.kops)), remat)
+        return L.layernorm(params["dec_norm"], x, cfg.rms_eps)
+
+    def loss_fn(self, params, batch: dict, *, remat: str = "full",
+                ce_block: int = 512):
+        """batch: {"frames" (B, enc_seq, d), "tokens", "labels", optional
+        "loss_mask"} (reference :136): the encoder, the decoder over the
+        whole sequence, the blockwise CE; aux is 0."""
+        T.check_remat(remat)
+        enc_out = self.encode(params, batch["frames"], remat=remat)
+        h = self.decode_hidden(params, batch["tokens"], enc_out, remat=remat)
+        ce = L.blockwise_cross_entropy(self.head(params), h, batch["labels"],
+                                       batch.get("loss_mask"),
+                                       block=ce_block)
+        return ce, {"ce": ce, "aux": ce.new_zeros(())}
 
     def prefill(self, params, tokens: torch.Tensor, cache: dict, *,
                 frames: torch.Tensor) -> torch.Tensor:

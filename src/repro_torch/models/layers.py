@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import kv_format as kvf
 from repro_torch.core import prng
@@ -127,6 +128,31 @@ def _project_qkv(p, cfg, x, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention(p: dict, cfg, x: torch.Tensor, *, positions,
+              causal: bool = True, window: Optional[int] = None, kv=None,
+              kops=ops) -> torch.Tensor:
+    """Full-sequence attention with no cache (reference layers.py:198),
+    the training forward.  x: (B, S, d); ``positions``: (B, S) for RoPE,
+    or None (no RoPE: the encdec family); ``kv``: precomputed (k, v) (B,
+    Sk, KVH, hd), the cross-attention's, or None to project them from x.
+    K/V keep their KVH heads: the kernels read query head h's KV head as
+    h // G where the reference repeats them (:228-229).  Returns (B, S,
+    d)."""
+    b, s, _ = x.shape
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+        q = _dot(x, p["wq"], cfg.adtype).reshape(b, s, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
+        if positions is not None:
+            q = rope(q, positions, cfg.rope_theta)
+        k, v = kv
+    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=causal, window=window)
+    return _dot(o.transpose(1, 2).reshape(b, s, -1), p["wo"], cfg.adtype)
 
 
 def _decode_qkv(p, cfg, x_t, pos, use_rope: bool = True):
@@ -338,7 +364,99 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """Rows of ``table`` at ``tokens`` (any shape), through ``F.embedding``,
+    whose backward on the card sums each row's gradient in a fixed order
+    (``table[tokens]``'s accumulates with atomics, which a bit-for-bit
+    restart cannot have)."""
+    return F.embedding(tokens.long(), table)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+class _HeadF32(torch.autograd.Function):
+    """x (N, d) @ w (d, V) -> f32 logits for bf16 operands on the card (the
+    reference's ``preferred_element_type=f32``, layers.py:549) through the
+    f32-out bf16 GEMM, which does not upcast the head; the backward takes
+    the f32 cotangent at the operands' dtype, as a bf16 GEMM's is."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        return g @ w.t(), x.t() @ g
+
+
+def head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ (d, V) -> f32 logits, with a gradient: f32 operands
+    multiply in f32, bf16 ones on the card through :class:`_HeadF32`, on
+    the CPU upcast."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cpu":
+        return x.float() @ w.float()
+    lead = x.shape[:-1]
+    return _HeadF32.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+        *lead, w.shape[-1])
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """lse(logits) - logits[label] per token, f32 (B, S)."""
+    v = logits.shape[-1]
+    return F.cross_entropy(logits.reshape(-1, v).float(),
+                           labels.reshape(-1).long(),
+                           reduction="none").reshape(labels.shape)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token CE (reference layers.py:506): logits (B, S, V) f32,
+    labels (B, S) int; with ``mask`` the masked mean, its count at least
+    1."""
+    nll = _token_nll(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+def _block_nll_sum(x, labels, mask, w_head):
+    return (_token_nll(head_f32(x, w_head), labels) * mask).sum()
+
+
+def blockwise_cross_entropy(w_head: torch.Tensor, x: torch.Tensor,
+                            labels: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None, *,
+                            block: int = 512) -> torch.Tensor:
+    """CE fused with the LM head over ``block``-row sequence blocks
+    (reference layers.py:518): each block's f32 logits (B, block, V) chain
+    into their logsumexp, the masked sums add up block by block in f32,
+    and the mean divides by the mask's count (at least 1).  Under autograd
+    each block is a ``torch.utils.checkpoint``: its logits are recomputed
+    in the backward, so the (B, S, V) logits never exist at once.  The
+    reference zero-pads S to whole blocks; the last block here is ragged
+    instead, which adds the same masked-out zeros."""
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    nll_sum = x.new_zeros((), dtype=torch.float32)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or w_head.requires_grad)
+    for i in range(0, s, block):
+        args = (x[:, i:i + block], labels[:, i:i + block],
+                mask[:, i:i + block], w_head)
+        part = (torch.utils.checkpoint.checkpoint(
+                    _block_nll_sum, *args, use_reentrant=False)
+                if grad else _block_nll_sum(*args))
+        nll_sum = nll_sum + part
+    return nll_sum / torch.clamp(mask.sum(), min=1.0)
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

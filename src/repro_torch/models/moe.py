@@ -126,7 +126,10 @@ def _expert_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     expert weights as they are stored; on the CPU they are upcast."""
     if a.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(a, w)
-    if a.device.type == "cpu":
+    if a.device.type == "cpu" or (torch.is_grad_enabled()
+                                   and (a.requires_grad or w.requires_grad)):
+        # training upcasts on the card too: the f32-out GEMM has no
+        # gradient formula
         return torch.bmm(a.float(), w.float())
     return torch.bmm(a, w, out_dtype=torch.float32)
 
@@ -198,6 +201,18 @@ def _mlp_residual(p, cfg, x):
     return x + y
 
 
+def moe_train_layer(p, cfg, x, positions, *, kops=ops):
+    """One moe layer of the training forward (reference ``moe_layer_apply``,
+    :203-209): causal attention with no cache, then the expert MLP over
+    all B·S rows as one dispatch; returns (x, the layer's aux loss)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
+    x = x + L.attention(p["attn"], cfg, h, positions=positions, causal=True,
+                        kops=kops)
+    h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
+    y, aux = moe_mlp_apply(p["moe"], cfg, h)
+    return x + y, aux
+
+
 def moe_prefill_layer(p, cfg, x, view_l, positions, *, kops=ops):
     """Monolithic prefill (reference :212): attention filling K/V rows [0,
     S) of the (slot's) arena view, then the expert MLP over the prompt's S
@@ -237,4 +252,5 @@ def moe_layer_decode_rows(p, cfg, x_t, layer_kv, pos, *, kops=ops,
 MOE = T.LayerSet(
     init_params=moe_layer_init, init_cache=T._dense_init_cache,
     factors=T.DENSE.factors, prefill_layer=moe_prefill_layer,
-    chunk_layer=moe_layer_chunk, decode_layer=moe_layer_decode_rows)
+    chunk_layer=moe_layer_chunk, decode_layer=moe_layer_decode_rows,
+    train_layer=moe_train_layer)

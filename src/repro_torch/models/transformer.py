@@ -22,12 +22,15 @@ after the scan (under buffer donation).  Logits come out in f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.core import device as device_mod
 from repro_torch.core import kv_format as kvf
+from repro_torch.core import tree as tree_mod
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -90,6 +93,94 @@ def _prefill_layer(p, cfg, x, cache_kv, positions, *, window=None,
                               window=window, kops=kops)
     h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
     return x + L.mlp(p["mlp"], cfg, h)
+
+
+def dense_train_layer(p, cfg, x, positions, *, window=None, kops=ops):
+    """One dense layer of the training forward (reference
+    ``dense_layer_apply``, :64): full-sequence causal attention with no
+    cache, then the MLP.  Returns (x, aux = 0)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
+    x = x + L.attention(p["attn"], cfg, h, positions=positions, causal=True,
+                        window=window, kops=kops)
+    h = L.rmsnorm(p["ln2"], x, cfg.rms_eps)
+    return x + L.mlp(p["mlp"], cfg, h), x.new_zeros((), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# training: remat policies over a layer loop
+# ---------------------------------------------------------------------------
+
+#: the reference's remat policies (:28-48)
+REMAT_POLICIES = ("none", "full", "dots", "save_tp")
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    matmuls without batch dims (the projections and MLPs, not the expert
+    bmm or the attention), recompute the rest."""
+    del ctx, args, kwargs
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def check_remat(remat: str) -> None:
+    if remat == "save_tp":
+        raise NotImplementedError(
+            "remat='save_tp' saves the tensor-parallel boundary "
+            "activations: it comes with the multi-device port (ROADMAP "
+            "1.11)")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def remat_call(fn: Callable, remat: str, *args):
+    """``fn(*args)`` under the remat policy (reference ``_maybe_remat``,
+    :36): ``none`` as is, ``full`` as a ``torch.utils.checkpoint`` (only
+    the inputs saved, the forward run again in the backward), ``dots`` as
+    a selective checkpoint that saves the matmul outputs.  Without a
+    gradient to take (no tensor or tree of ``args`` requires one, or grad
+    mode is off: serving), ``fn`` runs as is."""
+    check_remat(remat)
+    if remat == "none" or not wants_grad(
+            {str(i): a for i, a in enumerate(args)
+             if isinstance(a, (dict, torch.Tensor))}):
+        return fn(*args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def wants_grad(tree) -> bool:
+    """Grad mode is on and some tensor leaf of ``tree`` requires a
+    gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_mod.leaves(tree))
+
+
+def unbind_layers(stacked, n_layers: int) -> list:
+    """The per-layer parameter trees of a stacked (L, ...) tree, through
+    one ``unbind`` a leaf: under autograd the L slices' gradients are
+    stacked once into the leaf's, where L ``layer_params`` views would
+    each add a full-size zero-padded gradient."""
+    unbound = tree_mod.map_(lambda t: t.unbind(0), stacked)
+    return [tree_mod.map_(lambda u: u[i], unbound) for i in range(n_layers)]
+
+
+def stack_forward(layers: list, x, layer_fn: Callable, remat: str):
+    """x through ``layer_fn(lp, x, i) -> (x, aux or None)`` for each
+    per-layer tree ``lp`` (layer i) of ``layers`` under ``remat``; returns
+    (x, the f32 sum of the aux losses) (reference :208, a loop for its
+    scan)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i, lp in enumerate(layers):
+        x, a = remat_call(layer_fn, remat, lp, x, i)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def layer_params(stacked, i: int):
@@ -157,7 +248,10 @@ class LayerSet:
         ints: the driver passes layer i's as ``window=`` to each of the
         three layer functions (the reference scans them as ``layer_xs``,
         transformer.py:298-312; a captured step holds each layer's as a
-        constant of its launch).  None: the layers take no window.
+        constant of its launch).  None: the layers take no window;
+      * ``train_layer(p, cfg, x, positions, *, kops)`` (optional) -> (x,
+        aux): the training forward with no cache (reference
+        ``layer_apply``); None for a family the port does not train yet.
 
     Which arena leaves have a sequence axis is not declared: the driver
     reads it off the arena's shapes (:meth:`LM.seq_axes`).
@@ -169,6 +263,7 @@ class LayerSet:
     chunk_layer: Callable
     decode_layer: Callable
     windows: Optional[Callable] = None
+    train_layer: Optional[Callable] = None
 
 
 def _dense_init_params(cfg, gen, dev, mlp: bool = True) -> dict:
@@ -216,7 +311,8 @@ DENSE = LayerSet(
     init_params=_dense_init_params, init_cache=_dense_init_cache,
     factors=lambda cfg: dict.fromkeys(("k", "v", "k_scale", "v_scale"), 1),
     prefill_layer=_prefill_layer,
-    chunk_layer=dense_layer_chunk, decode_layer=dense_layer_decode_rows)
+    chunk_layer=dense_layer_chunk, decode_layer=dense_layer_decode_rows,
+    train_layer=dense_train_layer)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +365,52 @@ class LM:
     def head(self, params) -> torch.Tensor:
         return params["lm_head"] if not self.cfg.tie_embeddings \
             else params["embed"].T
+
+    # -- training forward ----------------------------------------------------
+    def hidden_states(self, params, tokens: torch.Tensor, *,
+                      prefix_embeds: Optional[torch.Tensor] = None,
+                      remat: str = "full"):
+        """The normed hidden states (B, P + S, d) of a forward with no cache
+        (reference :353): ``prefix_embeds`` (B, P, d) before the embedded
+        tokens, positions [0, P + S), each layer under ``remat``.  Returns
+        (h, aux), aux the f32 sum of the layers' aux losses."""
+        cfg = self.cfg
+        if self.layers.train_layer is None:
+            raise NotImplementedError(
+                f"training the {cfg.family} family needs SSD's backward as "
+                f"a hand-written kernel: ROADMAP 1.9(b)")
+        check_remat(remat)
+        x = L.embed_lookup(params["embed"], tokens)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype),
+                           x], dim=1)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x, aux = stack_forward(
+            unbind_layers(params["layers"], cfg.n_layers), x,
+            functools.partial(self._train_layer, positions=positions),
+            remat)
+        return L.rmsnorm(params["final_norm"], x, cfg.rms_eps), aux
+
+    def _train_layer(self, lp, x, i, *, positions):
+        return self.layers.train_layer(lp, self.cfg, x, positions,
+                                       kops=self.kops, **self._layer_kw(i))
+
+    def loss_fn(self, params, batch: dict, *, remat: str = "full",
+                ce_block: int = 512):
+        """batch: {"tokens" (B, S), "labels" (B, S), optional "loss_mask"
+        (B, S), optional "prefix_embeds" (B, P, d)} tensors on the model's
+        device (reference :373).  The prefix rows are trimmed before the
+        loss.  Returns (ce + aux, {"ce", "aux"})."""
+        prefix = batch.get("prefix_embeds")
+        h, aux = self.hidden_states(params, batch["tokens"],
+                                    prefix_embeds=prefix, remat=remat)
+        if prefix is not None:
+            h = h[:, prefix.shape[1]:]
+        ce = L.blockwise_cross_entropy(self.head(params), h, batch["labels"],
+                                       batch.get("loss_mask"),
+                                       block=ce_block)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- arena ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

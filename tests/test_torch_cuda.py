@@ -1944,3 +1944,225 @@ def test_cuda_encdec_decode_step_makes_no_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(logits).all())
     assert torch.equal(cache["k"][:, 1], before)
+
+
+# ---------------------------------------------------------------------------
+# training: the attention backward kernel and the trainer on the card
+# ---------------------------------------------------------------------------
+
+def _bwd_within(got, want, rtol=1e-4):
+    """Each gradient within one ulp of its type at the larger magnitude
+    plus ``rtol`` x the plain gradient's rms (chip_smoke.py's BWD_RTOL
+    states the argument)."""
+    for g, w in zip(got, want):
+        g32, w32 = g.float(), w.float()
+        big = torch.maximum(g32.abs(), w32.abs())
+        _, e = torch.frexp(big)
+        bits = 8 if g.dtype == torch.bfloat16 else 24
+        ulp = torch.where(big == 0, 0.0,
+                          torch.ldexp(torch.ones_like(big), e - bits))
+        lim = ulp + rtol * w32.pow(2).mean().sqrt()
+        if not bool(((g32 - w32).abs() <= lim).all()):
+            return False
+    return True
+
+
+BWD_CASES = {
+    # name: (causal, window, Sq, Sk, KVH, G)
+    "causal": (True, None, 100, 100, 2, 1),
+    "noncausal": (False, None, 77, 77, 1, 3),
+    "window": (True, 33, 130, 130, 1, 7),
+    "sq_lt_sk": (True, None, 40, 150, 1, 8),
+    "ragged_sk": (False, None, 64, 93, 2, 3),
+}
+
+
+def _bwd_inputs(case, d, dtype, seed=0):
+    causal, window, sq, sk, kvh, g = BWD_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q = rn(2, sq, kvh * g, d).transpose(1, 2)
+    k = rn(2, sk, kvh, d).transpose(1, 2)
+    v = rn(2, sk, kvh, d).transpose(1, 2)
+    do = rn(2, sq, kvh * g, d).transpose(1, 2)
+    return q, k, v, do, dict(causal=causal, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_cuda_bwd_kernel_matches_plain(cuda, dtype, d, case):
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    q, k, v, do, kw = _bwd_inputs(case, d, dtype)
+    o, lse = flash_attention.launch(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd.launch(q, k, v, o, lse, do, **kw)
+    want = ops._attention_bwd_plain(q, k, v, o, lse, do, scale=None, **kw)
+    assert _bwd_within(got, want), case
+    fault = ops._attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do,
+                                     scale=None, **kw)
+    assert not _bwd_within(got[:2], fault[:2]), "delta dropped passes"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bwd_bits_repeat_and_lse_leaves_o(cuda, dtype):
+    """Two backward runs give the same bits (no atomics), and the forward's
+    O is the same bits with its LSE output on and off."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    for case in sorted(BWD_CASES):
+        q, k, v, do, kw = _bwd_inputs(case, 64, dtype, seed=1)
+        o, lse = flash_attention.launch(q, k, v, with_lse=True, **kw)
+        assert torch.equal(o, flash_attention.launch(q, k, v, **kw)), case
+        a = flash_attention_bwd.launch(q, k, v, o, lse, do, **kw)
+        b = flash_attention_bwd.launch(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), case
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_autograd_counts_launches(cuda):
+    """ops.attention with a gradient: one forward launch (LSE on) and one
+    backward launch a call, no plain version."""
+    q, k, v, do, kw = _bwd_inputs("causal", 64, torch.bfloat16)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    out = ops.attention(q, k, v, **kw)
+    torch.autograd.grad(out, (q, k, v), do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1, counts
+    assert counts["flash_attention_bwd"] == 1, counts
+
+
+def _train_cfg(name, dtype):
+    import dataclasses
+    from repro_torch.models import registry
+    cfg = registry.config(name).reduced()
+    if dtype == torch.float32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  act_dtype="float32")
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama3.2-3b", "qwen2-moe-a2.7b",
+                                  "llava-next-34b", "whisper-large-v3"])
+def test_cuda_train_kernel_path_matches_plain(cuda, name):
+    """One step's loss and gradients in f32 on a reduced model: the kernel
+    path against the plain path (``kernels=ops.PLAIN``) on the same
+    weights, each leaf within 1e-5 of its largest element (chip_smoke.py's
+    TRAIN_GRAD_TOL: the first reading was ~8e-7)."""
+    from repro_torch.core import chaining, tree
+    from repro_torch.data import SyntheticLMDataset, family_extras_fn
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import registry
+    cfg = _train_cfg(name, torch.float32)
+    km = registry.build_model(cfg, device="cuda")
+    pm = registry.build_model(cfg, device="cuda", kernels=ops.PLAIN)
+    params = km.init(0)
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=48,
+                              global_batch=2).batch(0)
+    extras = family_extras_fn(cfg)
+    batch = to_device(extras(0, host) if extras else host, "cuda")
+    kl, kg = chaining.value_and_grad(lambda p, b: km.loss_fn(p, b)[0],
+                                     params, batch)
+    pl, pg = chaining.value_and_grad(lambda p, b: pm.loss_fn(p, b)[0],
+                                     params, batch)
+    assert abs(kl.item() - pl.item()) <= 1e-6 * abs(pl.item())
+    for (p, a), (_, b) in zip(tree.items(kg), tree.items(pg)):
+        rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        assert rel <= 1e-5, (p, rel)
+
+
+@pytest.mark.gpu
+def test_cuda_train_trainer_kernel_path_matches_plain(cuda):
+    """Two Trainer steps of reduced llama3.2-3b in f32 from one state, the
+    kernel path against the plain path: losses, grad norms and lr within
+    1e-5 relative; params within 2 x lr, the most two AdamW steps can
+    part an element whose gradient sits near eps (an update of about lr
+    either way), and on average within 1e-6."""
+    import copy
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer, TrainConfig
+    cfg = _train_cfg("llama3.2-3b", torch.float32)
+    tcfg = TrainConfig(num_steps=2, log_every=1, peak_lr=1e-3)
+    out = []
+    params = registry.build_model(cfg, device="cuda").init(0)
+    for kernels in (ops, ops.PLAIN):
+        model = registry.build_model(cfg, device="cuda", kernels=kernels)
+        p = copy.deepcopy(params)
+        state = {"params": p, "opt": adamw_init(p)}
+        pipe = make_pipeline(cfg, ShapeConfig("t", 64, 4, "train"),
+                             num_steps=2)
+        out.append(Trainer(model, tcfg).run(pipe, state=state))
+    (k, pl) = out
+    for a, b in zip(k["_history"], pl["_history"]):
+        for key in ("loss", "grad_norm", "lr"):
+            assert abs(a[key] - b[key]) <= 1e-5 * abs(b[key]), (key, a, b)
+    diffs = [(x - y).abs() for x, y in zip(tree.leaves(k["params"]),
+                                           tree.leaves(pl["params"]))]
+    assert max(d.max().item() for d in diffs) <= 2e-3
+    assert max(d.mean().item() for d in diffs) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_cuda_train_head_f32_matches_upcast(cuda):
+    """The bf16 LM head's f32 logits (the f32-out GEMM) and its gradients
+    against the same product on f32 copies: logits within f32 rounding of
+    bf16 products summed in f32, gradients within one bf16 rounding (the
+    backward takes the cotangent at bf16, as a bf16 GEMM's is)."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 64, 256), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    w = (torch.randn((256, 1000), generator=gen, device="cuda") / 16).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn((2, 64, 1000), generator=gen, device="cuda")
+    out = layers.head_f32(x, w)
+    assert out.dtype == torch.float32
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
+    ref = xf @ wf
+    rx, rw = torch.autograd.grad(ref, (xf, wf), g)
+    assert torch.allclose(out, ref, atol=1e-4, rtol=1e-4)
+    for got, want in ((dx, rx), (dw, rw)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - want).abs().max() / want.abs().max()
+        assert err < 2 ** -7, err
+
+
+@pytest.mark.gpu
+def test_cuda_train_restart_bit_for_bit(cuda, tmp_path):
+    """Reduced llama3.2-3b (bf16) on the card: 6 steps straight = 3 steps,
+    a checkpoint, a fresh Trainer restoring it, 3 more; losses and final
+    params bit for bit."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import registry
+    from repro_torch.runtime.trainer import Trainer, TrainConfig
+    bundle = registry.build("llama3.2-3b", reduced=True, device="cuda")
+    shape = ShapeConfig("t", 64, 4, "train")
+    kw = dict(log_every=1, peak_lr=1e-3, seed=0)
+    ck = str(tmp_path / "ck")
+
+    def pipe(start, n):
+        return make_pipeline(bundle.cfg, shape, start_step=start,
+                             num_steps=n)
+    st_a = Trainer(bundle.model, TrainConfig(num_steps=6, **kw)).run(
+        pipe(0, 6))
+    Trainer(bundle.model, TrainConfig(num_steps=3, ckpt_dir=ck, **kw)).run(
+        pipe(0, 3))
+    tr = Trainer(bundle.model, TrainConfig(num_steps=6, ckpt_dir=ck, **kw))
+    state, start = tr.maybe_restore()
+    assert start == 3
+    st_c = tr.run(pipe(3, 3), start_step=start, state=state)
+    assert [h["loss"] for h in st_a["_history"]][3:] == \
+        [h["loss"] for h in st_c["_history"]]
+    for a, c in zip(tree.leaves(st_a["params"]), tree.leaves(st_c["params"])):
+        assert torch.equal(a, c)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither jax nor the JAX package, a
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+msgpack or ml_dtypes, which the checkpoint store does without), a
 request for the card without one raises instead of running the plain
 versions, and nothing on the CPU path launches a kernel."""
 import os
@@ -22,6 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["msgpack"] = None      # the checkpoint store has its own codec
+sys.modules["ml_dtypes"] = None
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {repo!r})
 import repro_torch
@@ -29,13 +32,17 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in ("runtime.serving.speculative", "runtime.serving.faults",
              "runtime.serving.health", "runtime.serving.replica",
-             "runtime.serving.router", "runtime.elastic"):
+             "runtime.serving.router", "runtime.elastic", "optim.adamw",
+             "optim.schedule", "data.pipeline", "checkpoint.store",
+             "checkpoint._msgpack", "runtime.trainer", "launch.train",
+             "kernels.flash_attention_bwd"):
     assert "repro_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and (m.split(".")[0] in ("repro", "jax")))
+             and (m.split(".")[0] in ("repro", "jax", "msgpack",
+                                       "ml_dtypes")))
 print(len(names), bad)
 """
 
@@ -117,7 +124,9 @@ def test_launch_counters_stay_zero_on_cpu():
     model.prefill_chunk(params, prompt, cache, 1, 0, 8)
     model.decode_step(params, torch.tensor([1, 2]), cache,
                       torch.tensor([9, 9]))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0,
+                                   "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
@@ -140,7 +149,9 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
     model.prefill_chunk(params, prompt, cache, 1, 0, 8)
     model.decode_step(params, torch.tensor([1, 2]), cache,
                       torch.tensor([9, 9]))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0,
+                                   "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
@@ -161,7 +172,9 @@ def test_launch_counters_stay_zero_on_cpu_vector_unit():
     assert float(chaining.chained_mulreduce(a[0], a[1])) == 12.0
     assert ops.conv2d(torch.ones(1, 9, 9, 3),
                       torch.ones(7, 7, 3, 8)).shape == (1, 3, 3, 8)
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0,
+                                   "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
