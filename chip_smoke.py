@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      flash_decode no combine kernel, each bf16 ssd kernel HMMA
      (mma.sync), the bf16 matmul kernel HGMMA and UTMALDG, the f32 matmul
      kernels LDGSTS (cp.async) and no tensor-core MMA, flash_attention_bwd's
-     dK/dV and dQ kernels no MMA, and none of those ssd / matmul /
+     bf16 dK/dV and dQ kernels HGMMA and UTMALDG, its f32 ones no MMA,
+     and none of those ssd / matmul /
      backward kernels may spill (registers and stack printed);
   3. per-kernel checks: each kernel against its plain PyTorch version on
      the card, at the serving path's full-width bf16 shapes (attention:
@@ -423,11 +424,14 @@ DESIGN = {
                                "causal, the cross-attention non-causal at "
                                "Sq = prompt x Sk = 1500; launched on the "
                                "encdec path",
-    "flash_attention_bwd": "cuda-core f32 (bf16 widened in shared "
-                           "memory): a delta pass; dK/dV, a CTA a (batch, "
-                           "KV head, 64-key block) walking its G heads' "
-                           "query blocks in order; dQ, a CTA a (batch, "
-                           "head, 64-row block); no atomics, bits repeat",
+    "flash_attention_bwd": "bf16: wgmma+tma, one warpgroup a CTA, P and "
+                           "dS as two bf16 register-A terms (10 products a "
+                           "live block pair against the work's 5); f32: "
+                           "cuda-core; a delta pass; dK/dV, a CTA a "
+                           "(batch, KV head, 64-key block) walking its G "
+                           "heads' query blocks in order; dQ, a CTA a "
+                           "(batch, head, 64-row block); heaviest causal "
+                           "CTAs first; no atomics, bits repeat",
     "flash_attention_train": "the flash_attention kernel as training "
                              "calls it: llama3.2-3b's training batch (B 4, "
                              "S 1024, causal) with the f32 row LSE written "
@@ -448,6 +452,8 @@ SCALED_REPLACES = {
 PROFILED_KERNELS = ("fa_tc_kernel", "fpc_tc_kernel", "fd_tc_kernel",
                     "ssd_tc_kernel<false>", "ssd_tc_kernel<true>",
                     "ssd_f32_kernel")
+# seconds of idle time phase 4b's profile holds before and after its run
+PROFILE_MARGIN_S = 0.5
 # the device kernel(s) of a wrapper that a captured step launches
 DEVICE_SYMBOL = {"flash_decode": re.compile(r"\bfd_(?:tc_)?kernel\b"),
                  "flash_prefill_chunk": re.compile(
@@ -476,8 +482,12 @@ def sass_counts(_build, name):
 SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
               ("matmul", "mm_bf16_kernel", ("HGMMA", "UTMALDG"), (), 1),
               ("matmul", "mm_f32_kernel", ("LDGSTS",), ("HMMA", "HGMMA"), 2),
-              ("flash_attention_bwd", "fab_dkdv", (), ("HMMA", "HGMMA"), 10),
-              ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 10))
+              ("flash_attention_bwd", "fab_tc_dkdv", ("HGMMA", "UTMALDG"),
+               (), 5),
+              ("flash_attention_bwd", "fab_tc_dq", ("HGMMA", "UTMALDG"), (),
+               5),
+              ("flash_attention_bwd", "fab_dkdv", (), ("HMMA", "HGMMA"), 5),
+              ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 5))
 
 
 def sass_check(_build):
@@ -486,8 +496,10 @@ def sass_check(_build):
     in its SASS; the f32 kernels beside them hold no HGMMA; flash_decode
     holds no combine kernel (one launch a call).  Then SASS_RULES: the two
     bf16 ssd kernels hold HMMA, the bf16 matmul kernel HGMMA and UTMALDG,
-    the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, and none of
-    them spills (STACK and LOCAL 0); their registers are printed."""
+    the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, the bf16
+    attention backward kernels (dK/dV, dQ) HGMMA and UTMALDG, the f32 ones
+    neither HMMA nor HGMMA, and none of them spills (STACK and LOCAL 0);
+    their registers are printed."""
     seen = {}
     for name in WGMMA_TMA:
         funcs = seen[name] = sass_counts(_build, name)
@@ -2107,6 +2119,18 @@ def print_graphs(label, eng):
               f"pool of {pool / 1e6:.1f} MB")
 
 
+def profile_events(prof):
+    """The profiler's own events of a run, as torch.profiler would count
+    them (its hidden and bookkeeping events left out), read from Kineto's
+    results: building ``key_averages()``'s Python events costs tens of
+    microseconds an event, minutes over the smoke's profiles of eager
+    steps."""
+    from torch.autograd.profiler_util import _filter_name
+    return [e for e in prof.profiler.kineto_results.events()
+            if not (_filter_name(e.name())
+                    or getattr(e, "is_hidden_event", lambda: False)())]
+
+
 def device_time(prof):
     """(kernel rows [(device us, count, name)] sorted by time, cudaGraphLaunch
     calls) of a torch.profiler run.  Only the device's own events count
@@ -2115,12 +2139,15 @@ def device_time(prof):
     row would count an eager op twice and a graph's kernels (launched by
     no op) once."""
     from torch.autograd import DeviceType
-    rows, graph_launches = [], 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total, e.count, e.key))
-        if e.key == "cudaGraphLaunch":
-            graph_launches += e.count
+    us, count, graph_launches = {}, {}, 0
+    for e in profile_events(prof):
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
+            count[name] = count.get(name, 0) + 1
+        elif name == "cudaGraphLaunch":
+            graph_launches += 1
+    rows = [(t, count[name], name) for name, t in us.items() if t > 0]
     return sorted(rows, reverse=True), graph_launches
 
 
@@ -2134,6 +2161,7 @@ def profile_run(torch, ops, serve, bundle, params, mode, chunk_graph=True):
     engine (and its decode graph) is built before the profile starts; its
     chunk graphs are captured inside, at each length's first chunk.
     Returns the busy share."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(["--arch", bundle.name, "--gen", "16",
                              "--prefill-mode", mode]
@@ -2145,12 +2173,17 @@ def profile_run(torch, ops, serve, bundle, params, mode, chunk_graph=True):
                 else ", eager chunks"))
     before = ops.launch_counts()
     torch.cuda.synchronize()
+    # the profiler drops every device event it places outside its window,
+    # and a host whose clocks drift apart places the run's first or last
+    # kernels there: an idle margin on each side keeps them in
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
     counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
     rows, graph_launches = device_time(prof)
     busy = sum(r[0] for r in rows) / 1e3
@@ -2182,6 +2215,18 @@ def profile_run(torch, ops, serve, bundle, params, mode, chunk_graph=True):
               f"{counted[name]} counted"
               + ("; the profiler shows graph launches in place of their "
                  "kernels" if not seen else ""))
+        if seen != counted[name]:
+            t0_ns = prof.profiler.kineto_results.trace_start_ns()
+            spans = [(e.start_ns() - t0_ns, e.end_ns() - t0_ns)
+                     for e in profile_events(prof)
+                     if e.device_type() == DeviceType.CUDA
+                     and symbol.search(e.name())]
+            print(f"phase 4b: {label}: {name} kernels seen from "
+                  f"{min(s for s, _ in spans) / 1e6:.1f} to "
+                  f"{max(e for _, e in spans) / 1e6:.1f} ms of the "
+                  f"profile; the run took {dt * 1e3:.1f} ms after a "
+                  f"{PROFILE_MARGIN_S * 1e3:.0f} ms margin" if spans
+                  else f"phase 4b: {label}: no {name} kernel seen")
         assert seen == counted[name], (name, seen, counted[name])
     print(f"phase 4b: {label} profiled run, "
           f"{eng.stats['decode_steps']} decode steps + "
@@ -5450,9 +5495,9 @@ def train_kernel_checks(torch, ops):
             flops=fwd_flops, bytes=2 * (2 * q.numel() + k.numel()
                                         + v.numel()) + 4 * lse.numel(),
             label="flash_attention_train")
-        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA backward {both_ms - fwd_ms:.3f} ms (forward + "
-              f"backward {both_ms:.3f} less forward {fwd_ms:.3f}); forward "
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
+              f"backward {both_ms:.4f} less forward {fwd_ms:.4f}); forward "
               f"with LSE {f_ms:.4f} ms")
     return rec
 
@@ -5533,12 +5578,13 @@ def train_phase(torch, ops, smi):
         wall = time.perf_counter() - t1
     rows, _ = device_time(prof)
     busy = sum(r[0] for r in rows) / 1e3
-    names = [e.key for e in prof.key_averages()]
+    names = {e.name() for e in profile_events(prof)}
     lib = [n for n in names if any(s in n for s in LIBRARY_ATTENTION)]
     assert not lib, f"library attention on the training path: {lib}"
     own = {}
     for us, n, key in rows:
-        for kname in ("fa_tc_kernel", "fab_dkdv", "fab_dq", "fab_delta"):
+        for kname in ("fa_tc_kernel", "fab_tc_dkdv", "fab_tc_dq",
+                      "fab_delta"):
             if kname in key:
                 t, c = own.get(kname, (0.0, 0))
                 own[kname] = (t + us / 1e3, c + n)
@@ -5546,7 +5592,7 @@ def train_phase(torch, ops, smi):
     attn = 6 * 4 * cfg.n_heads * cfg.hd * 1024 * 1024 * nl
     model_flops = 6 * n_params * tokens + attn
     bwd_ms = sum(own.get(k, (0.0, 0))[0]
-                 for k in ("fab_dkdv", "fab_dq", "fab_delta"))
+                 for k in ("fab_tc_dkdv", "fab_tc_dq", "fab_delta"))
     print(f"train_phase: llama3.2-3b full width ({smi}): {n_params / 1e9:.3f}"
           f" B params; step wall over steps 2-5 {1e3 * step_s:.1f} ms "
           f"(median {1e3 * statistics.median(dts):.1f}), {tokens / step_s:.0f}"

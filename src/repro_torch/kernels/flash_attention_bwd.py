@@ -14,7 +14,11 @@ past Sk masked.
   * :func:`launch` — the CUDA kernel (``csrc/flash_attention_bwd.cu``),
     which reads K/V with fewer heads than Q in place (query head h uses KV
     head h // G) and sums each KV head's gradient over its G query heads
-    itself.
+    itself, with no atomics (two runs give the same bits).  bf16 runs on
+    the tensor cores: wgmma over TMA-fed 64-row tiles, P and dS fed to
+    their products as two bf16 terms each (hi + lo; one term misses the
+    limit, ``tests/test_torch_tc_numerics.py``); f32 runs on the CUDA
+    cores.
 """
 from __future__ import annotations
 
@@ -92,7 +96,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True, window: Optional[int] = None,
            scale: Optional[float] = None):
     """CUDA kernel.  q, o, dout: (B, H, Sq, D); k, v: (B, KVH, Sk, D) with
-    KVH | H; any strides with a unit last axis; lse: (B, H, Sq) f32.
+    KVH | H; any strides with a unit last axis (a bf16 view that TMA cannot
+    read in place is copied); lse: (B, H, Sq) f32.
     Returns (dq (B, H, Sq, D), dk, dv (B, KVH, Sk, D)) in q's dtype, each a
     permuted view of a position-major buffer."""
     global launches
@@ -108,6 +113,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)}")
     q, k, v, o, dout = (_build.inner_contiguous(t)
                         for t in (q, k, v, o, dout))
+    if dt == 1:
+        q, k, v, o, dout, _ = _build.aligned(dt, q, k, v, o, dout)
     lse = lse.contiguous()
     scale = scale if scale is not None else d ** -0.5
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

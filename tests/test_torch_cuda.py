@@ -1974,6 +1974,10 @@ BWD_CASES = {
     "window": (True, 33, 130, 130, 1, 7),
     "sq_lt_sk": (True, None, 40, 150, 1, 8),
     "ragged_sk": (False, None, 64, 93, 2, 3),
+    # several full 64-row blocks on each side: each CTA refills its ring
+    "multi_block": (True, None, 320, 320, 2, 4),
+    # Sq not a multiple of 64 under a window
+    "window_ragged_sq": (True, 50, 150, 150, 2, 2),
 }
 
 
@@ -1992,7 +1996,7 @@ def _bwd_inputs(case, d, dtype, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_cuda_bwd_kernel_matches_plain(cuda, dtype, d, case):
     from repro_torch.kernels import flash_attention, flash_attention_bwd
@@ -2019,6 +2023,28 @@ def test_cuda_bwd_bits_repeat_and_lse_leaves_o(cuda, dtype):
         a = flash_attention_bwd.launch(q, k, v, o, lse, do, **kw)
         b = flash_attention_bwd.launch(q, k, v, o, lse, do, **kw)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,g", [(4096, 2), (8192, 1)])
+def test_cuda_bwd_long_causal_sequence(cuda, sq, g):
+    """bf16 at hd 128, causal, Sq = Sk up to 8192 (128 key blocks a dQ row,
+    128 query blocks a dK/dV CTA for each of its G heads): every block's
+    product is summed in f32 on its own, so the gradients stay within the
+    limit however long the sequence."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    q, do = (rn(1, sq, g, 128).transpose(1, 2) for _ in range(2))
+    k, v = (rn(1, sq, 1, 128).transpose(1, 2) for _ in range(2))
+    o, lse = flash_attention.launch(q, k, v, causal=True, with_lse=True)
+    got = flash_attention_bwd.launch(q, k, v, o, lse, do, causal=True)
+    want = ops._attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                    window=None, scale=None)
+    assert _bwd_within(got, want)
 
 
 @pytest.mark.gpu

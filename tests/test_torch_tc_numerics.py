@@ -19,6 +19,12 @@ The emulation follows the kernels' structure: flash_attention walks all
 strips with one softmax state; flash_prefill_chunk and flash_decode walk
 128-key splits from key 0, each from a fresh state, and merge them in order
 with ``merge_coeffs`` (M' = max(M, m), A' = A e^(M - M') + acc e^(m - M')).
+
+The backward's tensor-core kernels (``csrc/flash_attention_bwd.cu``) feed
+P and dS to their products as two bf16 terms (hi + lo); the second half of
+this file emulates their tiles and holds them to the backward's limit (one
+bf16 ulp plus 1e-4 of the plain gradient's rms), which two terms meet and
+one term misses by far.
 """
 import math
 
@@ -203,3 +209,139 @@ def test_bf16_operands_are_made_tma_ready():
     f = base.float()[..., 1:]
     out = _build.aligned(0, f, f, f)
     assert out[:3] == (f, f, f) and out[3] == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward (flash_attention_bwd.cu's bf16 kernels)
+# ---------------------------------------------------------------------------
+
+from test_torch_cuda import BWD_CASES  # noqa: E402
+
+BLK = 64                      # rows of every tile, as tcb::BLK
+BWD_RTOL = 1e-4               # chip_smoke.py's BWD_RTOL
+# beyond the card tests' cases: a window of 8 keys at hd 128
+BWD_EXTRA = {"window8": (True, 8, 200, 200, 2, 3)}
+
+
+def _blocks(t, n):
+    """(..., S, D) zero-padded to n * BLK rows, as (..., n, BLK, D)."""
+    pad = n * BLK - t.shape[-2]
+    t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+    return t.reshape(*t.shape[:-2], n, BLK, t.shape[-1])
+
+
+def bwd_emulate(q, k, v, o, lse, dout, *, causal, window, n_terms=2):
+    """The bf16 backward kernels' arithmetic: q, o, dout (B, H, Sq, D) and
+    k, v (B, KVH, Sk, D) bf16, lse (B, H, Sq) f32.  Products of bf16
+    values into f32; P and dS fed as ``n_terms`` bf16 terms each; dK/dV of
+    a 64-key block summed over the G heads' 64-row query blocks in
+    ascending order, dQ of a query block over the key blocks in ascending
+    order (a fully masked block adds exact zeros, so walking every block
+    gives the live blocks' sums).  The dK/dV kernel adds each block's
+    product to its running sums in f32 and takes dS from the value P's
+    terms hold (it keeps the terms, not P); the dQ kernel adds each
+    block's product to its running sum in f32 too, and has P itself.
+    Returns (dq, dk, dv) bf16."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5
+    nq, nk = -(-sq // BLK), -(-sk // BLK)
+    delta = (dout.float() * o.float()).sum(-1)
+    # (B, KVH, G, nq, BLK, D) query-side tiles; (B, KVH, nk, BLK, D) keys
+    qb, gb = (_blocks(t.float(), nq).reshape(b, kvh, g, nq, BLK, d)
+              for t in (q, dout))
+    lb, db = (_blocks(t[..., None], nq).reshape(b, kvh, g, nq, BLK)
+              for t in (lse, delta))
+    kb, vb = (_blocks(t.float(), nk) for t in (k, v))
+    qi = torch.arange(nq * BLK)
+    kj = torch.arange(nk * BLK)
+    qpos = qi + sk - sq
+    vis = (qi < sq)[:, None] & (kj < sk)[None, :]
+    if causal:
+        vis &= kj[None, :] <= qpos[:, None]
+    if window:
+        vis &= kj[None, :] > qpos[:, None] - window
+    vis = vis.reshape(nq, BLK, nk, BLK)            # (qb, row, kb, key)
+
+    def probs(s, dp, l, dl, m, p_terms=None):
+        p = torch.where(m, torch.exp(s * scale - l), 0.0)
+        if p_terms:                    # dS from the value P's terms hold
+            p = sum(split_terms(p, p_terms))
+        return p, p * (dp - dl) * scale
+
+    dk = torch.zeros(b, kvh, nk, BLK, d)
+    dv = torch.zeros_like(dk)
+    mt = vis.permute(2, 3, 0, 1)                   # (kb, key, qb, row)
+    for gi in range(g):
+        for ib in range(nq):
+            qt, gt = qb[:, :, gi, ib, None], gb[:, :, gi, ib, None]
+            st = kb @ qt.transpose(-1, -2)         # (B, KVH, nk, key, row)
+            dpt = vb @ gt.transpose(-1, -2)
+            pt, dst = probs(st, dpt, lb[:, :, gi, ib, None, None],
+                            db[:, :, gi, ib, None, None], mt[:, :, ib],
+                            p_terms=n_terms)
+            # each block's product summed on its own, then added in f32
+            dv = dv + sum(t @ gt for t in split_terms(pt, n_terms))
+            dk = dk + sum(t @ qt for t in split_terms(dst, n_terms))
+    dq = torch.zeros(b, kvh, g, nq, BLK, d)
+    m = vis.permute(0, 2, 1, 3)                    # (qb, kb, row, key)
+    for jb in range(nk):
+        kt, vt = kb[:, :, None, None, jb], vb[:, :, None, None, jb]
+        s_ = qb @ kt.transpose(-1, -2)             # (B, KVH, G, nq, row, key)
+        dp = gb @ vt.transpose(-1, -2)
+        _, ds = probs(s_, dp, lb[..., None], db[..., None], m[:, jb])
+        dq = dq + sum(t @ kt for t in split_terms(ds, n_terms))
+    dq = dq.reshape(b, h, nq * BLK, d)[:, :, :sq]
+    dk, dv = (t.reshape(b, kvh, nk * BLK, d)[:, :, :sk] for t in (dk, dv))
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+def bwd_excess(got, want):
+    """max over the gradients' elements of |got - want| / (one bf16 ulp of
+    the larger magnitude + BWD_RTOL x the plain gradient's rms): <= 1 is
+    within the card's limit (tests/test_torch_cuda.py's ``_bwd_within``)."""
+    worst = 0.0
+    for gt, wt in zip(got, want):
+        g32, w32 = gt.float(), wt.float()
+        big = torch.maximum(g32.abs(), w32.abs())
+        _, e = torch.frexp(big)
+        ulp = torch.where(big == 0, 0.0,
+                          torch.ldexp(torch.ones_like(big), e - 8))
+        lim = ulp + BWD_RTOL * w32.pow(2).mean().sqrt()
+        worst = max(worst, ((g32 - w32).abs() / lim).max().item())
+    return worst
+
+
+def bwd_case_excess(case, d, n_terms=2, seed=3):
+    """The emulation against the plain backward (``ops._attention_bwd_plain``)
+    on one case of the card tests (or BWD_EXTRA), with O and the LSE from
+    the plain forward."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, sq, sk, kvh, g = {**BWD_CASES, **BWD_EXTRA}[case]
+    q, k, v, do = _inputs(seed, (2, kvh * g, sq, d), (2, kvh, sk, d),
+                          (2, kvh, sk, d), (2, kvh * g, sq, d))
+    ke, ve = (t.repeat_interleave(g, 1) for t in (k, v))
+    o, lse = fa.flash_attention_plain(q, ke, ve, causal=causal,
+                                      window=window, with_lse=True)
+    o = o.bfloat16()
+    want = ops._attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                    window=window, scale=None)
+    got = bwd_emulate(q, k, v, o, lse, do, causal=causal, window=window,
+                      n_terms=n_terms)
+    return bwd_excess(got, want)
+
+
+@pytest.mark.parametrize("case,d", [(c, d) for c in sorted(BWD_CASES)
+                                    for d in (8, 16, 64, 128)]
+                         + [("window8", 128)])
+def test_bwd_two_terms_within_card_limit(case, d):
+    assert bwd_case_excess(case, d) <= 1.0
+
+
+@pytest.mark.parametrize("case", ["multi_block", "window8"])
+def test_fewer_bwd_terms_miss_the_limit(case):
+    """P and dS as one bf16 term each (what SDPA feeds its products) miss
+    the limit by more than 10x at hd 128; two terms stay inside it."""
+    assert bwd_case_excess(case, 128, n_terms=1) > 10.0
+    assert bwd_case_excess(case, 128, n_terms=2) <= 1.0
