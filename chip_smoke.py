@@ -69,21 +69,28 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      1500 cross rows with ``lengths=None``;
      3t: the attention backward kernel (flash_attention_bwd) at
      training shapes (llama3.2-3b's B 4 x S 1024, whisper's cross Sq 224
-     x Sk 1500, llava's G = 7) against the plain backward, the planted
-     fault (delta dropped), two runs bit for bit, the forward's O with
-     and without its LSE output bit for bit; kernel / plain / SDPA
-     backward times;
-  train: llama3.2-3b at full width trained 6 steps through
-     ``repro_torch.launch.train`` (batch 4 x seq 1024, remat full), right
-     after phase 3 on an empty card: each step's loss, grad norm and lr,
-     step wall, tokens/s, peak memory, one profiled step (busy share,
-     device ms by op), the model-FLOP share; 28 x 2 forward and 28
-     backward launches a step, no plain, SDPA or cuDNN attention; 5t:
-     one f32 training step, kernel path against plain path (llama3.2-3b
-     at full width and 2 layers; reduced qwen2-moe, llava, whisper), the
-     plain backward run non-causal the planted fault; the restart:
-     reduced llama3.2-3b 6 steps straight = 3, a checkpoint (RPK1), a
-     restore in a fresh Trainer, 3 more, bit for bit;
+     x Sk 1500, llava's G = 7, hymba's window 1024 at S 2048) against the
+     plain backward, the planted fault (delta dropped), two runs bit for
+     bit, the forward's O with and without its LSE output bit for bit;
+     kernel / plain / SDPA backward times; then SSD's backward (ssd_bwd)
+     at mamba2-2.7b's and hymba-1.5b's training shapes (B 2 x S 2048)
+     against ``ssd_bwd_plain``, the planted fault (the state gradient not
+     carried between chunks), two runs bit for bit, kernel / plain times,
+     and the ssd forward at the same shapes;
+  train: llama3.2-3b (batch 4 x seq 1024), then mamba2-2.7b and
+     hymba-1.5b (batch 2 x seq 2048), each at full width trained 6 steps
+     through ``repro_torch.launch.train`` (remat full), right after phase
+     3 on an empty card: each step's loss, grad norm and lr, step wall,
+     tokens/s, peak memory, one profiled step (busy share, device ms by
+     op, the backward kernels' shares), the model-FLOP share; exact
+     launches a step (each attention layer 2 forward and 1 backward, each
+     SSD layer 2 ssd and 1 ssd_bwd), no plain attention or SSD, no SDPA
+     or cuDNN attention; 5t: one f32 training step, kernel path against
+     plain path (llama3.2-3b and mamba2-2.7b at full width and 2 layers;
+     reduced qwen2-moe, llava, whisper, hymba), the plain backward run
+     non-causal the planted fault; the restart: reduced llama3.2-3b and
+     mamba2-2.7b, 6 steps straight = 3, a checkpoint (RPK1), a restore in
+     a fresh Trainer, 3 more, bit for bit;
   4. serving, for llama3.2-3b (the attention kernels) and then
      mamba2-2.7b (ssd), each at full width through ``repro_torch.launch.
      serve`` (4 requests, prompts 1024/768, 64 new tokens, 4 slots,
@@ -435,9 +442,34 @@ DESIGN = {
     "flash_attention_train": "the flash_attention kernel as training "
                              "calls it: llama3.2-3b's training batch (B 4, "
                              "S 1024, causal) with the f32 row LSE written "
-                             "for the backward; its launches are the "
-                             "training path's (forward and remat "
-                             "recompute)",
+                             "for the backward; its launches are "
+                             "llama3.2-3b's training path's (forward and "
+                             "remat recompute)",
+    "flash_attention_train_hymba": "the same kernel at hymba-1.5b's "
+                                   "training shape (B 2, S 2048, 25 / 5 "
+                                   "heads, hd 64, window 1024) with the "
+                                   "LSE written, launched on the hybrid "
+                                   "training path (window 1024 or global)",
+    "flash_attention_bwd_hymba": "the same kernel at hymba-1.5b's training "
+                                 "shape (B 2, S 2048, 25 / 5 heads, hd 64, "
+                                 "window 1024 or global), launched on the "
+                                 "hybrid training path",
+    "ssd_bwd": "cuda-core f32 for both types: the chunk-boundary states and "
+               "state gradients into f32 scratch (a block a row and 16 "
+               "headdim columns, forward then reverse over the chunks); a "
+               "block a (64-token chunk, B/C row, slice of its heads) "
+               "forming C B^T once and summing dB / dC over the slice's "
+               "heads in registers, dx and d log_a per head; the slices "
+               "summed in order; no atomics, bits repeat",
+    "ssd_bwd_hymba": "the same kernel at hymba-1.5b's SSD branch in "
+                     "training (100 rows, P 64, N = 16), launched on the "
+                     "hybrid training path",
+    "ssd_train": "the ssd kernel at mamba2-2.7b's training batch (B 2 x "
+                 "S 2048: 160 rows, one piece a row), launched on the "
+                 "training path (forward and remat recompute)",
+    "ssd_train_hymba": "the ssd kernel at hymba-1.5b's training batch "
+                       "(100 rows, N = 16), launched on the hybrid "
+                       "training path",
     "flash_decode_whisper": "the same kernel at whisper-large-v3's shapes "
                             "(G = 1, hd 64): the self-attention over the "
                             "slot's rows and the cross-attention over all "
@@ -487,7 +519,9 @@ SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
               ("flash_attention_bwd", "fab_tc_dq", ("HGMMA", "UTMALDG"), (),
                5),
               ("flash_attention_bwd", "fab_dkdv", (), ("HMMA", "HGMMA"), 5),
-              ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 5))
+              ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 5),
+              ("ssd_bwd", "ssd_bwd_states", (), ("HMMA", "HGMMA"), 2),
+              ("ssd_bwd", "ssd_bwd_chunk", (), ("HMMA", "HGMMA"), 2))
 
 
 def sass_check(_build):
@@ -498,8 +532,9 @@ def sass_check(_build):
     bf16 ssd kernels hold HMMA, the bf16 matmul kernel HGMMA and UTMALDG,
     the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, the bf16
     attention backward kernels (dK/dV, dQ) HGMMA and UTMALDG, the f32 ones
-    neither HMMA nor HGMMA, and none of them spills (STACK and LOCAL 0);
-    their registers are printed."""
+    neither HMMA nor HGMMA, the SSD backward's states and chunk kernels
+    (f32 arithmetic for both types) neither, and none of them spills
+    (STACK and LOCAL 0); their registers are printed."""
     seen = {}
     for name in WGMMA_TMA:
         funcs = seen[name] = sass_counts(_build, name)
@@ -5388,16 +5423,48 @@ def core_compare(torch, got, want):
 # (delta dropped: dS = P dP) must exceed the limit by more than
 # FAULT_MARGIN.
 BWD_RTOL = 1e-4
-# The training shapes of phase 3t: (label, B, H, KVH, Sq, Sk, hd, causal).
-# llama3.2-3b's training step (train_phase's batch), whisper-large-v3's
-# cross-attention (MHA, 224 decoder rows over 1500 encoder rows, Sk not a
-# multiple of the 64-key block), llava-next-34b's G = 7 over its 576 patch
-# rows and 1024 tokens.
-TRAIN_SHAPES = (("llama3.2-3b", 4, 24, 8, 1024, 1024, 128, True),
-                ("whisper cross", 4, 20, 20, 224, 1500, 64, False),
-                ("llava G=7", 1, 56, 8, 1600, 1600, 128, True))
-TRAIN_ARGS = ["--arch", "llama3.2-3b", "--full", "--steps", "6", "--batch",
-              "4", "--seq", "1024", "--log-every", "1"]
+# The training shapes of phase 3t: (label, B, H, KVH, Sq, Sk, hd, causal,
+# window).  llama3.2-3b's training step (train_phase's batch),
+# whisper-large-v3's cross-attention (MHA, 224 decoder rows over 1500
+# encoder rows, Sk not a multiple of the 64-key block), llava-next-34b's
+# G = 7 over its 576 patch rows and 1024 tokens, hymba-1.5b's windowed
+# layers at its training batch (G = 5, window 1024 at S 2048: past it).
+TRAIN_SHAPES = (("llama3.2-3b", 4, 24, 8, 1024, 1024, 128, True, None),
+                ("whisper cross", 4, 20, 20, 224, 1500, 64, False, None),
+                ("llava G=7", 1, 56, 8, 1600, 1600, 128, True, None),
+                ("hymba window", 2, 25, 5, 2048, 2048, 64, True, 1024))
+# The SSD training shapes of phase 3t: (label, rows, B/C rows, S, P, N):
+# mamba2-2.7b's and hymba-1.5b's layers at train_phase's batch 2 x 2048
+# (80 and 50 heads a batch row, one B/C group).
+SSD_TRAIN_SHAPES = (("mamba2-2.7b", 160, 2, 2048, 64, 128),
+                    ("hymba-1.5b", 100, 2, 2048, 64, 16))
+# train_phase's runs: (arch, batch, seq, launches a step per layer, the
+# JSON rows their counts go to).  Each attention layer launches the
+# forward twice (the forward and its remat recompute) and the backward
+# once, each SSD layer ssd twice and ssd_bwd once.
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")
+TRAIN_RUNS = (
+    ("llama3.2-3b", 4, 1024, {"flash_attention": 2, "flash_attention_bwd": 1},
+     {"flash_attention": "flash_attention_train",
+      "flash_attention_bwd": "flash_attention_bwd"}),
+    ("mamba2-2.7b", 2, 2048, {"ssd": 2, "ssd_bwd": 1},
+     {"ssd": "ssd_train", "ssd_bwd": "ssd_bwd"}),
+    ("hymba-1.5b", 2, 2048, dict.fromkeys(TRAIN_KERNELS, 2)
+     | {"flash_attention_bwd": 1, "ssd_bwd": 1},
+     {"flash_attention": "flash_attention_train_hymba",
+      "flash_attention_bwd": "flash_attention_bwd_hymba",
+      "ssd": "ssd_train_hymba", "ssd_bwd": "ssd_bwd_hymba"}))
+# the kernels named in train_phase's profile
+TRAIN_PROFILED = ("fa_tc_kernel", "fab_tc_dkdv", "fab_tc_dq", "fab_delta",
+                  "ssd_tc_kernel", "ssd_bwd_states", "ssd_bwd_chunk",
+                  "ssd_bwd_reduce")
+
+
+def train_args(arch, batch, seq):
+    return ["--arch", arch, "--full", "--steps", "6", "--batch", str(batch),
+            "--seq", str(seq), "--log-every", "1"]
+
+
 TRAIN_PEAK = 989e12              # H100 SXM dense bf16, the FLOP share's base
 # Phase 5t: one step's gradients, kernel path against plain path in f32,
 # per leaf max |kernel - plain| / max |plain|, and the loss relative.  The
@@ -5422,93 +5489,247 @@ def bwd_excess(got, want):
     return out
 
 
+def window_pairs(s, window=None) -> int:
+    """(query, key) pairs a causal S x S attention visits, within
+    ``window`` keys of the query when one is given."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def train_kernel_checks(torch, ops):
     """Phase 3t: the backward kernel alone at the training shapes
     (TRAIN_SHAPES), against the plain backward within the limit, the
     planted fault (delta dropped) rejected by more than FAULT_MARGIN, two
     runs bit for bit, the forward's O with its LSE output on against off
-    bit for bit; at llama3.2-3b's shape the times (kernel, plain, SDPA's
-    backward: forward plus backward less forward) and the bound.  Returns
-    the records ``flash_attention_bwd`` and ``flash_attention_train`` (the
-    forward as training calls it, LSE on)."""
+    bit for bit; at llama3.2-3b's and hymba-1.5b's shapes the times
+    (kernel, plain, SDPA's backward: forward plus backward less forward,
+    with an explicit mask under hymba's window) and the bound, then the
+    forward as training calls it (LSE on): O against the plain attention,
+    the LSE against a plain masked logsumexp (LSE_TOL), the times and the
+    bound.  Returns the records ``flash_attention_bwd``,
+    ``flash_attention_bwd_hymba``, ``flash_attention_train`` and
+    ``flash_attention_train_hymba``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
     print("phase 3t: flash_attention_bwd at the training shapes (bf16)")
-    for label, b, h, kvh, sq, sk, d, causal in TRAIN_SHAPES:
+    for label, b, h, kvh, sq, sk, d, causal, window in TRAIN_SHAPES:
         def rn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
+        kw = dict(causal=causal, window=window)
         q = rn(b, sq, h, d).transpose(1, 2)
         k, v = rn(b, sk, kvh, d).transpose(1, 2), rn(b, sk, kvh, d) \
             .transpose(1, 2)
-        o, lse = fa.launch(q, k, v, causal=causal, with_lse=True)
-        same_o = torch.equal(o, fa.launch(q, k, v, causal=causal))
+        o, lse = fa.launch(q, k, v, with_lse=True, **kw)
+        same_o = torch.equal(o, fa.launch(q, k, v, **kw))
         g = rn(b, sq, h, d).transpose(1, 2)
-        got = fab.launch(q, k, v, o, lse, g, causal=causal)
-        again = fab.launch(q, k, v, o, lse, g, causal=causal)
+        got = fab.launch(q, k, v, o, lse, g, **kw)
+        again = fab.launch(q, k, v, o, lse, g, **kw)
         bits = all(torch.equal(x, y) for x, y in zip(got, again))
-        want = ops._attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
-                                        window=None, scale=None)
+        want = ops._attention_bwd_plain(q, k, v, o, lse, g, scale=None, **kw)
         fault = ops._attention_bwd_plain(q, k, v, torch.zeros_like(o), lse,
-                                         g, causal=causal, window=None,
-                                         scale=None)
+                                         g, scale=None, **kw)
         ratio = bwd_excess(got, want)
         f_ratio = bwd_excess(got[:2], fault[:2])
         err = max((x.float() - y.float()).abs().max().item()
                   for x, y in zip(got, want))
         print(f"  {label:<14} B={b} H={h}/{kvh} Sq={sq} Sk={sk} hd={d} "
-              f"causal={causal}: max|kernel-plain| {err:.3e}, {ratio:.3f} "
-              f"of the limit (1 ulp + {BWD_RTOL:.0e} rms); planted fault "
-              f"(delta dropped) {f_ratio:.1f} of the limit; two runs bit "
-              f"for bit {bits}; O with LSE = O without, bit for bit "
-              f"{same_o}")
+              f"causal={causal} window={window}: max|kernel-plain| "
+              f"{err:.3e}, {ratio:.3f} of the limit (1 ulp + "
+              f"{BWD_RTOL:.0e} rms); planted fault (delta dropped) "
+              f"{f_ratio:.1f} of the limit; two runs bit for bit {bits}; O "
+              f"with LSE = O without, bit for bit {same_o}")
         assert ratio <= 1.0, (label, ratio)
         assert f_ratio > FAULT_MARGIN, (label, f_ratio)
         assert bits and same_o, (label, bits, same_o)
-        if label != "llama3.2-3b":
+        if label not in ("llama3.2-3b", "hymba window"):
             continue
-        ms = timed(lambda: fab.launch(q, k, v, o, lse, g, causal=causal), 5)
+        name = ("flash_attention_bwd" if window is None
+                else "flash_attention_bwd_hymba")
+        ms = timed(lambda: fab.launch(q, k, v, o, lse, g, **kw), 5)
         plain_ms = timed(lambda: ops._attention_bwd_plain(
-            q, k, v, o, lse, g, causal=causal, window=None, scale=None), 2)
+            q, k, v, o, lse, g, scale=None, **kw), 2)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        fwd_ms = timed(lambda: sdpa(qs, ks, vs, is_causal=True), 10)
+        if window is None:
+            lib = dict(is_causal=True)
+        else:
+            i = torch.arange(sq, device=dev)
+            lib = dict(attn_mask=(i[None, :] <= i[:, None])
+                       & (i[None, :] > i[:, None] - window))
+        fwd_ms = timed(lambda: sdpa(qs, ks, vs, **lib), 10)
         both_ms = timed(lambda: torch.autograd.grad(
-            sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), g), 5)
-        fwd_flops = 4 * b * h * d * sq * (sq + 1) // 2
-        rec["flash_attention_bwd"] = dict(
+            sdpa(qs, ks, vs, **lib), (qs, ks, vs), g), 5)
+        fwd_flops = 4 * b * h * d * window_pairs(sq, window)
+        rec[name] = dict(
             module=fab, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=both_ms - fwd_ms, flops=int(2.5 * fwd_flops),
             bytes=2 * (3 * q.numel() + 2 * o.numel() + 2 * k.numel()
-                       + 2 * v.numel()) + 4 * lse.numel(),
-            label="flash_attention_bwd")
-        f_ms = timed(lambda: fa.launch(q, k, v, with_lse=True), 20)
-        f_plain = timed(lambda: ops.PLAIN.attention(q, k, v), 3)
-        f_err = check("flash_attention train fwd", o,
-                      ops.PLAIN.attention(q, k, v), "bfloat16",
-                      "(LSE on)")
-        rec["flash_attention_train"] = dict(
+                       + 2 * v.numel()) + 4 * lse.numel(), label=name)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
+              f"backward {both_ms:.4f} less forward {fwd_ms:.4f})")
+        f_name = "flash_attention_train" + name[len("flash_attention_bwd"):]
+        f_ms = timed(lambda: fa.launch(q, k, v, with_lse=True, **kw), 20)
+        f_plain = timed(lambda: ops.PLAIN.attention(q, k, v, **kw), 3)
+        f_err = check(f"{f_name} O", o, ops.PLAIN.attention(q, k, v, **kw),
+                      "bfloat16", "(LSE on)")
+        fault = (dict(causal=True) if window is not None
+                 else dict(causal=False))
+        check(f"{f_name} LSE", lse, plain_lse(torch, q, k, **kw), "float32",
+              fault=("the " + ("window" if window else "causal mask")
+                     + " dropped", plain_lse(torch, q, k, **fault)),
+              margin=FAULT_MARGIN)
+        rec[f_name] = dict(
             module=fa, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
             library_ms=fwd_ms,
             flops=fwd_flops, bytes=2 * (2 * q.numel() + k.numel()
                                         + v.numel()) + 4 * lse.numel(),
-            label="flash_attention_train")
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
-              f"backward {both_ms:.4f} less forward {fwd_ms:.4f}); forward "
-              f"with LSE {f_ms:.4f} ms")
+            label=f_name)
+        print(f"  {label}: forward with LSE {f_ms:.4f} ms, plain "
+              f"{f_plain:.3f} ms")
     return rec
 
 
-def no_plain_attention(torch, seen):
-    """Wrap the plain attention versions so that a call is recorded in
-    ``seen``; returns the function that puts them back."""
+def plain_lse(torch, q, k, *, causal=True, window=None):
+    """The (B, H, Sq) row log-sum-exp of the scaled scores under the causal
+    / window mask, K expanded to q's heads, in float64 and returned in f32:
+    the plain counterpart of the forward kernel's LSE output.  It is held
+    to F32_TOL absolute: the kernel's LSE (~4-8 at the training shapes) is
+    the log of an f32 sum of ex2.approx terms over up to 2048 keys, whose
+    relative error, a few f32 ulps, is the LSE's absolute error."""
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double() * d ** -0.5,
+                     k.double().repeat_interleave(g, dim=1))
+    i = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    j = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")),
+                           dim=-1).float()
+
+
+def ssd_bwd_work(bh, nb, s, p, n):
+    """(bytes, operations) of one SSD backward in bf16 (f32 log decays):
+    x, dy, B, C, log_a read once, dx, dB, dC, d log_a written once; the
+    products of the 64-token schedule, the Q x Q ones over the causal
+    pairs only: per row and chunk five state-sized products, the two
+    state recurrences (B^T x for S0, C^T dy for dS) and the three carry
+    products (B dS into dx, S0 dy into dC, dS x into dB), then dy x^T,
+    G^T dy, W B, W^T C; C B^T once per B/C row and chunk."""
+    q = 64
+    full, rem = divmod(s, q)
+    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
+    nbytes = 2 * (3 * bh * s * p + 4 * nb * s * n) + 2 * 4 * bh * s
+    flops = (bh * (5 * 2 * s * n * p + 2 * pairs * (2 * p + 2 * n))
+             + nb * 2 * pairs * n)
+    return nbytes, flops
+
+
+def ssd_carry_dropped(torch, ops, x, la, B, C, dy):
+    """The plain backward with the state gradient not carried between
+    64-token chunks (each chunk from its true start state): the planted
+    fault of the SSD backward checks."""
+    parts, state = [], None
+    for t0 in range(0, x.shape[1], 64):
+        sl = slice(t0, t0 + 64)
+        args = (x[:, sl], la[:, sl], B[:, sl], C[:, sl])
+        parts.append(ops._ssd_bwd_plain(*args, dy[:, sl], chunk=64,
+                                        initial_state=state))
+        state = ops.PLAIN.ssd(*args, chunk=64, initial_state=state)[1]
+    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
+
+
+def ssd_train_checks(torch, ops):
+    """Phase 3t, SSD: the ssd_bwd kernel at the training shapes
+    (SSD_TRAIN_SHAPES, bf16) against ``ops._ssd_bwd_plain`` within the
+    backward's limit (BWD_RTOL), the planted fault (the state gradient not
+    carried between chunks) rejected by more than FAULT_MARGIN, two runs
+    bit for bit, the kernel's and the plain version's times and the bound;
+    then the ssd forward at the same shapes against its plain version.
+    Returns the records ``ssd_bwd``, ``ssd_bwd_hymba``, ``ssd_train`` and
+    ``ssd_train_hymba``."""
+    from repro_torch.kernels import ssd, ssd_bwd
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rec = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("phase 3t: ssd_bwd at the training shapes (bf16, B 2 x S 2048)")
+    for label, bh, nb, s, p, n in SSD_TRAIN_SHAPES:
+        x = (torch.randn((bh, s, p), generator=gen, device=dev)
+             * 0.05).to(torch.bfloat16)
+        la = -torch.rand((bh, s), generator=gen, device=dev) * 0.1
+        B, C = (torch.randn((nb, s, n), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        dy = torch.randn((bh, s, p), generator=gen, device=dev).to(
+            torch.bfloat16)
+        got = ssd_bwd.launch(x, la, B, C, dy)
+        again = ssd_bwd.launch(x, la, B, C, dy)
+        bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ops._ssd_bwd_plain(x, la, B, C, dy, chunk=64)
+        ratio = bwd_excess(got, want)
+        f_ratio = bwd_excess(got, ssd_carry_dropped(torch, ops, x, la, B, C,
+                                                    dy))
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        hs, sl = ssd_bwd.slices(bh // nb, nb, s, sms)
+        print(f"  {label:<12} {bh} rows, {nb} B/C rows, S={s} P={p} N={n}: "
+              f"max|kernel-plain| {err:.3e}, {ratio:.3f} of the limit (1 "
+              f"ulp + {BWD_RTOL:.0e} rms); planted fault (dS not carried) "
+              f"{f_ratio:.1f} of the limit; two runs bit for bit {bits}; "
+              f"{sl} slices of {hs} heads; f32 scratch "
+              f"{ssd_bwd.scratch_bytes(bh, nb, s, n, p, sms) / 1e6:.1f} MB")
+        assert ratio <= 1.0, (label, ratio)
+        assert f_ratio > FAULT_MARGIN, (label, f_ratio)
+        assert bits, label
+        suffix = "" if label.startswith("mamba2") else "_hymba"
+        ms = timed(lambda: ssd_bwd.launch(x, la, B, C, dy), 5)
+        plain_ms = timed(lambda: ops._ssd_bwd_plain(x, la, B, C, dy,
+                                                    chunk=64), 2)
+        nbytes, flops = ssd_bwd_work(bh, nb, s, p, n)
+        rec["ssd_bwd" + suffix] = dict(
+            module=ssd_bwd, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=None, bytes=nbytes, flops=flops,
+            label="ssd_bwd" + suffix)
+        f_err = check(f"ssd {label} train fwd", ssd.launch(x, la, B, C)[0],
+                      ops.PLAIN.ssd(x, la, B, C, chunk=64)[0], "ssd")
+        f_ms = timed(lambda: ssd.launch(x, la, B, C), 10)
+        f_plain = timed(lambda: ops.PLAIN.ssd(x, la, B, C, chunk=64), 2)
+        q = 64
+        pairs = (s // q) * q * (q + 1) // 2
+        rec["ssd_train" + suffix] = dict(
+            module=ssd, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+            library_ms=None, label="ssd_train" + suffix,
+            bytes=2 * 2 * bh * s * p + 4 * bh * s + 2 * 2 * nb * s * n
+            + 4 * bh * n * p,
+            flops=bh * (2 * pairs * (n + p) + 2 * 2 * s * n * p))
+        print(f"  {label}: ssd_bwd {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+              f"ssd forward {f_ms:.4f} ms, plain {f_plain:.3f} ms")
+        del x, la, B, C, dy, got, again, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def no_plain_versions(torch, seen):
+    """Wrap the plain attention and SSD versions (forward and backward) so
+    that a call is recorded in ``seen``; returns the function that puts
+    them back."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd, ssd_bwd
     undo = [watch(fa, "flash_attention_plain", seen),
-            watch(fab, "flash_attention_bwd_plain", seen)]
+            watch(fab, "flash_attention_bwd_plain", seen),
+            watch(kops, "_ssd_plain", seen),
+            watch(ssd, "ssd_plain", seen),
+            watch(ssd_bwd, "ssd_bwd_plain", seen)]
     return lambda: [u() for u in undo]
 
 
@@ -5516,17 +5737,19 @@ LIBRARY_ATTENTION = ("scaled_dot_product", "flash_attention_backward",
                      "efficient_attention", "cudnn", "_flash_attention")
 
 
-def train_phase(torch, ops, smi):
-    """llama3.2-3b at full width (28 layers, bf16, random init from seed
-    0) through ``launch.train``'s ``main``: 6 steps at batch 4 x seq 1024,
-    remat full, the reference's lr, warmup, decay and clip.  Each step's
-    loss, grad norm and lr, the wall a step over steps 2-5, tokens a
-    second, peak memory, then one more step under torch.profiler (device
-    busy share, device ms by op, the attention kernels apart) and the
-    model-FLOP share of TRAIN_PEAK.  Asserts finite losses, 28 x 2
-    flash_attention and 28 flash_attention_bwd launches a step, and no
-    plain, SDPA or cuDNN attention on the path.  Returns the counts of
-    the 6-step run under the JSON rows' names."""
+def train_phase(torch, ops, smi, arch, batch, seq, per_layer, rows):
+    """``arch`` at full width (bf16, random init from seed 0) through
+    ``launch.train``'s ``main``: 6 steps at ``batch`` x ``seq``, remat
+    full, the reference's lr, warmup, decay and clip (TRAIN_RUNS).  Each
+    step's loss, grad norm and lr, the wall a step over steps 2-5, tokens
+    a second, peak memory, then one more step under torch.profiler
+    (device busy share, device ms by op, the kernels of TRAIN_PROFILED
+    apart, the backward kernels' shares of the device time) and the
+    model-FLOP share of TRAIN_PEAK.  Asserts finite losses, the exact
+    launches a step (``per_layer`` x the layers), and no plain attention
+    or SSD version, SDPA or cuDNN attention on the path.  Returns the
+    counts of the 6-step run under the JSON rows' names (``rows``)."""
+    import gc
     import math
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeConfig
@@ -5535,86 +5758,95 @@ def train_phase(torch, ops, smi):
     from repro_torch.launch import train as train_cli
     t0 = time.perf_counter()
     seen = []
-    undo = no_plain_attention(torch, seen)
+    undo = no_plain_versions(torch, seen)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = {}
     try:
-        train_cli.main(TRAIN_ARGS, out=out)
+        train_cli.main(train_args(arch, batch, seq), out=out)
         torch.cuda.synchronize()
     finally:
         undo()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     tr, state = out["trainer"], out["state"]
-    cfg = tr.model.cfg
+    model, cfg = tr.model, tr.model.cfg
     hist = state["_history"]
     steps, nl = len(hist), cfg.n_layers
     for h in hist:
-        print(f"train_phase: step {h['step']}: loss {h['loss']:.6f}, grad "
-              f"norm {h['grad_norm']:.6f}, lr {h['lr']:.3e}, wall "
-              f"{1e3 * h['dt']:.1f} ms")
+        print(f"train_phase: {arch}: step {h['step']}: loss "
+              f"{h['loss']:.6f}, grad norm {h['grad_norm']:.6f}, lr "
+              f"{h['lr']:.3e}, wall {1e3 * h['dt']:.1f} ms")
     assert steps == 6 and all(math.isfinite(h["loss"]) for h in hist), hist
-    assert not seen, f"a plain attention version ran on the path: {len(seen)}"
-    want = {"flash_attention": 2 * nl * steps,
-            "flash_attention_bwd": nl * steps}
-    got = {k: counts[k] for k in want}
-    print(f"train_phase: launches {got} (28 x 2 and 28 a step: the forward, "
-          f"its remat recompute and the backward)")
+    assert not seen, f"a plain version ran on the path: {len(seen)}"
+    want = {k: per_layer.get(k, 0) * nl * steps for k in TRAIN_KERNELS}
+    got = {k: counts[k] for k in TRAIN_KERNELS}
+    print(f"train_phase: {arch}: launches {got} (a step: " + ", ".join(
+        f"{k} {m} x {nl}" for k, m in per_layer.items()) + ")")
     assert got == want, (got, want)
     dts = [h["dt"] for h in hist[2:6]]
-    tokens = 4 * 1024
+    tokens = batch * seq
     step_s = sum(dts) / len(dts)
     # one more step under the profiler, on the next batch
-    batch = next(iter(make_pipeline(cfg, ShapeConfig("t", 1024, 4, "train"),
-                                    start_step=6, num_steps=1)))
+    pbatch = next(iter(make_pipeline(cfg, ShapeConfig("t", seq, batch,
+                                                      "train"),
+                                     start_step=6, num_steps=1)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        _, _, m = tr.step_fn(state["params"], state["opt"], batch)
+        _, _, m = tr.step_fn(state["params"], state["opt"], pbatch)
         m["loss"].item()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-    rows, _ = device_time(prof)
-    busy = sum(r[0] for r in rows) / 1e3
+    rows_t, _ = device_time(prof)
+    busy = sum(r[0] for r in rows_t) / 1e3
     names = {e.name() for e in profile_events(prof)}
-    lib = [n for n in names if any(s in n for s in LIBRARY_ATTENTION)]
+    lib = [n for n in names if any(x in n for x in LIBRARY_ATTENTION)]
     assert not lib, f"library attention on the training path: {lib}"
     own = {}
-    for us, n, key in rows:
-        for kname in ("fa_tc_kernel", "fab_tc_dkdv", "fab_tc_dq",
-                      "fab_delta"):
+    for us, n, key in rows_t:
+        for kname in TRAIN_PROFILED:
             if kname in key:
                 t, c = own.get(kname, (0.0, 0))
                 own[kname] = (t + us / 1e3, c + n)
     n_params = sum(t.numel() for t in tree.leaves(state["params"]))
-    attn = 6 * 4 * cfg.n_heads * cfg.hd * 1024 * 1024 * nl
+    attn = 0
+    if cfg.family != "ssm":
+        wins = model.windows or [None] * nl
+        attn = sum(6 * batch * cfg.n_heads * cfg.hd * 2
+                   * window_pairs(seq, w if w is not None and w < seq
+                                  else None) for w in wins)
     model_flops = 6 * n_params * tokens + attn
-    bwd_ms = sum(own.get(k, (0.0, 0))[0]
-                 for k in ("fab_tc_dkdv", "fab_tc_dq", "fab_delta"))
-    print(f"train_phase: llama3.2-3b full width ({smi}): {n_params / 1e9:.3f}"
-          f" B params; step wall over steps 2-5 {1e3 * step_s:.1f} ms "
-          f"(median {1e3 * statistics.median(dts):.1f}), {tokens / step_s:.0f}"
-          f" tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; model FLOPs a "
-          f"step (6 N tokens + attention 6 B H hd S^2 L, causal) "
-          f"{model_flops / 1e12:.2f} TFLOP, {100 * model_flops / step_s / TRAIN_PEAK:.1f}"
-          f"% of {TRAIN_PEAK / 1e12:.0f} TFLOP/s; profiled step wall "
+
+    def share(prefix):
+        ms = sum(t for k, (t, _) in own.items() if k.startswith(prefix))
+        return f"{ms:.1f} ms ({100 * ms / busy:.1f}% of the device time)"
+    print(f"train_phase: {arch} full width ({smi}): {n_params / 1e9:.3f} B "
+          f"params; batch {batch} x seq {seq}; step wall over steps 2-5 "
+          f"{1e3 * step_s:.1f} ms (median "
+          f"{1e3 * statistics.median(dts):.1f}), {tokens / step_s:.0f} "
+          f"tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; model FLOPs a "
+          f"step (6 N tokens + attention 6 B H hd 2 pairs L, causal, "
+          f"within the window; the SSD scan not counted) "
+          f"{model_flops / 1e12:.2f} TFLOP, "
+          f"{100 * model_flops / step_s / TRAIN_PEAK:.1f}% of "
+          f"{TRAIN_PEAK / 1e12:.0f} TFLOP/s; profiled step wall "
           f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / (1e3 * wall):.1f}%), the backward kernel "
-          f"{bwd_ms:.1f} ms ({100 * bwd_ms / busy:.1f}% of the device time)")
-    print("train_phase: the attention kernels' device time: " + ", ".join(
-        f"{k} {t:.2f} ms in {c} launches" for k, (t, c) in own.items()))
-    print("train_phase: top device time:")
-    for us, n, key in rows[:14]:
+          f"({100 * busy / (1e3 * wall):.1f}%); the attention backward "
+          f"kernel {share('fab_')}; the SSD backward kernel "
+          f"{share('ssd_bwd_')}")
+    print(f"train_phase: {arch}: the hand-written kernels' device time: "
+          + ", ".join(f"{k} {t:.2f} ms in {c} launches"
+                      for k, (t, c) in own.items()))
+    print(f"train_phase: {arch}: top device time:")
+    for us, n, key in rows_t[:14]:
         print(f"    {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
-    print(f"train_phase: {time.perf_counter() - t0:.1f} s")
-    del out, tr, state, batch, prof
-    import gc
+    print(f"train_phase: {arch}: {time.perf_counter() - t0:.1f} s")
+    del out, tr, state, model, pbatch, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return [{"flash_attention_train": got["flash_attention"],
-             "flash_attention_bwd": got["flash_attention_bwd"]}]
+    return [{rows[k]: got[k] for k in rows}]
 
 
 def grads_apart(kg, pg):
@@ -5632,19 +5864,24 @@ def train_end_to_end(torch, ops, registry):
     """Phase 5t: one training step's loss and gradients, kernel path
     against plain path (the same weights, the plain model built with
     ``kernels=ops.PLAIN``: plain forward and backward), in f32:
-    llama3.2-3b at full width and 2 layers (batch 2 x 1024), then reduced
-    qwen2-moe-a2.7b, llava-next-34b and whisper-large-v3 (batch 2 x 64).
-    The loss within TRAIN_LOSS_TOL relative, each gradient leaf within
-    TRAIN_GRAD_TOL of its largest element; the planted fault (the plain
-    path's backward run non-causal) must read more than FAULT_MARGIN times
-    the limit at llama3.2-3b's width."""
+    llama3.2-3b at full width and 2 layers (batch 2 x 1024), mamba2-2.7b
+    at full width and 2 layers (batch 2 x 2048), then reduced
+    qwen2-moe-a2.7b, llava-next-34b, whisper-large-v3 and hymba-1.5b
+    (batch 2 x 64).  The loss within TRAIN_LOSS_TOL relative, each
+    gradient leaf within TRAIN_GRAD_TOL of its largest element, the
+    family's kernels launched (attention forward and backward, ssd and
+    ssd_bwd); the planted fault (the plain path's backward run non-causal)
+    must read more than FAULT_MARGIN times the limit at llama3.2-3b's
+    width."""
     from repro_torch.core import chaining
     from repro_torch.data import SyntheticLMDataset, family_extras_fn
     from repro_torch.data.pipeline import to_device
     f32 = dict(param_dtype="float32", act_dtype="float32")
     cases = [("llama3.2-3b 2 layers", dataclasses.replace(
-        registry.config("llama3.2-3b"), n_layers=2, **f32), 2, 1024)]
-    for name in (QWEN2_MOE, LLAVA, WHISPER):
+        registry.config("llama3.2-3b"), n_layers=2, **f32), 2, 1024),
+        ("mamba2-2.7b 2 layers", dataclasses.replace(
+            registry.config("mamba2-2.7b"), n_layers=2, **f32), 2, 2048)]
+    for name in (QWEN2_MOE, LLAVA, WHISPER, HYMBA):
         cases.append((f"{name} reduced", dataclasses.replace(
             registry.config(name).reduced(), **f32), 2, 64))
     for label, cfg, b, s in cases:
@@ -5669,10 +5906,11 @@ def train_end_to_end(torch, ops, registry):
               f"{pl.item():.6f} ({loss_rel:.2e} relative, limit "
               f"{TRAIN_LOSS_TOL:.0e}); gradients: worst leaf {leaf} "
               f"{worst:.2e} of its max (limit {TRAIN_GRAD_TOL:.0e}); "
-              f"launches flash_attention {counts['flash_attention']}, "
-              f"flash_attention_bwd {counts['flash_attention_bwd']}")
-        assert counts["flash_attention"] > 0 and \
-            counts["flash_attention_bwd"] > 0, counts
+              f"launches "
+              + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS))
+        used = {"ssm": ("ssd", "ssd_bwd"),
+                "hybrid": TRAIN_KERNELS}.get(cfg.family, TRAIN_KERNELS[:2])
+        assert all(counts[k] > 0 for k in used), (label, counts)
         assert loss_rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL, (
             label, loss_rel, worst, leaf)
         if label.startswith("llama"):
@@ -5696,11 +5934,12 @@ def train_end_to_end(torch, ops, registry):
         torch.cuda.empty_cache()
 
 
-def restart_check(torch, ops, registry):
-    """The restart on the card: reduced llama3.2-3b (bf16) trains 6 steps
-    straight, and again as 3 steps, a checkpoint (the port's RPK1 file in
-    whatever codec the machine has), a restore in a fresh Trainer and 3
-    more: losses and final params and moments bit for bit.  Run under
+def restart_check(torch, ops, registry, arch):
+    """The restart on the card: reduced ``arch`` (bf16; llama3.2-3b, then
+    mamba2-2.7b) trains 6 steps straight, and again as 3 steps, a
+    checkpoint (the port's RPK1 file in whatever codec the machine has), a
+    restore in a fresh Trainer and 3 more: losses and final params and
+    moments bit for bit.  Run under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
     warnings name any op without a deterministic path."""
     import shutil
@@ -5712,7 +5951,7 @@ def restart_check(torch, ops, registry):
     from repro_torch.runtime.trainer import Trainer, TrainConfig
     ck = os.path.join(ROOT, "build", "smoke_ckpt")
     shutil.rmtree(ck, ignore_errors=True)
-    bundle = registry.build("llama3.2-3b", reduced=True, device="cuda")
+    bundle = registry.build(arch, reduced=True, device="cuda")
     shape = ShapeConfig("t", 64, 4, "train")
     kw = dict(log_every=1, peak_lr=1e-3, seed=0)
 
@@ -5747,16 +5986,16 @@ def restart_check(torch, ops, registry):
         tree.leaves({"p": st_c["params"], "o": st_c["opt"]})))
     notes = sorted({str(w.message).split("\n")[0][:120] for w in caught
                     if "deterministic" in str(w.message)})
-    print(f"restart: file header {head!r} (zstandard "
+    bwd = "ssd_bwd" if bundle.cfg.family == "ssm" else "flash_attention_bwd"
+    print(f"restart: {arch}: file header {head!r} (zstandard "
           f"{'present' if store.zstd is not None else 'absent'}); start "
           f"step {start}; losses straight {a} resumed {c}; params and "
-          f"moments bit for bit {same}; launches flash_attention "
-          f"{counts['flash_attention']}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd']}; determinism warnings: "
-          f"{notes or 'none'}")
+          f"moments bit for bit {same}; launches "
+          + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+          + f"; determinism warnings: {notes or 'none'}")
     assert start == 3 and head[:4] == b"RPK1", (start, head)
     assert a == c and same, (a, c, same)
-    assert counts["flash_attention_bwd"] > 0, counts
+    assert counts[bwd] > 0, counts
 
 
 def main() -> int:
@@ -5810,14 +6049,19 @@ def main() -> int:
     rec.update(vlm_encdec_kernel_checks(torch, ops, registry.config(LLAVA),
                                         registry.config(WHISPER)))
     rec.update(train_kernel_checks(torch, ops))
+    rec.update(ssd_train_checks(torch, ops))
     for name in sorted(rec):
         bound(rec[name])
     stamp("phases 1-3")
-    all_runs = train_phase(torch, ops, smi)
-    stamp("train_phase")
+    all_runs = []
+    for run in TRAIN_RUNS:
+        all_runs += train_phase(torch, ops, smi, *run)
+        stamp(f"train_phase {run[0]}")
     train_end_to_end(torch, ops, registry)
-    restart_check(torch, ops, registry)
-    stamp("phase 5t and the restart")
+    stamp("phase 5t")
+    for arch in ("llama3.2-3b", "mamba2-2.7b"):
+        restart_check(torch, ops, registry, arch)
+    stamp("the restarts")
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
-           "flash_prefill_chunk", "ssd", "matmul", "dotp", "conv2d")
+           "flash_prefill_chunk", "ssd", "ssd_bwd", "matmul", "dotp",
+           "conv2d")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo"]

@@ -86,7 +86,10 @@
 // f32 (fab_dkdv / fab_dq): the CUDA cores (on the tensor cores f32 would be
 // TF32, another function): a 256-thread CTA, 64 x 64 blocks, each thread a
 // 4 x 4 micro-tile of S and dP (sequential d-chains) and a slice of dK /
-// dV or dQ (sequential chains over the block's rows or keys).
+// dV or dQ: each block's product a sequential chain over its 64 rows or
+// keys of its own, added to the running sum in f32 as the bf16 kernels do
+// (a window of 1024 keys and G = 5 heads sums 80 blocks, where one chain
+// of 5120 terms would round at the running sum's magnitude every step).
 #include "flash_tc.cuh"
 
 namespace fab {
@@ -286,6 +289,11 @@ __global__ void __launch_bounds__(NT, 1) fab_dkdv(Args a) {
       __syncthreads();
       t.probs(a, k0, true);
       __syncthreads();
+      float bk[BB::PER][BB::DPT], bv[BB::PER][BB::DPT];
+#pragma unroll
+      for (int u = 0; u < BB::PER; ++u)
+#pragma unroll
+        for (int w = 0; w < BB::DPT; ++w) bk[u][w] = bv[u][w] = 0.f;
       for (int r = 0; r < QB; ++r) {
         float gv[BB::DPT], qv[BB::DPT];
 #pragma unroll
@@ -299,11 +307,18 @@ __global__ void __launch_bounds__(NT, 1) fab_dkdv(Args a) {
           const float ds = t.dSs[r * BB::SP + gr + BB::GR * u];
 #pragma unroll
           for (int w = 0; w < BB::DPT; ++w) {
-            dv[u][w] = __fmaf_rn(p, gv[w], dv[u][w]);
-            dk[u][w] = __fmaf_rn(ds, qv[w], dk[u][w]);
+            bv[u][w] = __fmaf_rn(p, gv[w], bv[u][w]);
+            bk[u][w] = __fmaf_rn(ds, qv[w], bk[u][w]);
           }
         }
       }
+#pragma unroll
+      for (int u = 0; u < BB::PER; ++u)
+#pragma unroll
+        for (int w = 0; w < BB::DPT; ++w) {
+          dv[u][w] = __fadd_rn(dv[u][w], bv[u][w]);
+          dk[u][w] = __fadd_rn(dk[u][w], bk[u][w]);
+        }
     }
   }
   float* dkp = reinterpret_cast<float*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
@@ -347,6 +362,11 @@ __global__ void __launch_bounds__(NT, 1) fab_dq(Args a) {
     __syncthreads();
     t.probs(a, k0, false);
     __syncthreads();
+    float bq[BB::PER][BB::DPT];
+#pragma unroll
+    for (int u = 0; u < BB::PER; ++u)
+#pragma unroll
+      for (int w = 0; w < BB::DPT; ++w) bq[u][w] = 0.f;
     for (int j = 0; j < KB; ++j) {
       float kv[BB::DPT];
 #pragma unroll
@@ -357,9 +377,14 @@ __global__ void __launch_bounds__(NT, 1) fab_dq(Args a) {
         const float ds = t.dSs[(gr + BB::GR * u) * BB::SP + j];
 #pragma unroll
         for (int w = 0; w < BB::DPT; ++w)
-          dq[u][w] = __fmaf_rn(ds, kv[w], dq[u][w]);
+          bq[u][w] = __fmaf_rn(ds, kv[w], bq[u][w]);
       }
     }
+#pragma unroll
+    for (int u = 0; u < BB::PER; ++u)
+#pragma unroll
+      for (int w = 0; w < BB::DPT; ++w)
+        dq[u][w] = __fadd_rn(dq[u][w], bq[u][w]);
   }
   float* dqp = reinterpret_cast<float*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll

@@ -12,9 +12,12 @@ the reference's argument layouts:
     with per-slot ``lengths`` (ops.py:324);
   * :func:`flash_prefill_chunk` — (B, C, H, hd) chunk queries over the
     arena with a runtime ``prefix`` (ops.py:450);
-  * :func:`ssd` — the Mamba2 SSD chunked scan (ops.py:555), and
-    :func:`ssd_decode_step`, its one-token recurrence (ops.py:578; plain
-    PyTorch on every device, as the reference leaves it to XLA);
+  * :func:`ssd` — the Mamba2 SSD chunked scan (ops.py:555), with a
+    gradient when an operand requires one: the backward is ``ssd_bwd``'s
+    kernel (the reference differentiates its jnp scan, ``jax.vjp`` of
+    ``_chunked_ssd_ref``, ops.py:511); and :func:`ssd_decode_step`, its
+    one-token recurrence (ops.py:578; plain PyTorch on every device, as
+    the reference leaves it to XLA);
 
 and for the paper's own vector-unit workloads:
 
@@ -62,11 +65,12 @@ from repro_torch.kernels import flash_attention_bwd as _fab  # noqa: E402
 from repro_torch.kernels import flash_decode as _fd  # noqa: E402
 from repro_torch.kernels import flash_prefill_chunk as _fpc  # noqa: E402
 from repro_torch.kernels import ssd as _ssd  # noqa: E402
+from repro_torch.kernels import ssd_bwd as _ssdb  # noqa: E402
 from repro_torch.kernels import matmul as _mm  # noqa: E402
 from repro_torch.kernels import dotp as _dp  # noqa: E402
 from repro_torch.kernels import conv2d as _cv  # noqa: E402
 
-KERNEL_MODULES = (_fa, _fab, _fd, _fpc, _ssd, _mm, _dp, _cv)
+KERNEL_MODULES = (_fa, _fab, _fd, _fpc, _ssd, _ssdb, _mm, _dp, _cv)
 #: the kernels with a fused-dequant branch: their scaled launches (over an
 #: int8 / fp8 arena) are also counted apart, as ``<name>_scaled``
 SCALED_MODULES = (_fd, _fpc)
@@ -139,7 +143,8 @@ def _expand_gqa(q, k, v):
 
 
 def _needs_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _attention_plain(q, k, v, *, causal=True, window=None, scale=None,
@@ -356,15 +361,80 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # SSD (Mamba2)
 # ---------------------------------------------------------------------------
 
-def _ssd_plain(x, log_a, B, C, *, chunk=256, initial_state=None):
+def _group_factor(x, B) -> int:
+    """r: how many x rows share each B/C row."""
     bh, nb = x.shape[0], B.shape[0]
-    if nb != bh:
-        if nb < 1 or bh % nb:
-            raise ValueError(f"ssd: {nb} B/C rows do not divide {bh} rows")
-        B = B.repeat_interleave(bh // nb, dim=0)
-        C = C.repeat_interleave(bh // nb, dim=0)
+    if nb < 1 or bh % nb:
+        raise ValueError(f"ssd: {nb} B/C rows do not divide {bh} rows")
+    return bh // nb
+
+
+def _ssd_plain(x, log_a, B, C, *, chunk=256, initial_state=None):
+    if _needs_grad(x, log_a, B, C, initial_state):
+        return _SSD.apply(x, log_a, B, C, initial_state, chunk, True)
+    r = _group_factor(x, B)
+    if r > 1:
+        B = B.repeat_interleave(r, dim=0)
+        C = C.repeat_interleave(r, dim=0)
     return _ssd.ssd_plain(x, log_a, B, C, chunk=chunk,
                           initial_state=initial_state)
+
+
+def _ssd_bwd_plain(x, log_a, B, C, dy, *, chunk, initial_state=None):
+    """``ssd_bwd_plain`` with shared B/C rows: each row repeated to its r
+    heads (the reference's broadcast), and dB / dC summed back over them
+    in f32 (the broadcast's transpose) before the one rounding to their
+    dtype."""
+    r = _group_factor(x, B)
+    acc = torch.promote_types(B.dtype, torch.float32)
+    Be, Ce = (t.to(acc).repeat_interleave(r, dim=0) for t in (B, C))
+    dx, dla, dB, dC = _ssdb.ssd_bwd_plain(x, log_a, Be, Ce, dy, chunk=chunk,
+                                          initial_state=initial_state)
+    dB, dC = (t.reshape(B.shape[0], r, *t.shape[1:]).sum(1).to(B.dtype)
+              for t in (dB, dC))
+    return dx, dla, dB, dC
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD scan with a gradient for x, log_a, B and C (the reference
+    differentiates ``_chunked_ssd_ref``'s jnp scan, ops.py:511).  The
+    forward saves its inputs and recomputes the rest in the backward.
+    ``plain``: both passes in plain PyTorch on any device (the oracle
+    path); otherwise CUDA operands take the ``ssd`` kernel and the
+    ``ssd_bwd`` kernel, CPU operands the plain versions.  Training passes
+    no initial state and drops the final one (reference ``mamba_apply``):
+    a gradient that reaches either raises ``NotImplementedError``."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, B, C, initial_state, chunk, plain):
+        if plain or not _on_cuda(x, log_a, B, C, initial_state):
+            y, st = _ssd_plain(x, log_a, B, C, chunk=chunk,
+                               initial_state=initial_state)
+        else:
+            y, st = _ssd.launch(x, log_a, B, C, initial_state=initial_state)
+        ctx.save_for_backward(x, log_a, B, C, initial_state)
+        ctx.opts = (chunk, plain)
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        if dstate is not None or ctx.needs_input_grad[4]:
+            raise NotImplementedError(
+                "ssd: no gradient is taken through the initial or the final "
+                "state (training passes no initial state and drops the "
+                "final one, as the reference's mamba_apply does)")
+        if dy is None:
+            return (None,) * 7
+        x, log_a, B, C, st0 = ctx.saved_tensors
+        chunk, plain = ctx.opts
+        if plain or not _on_cuda(x, log_a, B, C, dy, st0):
+            dx, dla, dB, dC = _ssd_bwd_plain(x, log_a, B, C, dy, chunk=chunk,
+                                             initial_state=st0)
+        else:
+            dx, dla, dB, dC = _ssdb.launch(x, log_a, B, C, dy,
+                                           initial_state=st0)
+        return dx, dla.to(log_a.dtype), dB, dC, None, None, None
 
 
 def ssd(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -382,7 +452,13 @@ def ssd(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     version's chunk; the kernel's chunk is its own (64 tokens), and in
     bf16 its f32 operands enter the tensor cores as two bf16 terms: the
     result differs only by rounding (~2^-17 relative per term).
+
+    When an operand requires a gradient (training), the call goes through
+    :class:`_SSD`: on the card the ``ssd`` kernel, then the ``ssd_bwd``
+    kernel; serving calls never do.
     """
+    if _needs_grad(x, log_a, B, C, initial_state):
+        return _SSD.apply(x, log_a, B, C, initial_state, chunk, False)
     if not _on_cuda(x, log_a, B, C, initial_state):
         return _ssd_plain(x, log_a, B, C, chunk=chunk,
                           initial_state=initial_state)

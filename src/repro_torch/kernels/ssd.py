@@ -47,13 +47,16 @@ launches = 0
 def ssd_plain(x, log_a, B, C, *, chunk: int, initial_state=None):
     """x: (BH, S, P); log_a: (BH, S); B/C: (BH, S, N); initial_state:
     (BH, N, P) or None (zeros).  Returns (y (BH, S, P) in x's dtype, final
-    state (BH, N, P) f32).  A ragged tail is zero-padded to a whole chunk:
-    log_a = 0 and x = 0 there give decay 1 and no input."""
+    state (BH, N, P) f32; float64 for float64 operands, the precision of
+    ``tests/test_torch_ssd_bwd.py``'s gradcheck).  A ragged tail is
+    zero-padded to a whole chunk: log_a = 0 and x = 0 there give decay 1
+    and no input."""
     bh, s, p = x.shape
     n = B.shape[-1]
     dev = x.device
-    state = (torch.zeros((bh, n, p), dtype=torch.float32, device=dev)
-             if initial_state is None else initial_state.float())
+    acc = torch.promote_types(x.dtype, torch.float32)
+    state = (torch.zeros((bh, n, p), dtype=acc, device=dev)
+             if initial_state is None else initial_state.to(acc))
     if s == 0:
         return x.clone(), state
     chunk = min(chunk, s)
@@ -62,10 +65,10 @@ def ssd_plain(x, log_a, B, C, *, chunk: int, initial_state=None):
                                 device=dev))
     ys = []
     for c0 in range(0, xp.shape[1], chunk):
-        xb = xp[:, c0:c0 + chunk].float()
-        lab = lap[:, c0:c0 + chunk].float()
-        Bb = Bp[:, c0:c0 + chunk].float()
-        Cb = Cp[:, c0:c0 + chunk].float()
+        xb = xp[:, c0:c0 + chunk].to(acc)
+        lab = lap[:, c0:c0 + chunk].to(acc)
+        Bb = Bp[:, c0:c0 + chunk].to(acc)
+        Cb = Cp[:, c0:c0 + chunk].to(acc)
         cum = torch.cumsum(lab, dim=-1)                       # (BH, Q)
         total = cum[:, -1]
         seg = torch.where(tri, cum[:, :, None] - cum[:, None, :], NEG_INF)

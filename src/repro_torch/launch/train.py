@@ -9,11 +9,14 @@ card: ``python -m repro_torch.launch.train --arch llama3.2-3b --full
 --steps 6 --batch 4 --seq 1024``.
 
 ``--reduced`` (the default) trains the smoke-test width, ``--full`` the
-published config.  ``--data-axis`` / ``--model-axis`` take 1 only, and
-``--reduction`` ``gspmd`` only: the other values need the multi-device
-port (ROADMAP 1.11); ``--remat save_tp`` likewise.  The ssm and hybrid
-families raise (ROADMAP 1.9(b)).  Prints the reference's lines: the mesh,
-the starting step, and the loss from the first log record to the last.
+published config.  Every family trains: mamba2 and hymba's SSD layers
+through the hand-written ``ssd`` and ``ssd_bwd`` kernels on the card
+(``--arch mamba2-2.7b --full --steps 6 --batch 2 --seq 2048``).
+``--data-axis`` / ``--model-axis`` take 1 only, and ``--reduction``
+``gspmd`` only: the other values need the multi-device port (ROADMAP
+1.11); ``--remat save_tp`` likewise.  Prints the reference's lines: the
+mesh, the starting step, and the loss from the first log record to the
+last.
 """
 from __future__ import annotations
 

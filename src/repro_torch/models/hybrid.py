@@ -118,14 +118,29 @@ def hybrid_layer_decode_rows(p, cfg, x_t, view_l, pos, *, window, kops=ops,
     return _combine(p, cfg, x_t, a, m)
 
 
+def hybrid_train_layer(p, cfg, x, positions, *, window, kops=ops):
+    """One hybrid layer of the training forward (reference
+    ``hybrid_layer_apply``, :44): both branches on one normed input, the
+    attention branch causal within the layer's window with no cache, the
+    SSD branch from a zero state; then :func:`_combine`.  Returns (x, aux
+    = 0)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.rms_eps)
+    a = L.attention(p["attn"], cfg, h, positions=positions, causal=True,
+                    window=window, kops=kops)
+    m = mamba2.mamba_apply(p["mamba"], cfg, h, kops=kops)
+    return (_combine(p, cfg, x, a, m),
+            x.new_zeros((), dtype=torch.float32))
+
+
 def _factors(cfg) -> dict:
     return {"k": 1, "v": 1, "ssm": cfg.ssm.n_heads(cfg.d_model), "conv": 1}
 
 
 #: the hybrid family: K/V rows beside the SSD state, the three attention
-#: kernels (each layer's window) and ``ssd``
+#: kernels (each layer's window) and ``ssd`` (and in training the attention
+#: and SSD backward kernels)
 HYBRID = T.LayerSet(
     init_params=hybrid_layer_init, init_cache=init_hybrid_cache,
     factors=_factors, prefill_layer=hybrid_prefill_layer,
     chunk_layer=hybrid_layer_chunk, decode_layer=hybrid_layer_decode_rows,
-    windows=window_schedule)
+    train_layer=hybrid_train_layer, windows=window_schedule)

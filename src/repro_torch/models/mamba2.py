@@ -336,12 +336,26 @@ def ssm_layer_decode_rows(p, cfg, x_t, view_l, pos, *, kops=ops,
                                    kops=kops)
 
 
+def ssm_train_layer(p, cfg, x, positions, *, kops=ops):
+    """One SSM layer of the training forward (reference
+    ``ssm_layer_apply``, :221): rmsnorm, ``mamba_apply`` from a zero state
+    with no state returned, the residual.  With a gradient the scan goes
+    through ``ops._SSD`` (on the card the ``ssd`` and ``ssd_bwd``
+    kernels).  Returns (x, aux = 0)."""
+    del positions
+    h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
+    return (x + mamba_apply(p["mamba"], cfg, h, kops=kops),
+            x.new_zeros((), dtype=torch.float32))
+
+
 def _factors(cfg) -> dict:
     return {"ssm": cfg.ssm.n_heads(cfg.d_model), "conv": 1}
 
 
 #: the ssm family: per-slot SSD state + conv tail, the ``ssd`` kernel
+#: (and ``ssd_bwd`` in training)
 SSM = LayerSet(
     init_params=ssm_layer_init, init_cache=init_ssm_cache,
     factors=_factors, prefill_layer=ssm_prefill_layer,
-    chunk_layer=ssm_layer_chunk, decode_layer=ssm_layer_decode_rows)
+    chunk_layer=ssm_layer_chunk, decode_layer=ssm_layer_decode_rows,
+    train_layer=ssm_train_layer)

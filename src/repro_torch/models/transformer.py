@@ -244,14 +244,13 @@ class LayerSet:
       * ``decode_layer(p, cfg, x_t, view_l, pos, *, kops, share)``: slots
         parked at ``PARKED_POS`` must come out untouched; ``share``: (B,)
         (src, len) or None, as for the chunk;
+      * ``train_layer(p, cfg, x, positions, *, kops)`` -> (x, aux): the
+        training forward with no cache (reference ``layer_apply``);
       * ``windows(cfg)`` (optional) -> one attention window a layer, host
         ints: the driver passes layer i's as ``window=`` to each of the
-        three layer functions (the reference scans them as ``layer_xs``,
+        four layer functions (the reference scans them as ``layer_xs``,
         transformer.py:298-312; a captured step holds each layer's as a
-        constant of its launch).  None: the layers take no window;
-      * ``train_layer(p, cfg, x, positions, *, kops)`` (optional) -> (x,
-        aux): the training forward with no cache (reference
-        ``layer_apply``); None for a family the port does not train yet.
+        constant of its launch).  None: the layers take no window.
 
     Which arena leaves have a sequence axis is not declared: the driver
     reads it off the arena's shapes (:meth:`LM.seq_axes`).
@@ -262,8 +261,8 @@ class LayerSet:
     prefill_layer: Callable
     chunk_layer: Callable
     decode_layer: Callable
+    train_layer: Callable
     windows: Optional[Callable] = None
-    train_layer: Optional[Callable] = None
 
 
 def _dense_init_params(cfg, gen, dev, mlp: bool = True) -> dict:
@@ -375,10 +374,6 @@ class LM:
         tokens, positions [0, P + S), each layer under ``remat``.  Returns
         (h, aux), aux the f32 sum of the layers' aux losses."""
         cfg = self.cfg
-        if self.layers.train_layer is None:
-            raise NotImplementedError(
-                f"training the {cfg.family} family needs SSD's backward as "
-                f"a hand-written kernel: ROADMAP 1.9(b)")
         check_remat(remat)
         x = L.embed_lookup(params["embed"], tokens)
         if prefix_embeds is not None:

@@ -9,9 +9,9 @@ all-reduce and come with the multi-device port (ROADMAP 1.11).
 
 On the card every attention layer runs the hand-written forward kernel
 (twice under ``remat="full"``: the forward and its recompute) and the
-hand-written backward kernel; there is no plain-path fallback.  The ssm
-and hybrid families need SSD's backward as a kernel (ROADMAP 1.9(b)) and
-are refused.
+hand-written backward kernel, and every SSD layer (mamba2, hymba) the
+``ssd`` kernel twice and the ``ssd_bwd`` kernel once; there is no
+plain-path fallback.
 
 The run loop keeps the reference's contract: data that is a pure function
 of the step index, the loss read once a step (the reference's
@@ -31,8 +31,8 @@ from repro_torch.models import convert
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
 
-#: the families whose training path the port has (attention + matmuls)
-TRAINED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: the families whose training path the port has: every family it serves
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,22 +56,12 @@ class TrainConfig:
     dispatch_depth: int = 2
 
 
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot train
-    yet, on every device."""
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family needs SSD's backward as a "
-            f"hand-written kernel: ROADMAP 1.9(b)")
-
-
 def make_train_step(model, tcfg: TrainConfig,
                     adamw: Optional[AdamWConfig] = None) -> Callable:
     """The train step for ``model`` (reference :140, ``gspmd`` only):
     ``step(params, opt, batch) -> (params, opt, metrics)``, the params and
     the optimizer state updated in place; metrics {"grad_norm", "loss",
     "lr"} as 0-d device tensors."""
-    check_trainable(model.cfg)
     if tcfg.reduction != "gspmd":
         raise NotImplementedError(
             f"reduction={tcfg.reduction!r} is a schedule of the "

@@ -1978,6 +1978,8 @@ BWD_CASES = {
     "multi_block": (True, None, 320, 320, 2, 4),
     # Sq not a multiple of 64 under a window
     "window_ragged_sq": (True, 50, 150, 150, 2, 2),
+    # hymba-1.5b's training attention: 25 / 5 heads, window 1024, S 2048
+    "hymba_window": (True, 1024, 2048, 2048, 5, 5),
 }
 
 
@@ -2071,9 +2073,82 @@ def _train_cfg(name, dtype):
     return cfg
 
 
+SSD_BWD_CASES = {
+    # name: (rows, B/C rows, S, P, N, initial state)
+    "one_chunk": (6, 2, 20, 16, 8, False),
+    "ragged_init": (6, 3, 200, 12, 20, True),
+    "mamba2_width": (8, 2, 300, 64, 128, False),
+    "hymba_width": (10, 2, 257, 64, 16, True),
+    "head_a_row": (4, 4, 129, 64, 128, True),
+}
+
+
+def _ssd_bwd_inputs(case, dtype, seed=0):
+    bh, nb, s, p, n, init = SSD_BWD_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (rn(s, bh, p) * 0.5).to(dtype).transpose(0, 1)
+    la = -torch.rand((bh, s), generator=gen, device="cuda") * 0.1
+    B, C = rn(nb, s, n).to(dtype), rn(nb, s, n).to(dtype)
+    dy = rn(bh, s, p).to(dtype)
+    st = rn(bh, n, p) * 0.1 if init else None
+    return x, la, B, C, dy, st
+
+
+def _ssd_carry_dropped(x, la, B, C, dy, st):
+    """The plain backward with the state gradient not carried between
+    64-token chunks (each chunk from its true start state): the planted
+    fault the kernel must not pass for."""
+    parts, state = [], st
+    for t0 in range(0, x.shape[1], 64):
+        sl = slice(t0, t0 + 64)
+        args = (x[:, sl], la[:, sl], B[:, sl], C[:, sl])
+        parts.append(ops._ssd_bwd_plain(*args, dy[:, sl], chunk=64,
+                                        initial_state=state))
+        state = ops.PLAIN.ssd(*args, chunk=64, initial_state=state)[1]
+    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_cuda_ssd_bwd_kernel_matches_plain(cuda, dtype, case):
+    """The ssd_bwd kernel against ``ssd_bwd_plain`` (B/C repeated to their
+    heads, dB / dC summed back): ragged S, strided x, an initial state,
+    B/C shared by several heads; each gradient within one ulp of its type
+    plus 1e-4 of its rms.  Dropping the carried state gradient between
+    chunks fails that limit, and two runs give the same bits."""
+    from repro_torch.kernels import ssd_bwd
+    x, la, B, C, dy, st = _ssd_bwd_inputs(case, dtype)
+    got = ssd_bwd.launch(x, la, B, C, dy, initial_state=st)
+    want = ops._ssd_bwd_plain(x, la, B, C, dy, chunk=64, initial_state=st)
+    assert [g.dtype for g in got] == [dtype, torch.float32, dtype, dtype]
+    assert _bwd_within(got, want), case
+    if x.shape[1] > 64:
+        assert not _bwd_within(got, _ssd_carry_dropped(x, la, B, C, dy, st))
+    again = ssd_bwd.launch(x, la, B, C, dy, initial_state=st)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), case
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_autograd_counts_launches(cuda):
+    """ops.ssd with a gradient: one ssd launch and one ssd_bwd launch a
+    call, no plain version."""
+    x, la, B, C, dy, _ = _ssd_bwd_inputs("mamba2_width", torch.bfloat16)
+    x, la, B, C = (t.detach().requires_grad_() for t in (x, la, B, C))
+    ops.reset_launch_counts()
+    y, _ = ops.ssd(x, la, B, C)
+    torch.autograd.grad(y, (x, la, B, C), dy)
+    counts = ops.launch_counts()
+    assert counts["ssd"] == 1 and counts["ssd_bwd"] == 1, counts
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["llama3.2-3b", "qwen2-moe-a2.7b",
-                                  "llava-next-34b", "whisper-large-v3"])
+                                  "llava-next-34b", "whisper-large-v3",
+                                  "mamba2-2.7b", "hymba-1.5b"])
 def test_cuda_train_kernel_path_matches_plain(cuda, name):
     """One step's loss and gradients in f32 on a reduced model: the kernel
     path against the plain path (``kernels=ops.PLAIN``) on the same

@@ -128,6 +128,7 @@ def test_launch_counters_stay_zero_on_cpu():
                                    "flash_attention_bwd": 0,
                                    "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
+                                   "ssd_bwd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,
@@ -153,6 +154,7 @@ def test_launch_counters_stay_zero_on_cpu_ssm():
                                    "flash_attention_bwd": 0,
                                    "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
+                                   "ssd_bwd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,
@@ -176,6 +178,7 @@ def test_launch_counters_stay_zero_on_cpu_vector_unit():
                                    "flash_attention_bwd": 0,
                                    "flash_decode": 0,
                                    "flash_prefill_chunk": 0, "ssd": 0,
+                                   "ssd_bwd": 0,
                                    "matmul": 0, "dotp": 0, "conv2d": 0,
                                    "flash_decode_scaled": 0,
                                    "flash_prefill_chunk_scaled": 0,

@@ -9,14 +9,16 @@ The same numpy-made weights and inputs go through both packages:
     2): causal, non-causal, window 12, Sq < Sk, ragged Sk;
   * ``blockwise_cross_entropy`` with a ragged last block and a mask;
   * ``loss_fn`` and every gradient leaf for dense (plain, qk_norm, relu2),
-    moe (with its aux loss), vlm (the patch prefix trimmed) and encdec,
-    against ``jax.value_and_grad(model.loss_fn)``; remat none = full =
-    dots; two microbatches against the reference's ``grad_accum_chained``;
+    moe (with its aux loss), vlm (the patch prefix trimmed), encdec, ssm
+    and hybrid (the reference's tiny configs: chunk 16 over a ragged S,
+    hybrid window 8 < S; SSD's backward through ``ops._SSD``), against
+    ``jax.value_and_grad(model.loss_fn)``; remat none = full = dots; two
+    microbatches against the reference's ``grad_accum_chained``;
   * 6 ``Trainer`` steps on reduced llama3.2-3b (the regime of the
     reference's tests/test_checkpoint_trainer.py:87-124, bf16 params),
     started from the reference Trainer's own initial state;
-  * the refusals (ssm and hybrid: ROADMAP 1.9(b); the ``hier*``
-    reductions, ``save_tp`` and a mesh: 1.11) and the CLI.
+  * the refusals (the ``hier*`` reductions, ``save_tp`` and a mesh:
+    ROADMAP 1.11) and the CLI, which trains every family on the CPU.
 
 Tolerances (f32 unless stated): attention gradients 1e-5 absolute +
 1e-5 relative, the CE and the losses 1e-5 relative (the same f32 sums in
@@ -56,7 +58,9 @@ from repro_torch.runtime import trainer as TT  # noqa: E402
 
 from test_torch_encdec import TINY_ENCDEC, encdec_bridged  # noqa: E402
 from test_torch_model import TINY, bridged, port_cfg  # noqa: E402
+from test_torch_hybrid import hybrid_bridged  # noqa: E402
 from test_torch_moe import moe_bridged  # noqa: E402
+from test_torch_ssm import ssm_bridged  # noqa: E402
 from test_torch_vlm import TINY_VLM  # noqa: E402
 
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -171,6 +175,8 @@ FAMILIES = {
     "moe": lambda: moe_bridged(tiny_family_configs()["moe"]),
     "vlm": _vlm,
     "encdec": lambda: encdec_bridged(TINY_ENCDEC),
+    "ssm": lambda: ssm_bridged(tiny_family_configs()["ssm"]),
+    "hybrid": lambda: hybrid_bridged(tiny_family_configs()["hybrid"]),
 }
 
 
@@ -239,7 +245,8 @@ def test_vlm_loss_trims_the_prefix():
     assert torch.equal(loss, ce)
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "encdec"])
+@pytest.mark.parametrize("family", ["dense", "moe", "encdec", "ssm",
+                                    "hybrid"])
 def test_remat_policies_agree(family):
     """remat none = full = dots: the recompute runs the same ops on the
     same inputs, so loss and gradients are the same bits."""
@@ -344,15 +351,9 @@ def test_trainer_params_match_reference(trainer_runs):
 # refusals and the CLI
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
-def test_ssm_and_hybrid_training_refused(name):
-    bundle = treg.build(name, reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"1\.9\(b\)"):
-        TT.Trainer(bundle.model, TT.TrainConfig(num_steps=1))
-    params = bundle.model.init(0)
-    batch = _tbatch(_batch(bundle.cfg, s=8))
-    with pytest.raises(NotImplementedError, match=r"1\.9\(b\)"):
-        bundle.model.loss_fn(params, batch)
+def test_every_family_is_trained():
+    assert set(TT.TRAINED_FAMILIES) == {
+        treg.config(name).family for name in treg.ARCH_NAMES}
 
 
 @pytest.mark.parametrize("reduction", ["hier", "hier_tree", "hier_ef8"])
@@ -402,7 +403,8 @@ def test_cli_trains_and_restarts_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "llava-next-34b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "mamba2-2.7b",
+                                  "hymba-1.5b"])
 def test_cli_trains_every_family_on_cpu(name, capsys):
     assert train_cli.main(["--arch", name, "--device", "cpu", "--steps",
                            "2", "--batch", "2", "--seq", "16",
