@@ -75,8 +75,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      kernel / plain / SDPA backward times; then SSD's backward (ssd_bwd)
      at mamba2-2.7b's and hymba-1.5b's training shapes (B 2 x S 2048)
      against ``ssd_bwd_plain``, the planted fault (the state gradient not
-     carried between chunks), two runs bit for bit, kernel / plain times,
-     and the ssd forward at the same shapes;
+     carried between chunks), two runs bit for bit, kernel / plain times
+     (the state walk's and the chunk kernel's apart), and the ssd forward
+     at the same shapes;
   train: llama3.2-3b (batch 4 x seq 1024), then mamba2-2.7b and
      hymba-1.5b (batch 2 x seq 2048), each at full width trained 6 steps
      through ``repro_torch.launch.train`` (remat full), right after phase
@@ -454,16 +455,20 @@ DESIGN = {
                                  "shape (B 2, S 2048, 25 / 5 heads, hd 64, "
                                  "window 1024 or global), launched on the "
                                  "hybrid training path",
-    "ssd_bwd": "cuda-core f32 for both types: the chunk-boundary states and "
-               "state gradients into f32 scratch (a block a row and 16 "
-               "headdim columns, forward then reverse over the chunks); a "
-               "block a (64-token chunk, B/C row, slice of its heads) "
-               "forming C B^T once and summing dB / dC over the slice's "
-               "heads in registers, dx and d log_a per head; the slices "
-               "summed in order; no atomics, bits repeat",
+    "ssd_bwd": "bf16 on the tensor cores (mma.sync m16n8k16, every f32 "
+               "operand as two bf16 terms): a block a (row, direction) "
+               "walks the chunks with the whole state in accumulators and "
+               "the tiles in a 3-stage cp.async ring, writing each "
+               "chunk's S0 / dS once as hi and lo bf16 planes; a block a "
+               "(64-token chunk, B/C row, slice of its heads) forming C "
+               "B^T once, the next head's tiles loading while one "
+               "computes, dB / dC summed over the slice's heads in "
+               "accumulators in head order, dx and d log_a per head; the "
+               "slices summed in order; no atomics, bits repeat",
     "ssd_bwd_hymba": "the same kernel at hymba-1.5b's SSD branch in "
-                     "training (100 rows, P 64, N = 16), launched on the "
-                     "hybrid training path",
+                     "training (100 rows, P 64, N = 16: the state walk "
+                     "and the carries over one 16-column d_state tile), "
+                     "launched on the hybrid training path",
     "ssd_train": "the ssd kernel at mamba2-2.7b's training batch (B 2 x "
                  "S 2048: 160 rows, one piece a row), launched on the "
                  "training path (forward and remat recompute)",
@@ -520,8 +525,10 @@ SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
                5),
               ("flash_attention_bwd", "fab_dkdv", (), ("HMMA", "HGMMA"), 5),
               ("flash_attention_bwd", "fab_dq", (), ("HMMA", "HGMMA"), 5),
-              ("ssd_bwd", "ssd_bwd_states", (), ("HMMA", "HGMMA"), 2),
-              ("ssd_bwd", "ssd_bwd_chunk", (), ("HMMA", "HGMMA"), 2))
+              ("ssd_bwd", "ssd_bwd_tc_states", ("HMMA",), (), 1),
+              ("ssd_bwd", "ssd_bwd_tc_chunk", ("HMMA",), (), 1),
+              ("ssd_bwd", "ssd_bwd_states", (), ("HMMA", "HGMMA"), 1),
+              ("ssd_bwd", "ssd_bwd_chunk", (), ("HMMA", "HGMMA"), 1))
 
 
 def sass_check(_build):
@@ -532,9 +539,9 @@ def sass_check(_build):
     bf16 ssd kernels hold HMMA, the bf16 matmul kernel HGMMA and UTMALDG,
     the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, the bf16
     attention backward kernels (dK/dV, dQ) HGMMA and UTMALDG, the f32 ones
-    neither HMMA nor HGMMA, the SSD backward's states and chunk kernels
-    (f32 arithmetic for both types) neither, and none of them spills
-    (STACK and LOCAL 0); their registers are printed."""
+    neither HMMA nor HGMMA, the SSD backward's bf16 state walk and chunk
+    kernels HMMA, its f32 ones neither, and none of them spills (STACK and
+    LOCAL 0); their registers are printed."""
     seen = {}
     for name in WGMMA_TMA:
         funcs = seen[name] = sass_counts(_build, name)
@@ -5456,8 +5463,8 @@ TRAIN_RUNS = (
       "ssd": "ssd_train_hymba", "ssd_bwd": "ssd_bwd_hymba"}))
 # the kernels named in train_phase's profile
 TRAIN_PROFILED = ("fa_tc_kernel", "fab_tc_dkdv", "fab_tc_dq", "fab_delta",
-                  "ssd_tc_kernel", "ssd_bwd_states", "ssd_bwd_chunk",
-                  "ssd_bwd_reduce")
+                  "ssd_tc_kernel", "ssd_bwd_tc_states", "ssd_bwd_tc_chunk",
+                  "ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce")
 
 
 def train_args(arch, batch, seq):
@@ -5652,11 +5659,12 @@ def ssd_train_checks(torch, ops):
     (SSD_TRAIN_SHAPES, bf16) against ``ops._ssd_bwd_plain`` within the
     backward's limit (BWD_RTOL), the planted fault (the state gradient not
     carried between chunks) rejected by more than FAULT_MARGIN, two runs
-    bit for bit, the kernel's and the plain version's times and the bound;
-    then the ssd forward at the same shapes against its plain version.
+    bit for bit, the kernel's and the plain version's times and the bound,
+    and its three kernels' device times apart (torch.profiler); then the
+    ssd forward at the same shapes against its plain version.
     Returns the records ``ssd_bwd``, ``ssd_bwd_hymba``, ``ssd_train`` and
     ``ssd_train_hymba``."""
-    from repro_torch.kernels import ssd, ssd_bwd
+    from repro_torch.kernels import ssd, ssd_bwd, ssd_bwd_parts
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(3)
     rec = {}
@@ -5679,13 +5687,13 @@ def ssd_train_checks(torch, ops):
                                                     dy))
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, want))
-        hs, sl = ssd_bwd.slices(bh // nb, nb, s, sms)
+        hs, sl = ssd_bwd.cut(bh // nb, nb, s, sms, x.dtype)
+        scratch = ssd_bwd.scratch_bytes(bh, nb, s, n, p, sms, x.dtype)
         print(f"  {label:<12} {bh} rows, {nb} B/C rows, S={s} P={p} N={n}: "
               f"max|kernel-plain| {err:.3e}, {ratio:.3f} of the limit (1 "
               f"ulp + {BWD_RTOL:.0e} rms); planted fault (dS not carried) "
               f"{f_ratio:.1f} of the limit; two runs bit for bit {bits}; "
-              f"{sl} slices of {hs} heads; f32 scratch "
-              f"{ssd_bwd.scratch_bytes(bh, nb, s, n, p, sms) / 1e6:.1f} MB")
+              f"{sl} slices of {hs} heads; scratch {scratch / 1e6:.1f} MB")
         assert ratio <= 1.0, (label, ratio)
         assert f_ratio > FAULT_MARGIN, (label, f_ratio)
         assert bits, label
@@ -5694,6 +5702,10 @@ def ssd_train_checks(torch, ops):
         plain_ms = timed(lambda: ops._ssd_bwd_plain(x, la, B, C, dy,
                                                     chunk=64), 2)
         nbytes, flops = ssd_bwd_work(bh, nb, s, p, n)
+        split = ssd_bwd_parts.kernel_ms(
+            lambda: ssd_bwd.launch(x, la, B, C, dy))
+        print(f"  {label}: ssd_bwd's kernels, device ms a call: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
         rec["ssd_bwd" + suffix] = dict(
             module=ssd_bwd, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=None, bytes=nbytes, flops=flops,

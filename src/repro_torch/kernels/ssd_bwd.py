@@ -11,11 +11,16 @@ the state leaving the chunk:
     forward loop first): the tests' oracle and the plain path's backward,
     never the card's training path;
   * :func:`launch` — the CUDA kernels (``csrc/ssd_bwd.cu``): the
-    chunk-boundary states and state gradients into f32 scratch, then one
+    chunk-boundary states and state gradients into scratch, then one
     block per (chunk, B/C row, slice of its heads) summing dB and dC over
     the slice's heads in a fixed order, then the slices summed in order.
-    No atomics: two runs give the same bits.  f32 arithmetic on the CUDA
-    cores for both operand types.
+    No atomics: two runs give the same bits.  bf16 runs on the tensor
+    cores (mma.sync m16n8k16): the states walk a row's chunks with the
+    whole state in accumulators and tiles in a cp.async ring, writing each
+    chunk's S0 and dS as hi and lo bf16 planes; every product with an f32
+    operand takes those two bf16 terms
+    (``tests/test_torch_ssd_bwd_numerics.py`` emulates it).  f32 runs on
+    the CUDA cores.
 
 ``ops.ssd`` routes through :class:`ops._SSD` when an operand needs a
 gradient.
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ssd import _rows16
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
 NAME = "ssd_bwd"
@@ -35,7 +41,7 @@ REPLACES = "src/repro/kernels/ops.py:511"
 MAX_STATE = 128      # d_state the kernel holds (csrc/ssd_bwd.cu NM)
 MAX_HEADDIM = 64     # headdim the kernel holds (csrc/ssd_bwd.cu PM)
 CHUNK = 64           # tokens per chunk (csrc/ssd_bwd.cu Q)
-BLOCKS_PER_SM = 2    # chunk blocks wanted an SM when choosing the slices
+BLOCKS_PER_SM = 2    # f32 chunk blocks wanted an SM when choosing slices
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
@@ -120,6 +126,29 @@ def slices(r: int, nb: int, s: int, sms: int) -> tuple[int, int]:
     return hs, -(-r // hs)
 
 
+def tc_slices(r: int, nb: int, s: int, sms: int) -> tuple[int, int]:
+    """How the bf16 chunk kernel (one block an SM, its heads one after
+    another) cuts the ``r`` heads of each of ``nb`` B/C rows of ``s``
+    tokens on ``sms`` SMs: (heads per slice, slices).  The cut that needs
+    the fewest rounds of head work, waves of blocks x (heads a block + one
+    for a block's set-up: B, C, C B^T and the first head's loads), among
+    those the fewest slices; none empty."""
+    nch = -(-s // CHUNK)
+    best = None
+    for hs in range(r, 0, -1):
+        sl = -(-r // hs)
+        cost = -(-nb * nch * sl // max(sms, 1)) * (hs + 1)
+        if best is None or cost < best[0]:
+            best = (cost, hs, sl)
+    return best[1], best[2]
+
+
+def cut(r: int, nb: int, s: int, sms: int, dtype) -> tuple[int, int]:
+    """The chunk kernel's (heads per slice, slices) for operands of
+    ``dtype``."""
+    return (tc_slices if dtype == torch.bfloat16 else slices)(r, nb, s, sms)
+
+
 _SMS: dict[int, int] = {}
 
 
@@ -160,6 +189,8 @@ def launch(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
                          f"kernel's {MAX_STATE} / {MAX_HEADDIM}")
     dt = _build.dtype_code(x, B, C, dy)
     x, B, C, dy = (_build.inner_contiguous(t) for t in (x, B, C, dy))
+    if dt == 1:
+        x, B, C, dy = (_rows16(t) for t in (x, B, C, dy))
     log_a = log_a.float()
     st0 = None
     if initial_state is not None:
@@ -178,8 +209,9 @@ def launch(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     _build.int32_sizes(NAME, bh * s * p, nb * s * n)
     r = bh // nb
     nch = -(-s // CHUNK)
-    hs, sl = slices(r, nb, s, _sm_count(dev))
-    st = torch.empty((bh, nch, n, p), dtype=torch.float32, device=dev)
+    hs, sl = cut(r, nb, s, _sm_count(dev), x.dtype)
+    st = torch.empty((bh, nch, state_floats(n, p, x.dtype)),
+                     dtype=torch.float32, device=dev)
     dst = torch.empty_like(st)
     pB = torch.empty((sl, nb, s, n), dtype=torch.float32, device=dev)
     pC = torch.empty_like(pB)
@@ -197,10 +229,19 @@ def launch(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     return dx, dla, dB, dC
 
 
-def scratch_bytes(bh: int, nb: int, s: int, n: int, p: int,
-                  sms: int) -> int:
-    """Bytes of f32 scratch one call writes: the chunk-boundary states
-    and their gradients, and the slices' partial dB / dC."""
+def state_floats(n: int, p: int, dtype=torch.float32) -> int:
+    """Floats of scratch one chunk's state takes: f32 (N, P), or in bf16
+    a hi and a lo bf16 plane of (P, N) rounded up to 16 x 16."""
+    if dtype == torch.bfloat16:
+        return -(-p // 16) * 16 * (-(-n // 16) * 16)
+    return n * p
+
+
+def scratch_bytes(bh: int, nb: int, s: int, n: int, p: int, sms: int,
+                  dtype=torch.float32) -> int:
+    """Bytes of scratch one call writes: the chunk-boundary states and
+    their gradients, and the slices' f32 partial dB / dC."""
     nch = -(-s // CHUNK)
-    _, sl = slices(bh // nb, nb, s, sms)
-    return 4 * (2 * bh * nch * n * p + 2 * sl * nb * s * n)
+    _, sl = cut(bh // nb, nb, s, sms, dtype)
+    return 4 * (2 * bh * nch * state_floats(n, p, dtype)
+                + 2 * sl * nb * s * n)

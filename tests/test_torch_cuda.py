@@ -2080,6 +2080,11 @@ SSD_BWD_CASES = {
     "mamba2_width": (8, 2, 300, 64, 128, False),
     "hymba_width": (10, 2, 257, 64, 16, True),
     "head_a_row": (4, 4, 129, 64, 128, True),
+    # 80 heads a B/C row over 16 chunks: the bf16 chunk kernel's 8 slices
+    # of 10 heads, the state walk's ring refilled past its 3 stages
+    "many_heads": (80, 1, 1000, 64, 128, False),
+    # hymba-1.5b's N 16 and 25 heads a B/C row, an initial state, x strided
+    "n16_init": (50, 2, 520, 64, 16, True),
 }
 
 
