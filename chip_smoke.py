@@ -234,13 +234,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      modules): driven at the paper's sweep sizes with its own launch
      counts; each kernel against its plain version there, at ragged
      shapes and at card shapes (matmul 4096^3 f32 / bf16, dotp 2^26 f32 /
-     bf16, conv2d (64, 112, 112, 3) x (7, 7, 3, 64) f32) within the
-     reassociation bound, each with a planted fault the limit must reject
-     by more than 10x; at the matmul and dotp card shapes kernel and plain
-     version each against the float64 result within its own share; which
-     bf16 matmul shapes take the padding step; dotp's bits repeated;
-     kernel / plain / library times; the core modules on CUDA against the
-     CPU, bit for bit;
+     bf16, conv2d (64, 112, 112, 3) x (7, 7, 3, 64) f32 / bf16) within
+     the reassociation bound, each with a planted fault the limit must
+     reject by more than 10x; at the matmul and dotp card shapes kernel
+     and plain version each against the float64 result within its own
+     share; which bf16 matmul shapes take the padding step; dotp's and
+     conv2d's bits repeated; kernel / plain / library times (conv2d also
+     bf16 and at the sweep's 112 x 112 x 3 -> 8); the core modules on
+     CUDA against the CPU, bit for bit;
   7. summary: the kernel JSON line (with each kernel's ``design``; the
      rows ``<kernel>_hymba``, ``<kernel>_moe``, ``<kernel>_moe30b``,
      ``<kernel>_whisper`` and ``<kernel>_vlm`` are the kernels at hymba's,
@@ -387,7 +388,15 @@ DESIGN = {
     "matmul": "bf16: wgmma+tma, 128x256 tiles, 4-stage ring, a producer "
               "thread and 2 consumer warpgroups; f32: cuda-core fmaf, "
               "cp.async 4-stage ring, 2 blocks an SM",
-    "dotp": "cuda-core f32", "conv2d": "cuda-core f32",
+    "dotp": "cuda-core f32",
+    "conv2d": "cuda-core f32 fmaf, one chain an output: a persistent block "
+              "an SM (12 warps; 4 when 12 would leave SMs idle, as at the "
+              "sweep) per channel block of 32, its weights "
+              "resident; tiles of 48 groups of 16 output columns, the "
+              "halo channel-planar by cp.async into a second buffer while "
+              "a tile computes; a thread 16 columns x 4 channels, its "
+              "R + KW - 1 inputs slid across the taps; stores spread over "
+              "the next tile's FMAs",
     "flash_prefill_chunk_verify": "the flash_prefill_chunk kernel at the "
                                   "speculative verify shape: C = 4 rows "
                                   "(G x C = 12 query rows of a 64-row "
@@ -528,7 +537,13 @@ SASS_RULES = (("ssd", "ssd_tc_kernel", ("HMMA",), (), 2),
               ("ssd_bwd", "ssd_bwd_tc_states", ("HMMA",), (), 1),
               ("ssd_bwd", "ssd_bwd_tc_chunk", ("HMMA",), (), 1),
               ("ssd_bwd", "ssd_bwd_states", (), ("HMMA", "HGMMA"), 1),
-              ("ssd_bwd", "ssd_bwd_chunk", (), ("HMMA", "HGMMA"), 1))
+              ("ssd_bwd", "ssd_bwd_chunk", (), ("HMMA", "HGMMA"), 1),
+              # conv2d_kernel<T, KW, CIN, NW>: KW 7 / 5 / 3 / any, CIN 3 /
+              # any, 12 or 4 warps a block
+              ("conv2d", "conv2d_kernelIf", ("LDGSTS",), ("HMMA", "HGMMA"),
+               10),
+              ("conv2d", "conv2d_kernelI13__nv_bfloat16", (),
+               ("HMMA", "HGMMA"), 10))
 
 
 def sass_check(_build):
@@ -540,7 +555,9 @@ def sass_check(_build):
     the f32 matmul kernels LDGSTS and neither HMMA nor HGMMA, the bf16
     attention backward kernels (dK/dV, dQ) HGMMA and UTMALDG, the f32 ones
     neither HMMA nor HGMMA, the SSD backward's bf16 state walk and chunk
-    kernels HMMA, its f32 ones neither, and none of them spills (STACK and
+    kernels HMMA, its f32 ones neither, the conv2d kernels (every
+    instantiation: f32 staging by cp.async, LDGSTS; bf16 widened at
+    staging) neither HMMA nor HGMMA, and none of them spills (STACK and
     LOCAL 0); their registers are printed."""
     seen = {}
     for name in WGMMA_TMA:
@@ -5107,8 +5124,10 @@ def vector_unit_phase(torch, ops):
     counts set to 0 just before and read just after; 6b holds every kernel
     result against its plain version there, at the ragged shapes of
     ``tests/test_kernels.py`` and at card shapes, each with its planted
-    fault, checks that dotp repeats bit for bit, and times kernel, plain
-    version and library call; 6c compares the core modules' CUDA results
+    fault, checks that dotp and conv2d (f32 and bf16 at the card shape)
+    repeat bit for bit, and times kernel, plain version and library call
+    (conv2d also in bf16 and at the sweep's 112 x 112 x 3 -> 8 shape,
+    printed beside the JSON's f32 row); 6c compares the core modules' CUDA results
     with their CPU results, exactly.  Returns ({kernel name: record},
     the drive's launch counts)."""
     import torch.nn.functional as F
@@ -5285,24 +5304,54 @@ def vector_unit_phase(torch, ops):
         else:
             extra.append(r)
         del a, b
-    x, w = rn(64, 112, 112, 3), rn(7, 7, 3, 64)
-    err = cv_check("(64, 112, 112, 3) x (7, 7, 3, 64) f32", x, w)
-    x_cl = x.permute(0, 3, 1, 2)                  # NCHW, channels-last
-    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    lib_out = F.conv2d(x_cl, w_cl).permute(0, 2, 3, 1)
-    lib_err = (lib_out - P.conv2d(x, w)).abs().max().item()
-    print(f"  F.conv2d (channels-last, the yardstick) vs plain: max |diff| "
-          f"= {lib_err:.3e}")
-    ho = 112 - 6
-    rec["conv2d"] = dict(
-        module=conv2d, label="conv2d f32",
-        max_abs_err=max(errs["conv2d"] + [err]),
-        ms=timed(lambda: conv2d.launch(x, w), 20),
-        plain_ms=timed(lambda: P.conv2d(x, w), 3),
-        library_ms=timed(lambda: F.conv2d(x_cl, w_cl), 20),
-        bytes=4 * (x.numel() + w.numel() + 64 * ho * ho * 64),
-        flops=2 * 64 * ho * ho * 64 * 7 * 7 * 3, flop_rate=F32_FLOP_PER_S)
-    del x, w, x_cl, w_cl, lib_out
+    def cv_rec(label, x, w, err, iters):
+        """conv2d's record at x (N, H, W, Cin) x w: kernel, plain and
+        F.conv2d (channels-last, cuDNN, no TF32: the yardstick) times."""
+        n, h, wd, cin = x.shape
+        kh, kw, _, cout = w.shape
+        ho, wo = h - kh + 1, wd - kw + 1
+        x_cl = x.permute(0, 3, 1, 2)              # NCHW, channels-last
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return dict(
+            module=conv2d, label=label, max_abs_err=err,
+            ms=timed(lambda: conv2d.launch(x, w), iters),
+            plain_ms=timed(lambda: P.conv2d(x, w), 3),
+            library_ms=timed(lambda: F.conv2d(x_cl, w_cl), iters),
+            bytes=x.element_size() * (x.numel() + w.numel()
+                                      + n * ho * wo * cout),
+            flops=2 * n * ho * wo * cout * kh * kw * cin,
+            flop_rate=(F32_FLOP_PER_S if x.dtype == torch.float32
+                       else BF16_FLOP_PER_S))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = names[dtype]
+        x, w = rn(64, 112, 112, 3, dtype=dtype), rn(7, 7, 3, 64, dtype=dtype)
+        got = ops.conv2d(x, w)
+        err = cv_check(f"(64, 112, 112, 3) x (7, 7, 3, 64) {dn}", x, w, got)
+        again = conv2d.launch(x.clone(), w.clone())
+        same = bool(torch.equal(got.view(torch.uint8),
+                                again.view(torch.uint8)))
+        print(f"  conv2d card shape {dn}: two launches (the second on "
+              f"copies) give the same bits: {same}")
+        assert same
+        del got, again
+        if dtype == torch.float32:
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib_err = (F.conv2d(x_cl, w_cl).permute(0, 2, 3, 1)
+                       - P.conv2d(x, w)).abs().max().item()
+            print(f"  F.conv2d (channels-last, the yardstick) vs plain: "
+                  f"max |diff| = {lib_err:.3e}")
+            del x_cl, w_cl
+            rec["conv2d"] = cv_rec("conv2d f32", x, w,
+                                   max(errs["conv2d"] + [err]), 20)
+        else:
+            extra.append(cv_rec("conv2d bf16", x, w, err, 20))
+        del x, w
+    x, w = cv_in[-1]                      # the sweep's 112 x 112 x 3 -> 8
+    extra.append(cv_rec("conv2d sweep 112", x, w, errs["conv2d"][2], 50))
     print("phase 6b: times (card shapes; bf16 rows beside the JSON's f32 "
           "ones)")
     for r in extra:

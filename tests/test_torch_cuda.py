@@ -678,6 +678,79 @@ def test_cuda_conv2d_matches_plain(cuda, dtype, xs, ws):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xs,ws", [
+    ((64, 112, 112, 3), (7, 7, 3, 64)), ((1, 5, 600, 3), (3, 3, 3, 24)),
+    ((1, 30, 30, 4), (21, 21, 4, 64)), ((40, 7, 9, 2), (7, 2, 2, 40)),
+    ((3, 20, 11, 6), (1, 1, 6, 9))])
+def test_cuda_conv2d_bits_repeat(cuda, dtype, xs, ws):
+    """Two launches, the second on copies, give the same bits (one fmaf
+    chain an output, no atomics), within the limit of the plain version:
+    the card shape, and shapes of the generic paths (3 column tiles, 4
+    passes over the channels at one block an SM, tiles across images of
+    one output row, a 1 x 1 window over 2 channel blocks)."""
+    from repro_torch.kernels import conv2d
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(xs, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(ws, generator=gen, device=cuda).to(dtype)
+    got = conv2d.launch(x, w)
+    again = conv2d.launch(x.clone(), w.clone())
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    assert _reassoc_within_limit(got, ops.PLAIN.conv2d(x, w),
+                                 conv2d.error_bound(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hw", [(1, 32), (1, 64), (1, 112), (3, 50)])
+def test_cuda_conv2d_cout8_matches_plain(cuda, dtype, n, hw):
+    """The paper's sweep (7 x 7 x 3 -> 8): two channel groups of 4 a
+    block, 16 pixel groups a warp, against the plain version."""
+    from repro_torch.kernels import conv2d
+    assert conv2d.plan(n, hw, hw, 3, 7, 7, 8).cgb == 2
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((n, hw, hw, 3), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((7, 7, 3, 8), generator=gen, device=cuda).to(dtype)
+    got = ops.conv2d(x, w)
+    assert got.dtype == dtype and got.shape == (n, hw - 6, hw - 6, 8)
+    assert _reassoc_within_limit(got, ops.PLAIN.conv2d(x, w),
+                                 conv2d.error_bound(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", [4, 12])
+@pytest.mark.parametrize("xs,ws", [((1, 112, 112, 3), (7, 7, 3, 8)),
+                                   ((2, 40, 37, 20), (7, 7, 20, 70))])
+def test_cuda_conv2d_block_sizes_same_bits(cuda, xs, ws, warps):
+    """Both block sizes the kernel is built for give the bits of
+    ``conv2d.launch``'s own plan where they cut the input channels into the
+    same passes (one fmaf chain an output in the order pass, ky, ci, kx,
+    whatever the tiles), and stay within the plain version's limit where
+    they do not: the sweep's 112 shape (two passes at 12 warps, one at
+    4), and 20 channels over 2 images and 3 channel blocks."""
+    from repro_torch.kernels import _build, conv2d
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(xs, generator=gen, device=cuda)
+    w = torch.randn(ws, generator=gen, device=cuda)
+    want = conv2d.launch(x, w)
+    n, h, wd, cin = xs
+    kh, kw, _, cout = ws
+    sms = conv2d._sm_count(x.device)
+    own = conv2d.plan(n, h, wd, cin, kh, kw, cout, sms)
+    p = conv2d.plan_warps(n, h, wd, cin, kh, kw, cout, sms, warps)
+    y = torch.empty_like(want)
+    fn = _build.bind(conv2d.NAME, "conv2d_launch", conv2d._ARGS)
+    _build.check(fn(0, _build.ptr(x), _build.ptr(w), _build.ptr(y), n, h,
+                    wd, cin, kh, kw, cout, *conv2d.launch_args(p),
+                    int(y.data_ptr() % 16 == 0 and cout % 8 == 0),
+                    _build.stream_of(x)), conv2d.NAME)
+    if p.cc == own.cc:
+        assert torch.equal(y, want)
+    assert _reassoc_within_limit(y, ops.PLAIN.conv2d(x, w),
+                                 conv2d.error_bound(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sk", [1, 128, 129, 1121])
 def test_cuda_flash_decode_one_launch_counters_and_repeat(cuda, dtype, sk):
     """One launch a call: rows of length 1, parked (2^30 + 1) and full
