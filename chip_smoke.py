@@ -26,7 +26,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      S 1024 / 768 / 1000, with and without an initial state, and the f32
      state it carries between its two passes) and at a small f32 shape,
      within the stated limit, each with a planted fault the limit must
-     reject; kernel / plain / bound / library-call times; flash_decode's
+     reject; kernel / plain / bound / library-call times (each bound
+     from the kernel module's ``cost()``: the work's bytes and products at
+     the H100's data-sheet rates, ``core/roofline.py``); flash_decode's
      arrival counters read 0 after its calls, and its CTAs an SM;
      chunk row j must equal flash_decode at pos = prefix + j bit for bit
      (bf16, full width), and at the speculative verify shape (C = 4 rows
@@ -242,7 +244,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
      conv2d's bits repeated; kernel / plain / library times (conv2d also
      bf16 and at the sweep's 112 x 112 x 3 -> 8); the core modules on
      CUDA against the CPU, bit for bit;
-  7. summary: the kernel JSON line (with each kernel's ``design``; the
+  7a. analysis (after the restarts): llama3.2-3b's training step (B 4 x
+     S 1024, remat full) and an eager decode step at 4 slots over 1024
+     arena rows, each traced under ``core/cost.py``'s counting mode on the
+     card, its counts equal to the meta trace's of the same shapes
+     exactly; each step timed with the default kernels (CUDA events): the
+     roofline terms (``launch/dryrun.py``, ``core/roofline.py``'s
+     data-sheet constants) at most the measured time, the measured
+     roofline fraction printed, the training trace's peak live bytes
+     within PEAK_MARGIN of ``torch.cuda.max_memory_allocated``;
+  7b. the four examples (``repro_torch.examples``: quickstart, serve_lm,
+     vector_unit_demo, train_lm at 60 steps) on the card;
+  8. summary: the kernel JSON line (with each kernel's ``design``; the
      rows ``<kernel>_hymba``, ``<kernel>_moe``, ``<kernel>_moe30b``,
      ``<kernel>_whisper`` and ``<kernel>_vlm`` are the kernels at hymba's,
      qwen2-moe's, qwen3-moe's, whisper's and llava's shapes, their
@@ -266,9 +279,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12           # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version, element by element.  f32: JAX's own serving
 # tolerance (tests/test_serving.py:195).  bf16: both versions accumulate in
 # f32 and round the result to bf16 once; their f32 results differ far below
@@ -851,12 +861,9 @@ def kernel_checks(torch, ops, cfg):
     lib_ms = timed(lambda: sdpa(qs, arena_k[nxt()].transpose(1, 2),
                                 arena_v[layer[0]].transpose(1, 2),
                                 attn_mask=mask), 20)
-    live = int(torch.clamp(lens, max=smax).sum())
-    nbytes = 2 * (2 * q.numel() + 2 * live * kvh * d)
-    flops = 4 * live * h * d
     rec["flash_decode"] = dict(
         module=flash_decode, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bytes=nbytes, flops=flops)
+        library_ms=lib_ms, cost=flash_decode.cost(q, arena_k[0], lens))
 
     # -- flash_prefill_chunk at a chunk's shapes -----------------------------
     c = 512
@@ -901,13 +908,10 @@ def kernel_checks(torch, ops, cfg):
     lib_ms = timed(lambda: sdpa(qt, arena_k[nxt(), :1].transpose(1, 2),
                                 arena_v[layer[0], :1].transpose(1, 2),
                                 attn_mask=cmask), 20)
-    pairs = int(cmask.sum())
-    rows = 512 + c
     rec["flash_prefill_chunk"] = dict(
         module=flash_prefill_chunk, max_abs_err=max(errs), ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * q.numel() + 2 * rows * kvh * d),
-        flops=4 * pairs * h * d, pin=pin)
+        cost=flash_prefill_chunk.cost(q, arena_k[0], pf), pin=pin)
     rec["flash_prefill_chunk_verify"] = verify_shape_check(
         torch, ops, h, arena_k, arena_v, nxt)
 
@@ -925,9 +929,7 @@ def kernel_checks(torch, ops, cfg):
     lib_ms = timed(lambda: sdpa(q4, k4, v4, is_causal=True), 20)
     rec["flash_attention"] = dict(
         module=flash_attention, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms,
-        bytes=2 * (2 * qb.numel() + kb.numel() + vb.numel()),
-        flops=4 * h * d * s * (s + 1) // 2)
+        library_ms=lib_ms, cost=flash_attention.cost(q4, k4, v4))
     del arena_k, arena_v
     return rec
 
@@ -996,12 +998,10 @@ def verify_shape_check(torch, ops, h, arena_k, arena_v, nxt):
 
     ms, plain_ms, lib_ms = timed(kernel, 50), timed(plain, 5), \
         timed(library, 50)
-    rows = p0 + c
     return dict(module=flash_prefill_chunk, label=f"fpc verify C={c}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms,
-                bytes=2 * (2 * q.numel() + 2 * rows * kvh * d),
-                flops=4 * int(cmask.sum()) * h * d, pin=pin)
+                cost=flash_prefill_chunk.cost(q, ks, pf), pin=pin)
 
 
 def scaled_kernel_checks(torch, ops, cfg):
@@ -1069,11 +1069,7 @@ def scaled_kernel_checks(torch, ops, cfg):
     lens = torch.tensor([1088, 832, PARKED_POS + 1, 1], device=dev)
     q = torch.randn((slots, h, d), generator=gen, device=dev).bfloat16()
     qc = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
-    live = int(torch.clamp(lens, max=smax).sum())
-    rows = 512 + c
     qpos = 512 + torch.arange(c, device=dev)
-    pairs = int((torch.arange(smax, device=dev)[None, :]
-                 <= qpos[:, None]).sum())
     out = {}
     for fmt in ("int8", "fp8"):
         layers = [arena(fmt, (slots, smax, kvh, d)) for _ in range(nl)]
@@ -1140,19 +1136,17 @@ def scaled_kernel_checks(torch, ops, cfg):
         plain_c = timed(lambda: P.flash_prefill_chunk(
             qc, ak[nxt(), :1], av[layer[0], :1], prefix=pf,
             k_scale=aks[layer[0], :1], v_scale=avs[layer[0], :1]), 5)
-        esize = ak.element_size()
         # each input read once, each output written once: q and o in bf16,
         # the live K/V rows at one byte an element, one f32 scale per row
         # and KV head for K and for V
         out[fmt] = {
             "flash_decode_scaled": dict(
                 err=err_d, ms=ms_d, plain_ms=plain_d,
-                bytes=2 * 2 * q.numel() + 2 * live * kvh * (d * esize + 4),
-                flops=4 * live * h * d),
+                cost=flash_decode.cost(q, ak[0], lens, k_scale=aks[0])),
             "flash_prefill_chunk_scaled": dict(
                 err=max(errs), ms=ms_c, plain_ms=plain_c,
-                bytes=2 * 2 * qc.numel() + 2 * rows * kvh * (d * esize + 4),
-                flops=4 * pairs * h * d)}
+                cost=flash_prefill_chunk.cost(qc, ak[0], pf,
+                                              k_scale=aks[0]))}
         del ak, av, aks, avs
     rec = {}
     for name, module in (("flash_decode_scaled", flash_decode),
@@ -1161,8 +1155,8 @@ def scaled_kernel_checks(torch, ops, cfg):
         rec[name] = dict(
             module=module, label=name, replaces=SCALED_REPLACES[name],
             max_abs_err=max(out[f][name]["err"] for f in out), ms=i8["ms"],
-            plain_ms=i8["plain_ms"], library_ms=None, bytes=i8["bytes"],
-            flops=i8["flops"], pin=True,
+            plain_ms=i8["plain_ms"], library_ms=None, cost=i8["cost"],
+            pin=True,
             formats={f: {k: out[f][name][k] for k in ("ms", "plain_ms")}
                      for f in out})
         print(f"  {name}: kernel ms int8 {out['int8'][name]['ms']:.4f}, fp8 "
@@ -1250,21 +1244,6 @@ def donor_checks(torch, ops, cfg):
                     share_len=torch.tensor(ln, dtype=torch.int32,
                                            device=dev))
 
-    def unique_rows(lens, tab):
-        """The arena rows the decode batches of ``lens`` read under
-        ``tab``, each (slot, row) once: batch b reads [0, min(len,
-        share_len)) of its donor and [share_len, len) of its own slot, so
-        rows shared by several forks count once."""
-        pos = torch.arange(int(lens.max()), device=dev)
-        seen = torch.zeros((lens.numel(), pos.numel()), dtype=torch.bool,
-                           device=dev)
-        for b in range(lens.numel()):
-            n = int(lens[b])
-            src, ln = int(tab["share_src"][b]), int(tab["share_len"][b])
-            seen[src] |= pos < min(n, ln)
-            seen[b] |= (pos >= ln) & (pos < n)
-        return int(seen.sum())
-
     def bit_check(label, fn, ts, owners, src, length):
         """fn(arena, table or None): with the table over the poisoned
         arena == without it over the shared arena, bit for bit."""
@@ -1334,11 +1313,7 @@ def donor_checks(torch, ops, cfg):
     qc = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
     lens = torch.tensor([1088, 1060, 832, 1024], device=dev)
     pf, slot = torch.tensor([512], device=dev), torch.tensor([2], device=dev)
-    live = int(lens.sum())
-    rows = 512 + c
     qpos = 512 + torch.arange(c, device=dev)
-    pairs = int((torch.arange(smax, device=dev)[None, :]
-                 <= qpos[:, None]).sum())
     out = {}
     for fmt in ("bf16", "int8", "fp8"):
         layers = [arena(fmt, (slots, smax, kvh, d)) for _ in range(nl)]
@@ -1431,7 +1406,6 @@ def donor_checks(torch, ops, cfg):
             return timed(fn, iters)
 
         tab528 = table(slots, [1, 2, 3], 0, SHARE_LENS[-1])
-        read = unique_rows(lens, tab528)
         times = {"decode": {"table": [], "none": []},
                  "chunk": {"table": [], "none": []}}
         for i in range(2):
@@ -1446,23 +1420,20 @@ def donor_checks(torch, ops, cfg):
         plain_c = timed(lambda: P.flash_prefill_chunk(
             qc, ts[0], ts[1], prefix=pf, slots=slot, **sc(ts[2], ts[3]),
             **tab1), 5)
-        esize = A[0].element_size()
-        scale_bytes = 0 if A[2] is None else 4
+        # each (slot, row) the forks read counted once
         out[fmt] = {
             "flash_decode_donor": dict(
                 err=max(errs_d), ms=statistics.mean(times["decode"]["table"]),
                 none_ms=statistics.mean(times["decode"]["none"]),
                 plain_ms=plain_d,
-                bytes=2 * 2 * q.numel()
-                + 2 * read * kvh * (d * esize + scale_bytes),
-                flops=4 * live * h * d),
+                cost=flash_decode.cost(q, ts[0], lens, k_scale=ts[2],
+                                       **tab528)),
             "flash_prefill_chunk_donor": dict(
                 err=max(errs_c), ms=statistics.mean(times["chunk"]["table"]),
                 none_ms=statistics.mean(times["chunk"]["none"]),
                 plain_ms=plain_c,
-                bytes=2 * 2 * qc.numel()
-                + 2 * rows * kvh * (d * esize + scale_bytes),
-                flops=4 * pairs * h * d)}
+                cost=flash_prefill_chunk.cost(qc, ts[0], pf, k_scale=ts[2],
+                                              **tab1))}
         for name, r in out[fmt].items():
             print(f"  {name} ({fmt}): {r['ms']:.4f} ms with the table vs "
                   f"{r['none_ms']:.4f} ms without (2 alternating pairs: "
@@ -1480,7 +1451,7 @@ def donor_checks(torch, ops, cfg):
             module=module, label=name, max_abs_err=max(
                 out[f][name]["err"] for f in out),
             ms=b16["ms"], plain_ms=b16["plain_ms"], library_ms=None,
-            bytes=b16["bytes"], flops=b16["flops"], pin=True,
+            cost=b16["cost"], pin=True,
             formats={f: {k: out[f][name][k]
                          for k in ("ms", "none_ms", "plain_ms")}
                      for f in out})
@@ -1553,26 +1524,16 @@ def ssd_checks(torch, ops, cfg):
 
     ms = timed(lambda: ssd.launch(*nxt()), 20)
     plain_ms = timed(lambda: P.ssd(*nxt(), chunk=s_cfg.chunk), 5)
-    nbytes = (2 * nh * s * hd * 2          # x in, y out (bf16)
-              + nh * s * 4                 # log_a (f32)
-              + 2 * s * n * 2              # one group's B and C (bf16)
-              + nh * n * hd * 4)           # final state out (f32)
-    # the kernel's schedule (64-token inner chunks, csrc/ssd.cu's Q), the
-    # causal half only: C.B^T and scores.X over the pairs j <= i of each
-    # inner chunk, carry-in C.state and state update B^T.X per token
-    q = 64
-    full, rem = divmod(s, q)
-    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
-    flops = nh * (2 * pairs * (n + hd) + 2 * 2 * s * n * hd)
+    work = ssd.cost(*sets[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g, cpp = ssd.pieces(nh, s, sms)
     print(f"  ssd bf16 at {nh} rows x S={s} on {sms} SMs: {g} pieces of "
           f"{cpp} chunks a row ({(g - 1) * nh} blocks in pass 1, {g * nh} "
           f"in pass 2); f32 state carried between the passes: "
           f"{ssd.carried_bytes(nh, s, sms) / 1e6:.2f} MB, beside "
-          f"{nbytes / 1e6:.2f} MB of operands and results")
+          f"{work.bytes / 1e6:.2f} MB of operands and results")
     return dict(module=ssd, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=None, cost=work)
 
 
 def hybrid_kernel_checks(torch, ops, cfg):
@@ -1645,12 +1606,10 @@ def hybrid_kernel_checks(torch, ops, cfg):
     ms = timed(lambda: flash_attention.launch(*nset(), window=win), 20)
     plain_ms = timed(lambda: P.attention(*nset(), window=win), 5)
     lib_ms = timed(lambda: sdpa(*nset(), attn_mask=amask), 20)
-    pairs = int(amask.sum())
     rec["flash_attention_hymba"] = dict(
         module=flash_attention, label="fa hymba w=1024", max_abs_err=max(
             errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
-        flops=4 * pairs * h * d)
+        cost=flash_attention.cost(*sets[0], window=win))
 
     # -- flash_decode: the decode step ---------------------------------------
     arena_k = rn(nl, slots, smax, kvh, d)
@@ -1693,8 +1652,7 @@ def hybrid_kernel_checks(torch, ops, cfg):
     rec["flash_decode_hymba"] = dict(
         module=flash_decode, label="fd hymba w=1024", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
-        flops=4 * live * h * d)
+        cost=flash_decode.cost(q, arena_k[0], lens, window=win))
     print(f"  flash_decode window={win}: {live} visible keys of "
           f"{int(torch.clamp(lens, max=smax).sum())} live rows; arrival "
           f"counters 0 after the calls")
@@ -1746,12 +1704,11 @@ def hybrid_kernel_checks(torch, ops, cfg):
     lib_ms = timed(lambda: sdpa(qt, arena_k[nxt(), 2:3].transpose(1, 2),
                                 arena_v[layer[0], 2:3].transpose(1, 2),
                                 attn_mask=cmask), 20)
-    rows = int(cmask.any(0).sum())
     rec["flash_prefill_chunk_hymba"] = dict(
         module=flash_prefill_chunk, label="fpc hymba w=1024",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * qc.numel() + 2 * rows * kvh * d),
-        flops=4 * int(cmask.sum()) * h * d, pin=all(pins.values()))
+        cost=flash_prefill_chunk.cost(qc, arena_k[0], pf, window=win),
+        pin=all(pins.values()))
     del arena_k, arena_v
 
     # -- ssd: the SSD branch, N = 16 ----------------------------------------
@@ -1798,15 +1755,9 @@ def hybrid_kernel_checks(torch, ops, cfg):
 
     ms = timed(lambda: ssd.launch(*nssd()), 20)
     plain_ms = timed(lambda: P.ssd(*nssd(), chunk=s_cfg.chunk), 5)
-    nbytes = (2 * nh * s * hd * 2 + nh * s * 4 + 2 * s * n * 2
-              + nh * n * hd * 4)
-    q64 = 64
-    full, rem = divmod(s, q64)
-    pairs = full * q64 * (q64 + 1) // 2 + rem * (rem + 1) // 2
     rec["ssd_hymba"] = dict(
         module=ssd, label=f"ssd hymba N={n}", max_abs_err=max(errs), ms=ms,
-        plain_ms=plain_ms, library_ms=None, bytes=nbytes,
-        flops=nh * (2 * pairs * (n + hd) + 2 * 2 * s * n * hd))
+        plain_ms=plain_ms, library_ms=None, cost=ssd.cost(*sets[0]))
     return rec
 
 
@@ -1875,8 +1826,7 @@ def moe_kernel_checks(torch, ops, cfg, suffix, prompts, gen):
         ms=timed(lambda: flash_attention.launch(*nset()), 20),
         plain_ms=timed(lambda: P.attention(*nset()), 5),
         library_ms=timed(lambda: sdpa(*nset(), is_causal=True), 20),
-        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
-        flops=4 * h * d * s * (s + 1) // 2)
+        cost=flash_attention.cost(*sets[0]))
     del sets
 
     # -- flash_decode: the decode step ---------------------------------------
@@ -1908,12 +1858,10 @@ def moe_kernel_checks(torch, ops, cfg, suffix, prompts, gen):
     lib_ms = timed(lambda: sdpa(qs, arena_k[nxt()].transpose(1, 2),
                                 arena_v[layer[0]].transpose(1, 2),
                                 attn_mask=mask), 20)
-    live = int(torch.clamp(lens, max=smax).sum())
     rec[f"flash_decode_{suffix}"] = dict(
         module=flash_decode, label=f"fd {suffix} G={g}", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
-        flops=4 * live * h * d)
+        cost=flash_decode.cost(q, arena_k[0], lens))
     if g == 1:
         q8 = rn(slots, 8 * kvh, d)
         ms8 = timed(lambda: flash_decode.launch(q8, arena_k[nxt()],
@@ -1963,26 +1911,25 @@ def moe_kernel_checks(torch, ops, cfg, suffix, prompts, gen):
     rec[f"flash_prefill_chunk_{suffix}"] = dict(
         module=flash_prefill_chunk, label=f"fpc {suffix} C={c}",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=2 * (2 * qc.numel() + 2 * (p0 + c) * kvh * d),
-        flops=4 * int(cmask.sum()) * h * d, pin=all(pins))
+        cost=flash_prefill_chunk.cost(qc, arena_k[0], pf), pin=all(pins))
     del arena_k, arena_v
     return rec
 
 
 def bound(r):
-    """Fill ``bound_ms`` / ``bound_by`` of a kernel record and print it
-    (operations at the record's ``flop_rate``, bf16's by default)."""
-    t_bytes = r["bytes"] / HBM_BYTES_PER_S
-    t_ops = r["flops"] / r.get("flop_rate", BF16_FLOP_PER_S)
-    r["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    """Fill ``bound_ms`` / ``bound_by`` of a kernel record from its
+    ``cost`` (the kernel module's ``cost()``: the work's bytes and
+    operations, and the peak of its type) and print it."""
+    work = r["cost"]
+    r["bound_ms"] = work.bound_s * 1e3
+    r["bound_by"] = work.bound_by
     lib = ("none" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
     print(f"  {r.get('label', r['module'].NAME):<20} kernel "
           f"{r['ms']:.4f} ms | plain "
           f"{r['plain_ms']:.4f} ms | library {lib} | bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
-          f"{r['bytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.3f} GFLOP)")
+          f"{work.bytes / 1e6:.2f} MB, {work.flops / 1e9:.3f} GFLOP)")
 
 
 SERVE_ARGS = ["--no-reduced", "--requests", "4", "--prompt-len", "1024",
@@ -2962,6 +2909,7 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
     chunk steps' device time per wave, the snapshot bytes and copy time
     (mamba2), the graph pools with sharing on and off.  Returns [launch
     counts of each sharing run]."""
+    from repro_torch.core import roofline
     from repro_torch.runtime.serving import Request
     t_phase = time.perf_counter()
     cfg = bundle.cfg
@@ -3079,7 +3027,7 @@ def shared_prefix_runs(torch, ops, serve, bundle, params, gen=64, pairs=2):
                   f"snapshots in 2 waves, each {nbytes} bytes "
                   f"({nbytes / 1e6:.1f} MB: SSD state + conv tail, "
                   f"{cfg.n_layers} layers); one copy {snap_ms:.4f} ms on the "
-                  f"card (bound {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms:"
+                  f"card (bound {2 * nbytes / roofline.HBM_BW * 1e3:.4f} ms:"
                   f" read and write once)")
             summary.append(f"snapshot {nbytes / 1e6:.1f} MB, "
                            f"{snap_ms:.4f} ms a copy")
@@ -4693,15 +4641,16 @@ def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
             fault=("one patch row fewer: key 0 dropped",
                    P.attention(q, k[:, :, 1:], v[:, :, 1:]))))
     s = max(prompts)
-    nset = rotation([(rn(1, h, s, d), rn(1, kvh, s, d), rn(1, kvh, s, d))
-                     for _ in range(3)])
+    sets = [(rn(1, h, s, d), rn(1, kvh, s, d), rn(1, kvh, s, d))
+            for _ in range(3)]
+    nset = rotation(sets)
     rec["flash_attention_vlm"] = dict(
         module=flash_attention, label=f"fa vlm S={s}", max_abs_err=max(errs),
         ms=timed(lambda: flash_attention.launch(*nset()), 20),
         plain_ms=timed(lambda: P.attention(*nset()), 3),
         library_ms=timed(lambda: sdpa(*nset(), is_causal=True), 20),
-        bytes=2 * (2 * s * h * d + 2 * s * kvh * d),
-        flops=4 * h * d * s * (s + 1) // 2)
+        cost=flash_attention.cost(*sets[0]))
+    del sets
     del nset
 
     slots, smax, nl = 4, s + 64 + 1, 8
@@ -4741,7 +4690,6 @@ def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
 
     ms, plain_ms, lib_ms = (timed(kernel, 50), timed(plain, 5),
                             timed(library, 20))
-    live = int(torch.clamp(lens, max=smax).sum())
     # int8 arena: the scaled branch at G = 7
     (kq, ks), (vq, vs) = (kvf.quantize(kvf.get("int8"), t.float())
                           for t in (arena_k, arena_v))
@@ -4765,8 +4713,7 @@ def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
     rec["flash_decode_vlm"] = dict(
         module=flash_decode, label=f"fd vlm G={g}", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, int8_ms=i8_ms,
-        bytes=2 * (2 * q.numel() + 2 * live * kvh * d),
-        flops=4 * live * h * d)
+        cost=flash_decode.cost(q, arena_k[0], lens))
     del arena_k, arena_v, kq, vq, ks, vs
 
     # -- whisper-large-v3 ----------------------------------------------------
@@ -4800,17 +4747,17 @@ def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
     print("  cross prefill (K/V L2-resident): " + ", ".join(
         f"Sq={sq} kernel {a:.4f} ms, SDPA {b:.4f} ms"
         for sq, (a, b) in cross_ms.items()))
-    nset = rotation([(rn(1, h, se, d), rn(1, kvh, se, d), rn(1, kvh, se, d))
-                     for _ in range(3)])
+    sets = [(rn(1, h, se, d), rn(1, kvh, se, d), rn(1, kvh, se, d))
+            for _ in range(3)]
+    nset = rotation(sets)
     rec["flash_attention_whisper"] = dict(
         module=flash_attention, label=f"fa whisper S={se}",
         max_abs_err=max(errs),
         ms=timed(lambda: flash_attention.launch(*nset(), causal=False), 20),
         plain_ms=timed(lambda: P.attention(*nset(), causal=False), 3),
         library_ms=timed(lambda: sdpa(*nset()), 20),
-        bytes=2 * (2 * se * h * d + 2 * se * kvh * d),
-        flops=4 * h * d * se * se, cross_ms=cross_ms)
-    del nset
+        cost=flash_attention.cost(*sets[0], causal=False), cross_ms=cross_ms)
+    del nset, sets
 
     ck, cv = rn(nl, slots, se, kvh, d), rn(nl, slots, se, kvh, d)
     q = rn(slots, h, d)
@@ -4842,8 +4789,7 @@ def vlm_encdec_kernel_checks(torch, ops, llava, whisper):
         module=flash_decode, label="fd whisper cross", max_abs_err=err,
         ms=timed(cross_kernel, 50), plain_ms=timed(cross_plain, 5),
         library_ms=timed(cross_library, 20),
-        bytes=2 * (2 * q.numel() + 2 * slots * se * kvh * d),
-        flops=4 * slots * se * h * d)
+        cost=flash_decode.cost(q, ck[0]))
     del ck, cv
     return rec
 
@@ -4999,7 +4945,8 @@ def family_summary(name, smi, runs, window, wbusy, params, mixed, t_start):
                   params.items() if key not in ("embed", "pos_embed",
                                                 "enc_layers", "enc_norm")
                   for t in _leaves({key: tree}))
-    floor = 1e3 * weights / HBM_BYTES_PER_S
+    from repro_torch.core import roofline
+    floor = 1e3 * weights / roofline.HBM_BW
     print(f"phase 4: {name} summary ({smi}): monolithic "
           f"{sum(o.size for o in out.values()) / dt:.1f} tok/s, TTFT ms "
           f"{[round(1e3 * t, 1) for t in ttft]}; captured greedy decode "
@@ -5007,7 +4954,7 @@ def family_summary(name, smi, runs, window, wbusy, params, mixed, t_start):
           f"{statistics.median(window['captured']):.3f} ms wall, weight "
           f"read floor {floor:.3f} ms (the {weights / 2 ** 30:.2f} GiB a "
           f"decode step reads, at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); sampled mix "
+          f"{roofline.HBM_BW / 1e12:.2f} TB/s); sampled mix "
           + ", ".join(f"{mode} {r[0]:.1f} tok/s" for mode, r in mixed.items())
           + f"; phases 4-5 in {time.perf_counter() - t_start:.1f} s")
 
@@ -5266,9 +5213,7 @@ def vector_unit_phase(torch, ops):
                  ms=timed(lambda: matmul.launch(a, b), 10),
                  plain_ms=timed(lambda: P.matmul(a, b), 10),
                  library_ms=timed(lambda: torch.matmul(a, b), 10),
-                 bytes=3 * s * s * a.element_size(), flops=2 * s ** 3,
-                 flop_rate=(F32_FLOP_PER_S if dtype == torch.float32
-                            else BF16_FLOP_PER_S))
+                 cost=matmul.cost(a, b))
         if dtype == torch.float32:
             rec["matmul"] = r
         else:
@@ -5296,9 +5241,7 @@ def vector_unit_phase(torch, ops):
                  max_abs_err=max(errs["dotp"] + [err]),
                  ms=timed(lambda: dotp.launch(a, b), 50),
                  plain_ms=timed(lambda: P.dotp(a, b), 20), library_ms=lib,
-                 bytes=2 * n * a.element_size() + 4, flops=2 * n,
-                 flop_rate=(F32_FLOP_PER_S if dtype == torch.float32
-                            else BF16_FLOP_PER_S))
+                 cost=dotp.cost(a, b))
         if dtype == torch.float32:
             rec["dotp"] = r
         else:
@@ -5307,9 +5250,6 @@ def vector_unit_phase(torch, ops):
     def cv_rec(label, x, w, err, iters):
         """conv2d's record at x (N, H, W, Cin) x w: kernel, plain and
         F.conv2d (channels-last, cuDNN, no TF32: the yardstick) times."""
-        n, h, wd, cin = x.shape
-        kh, kw, _, cout = w.shape
-        ho, wo = h - kh + 1, wd - kw + 1
         x_cl = x.permute(0, 3, 1, 2)              # NCHW, channels-last
         w_cl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -5318,11 +5258,7 @@ def vector_unit_phase(torch, ops):
             ms=timed(lambda: conv2d.launch(x, w), iters),
             plain_ms=timed(lambda: P.conv2d(x, w), 3),
             library_ms=timed(lambda: F.conv2d(x_cl, w_cl), iters),
-            bytes=x.element_size() * (x.numel() + w.numel()
-                                      + n * ho * wo * cout),
-            flops=2 * n * ho * wo * cout * kh * kw * cin,
-            flop_rate=(F32_FLOP_PER_S if x.dtype == torch.float32
-                       else BF16_FLOP_PER_S))
+            cost=conv2d.cost(x, w))
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = names[dtype]
@@ -5521,7 +5457,6 @@ def train_args(arch, batch, seq):
             "--seq", str(seq), "--log-every", "1"]
 
 
-TRAIN_PEAK = 989e12              # H100 SXM dense bf16, the FLOP share's base
 # Phase 5t: one step's gradients, kernel path against plain path in f32,
 # per leaf max |kernel - plain| / max |plain|, and the loss relative.  The
 # first reading (NVIDIA H100 80GB HBM3, 700.00 W): gradients
@@ -5543,13 +5478,6 @@ def bwd_excess(got, want):
                + BWD_RTOL * w32.pow(2).mean().sqrt())
         out = max(out, ((g32 - w32).abs() / lim).max().item())
     return out
-
-
-def window_pairs(s, window=None) -> int:
-    """(query, key) pairs a causal S x S attention visits, within
-    ``window`` keys of the query when one is given."""
-    w = s if window is None else min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
 
 
 def train_kernel_checks(torch, ops):
@@ -5618,12 +5546,10 @@ def train_kernel_checks(torch, ops):
         fwd_ms = timed(lambda: sdpa(qs, ks, vs, **lib), 10)
         both_ms = timed(lambda: torch.autograd.grad(
             sdpa(qs, ks, vs, **lib), (qs, ks, vs), g), 5)
-        fwd_flops = 4 * b * h * d * window_pairs(sq, window)
         rec[name] = dict(
             module=fab, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=both_ms - fwd_ms, flops=int(2.5 * fwd_flops),
-            bytes=2 * (3 * q.numel() + 2 * o.numel() + 2 * k.numel()
-                       + 2 * v.numel()) + 4 * lse.numel(), label=name)
+            library_ms=both_ms - fwd_ms,
+            cost=fab.cost(q, k, v, o, lse, g, **kw), label=name)
         print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
               f"backward {both_ms:.4f} less forward {fwd_ms:.4f})")
@@ -5640,9 +5566,7 @@ def train_kernel_checks(torch, ops):
               margin=FAULT_MARGIN)
         rec[f_name] = dict(
             module=fa, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
-            library_ms=fwd_ms,
-            flops=fwd_flops, bytes=2 * (2 * q.numel() + k.numel()
-                                        + v.numel()) + 4 * lse.numel(),
+            library_ms=fwd_ms, cost=fa.cost(q, k, v, with_lse=True, **kw),
             label=f_name)
         print(f"  {label}: forward with LSE {f_ms:.4f} ms, plain "
               f"{f_plain:.3f} ms")
@@ -5670,23 +5594,6 @@ def plain_lse(torch, q, k, *, causal=True, window=None):
         mask &= j > i - window
     return torch.logsumexp(s.masked_fill(~mask, float("-inf")),
                            dim=-1).float()
-
-
-def ssd_bwd_work(bh, nb, s, p, n):
-    """(bytes, operations) of one SSD backward in bf16 (f32 log decays):
-    x, dy, B, C, log_a read once, dx, dB, dC, d log_a written once; the
-    products of the 64-token schedule, the Q x Q ones over the causal
-    pairs only: per row and chunk five state-sized products, the two
-    state recurrences (B^T x for S0, C^T dy for dS) and the three carry
-    products (B dS into dx, S0 dy into dC, dS x into dB), then dy x^T,
-    G^T dy, W B, W^T C; C B^T once per B/C row and chunk."""
-    q = 64
-    full, rem = divmod(s, q)
-    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
-    nbytes = 2 * (3 * bh * s * p + 4 * nb * s * n) + 2 * 4 * bh * s
-    flops = (bh * (5 * 2 * s * n * p + 2 * pairs * (2 * p + 2 * n))
-             + nb * 2 * pairs * n)
-    return nbytes, flops
 
 
 def ssd_carry_dropped(torch, ops, x, la, B, C, dy):
@@ -5750,27 +5657,22 @@ def ssd_train_checks(torch, ops):
         ms = timed(lambda: ssd_bwd.launch(x, la, B, C, dy), 5)
         plain_ms = timed(lambda: ops._ssd_bwd_plain(x, la, B, C, dy,
                                                     chunk=64), 2)
-        nbytes, flops = ssd_bwd_work(bh, nb, s, p, n)
         split = ssd_bwd_parts.kernel_ms(
             lambda: ssd_bwd.launch(x, la, B, C, dy))
         print(f"  {label}: ssd_bwd's kernels, device ms a call: " + ", ".join(
             f"{k} {v:.4f}" for k, v in split.items()))
         rec["ssd_bwd" + suffix] = dict(
             module=ssd_bwd, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=None, bytes=nbytes, flops=flops,
+            library_ms=None, cost=ssd_bwd.cost(x, la, B, C, dy),
             label="ssd_bwd" + suffix)
         f_err = check(f"ssd {label} train fwd", ssd.launch(x, la, B, C)[0],
                       ops.PLAIN.ssd(x, la, B, C, chunk=64)[0], "ssd")
         f_ms = timed(lambda: ssd.launch(x, la, B, C), 10)
         f_plain = timed(lambda: ops.PLAIN.ssd(x, la, B, C, chunk=64), 2)
-        q = 64
-        pairs = (s // q) * q * (q + 1) // 2
         rec["ssd_train" + suffix] = dict(
             module=ssd, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
             library_ms=None, label="ssd_train" + suffix,
-            bytes=2 * 2 * bh * s * p + 4 * bh * s + 2 * 2 * nb * s * n
-            + 4 * bh * n * p,
-            flops=bh * (2 * pairs * (n + p) + 2 * 2 * s * n * p))
+            cost=ssd.cost(x, la, B, C))
         print(f"  {label}: ssd_bwd {ms:.4f} ms, plain {plain_ms:.3f} ms; "
               f"ssd forward {f_ms:.4f} ms, plain {f_plain:.3f} ms")
         del x, la, B, C, dy, got, again, want
@@ -5806,7 +5708,8 @@ def train_phase(torch, ops, smi, arch, batch, seq, per_layer, rows):
     a second, peak memory, then one more step under torch.profiler
     (device busy share, device ms by op, the kernels of TRAIN_PROFILED
     apart, the backward kernels' shares of the device time) and the
-    model-FLOP share of TRAIN_PEAK.  Asserts finite losses, the exact
+    model-FLOP share of the bf16 peak (``launch/dryrun.model_flops``
+    over the step time, ``core/roofline.py``).  Asserts finite losses, the exact
     launches a step (``per_layer`` x the layers), and no plain attention
     or SSD version, SDPA or cuDNN attention on the path.  Returns the
     counts of the 6-step run under the JSON rows' names (``rows``)."""
@@ -5815,7 +5718,9 @@ def train_phase(torch, ops, smi, arch, batch, seq, per_layer, rows):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
+    from repro_torch.core import roofline
     from repro_torch.data import make_pipeline
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_cli
     t0 = time.perf_counter()
     seen = []
@@ -5872,13 +5777,8 @@ def train_phase(torch, ops, smi, arch, batch, seq, per_layer, rows):
                 t, c = own.get(kname, (0.0, 0))
                 own[kname] = (t + us / 1e3, c + n)
     n_params = sum(t.numel() for t in tree.leaves(state["params"]))
-    attn = 0
-    if cfg.family != "ssm":
-        wins = model.windows or [None] * nl
-        attn = sum(6 * batch * cfg.n_heads * cfg.hd * 2
-                   * window_pairs(seq, w if w is not None and w < seq
-                                  else None) for w in wins)
-    model_flops = 6 * n_params * tokens + attn
+    model_flops = dryrun.model_flops(cfg, ShapeConfig("t", seq, batch,
+                                                      "train"))
 
     def share(prefix):
         ms = sum(t for k, (t, _) in own.items() if k.startswith(prefix))
@@ -5888,11 +5788,10 @@ def train_phase(torch, ops, smi, arch, batch, seq, per_layer, rows):
           f"{1e3 * step_s:.1f} ms (median "
           f"{1e3 * statistics.median(dts):.1f}), {tokens / step_s:.0f} "
           f"tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; model FLOPs a "
-          f"step (6 N tokens + attention 6 B H hd 2 pairs L, causal, "
-          f"within the window; the SSD scan not counted) "
-          f"{model_flops / 1e12:.2f} TFLOP, "
-          f"{100 * model_flops / step_s / TRAIN_PEAK:.1f}% of "
-          f"{TRAIN_PEAK / 1e12:.0f} TFLOP/s; profiled step wall "
+          f"step (launch/dryrun.model_flops: 6 N tokens + 6 L H hd B S^2, "
+          f"the reference's formula) {model_flops / 1e12:.2f} TFLOP, "
+          f"{100 * roofline.measured_fraction(model_flops, step_s):.1f}% "
+          f"of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; profiled step wall "
           f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / (1e3 * wall):.1f}%); the attention backward "
           f"kernel {share('fab_')}; the SSD backward kernel "
@@ -5993,6 +5892,192 @@ def train_end_to_end(torch, ops, registry):
             del fg
         del km, pm, params, kg, pg, batch
         torch.cuda.empty_cache()
+
+
+# Phase 7a (analysis): llama3.2-3b's training step at the training phase's
+# shape (B 4 x S 1024, remat full) and an eager decode step at 4 slots
+# over 1024 arena rows, each traced under core.cost's counting mode on
+# the card and on meta tensors; the trace's peak live bytes against the
+# allocator's peak within PEAK_MARGIN (the training phase reads ~53.5 GiB
+# at this shape; the ratio reads 0.9987 on an H100 80GB HBM3 at 700 W, so
+# 2% leaves room for the allocator's rounding and little for an error in
+# the live bytes)
+ANALYSIS_ARCH = "llama3.2-3b"
+ANALYSIS_TRAIN = (4, 1024)
+ANALYSIS_DECODE = (4, 1024)
+PEAK_MARGIN = 0.02
+
+
+def analysis_phase(torch, registry, smi):
+    """Phase 7a: the analysis path of ``launch/dryrun.py`` held against the
+    card.  For llama3.2-3b's training step and an eager decode step: the
+    step traced under ``core.cost.CostMode`` with the counting kernel
+    bundle on the card (the hand-written kernels run, each charged once
+    from its ``cost()``) must count exactly what the meta trace of the
+    same shapes counts; the same step with the default kernels is timed
+    with CUDA events (a warm-up step first); its roofline terms
+    (``core/roofline.py`` on the H100's data-sheet constants) must each be
+    at most that time (a bound over the measurement is an overcount); the
+    measured roofline fraction (model FLOPs at the bf16 peak over the
+    step) is printed; the training trace's peak live bytes must sit within
+    PEAK_MARGIN of ``torch.cuda.max_memory_allocated`` of a timed step."""
+    import gc
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import cost, roofline
+    from repro_torch.kernels import counting
+    from repro_torch.launch import dryrun
+    from repro_torch.models import convert
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import TrainConfig, make_train_step
+    t0 = time.perf_counter()
+    cfg = registry.config(ANALYSIS_ARCH)
+    tcfg = TrainConfig(remat="full")
+    b, s = ANALYSIS_TRAIN
+    slots, rows = ANALYSIS_DECODE
+    shapes = {"train": ShapeConfig("train", s, b, "train"),
+              "decode": ShapeConfig("decode", rows, slots, "decode")}
+
+    def trace(model, kind, specs, params, opt=None):
+        fn, inputs = dryrun.step_of(model, kind, specs, tcfg, params, opt)
+        with cost.CostMode() as mode:
+            mode.track(inputs)
+            fn()
+        torch.cuda.synchronize()
+        return mode
+
+    def counts(mode):
+        return {**mode.cost.counts(), "kernels": dict(mode.kernels)}
+
+    meta = {}
+    for kind, shape in shapes.items():
+        specs = (registry.train_batch_specs if kind == "train"
+                 else registry.decode_specs)(cfg, shape)
+        meta[kind] = trace(registry.build_model(
+            cfg, device="meta", kernels=counting.counting_kernels()), kind,
+            specs, convert.abstract_params(cfg))
+    print(f"phase 7a: meta traces of {ANALYSIS_ARCH} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def timed_steps(fn, n):
+        out = []
+        for _ in range(n):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            out.append(e0.elapsed_time(e1) / 1e3)
+        return out
+
+    def hold(kind, mode, step_s):
+        got, want = counts(mode), counts(meta[kind])
+        if got != want:
+            diff = {k: (got["bytes_by_op"].get(k), want["bytes_by_op"].get(k))
+                    for k in set(got["bytes_by_op"]) | set(
+                        want["bytes_by_op"])
+                    if got["bytes_by_op"].get(k) != want["bytes_by_op"].get(k)}
+            print(f"phase 7a: {kind}: card trace != meta trace: "
+                  f"{ {k: (got[k], want[k]) for k in got if k != 'bytes_by_op' and got[k] != want[k]} }, "
+                  f"bytes by op {diff}")
+        assert got == want, f"{kind}: the card's counts differ from meta's"
+        mf = dryrun.model_flops(cfg, shapes[kind])
+        terms = roofline.derive(mode.cost, model_flops_global=mf)
+        print(f"phase 7a: {ANALYSIS_ARCH} {kind} ({smi}): counted "
+              f"{mode.cost.flops / 1e12:.4f} TFLOP, "
+              f"{mode.cost.bytes / 1e9:.3f} GB, kernels {mode.kernels}; "
+              f"the card's counts = meta's: True; model FLOPs "
+              f"{mf / 1e12:.4f} T, useful_flops_ratio "
+              f"{terms.useful_flops_ratio:.4f}; compute_s "
+              f"{1e3 * terms.compute_s:.4f} ms, memory_s "
+              f"{1e3 * terms.memory_s:.4f} ms ({terms.dominant}); measured "
+              f"step {1e3 * step_s:.4f} ms: roofline_fraction measured "
+              f"{100 * roofline.measured_fraction(mf, step_s):.2f}% (the "
+              f"trace's bound {100 * terms.roofline_fraction:.2f}%), bound "
+              f"/ measured {terms.bound_s / step_s:.4f}")
+        assert terms.compute_s <= step_s and terms.memory_s <= step_s, (
+            kind, terms.compute_s, terms.memory_s, step_s)
+        return terms
+
+    # -- the training step ---------------------------------------------------
+    plain = registry.build_model(cfg, device="cuda")
+    params = plain.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    opt = adamw_init(params)
+    step = make_train_step(plain, tcfg)
+    timed_steps(lambda: step(params, opt, batch), 1)       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    dts = timed_steps(lambda: step(params, opt, batch), 2)
+    peak = torch.cuda.max_memory_allocated()
+    mode = trace(registry.build_model(cfg, device="cuda",
+                                      kernels=counting.counting_kernels()),
+                 "train", batch, params, opt)
+    hold("train", mode, min(dts))
+    ratio = mode.peak_bytes / peak
+    print(f"phase 7a: {ANALYSIS_ARCH} train: step ms {[round(1e3 * t, 2) for t in dts]}; "
+          f"peak estimate (the trace's live bytes) "
+          f"{mode.peak_bytes / 2 ** 30:.2f} GiB (meta "
+          f"{meta['train'].peak_bytes / 2 ** 30:.2f}) against "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB: ratio "
+          f"{ratio:.4f}")
+    assert abs(ratio - 1) <= PEAK_MARGIN, ratio
+    del params, opt, batch, tokens, step, mode, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the eager decode step -----------------------------------------------
+    plain = registry.build_model(cfg, device="cuda")
+    params = plain.init(0)
+    specs = {"token_t": torch.randint(0, cfg.vocab, (slots,), generator=gen,
+                                      device="cuda"),
+             "cache": plain.init_cache(slots, rows),
+             "pos": torch.full((slots,), rows - 1, device="cuda")}
+    fn, _ = dryrun.step_of(plain, "decode", specs, tcfg, params)
+    timed_steps(fn, 3)
+    dts = timed_steps(fn, 10)
+    mode = trace(registry.build_model(cfg, device="cuda",
+                                      kernels=counting.counting_kernels()),
+                 "decode", specs, params)
+    terms = hold("decode", mode, statistics.median(dts))
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(params))
+    print(f"phase 7a: {ANALYSIS_ARCH} decode: step ms median "
+          f"{1e3 * statistics.median(dts):.4f} (of "
+          f"{[round(1e3 * t, 3) for t in dts]}); memory_s "
+          f"{1e3 * terms.memory_s:.4f} ms against the "
+          f"{weights / 1e9:.3f} GB of weights at the HBM rate "
+          f"{1e3 * weights / roofline.HBM_BW:.4f} ms (the embedding table "
+          f"is gathered, 4 rows, not read whole); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del params, specs, fn, mode, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def examples_phase(torch):
+    """Phase 7b: the four examples on the card, each through its
+    ``main`` (``repro_torch.examples``), ``train_lm`` at 60 steps of its
+    ~100M-parameter config with checkpoints in a temporary directory."""
+    import tempfile
+    from repro_torch.examples import (quickstart, serve_lm, train_lm,
+                                      vector_unit_demo)
+    for name, fn in (("quickstart", lambda: quickstart.main([])),
+                     ("serve_lm", lambda: serve_lm.main([])),
+                     ("vector_unit_demo", lambda: vector_unit_demo.main([]))):
+        t0 = time.perf_counter()
+        assert fn() == 0, name
+        torch.cuda.synchronize()
+        print(f"phase 7b: example {name} ok in "
+              f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        assert train_lm.main(["--steps", "60", "--ckpt-dir", ckpt]) == 0
+        torch.cuda.synchronize()
+        print(f"phase 7b: example train_lm (60 steps) ok in "
+              f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def restart_check(torch, ops, registry, arch):
@@ -6123,6 +6208,10 @@ def main() -> int:
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         restart_check(torch, ops, registry, arch)
     stamp("the restarts")
+    analysis_phase(torch, registry, smi)
+    stamp("phase 7a")
+    examples_phase(torch)
+    stamp("phase 7b")
     for arch in ("llama3.2-3b", "mamba2-2.7b"):
         bundle, params, args, runs = serving_runs(torch, ops, serve, arch,
                                                   gen=64)

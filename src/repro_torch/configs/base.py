@@ -182,3 +182,12 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                     # train | prefill | decode
+
+
+#: the (arch x shape) grid's four shapes (reference ``configs/base.py:230``)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.roofline import KernelCost, peak_for
 from repro_torch.kernels import _build
 
 NAME = "conv2d"
@@ -230,6 +231,19 @@ def block_tiles(p: Plan, b: int) -> tuple[int, range]:
     """Block ``b``'s channel block and the tiles it walks, in order."""
     nbc = p.grid // p.ncb
     return b % p.ncb, range(b // p.ncb, p.tiles, nbc)
+
+
+def cost(x: torch.Tensor, w: torch.Tensor) -> KernelCost:
+    """The work of one launch (the kernel table's bound): x and w read and
+    the output written once, 2 KH KW Cin operations an output at the peak
+    of their type."""
+    n, _, _, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = _out_hw(x, w)
+    return KernelCost(NAME, 2 * n * ho * wo * cout * kh * kw * cin,
+                      x.element_size() * (x.numel() + w.numel()
+                                          + n * ho * wo * cout),
+                      peak_for(x.dtype))
 
 
 _ARGS = [_build.I, _build.P, _build.P, _build.P] + [_build.I] * 20 + [

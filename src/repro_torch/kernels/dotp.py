@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.roofline import KernelCost, peak_for
 from repro_torch.kernels import _build
 
 NAME = "dotp"
@@ -81,6 +82,15 @@ def error_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _abs_sum(a, b):
     return dotp_plain(a.float().abs(), b.float().abs())
+
+
+def cost(a: torch.Tensor, b: torch.Tensor) -> KernelCost:
+    """The work of one launch (the kernel table's bound): both vectors
+    read and the f32 result written once, 2 n operations at the peak of
+    their type."""
+    n = a.numel()
+    return KernelCost(NAME, 2 * n, 2 * n * a.element_size() + 4,
+                      peak_for(a.dtype))
 
 
 _ARGS = [_build.I, _build.P, _build.P, _build.P, _build.P, _build.LL,

@@ -17,8 +17,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import NEG_INF, _pad_to
+from repro_torch.kernels.pairs import visible_pairs
 
 NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -26,6 +28,24 @@ REPLACES = "src/repro/kernels/flash_attention.py:84"
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None,
+         with_lse: bool = False) -> KernelCost:
+    """The work of one launch (the kernel table's bound): q, K, V read and
+    O written once (and the f32 LSE with ``with_lse``), 4 D operations a
+    visible (query, key) pair and query head (QK^T and PV).  q: (..., H,
+    Sq, D), k / v: (..., KVH, Sk, D); only shapes and dtypes are read."""
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    rows = q.numel() // (sq * d) if q.numel() else 0
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    if with_lse:
+        nbytes += 4 * rows * sq
+    flops = 4 * rows * d * visible_pairs(sq, sk, causal=causal,
+                                         window=window)
+    return KernelCost(NAME, flops, nbytes)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,

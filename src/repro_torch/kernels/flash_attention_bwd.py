@@ -26,7 +26,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
+from repro_torch.kernels.pairs import visible_pairs
 from repro_torch.kernels.ops import _pad_to
 
 NAME = "flash_attention_bwd"
@@ -35,6 +37,26 @@ REPLACES = "src/repro/kernels/flash_ref.py:150"
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None) -> KernelCost:
+    """The work of one launch (the kernel table's bound): the work's 5
+    products a visible pair (S = QK^T, dP = dO V^T, dV, dQ, dK), 2.5x the
+    forward's 2, not the 10 the design does; bytes as the kernel table
+    counts them: three q-sized and two O-sized tensors, K and V with their
+    gradients, the f32 LSE.  Shapes as :func:`launch`'s; only
+    shapes and dtypes are read."""
+    del dout
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    rows = q.numel() // (sq * d) if q.numel() else 0
+    fwd = 4 * rows * d * visible_pairs(sq, sk, causal=causal, window=window)
+    nbytes = (q.element_size() * (3 * q.numel() + 2 * o.numel()
+                                  + 2 * k.numel() + 2 * v.numel())
+              + 4 * lse.numel())
+    return KernelCost(NAME, int(2.5 * fwd), nbytes)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,

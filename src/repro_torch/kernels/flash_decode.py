@@ -31,6 +31,7 @@ from typing import Iterator, Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
@@ -51,6 +52,64 @@ launches_donor = 0
 #: current stream's handle, or the name given to :func:`owned_counters`
 _COUNTERS: dict[tuple[int, int | str, int], torch.Tensor] = {}
 _OWNER: Optional[str] = None
+
+
+def host_ints(t, n: int, default: int) -> list[int]:
+    """The values of a (n,) int vector on the host (a tensor is read
+    back), or ``[default] * n`` for None: a cost's data-dependent
+    extents."""
+    if t is None:
+        return [default] * n
+    if isinstance(t, torch.Tensor):
+        return [int(x) for x in t.tolist()]
+    return [int(x) for x in t]
+
+
+def _covered(spans) -> int:
+    """Rows in the union of half-open [a, b) spans."""
+    total, end = 0, None
+    for a, b in sorted(x for x in spans if x[1] > x[0]):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, lengths=None, *,
+         window: Optional[int] = None, k_scale=None, share_src=None,
+         share_len=None) -> KernelCost:
+    """The work of one launch (the kernel table's bound): 4 hd operations
+    a query head and visible key row; q read and O written once, and each
+    arena row a slot sees read once as K and once as V (with its f32
+    scale a KV head for a scaled arena).  Under a donor table each (slot,
+    row) read counts once, however many forks read it.
+
+    q: (B, H, hd), k: (B, S, KVH, hd); ``lengths``, ``share_src`` and
+    ``share_len`` are read on the host (tensors or int sequences);
+    ``lengths=None`` is every slot at all S rows."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    spans = []
+    for n in host_ints(lengths, b, s):
+        lo = max(0, n - window) if window is not None else 0
+        spans.append((lo, min(n, s)))
+    live = sum(max(0, hi - lo) for lo, hi in spans)
+    if share_src is None:
+        read = live
+    else:
+        rows: dict[int, list] = {}
+        for i, (src, cut) in enumerate(zip(host_ints(share_src, b, 0),
+                                           host_ints(share_len, b, 0))):
+            lo, hi = spans[i]
+            rows.setdefault(src, []).append((lo, min(hi, cut)))
+            rows.setdefault(i, []).append((max(lo, cut), hi))
+        read = sum(_covered(x) for x in rows.values())
+    row = d * k.element_size() + (4 if k_scale is not None else 0)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * read * kvh * row
+    return KernelCost(NAME, 4 * live * h * d, nbytes)
 
 
 def share_rows(own: torch.Tensor, arena: torch.Tensor,

@@ -30,8 +30,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode import _scale_pads, _widened, share_rows
+from repro_torch.kernels.flash_decode import (_scale_pads, _widened,
+                                              host_ints, share_rows)
+from repro_torch.kernels.pairs import query_pairs
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
 NAME = "flash_prefill_chunk"
@@ -60,6 +63,32 @@ def verify_pass():
         yield
     finally:
         _verifying = outer
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, prefix=None, *,
+         window: Optional[int] = None, k_scale=None, slots=None,
+         share_src=None, share_len=None) -> KernelCost:
+    """The work of one launch (the kernel table's bound): 4 hd operations
+    a query head and visible (query, key) pair; q read and O written once,
+    and each key row some query of a batch sees read once as K and once as
+    V (with its f32 scale a KV head for a scaled arena), from the slot's
+    own row or its donor's alike.
+
+    q: (B, C, H, hd), k: (B or N, S, KVH, hd); ``prefix`` is read on the
+    host (a tensor or an int sequence); ``prefix=None`` puts each chunk at
+    the arena's last C rows."""
+    del slots, share_src, share_len
+    b, c, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    pairs = rows = 0
+    for p in host_ints(prefix, b, s - c):
+        end = min(s, p + c)
+        pairs += query_pairs(p, c, end, causal=True, window=window)
+        lo = max(0, p - window + 1) if window is not None else 0
+        rows += max(0, end - lo)
+    row = d * k.element_size() + (4 if k_scale is not None else 0)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * rows * kvh * row
+    return KernelCost(NAME, 4 * pairs * h * d, nbytes)
 
 
 def flash_prefill_chunk_plain(q, k, v, *, prefix, window=None, scale=None,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.roofline import KernelCost, peak_for
 from repro_torch.kernels import _build
 
 NAME = "matmul"
@@ -114,6 +115,17 @@ def pad_operands(a: torch.Tensor, b: torch.Tensor):
         out.append(buf[:, :cols])
         copied.append(name)
     return out[0], out[1], tuple(copied)
+
+
+def cost(a: torch.Tensor, b: torch.Tensor) -> KernelCost:
+    """The work of one launch (the kernel table's bound): A and B read
+    and C written once, 2 M N K operations at the peak of their type (f32
+    on the CUDA cores, bf16 on the tensor cores)."""
+    m, k = a.shape
+    n = b.shape[1]
+    return KernelCost(NAME, 2 * m * n * k,
+                      a.element_size() * (m * k + k * n + m * n),
+                      peak_for(a.dtype))
 
 
 _ARGS = [_build.I, _build.P, _build.P, _build.P, _build.LL, _build.LL,

@@ -183,6 +183,35 @@ def _attention_bwd_plain(q, k, v, o, lse, dout, *, causal, window, scale,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_forward(q, k, v, *, causal, window, scale, plain, bk):
+    """(O, LSE) of attention with a gradient: ``plain`` or CPU operands
+    the plain version, CUDA operands the forward kernel with its LSE
+    output.  The forward body of :class:`_Attention`, over tensors."""
+    if plain or not _on_cuda(q, k, v):
+        ke, ve = _expand_gqa(q, k, v)
+        return _fa.flash_attention_plain(q, ke, ve, causal=causal,
+                                         window=window, scale=scale, bk=bk,
+                                         with_lse=True)
+    q4, k4, v4 = _fold4(q, k, v)
+    out, lse = _fa.launch(q4, k4, v4, causal=causal, window=window,
+                          scale=scale, with_lse=True)
+    return out.reshape(q.shape), lse.reshape(q.shape[:-1])
+
+
+def attention_backward(q, k, v, out, lse, dout, *, causal, window, scale,
+                       plain, bk):
+    """(dQ, dK, dV) from the forward's O and LSE: ``plain`` or CPU operands
+    the plain version, CUDA operands the backward kernel.  The backward
+    body of :class:`_Attention`, over tensors."""
+    if plain or not _on_cuda(q, k, v, dout):
+        return _attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                    window=window, scale=scale, bk=bk)
+    q4, k4, v4, o4, g4 = _fold4(q, k, v, out, dout)
+    dq, dk, dv = _fab.launch(q4, k4, v4, o4, lse.reshape(q4.shape[:-1]), g4,
+                             causal=causal, window=window, scale=scale)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
 class _Attention(torch.autograd.Function):
     """Attention with a gradient (the reference's ``flash_attention_ref``
     custom VJP, flash_ref.py:68-225): the forward saves (q, k, v, O, LSE),
@@ -193,36 +222,16 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, plain, bk):
-        if plain or not _on_cuda(q, k, v):
-            ke, ve = _expand_gqa(q, k, v)
-            out, lse = _fa.flash_attention_plain(
-                q, ke, ve, causal=causal, window=window, scale=scale,
-                bk=bk, with_lse=True)
-        else:
-            q4, k4, v4 = _fold4(q, k, v)
-            out, lse = _fa.launch(q4, k4, v4, causal=causal, window=window,
-                                  scale=scale, with_lse=True)
-            out = out.reshape(q.shape)
-            lse = lse.reshape(q.shape[:-1])
+        out, lse = attention_forward(q, k, v, causal=causal, window=window,
+                                     scale=scale, plain=plain, bk=bk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (causal, window, scale, plain, bk)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        plain=plain, bk=bk)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, window, scale, plain, bk = ctx.opts
-        if plain or not _on_cuda(q, k, v, dout):
-            dq, dk, dv = _attention_bwd_plain(
-                q, k, v, out, lse, dout, causal=causal, window=window,
-                scale=scale, bk=bk)
-        else:
-            q4, k4, v4, o4, g4 = _fold4(q, k, v, out, dout)
-            dq, dk, dv = _fab.launch(
-                q4, k4, v4, o4, lse.reshape(q4.shape[:-1]), g4,
-                causal=causal, window=window, scale=scale)
-            dq, dk, dv = dq.reshape(q.shape), dk.reshape(k.shape), \
-                dv.reshape(v.shape)
+        dq, dk, dv = attention_backward(*ctx.saved_tensors, dout, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -395,6 +404,39 @@ def _ssd_bwd_plain(x, log_a, B, C, dy, *, chunk, initial_state=None):
     return dx, dla, dB, dC
 
 
+def ssd_forward(x, log_a, B, C, initial_state, *, chunk, plain):
+    """(y, final state) of the SSD scan with a gradient: ``plain`` or CPU
+    operands the plain version, CUDA operands the ``ssd`` kernel.  The
+    forward body of :class:`_SSD`, over tensors, called with autograd off
+    (inside an autograd Function's forward)."""
+    if plain or not _on_cuda(x, log_a, B, C, initial_state):
+        return _ssd_plain(x, log_a, B, C, chunk=chunk,
+                          initial_state=initial_state)
+    return _ssd.launch(x, log_a, B, C, initial_state=initial_state)
+
+
+def ssd_backward(x, log_a, B, C, initial_state, dy, *, chunk, plain):
+    """(dx, dlog_a, dB, dC) of the SSD scan: ``plain`` or CPU operands the
+    plain version, CUDA operands the ``ssd_bwd`` kernel.  The backward
+    body of :class:`_SSD`, over tensors."""
+    if plain or not _on_cuda(x, log_a, B, C, dy, initial_state):
+        dx, dla, dB, dC = _ssd_bwd_plain(x, log_a, B, C, dy, chunk=chunk,
+                                         initial_state=initial_state)
+    else:
+        dx, dla, dB, dC = _ssdb.launch(x, log_a, B, C, dy,
+                                       initial_state=initial_state)
+    return dx, dla.to(log_a.dtype), dB, dC
+
+
+def ssd_no_state_grad(dstate, needs_initial_grad: bool) -> None:
+    """Raise where a gradient reaches the initial or the final state."""
+    if dstate is not None or needs_initial_grad:
+        raise NotImplementedError(
+            "ssd: no gradient is taken through the initial or the final "
+            "state (training passes no initial state and drops the "
+            "final one, as the reference's mamba_apply does)")
+
+
 class _SSD(torch.autograd.Function):
     """The SSD scan with a gradient for x, log_a, B and C (the reference
     differentiates ``_chunked_ssd_ref``'s jnp scan, ops.py:511).  The
@@ -407,34 +449,20 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, log_a, B, C, initial_state, chunk, plain):
-        if plain or not _on_cuda(x, log_a, B, C, initial_state):
-            y, st = _ssd_plain(x, log_a, B, C, chunk=chunk,
-                               initial_state=initial_state)
-        else:
-            y, st = _ssd.launch(x, log_a, B, C, initial_state=initial_state)
+        y, st = ssd_forward(x, log_a, B, C, initial_state, chunk=chunk,
+                            plain=plain)
         ctx.save_for_backward(x, log_a, B, C, initial_state)
-        ctx.opts = (chunk, plain)
+        ctx.opts = dict(chunk=chunk, plain=plain)
         ctx.set_materialize_grads(False)
         return y, st
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        if dstate is not None or ctx.needs_input_grad[4]:
-            raise NotImplementedError(
-                "ssd: no gradient is taken through the initial or the final "
-                "state (training passes no initial state and drops the "
-                "final one, as the reference's mamba_apply does)")
+        ssd_no_state_grad(dstate, ctx.needs_input_grad[4])
         if dy is None:
             return (None,) * 7
-        x, log_a, B, C, st0 = ctx.saved_tensors
-        chunk, plain = ctx.opts
-        if plain or not _on_cuda(x, log_a, B, C, dy, st0):
-            dx, dla, dB, dC = _ssd_bwd_plain(x, log_a, B, C, dy, chunk=chunk,
-                                             initial_state=st0)
-        else:
-            dx, dla, dB, dC = _ssdb.launch(x, log_a, B, C, dy,
-                                           initial_state=st0)
-        return dx, dla.to(log_a.dtype), dB, dC, None, None, None
+        grads = ssd_backward(*ctx.saved_tensors, dy, **ctx.opts)
+        return (*grads, None, None, None)
 
 
 def ssd(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
@@ -42,6 +43,32 @@ STATE_FLOATS = 128 * 64   # floats of one carried state (tc::PART)
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+
+
+def causal_pairs(s: int, q: int = CHUNK) -> int:
+    """(i, j <= i) pairs within each ``q``-token chunk of ``s`` tokens."""
+    full, rem = divmod(s, q)
+    return full * q * (q + 1) // 2 + rem * (rem + 1) // 2
+
+
+def cost(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+         C: torch.Tensor, *, initial_state=None) -> KernelCost:
+    """The work of one launch (the kernel table's bound): x, log_a, B, C
+    (and an initial state) read once, y and the f32 final state written
+    once; the products of the kernel's 64-token chunks over their causal
+    pairs only (C B^T and scores x), then per token the carry-in C state
+    and the state update B^T x, as the kernel table counts them.
+    x: (BH, S, P), B / C: (NB, S, N); only shapes and dtypes are read."""
+    bh, s, p = x.shape
+    n = B.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size()
+              + log_a.numel() * log_a.element_size()
+              + (B.numel() + C.numel()) * B.element_size()
+              + 4 * bh * n * p)
+    if initial_state is not None:
+        nbytes += initial_state.numel() * initial_state.element_size()
+    flops = bh * (2 * causal_pairs(s) * (n + p) + 2 * 2 * s * n * p)
+    return KernelCost(NAME, flops, nbytes)
 
 
 def ssd_plain(x, log_a, B, C, *, chunk: int, initial_state=None):

@@ -31,8 +31,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.roofline import KernelCost
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd import _rows16
+from repro_torch.kernels.ssd import _rows16, causal_pairs
 from repro_torch.kernels.ops import NEG_INF, _pad_to
 
 NAME = "ssd_bwd"
@@ -45,6 +46,28 @@ BLOCKS_PER_SM = 2    # f32 chunk blocks wanted an SM when choosing slices
 
 #: kernel launches through :func:`launch` (reset by the caller)
 launches = 0
+
+
+def cost(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+         C: torch.Tensor, dy: torch.Tensor) -> KernelCost:
+    """The work of one launch (the kernel table's bound): x, dy, B, C,
+    log_a read once, dx, dB, dC, d log_a written once; the products of
+    the 64-token schedule, the Q x Q ones over the causal pairs only: per
+    row and chunk five state-sized products (the two state recurrences,
+    B^T x for S0 and C^T dy for dS, and the three carry products, B dS
+    into dx, S0 dy into dC, dS x into dB), then dy x^T, G^T dy, W B, W^T
+    C; C B^T once per B/C row and chunk.  x: (BH, S, P), B / C: (NB, S,
+    N); only shapes and dtypes are read."""
+    del C, dy
+    bh, s, p = x.shape
+    nb, n = B.shape[0], B.shape[-1]
+    pairs = causal_pairs(s)
+    nbytes = (3 * x.numel() * x.element_size()
+              + 4 * B.numel() * B.element_size()
+              + 2 * log_a.numel() * log_a.element_size())
+    flops = (bh * (5 * 2 * s * n * p + 2 * pairs * (2 * p + 2 * n))
+             + nb * 2 * pairs * n)
+    return KernelCost(NAME, flops, nbytes)
 
 
 def ssd_bwd_plain(x, log_a, B, C, dy, *, chunk: int, initial_state=None):

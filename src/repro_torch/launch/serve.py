@@ -335,6 +335,40 @@ def requests(args, vocab: int, *, sessions: int = 0,
             for i in range(args.requests)]
 
 
+def make_engine(bundle, params, *, config: EngineConfig = None,
+                **fields) -> ServingEngine:
+    """The engine from an :class:`EngineConfig` (or its fields; reference
+    serve.py:107)."""
+    if config is None:
+        config = EngineConfig(**fields)
+    elif fields:
+        config = config.replace(**fields)
+    return ServingEngine(bundle.model, bundle.cfg, params, config=config)
+
+
+def generate(bundle, params, prompts: np.ndarray, *, gen_tokens: int,
+             depth: int = 2, extras=None, max_slots=None,
+             page_size: int = 16, num_pages=None) -> np.ndarray:
+    """prompts: (B, S) int.  Returns (B, gen_tokens) int32 greedy tokens.
+
+    A batch-of-equal-length wrapper over the engine (the examples'
+    surface; reference serve.py:204).  ``extras`` are batched (B, ...)
+    prefill side inputs, sliced per request.
+    """
+    b, s = prompts.shape
+    eng = make_engine(bundle, params, max_slots=max_slots or b,
+                      max_seq=s + prefix_extra(bundle.cfg) + gen_tokens + 1,
+                      depth=depth, page_size=page_size, num_pages=num_pages)
+    for i in range(b):
+        eng.submit(Request(
+            uid=i, prompt=np.asarray(prompts[i], dtype=np.int32),
+            max_new_tokens=gen_tokens,
+            extras={k: np.asarray(v)[i] for k, v in (extras or {}).items()}
+            or None))
+    out = eng.run()
+    return np.stack([out[i] for i in range(b)], axis=0)
+
+
 def engine(bundle, params, args, **changes) -> ServingEngine:
     """The engine for ``args`` with the ``args.requests`` requests
     submitted (on the card its greedy decode graph captured, and its
@@ -345,7 +379,7 @@ def engine(bundle, params, args, **changes) -> ServingEngine:
     config = engine_config(
         args, [r.prompt.size for r in reqs],
         prefix_extra(bundle.cfg)).replace(**changes)
-    eng = ServingEngine(bundle.model, bundle.cfg, params, config=config)
+    eng = make_engine(bundle, params, config=config)
     for r in reqs:
         eng.submit(r)
     return eng

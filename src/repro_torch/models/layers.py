@@ -91,6 +91,13 @@ def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
     return f
 
 
+def rope_table(cfg, device) -> torch.Tensor:
+    """The model's RoPE frequency table on ``device`` (the one
+    :func:`rope` reads, built once a process and device): a step traced
+    after it counts its own work only (``launch/dryrun.step_of``)."""
+    return _rope_freqs(cfg.hd // 2, cfg.rope_theta, device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Half-split RoPE with f32 angles.  x: (..., S, H, hd), positions:

@@ -307,14 +307,16 @@ def ssm_rows_write(view_l, new, pos) -> None:
     the layer's arena slice in place, keep-masked per slot (reference
     ``ssm_rows_scatter``, :247): the state is not position-addressed, so a
     parked slot (pos == PARKED_POS, mid-chunked-prefill) must keep the
-    state its chunks are threading, bit for bit."""
+    state its chunks are threading, bit for bit.  The select writes the
+    leaf itself (``out=``), one pass over the state: no temporary that a
+    second pass would copy back."""
     b = pos.shape[0]
     live = pos < L.PARKED_POS
     for key, val in new.items():
         leaf = view_l[key]
         f = leaf.shape[0] // b
         m = live.repeat_interleave(f).reshape((b * f,) + (1,) * (leaf.ndim - 1))
-        leaf.copy_(torch.where(m, val.to(leaf.dtype), leaf))
+        torch.where(m, val.to(leaf.dtype), leaf, out=leaf)
 
 
 def ssm_decode_branch(p_mamba, cfg, h, view_l, pos, *, kops=ops):
